@@ -1,0 +1,297 @@
+#!/usr/bin/env python3
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Smoke test of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+Phases; any failure raises and the script exits non-zero:
+
+1. card: CUDA must be available; prints ``nvidia-smi`` name and power limit.
+2. build: compiles the NL kernel from the sources in this checkout.
+3. kernel vs plain: the CUDA kernel against its plain PyTorch version on the
+   same CUDA tensors, f64 and f32, for the three switch configurations
+   (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
+   65,536 x 137; prints the worst abs/rel error per field.
+4. main path: the port's driver (``drivers/run_nonlinear_torch.py`` core())
+   through EtaLevels -> Saturation -> Cloudsc2NL on the card, double and
+   single, at 100 and 65,536 columns, validated against the golden outputs
+   (HOORAY), which are built in process as drivers/generate_reference.py
+   builds them (no h5py needed); the kernel's launch count must grow.
+5. timing at 65,536 x 137, f32 and f64: kernel and plain version with CUDA
+   events, interleaved, median of 10 runs each (a kernel run is a batch of
+   KERNEL_BATCH back-to-back calls), beside the card's name and power limit;
+   and the wrapper's host time per call (host clock around KERNEL_BATCH
+   asynchronous calls, before the synchronize).
+6. profile: torch.profiler over main-path steps (Saturation + Cloudsc2NL,
+   f32, 65,536 x 137): device time of the NL kernel and of the rest, and
+   the device's busy share.
+
+The line before the last is a JSON summary of the kernels; the last line is
+``{"ok": true, "device": {...}}``.
+
+Usage:  python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+NLEV = 137
+BIG = 65536
+SMALL = 4096
+#: kernel calls per timed batch: the wrapper's host work (checks, scalm,
+#: allocation, launch; phase 5 measures it) overlaps the previous call's
+#: kernel, so the batch times the device
+KERNEL_BATCH = 10
+
+
+def card_label() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return out.splitlines()[0].strip()
+
+
+def tolerances(torch, dtype, c):
+    """Field -> (rtol, atol).  f64: the driver's double gate (rtol 1e-10,
+    atol 1e-16).  f32: the Pallas-kernel gate of tests/test_pallas.py
+    (rtol 2e-5; atol 1e-8 on tendencies, 1e-6 on diagnostics).  fhps* are
+    fpls* scaled by L ~ 2.5e6, so their atol covers a flux residue
+    (cloudsc2_tpu_torch.utils.compare.flux_residue) times L."""
+    from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+
+    if dtype == torch.float64:
+        return nl_tolerances((1e-10, 1e-16), (1e-10, 1e-16), c, "float64")
+    return nl_tolerances((2e-5, 1e-8), (2e-5, 1e-6), c, "float32")
+
+
+def compare(got, want, tol, label):
+    """Print the worst errors per field; raise beyond tolerance.  Returns
+    the largest abs error over all fields."""
+    from cloudsc2_tpu_torch.utils.compare import field_errors
+
+    errs = field_errors({k: v.cpu().numpy() for k, v in got.items()},
+                        {k: v.cpu().numpy() for k, v in want.items()}, tol)
+    for n, (max_abs, max_rel, share) in errs.items():
+        rtol, atol = tol[n]
+        print(f"  {label} {n:8s} max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+              f"(rtol {rtol:g}, atol {atol:g}: {share:.3f} of the limit)")
+    bad = [n for n, e in errs.items() if not e[2] <= 1.0]
+    if bad:
+        raise AssertionError(f"{label}: kernel differs from the plain version in {bad}")
+    return max(e[0] for e in errs.values())
+
+
+def make_state(torch, ncols, dtype, c, seed):
+    """``(grid, state, dt)``: a seeded synthetic state on the card, with
+    ``eta`` and ``qsat`` diagnosed as the main path does."""
+    from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+    from cloudsc2_tpu_torch.state import synthesize_state
+
+    grid, s, dt = synthesize_state(ncols, NLEV, seed, torch.device("cuda:0"), dtype)
+    s["eta"] = eta_levels(s["ap"], s["aph"])
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    return grid, s, dt
+
+
+def flat(out):
+    tends, diags = out
+    return {**tends, **diags}
+
+
+def time_ms(torch, fn, calls):
+    """Milliseconds between CUDA events around ``calls`` back-to-back calls
+    of ``fn`` (device time once the queue stays full)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def host_ms(torch, fn, calls):
+    """Host milliseconds per call of ``fn`` over ``calls`` asynchronous
+    calls, read before the device is synchronized (the queue is short
+    enough that no launch waits for the device)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def profile_main_path(torch, c, steps=20):
+    """Profile ``steps`` main-path steps (Saturation + Cloudsc2NL, f32,
+    65,536 x 137): wall time per step, device time per step split into the
+    NL kernel and the rest, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cloudsc2_tpu_torch.components import Cloudsc2NL, Saturation
+
+    grid, s, dt = make_state(torch, BIG, torch.float32, c, seed=2)
+    sat, nl = Saturation(grid, c), Cloudsc2NL(grid, c)
+
+    def step():
+        x = dict(s)
+        x.update(sat(x))
+        return nl(x, dt)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernel_us = other_us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if "level_scan_kernel" in e.key:
+            kernel_us += us
+        else:
+            other_us += us
+    busy = (kernel_us + other_us) / 1e3 / steps
+    print(f"[profile f32 {BIG}x{NLEV}] main-path step: wall {wall:.4f} ms (host clock, synchronized "
+          f"components), device {busy:.4f} ms = NL kernel {kernel_us / 1e3 / steps:.4f} + other "
+          f"kernels {other_us / 1e3 / steps:.4f}; device busy share {busy / wall:.3f}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from cloudsc2_tpu_torch.kernels import build
+    from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+    from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl as plain_nl
+    from cloudsc2_tpu_torch.state import make_constants
+    from cloudsc2_tpu_torch.utils.timing import Timer
+    from drivers.run_nonlinear_torch import core, synthetic_golden, synthetic_input
+
+    t_start = time.perf_counter()
+    # ---- 1. card
+    card = card_label()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{kind}, {torch.cuda.device_count()} visible")
+    torch.cuda.set_device(0)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    nlk.load_cuda()
+    print(f"[build] nonlinear.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in build.logs.get("cloudsc2_nl", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            print(f"[build]   {line.strip()}")
+
+    # ---- 3. kernel vs plain on the same CUDA tensors
+    c0 = make_constants(lphylin=True, ldrain1d=False)
+    configs = {
+        "default": c0,
+        "levapls2": c0.replace(LEVAPLS2=True),
+        "ldrain1d": make_constants(lphylin=True, ldrain1d=True),
+    }
+    max_abs = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        cases = [(name, c, SMALL) for name, c in configs.items()] + [("default", c0, BIG)]
+        for name, c, ncols in cases:
+            _, s, dt = make_state(torch, ncols, dtype, c, seed=1)
+            got = flat(nlk.cloudsc2_nl_cuda(s, dt, c))
+            want = flat(plain_nl(s, dt, c))
+            torch.cuda.synchronize()
+            label = f"[kernel-vs-plain {tag} {name} {ncols}x{NLEV}]"
+            max_abs[(tag, name, ncols)] = compare(got, want, tolerances(torch, dtype, c), label)
+            del s, got, want
+
+    # ---- 4. the main path through the driver, on the card
+    nlk.cloudsc2_nl_cuda.launches = 0
+    for precision in ("double", "single"):
+        for ncols in (100, BIG):
+            config = Config(precision=precision, num_cols=ncols, num_runs=5)
+            rc = core(
+                config, TorchConfig(device="cuda:0", precision=precision),
+                inputs=synthetic_input(ncols, precision),
+                reference=synthetic_golden(ncols, precision),
+            )
+            per_call = {label: round(Timer.get_time(label, "ms") / max(Timer.get_count(label), 1), 4)
+                        for label in Timer.labels()}
+            print(f"[main-path] {precision} {ncols} columns: exit {rc}; ms per call by component "
+                  f"(host clock, synchronized): {per_call}")
+            if rc != 0:
+                raise AssertionError(f"main path {precision} x {ncols} failed validation")
+    launches = nlk.cloudsc2_nl_cuda.launches
+    print(f"[main-path] cloudsc2_nl_cuda launches: {launches}")
+    if launches == 0:
+        raise AssertionError("the main path never launched the CUDA kernel")
+
+    # ---- 5. timing at 65,536 x 137
+    timing = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        _, s, dt = make_state(torch, BIG, dtype, c0, seed=2)
+        kernel = lambda: nlk.cloudsc2_nl_cuda(s, dt, c0)  # noqa: E731
+        plain = lambda: plain_nl(s, dt, c0)  # noqa: E731
+        for fn in (kernel, kernel, plain):
+            fn()
+        torch.cuda.synchronize()
+        k_ms, p_ms, h_ms = [], [], []
+        for _ in range(10):  # alternating plain and kernel runs
+            p_ms.append(time_ms(torch, plain, 1))
+            k_ms.append(time_ms(torch, kernel, KERNEL_BATCH) / KERNEL_BATCH)
+            h_ms.append(host_ms(torch, kernel, KERNEL_BATCH))
+        k, p, h = statistics.median(k_ms), statistics.median(p_ms), statistics.median(h_ms)
+        item = 8 if dtype == torch.float64 else 4
+        nbytes = BIG * (NLEV * 28 + 5) * item  # 18 reads + 10 writes per level (see nonlinear.cu)
+        timing[tag] = (k, p, h)
+        print(f"[timing {tag} {BIG}x{NLEV}] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
+              f"{nbytes / k / 1e6:.1f} GB/s), plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), "
+              f"wrapper host time {h:.4f} ms per call (host clock, median of 10 x {KERNEL_BATCH} calls); "
+              f"kernel runs {[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
+        del s
+
+    # ---- 6. where the main path's time goes (torch.profiler, f32, 65,536 columns)
+    profile_main_path(torch, c0)
+
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "cloudsc2_nl",
+        "route": "cuda",
+        "source": "cloudsc2_tpu_torch/kernels/csrc/nonlinear.cu",
+        "replaces": "cloudsc2_tpu/pallas/nonlinear.py:76",
+        "harness": "cloudsc2_tpu_torch/kernels/csrc/levelscan.cuh replaces cloudsc2_tpu/pallas/levelscan.py:402",
+        "launches": launches,
+        "max_abs_err": max_abs[("f32", "default", BIG)],
+        "max_abs_err_f64": max_abs[("f64", "default", BIG)],
+        "ms": timing["f32"][0],
+        "plain_ms": timing["f32"][1],
+        "ms_f64": timing["f64"][0],
+        "plain_ms_f64": timing["f64"][1],
+        "host_ms": timing["f32"][2],
+        "host_ms_f64": timing["f64"][2],
+        "shape": [NLEV, BIG],
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Implementation dispatch by device; the port of
+:mod:`cloudsc2_tpu.dispatch`.
+
+The JAX package picks an implementation by an ``impl`` string.  Here the
+tensors' device decides: CUDA tensors go to the hand-written kernel, CPU
+tensors to the plain version.  There is no option that sends CUDA tensors
+to the plain path, and no fall back from the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.kernels.nonlinear import cloudsc2_nl_cuda
+from cloudsc2_tpu_torch.physics import nonlinear as _plain
+
+Tensor = torch.Tensor
+
+
+def cloudsc2_nl(
+    state: Dict[str, Tensor], dt: float, c: Constants
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One NL step: the CUDA kernel for CUDA tensors, the plain level scan
+    for CPU tensors."""
+    device = state["ap"].device
+    if device.type == "cuda":
+        return cloudsc2_nl_cuda(state, dt, c)
+    if device.type == "cpu":
+        return _plain.cloudsc2_nl(state, dt, c)
+    raise ValueError(f"no NL implementation for device {device}")

@@ -1,0 +1,100 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Build the hand-written kernels at first use and load them with ctypes.
+
+CUDA sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface; the same headers compiled by ``g++`` give a host
+library for the CPU tests.  Libraries go to ``.kernels_build/`` at the root
+of the checkout, named by a hash of the sources and the flags, so a change
+to either rebuilds.  A failed build raises with the compiler's output.
+Nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "--fmad=false", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+#: compiler output of the builds made by this process, by library name
+#: (ptxas reports registers, spills and shared memory per kernel there)
+logs: Dict[str, str] = {}
+
+
+class BuildError(RuntimeError):
+    """A kernel library failed to compile."""
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, then PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _digest(sources: Sequence[str], flags: Sequence[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh", ".h", ".cpp"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    h.update(" ".join(sources).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(compiler: str, sources: Sequence[str], flags: Sequence[str], name: str) -> Path:
+    BUILD_DIR.mkdir(exist_ok=True)
+    out = BUILD_DIR / f"{name}-{_digest(sources, flags)}.so"
+    if out.exists():
+        return out
+    # compile to a private name and rename: concurrent builds (test
+    # workers) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [compiler, *flags, "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise BuildError(
+            f"{' '.join(cmd)}\nexit {proc.returncode}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    logs[name] = proc.stdout + proc.stderr
+    return out
+
+
+def load(kind: str, name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Build (once per process and per source hash) and load a library.
+    ``kind`` is "cuda" (nvcc, sm_90a) or "host" (g++)."""
+    key = (kind, name, *sources)
+    with _lock:
+        if key not in _loaded:
+            if kind == "cuda":
+                path = _compile(find_nvcc(), sources, NVCC_FLAGS, name)
+            elif kind == "host":
+                path = _compile(shutil.which("g++") or "g++", sources, HOST_FLAGS, name)
+            else:
+                raise ValueError(f"unknown build kind {kind!r}")
+            _loaded[key] = ctypes.CDLL(str(path))
+        return _loaded[key]

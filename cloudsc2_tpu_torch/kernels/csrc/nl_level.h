@@ -1,0 +1,483 @@
+// Copyright 2026.
+// Licensed under the Apache License, Version 2.0.
+//
+// One level of the CLOUDSC2 nonlinear scheme for one column, and the
+// per-column body that runs it through the level scan (levelscan.cuh).
+//
+// The scalar twin of nl_level (cloudsc2_tpu/physics/nonlinear.py:607) and of
+// the plain torch version (cloudsc2_tpu_torch/physics/nonlinear.py): every
+// expression is the JAX expression with the same operand order, so that
+// the roundings are the same.  Rules that keep it so:
+//   * T is float or double.  Every literal is written T(x) and every
+//     constant arrives in T (NLConst<T>), so nothing is promoted to double
+//     in T=float: JAX rounds each Python constant to the array dtype first.
+//   * Compound constants (cons2 = 1/(RG*dt), 1/(lcrit*lcrit), ...) are
+//     folded on the host in double and rounded once (state.kernel_constants),
+//     as JAX folds them at trace time.
+//   * No FMA contraction (built with --fmad=false / -ffp-contract=off) and
+//     no fast math: the plain version runs each operation separately.
+//   * lax.rsqrt becomes T(1)/sqrt(x); x**2 becomes x*x.
+//   * The guarded denominators of the JAX body stay (denom_safe, lu1_safe,
+//     clc_safe, the evaporation *_safe), so both versions divide the same
+//     numbers.
+// Static switches are template bools, as the JAX body's Python bools:
+//   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D.
+#pragma once
+
+#include <math.h>
+#include <string.h>
+
+#include "levelscan.cuh"
+
+namespace cloudsc2 {
+
+// ---------------------------------------------------------------- math ----
+CLOUDSC2_HD float m_exp(float x) { return expf(x); }
+CLOUDSC2_HD double m_exp(double x) { return exp(x); }
+CLOUDSC2_HD float m_tanh(float x) { return tanhf(x); }
+CLOUDSC2_HD double m_tanh(double x) { return tanh(x); }
+CLOUDSC2_HD float m_sqrt(float x) { return sqrtf(x); }
+CLOUDSC2_HD double m_sqrt(double x) { return sqrt(x); }
+CLOUDSC2_HD float m_pow(float x, float y) { return powf(x, y); }
+CLOUDSC2_HD double m_pow(double x, double y) { return pow(x, y); }
+template <typename T> CLOUDSC2_HD T m_min(T a, T b) { return b < a ? b : a; }
+template <typename T> CLOUDSC2_HD T m_max(T a, T b) { return b > a ? b : a; }
+
+// ------------------------------------------------------------ argument lists
+// Each list is mirrored in Python (state.NL_CONST_NAMES, kernels/nonlinear.py
+// NL_INPUTS / NL_OUTPUTS); nl_signature() reports them for the wrapper to check.
+#define CLOUDSC2_NL_CONSTS(X)                                                  \
+  X(dt) X(rdt) X(ckcodtl) X(ckcodti) X(cons2) X(cons3) X(cons2_rlmlt)          \
+  X(meltp2) X(rcpd) X(rcpd_rvtmp2) X(rcpd_inv) X(rlmlt) X(rlstt) X(rlvtt)      \
+  X(rtt) X(rtice) X(rtwat) X(rtwat_rtice_r) X(rlptrc) X(r2es) X(r3les)         \
+  X(r3ies) X(r4les) X(r4ies) X(r5les) X(r5ies) X(r5alvcp) X(r5alscp)           \
+  X(ralvdcp) X(ralsdcp) X(retv) X(zqmax) X(cor_clip) X(rg) X(rd) X(rlmin)      \
+  X(zeps2) X(lcrit_k) X(icrit_k) X(dt_rg) X(rg_rpecons)
+
+// (nlev, ncols) fields, except aph (nlev+1, ncols) and eta, scalm (nlev,)
+#define CLOUDSC2_NL_INPUTS(X)                                                  \
+  X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
+  X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t) X(eta) X(scalm)
+
+// (nlev, ncols) fields, except the fluxes (nlev+1, ncols)
+#define CLOUDSC2_NL_OUTPUTS(X)                                                 \
+  X(tnd_t) X(tnd_q) X(tnd_ql) X(tnd_qi) X(clc) X(covptot) X(fplsl) X(fplsn)    \
+  X(fhpsl) X(fhpsn)
+
+#define CLOUDSC2_STR(n) #n ","
+inline const char* nl_signature() {
+  return "consts:" CLOUDSC2_NL_CONSTS(CLOUDSC2_STR)
+         ";inputs:" CLOUDSC2_NL_INPUTS(CLOUDSC2_STR)
+         ";outputs:" CLOUDSC2_NL_OUTPUTS(CLOUDSC2_STR);
+}
+#undef CLOUDSC2_STR
+
+template <typename T>
+struct NLConst {
+#define CLOUDSC2_FIELD(n) T n;
+  CLOUDSC2_NL_CONSTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
+};
+
+template <typename T>
+struct NLFields {
+#define CLOUDSC2_FIELD(n) const T* n;
+  CLOUDSC2_NL_INPUTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
+#define CLOUDSC2_FIELD(n) T* n;
+  CLOUDSC2_NL_OUTPUTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
+};
+
+// One level's inputs, with the combines the JAX wrapper forms in XLA
+// (cloudsc2_tpu/pallas/nonlinear.py:165-191) already applied.
+template <typename T>
+struct NLLevelIn {
+  T ap, dp, lu_next, lude, mf, q2, ql_fg, qi_fg, qsat, t_fg, eta, scalm;
+};
+
+// Per-column values: surface pressure and the critical-RH coefficients.
+template <typename T>
+struct NLCol {
+  T aph_s, trpaus, rh2, deta1, rsq;
+};
+
+template <typename T>
+struct NLCarry {
+  T rfl, sfl, covptot;
+};
+
+template <typename T>
+struct NLLevelOut {
+  T tnd_t, tnd_q, tnd_ql, tnd_qi, clc, covptot;
+};
+
+// ------------------------------------------------------ pointwise physics ----
+template <typename T>
+CLOUDSC2_HD T foealfa(T t, const NLConst<T>& c) {
+  const T x = (m_min(m_max(t, c.rtice), c.rtwat) - c.rtice) * c.rtwat_rtice_r;
+  return m_min(T(1), x * x);
+}
+
+template <typename T>
+CLOUDSC2_HD T foeewm(T t, const NLConst<T>& c) {
+  const T alfa = foealfa(t, c);
+  const T liq = c.r2es * m_exp(c.r3les * (t - c.rtt) / (t - c.r4les));
+  const T ice = c.r2es * m_exp(c.r3ies * (t - c.rtt) / (t - c.r4ies));
+  return alfa * liq + (T(1) - alfa) * ice;
+}
+
+// critical_rh (nonlinear.py:127) with the hoisted per-column coefficients
+template <typename T>
+CLOUDSC2_HD T critical_rh(T eta, const NLCol<T>& col) {
+  const T one = T(1);
+  const T sq = m_sqrt(m_max(one - eta, T(0))) * col.rsq;
+  if (eta < col.trpaus) return one;
+  if (eta < col.trpaus + T(0.3))
+    return one + (col.rh2 - one) * ((eta - col.trpaus) * T(1.0 / 0.3));
+  if (eta < one - col.deta1) return col.rh2;
+  return one + (col.rh2 - one) * sq;
+}
+
+// critical_rh_coeffs (nonlinear.py:111)
+template <typename T>
+CLOUDSC2_HD void critical_rh_coeffs(NLCol<T>& col) {
+  const T d = (col.trpaus - T(0.25)) / T(0.15);
+  col.rh2 = T(0.35) + T(0.14) * (d * d) +
+            T(0.04) * m_min(col.trpaus - T(0.25), T(0)) / T(0.15);
+  col.deta1 = T(0.09) + T(0.16) * (T(0.4) - col.trpaus) / T(0.3);
+  col.rsq = T(1) / m_sqrt(col.deta1);
+}
+
+// cuadjtqs_nl (physics/cuadjtqs.py:85), compact form, rap = 1/ap
+template <typename T>
+CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
+  const bool warm = t > c.rtt;
+  const T z3es = warm ? c.r3les : c.r3ies;
+  const T z4es = warm ? c.r4les : c.r4ies;
+  const T z5alcp = warm ? c.r5alvcp : c.r5alscp;
+  const T zaldcp = warm ? c.ralvdcp : c.ralsdcp;
+  for (int it = 0; it < 2; ++it) {
+    const T rt4 = T(1) / (t - z4es);
+    const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rt4);
+    const T s = m_min(foeew * rap, c.zqmax);
+    const T u = T(1) - c.retv * s;
+    const T z2s = z5alcp * rt4 * rt4;
+    const T cond = (q * u - s) * u / (u * u + s * z2s);
+    t = t + zaldcp * cond;
+    q = q - cond;
+  }
+}
+
+// ---------------------------------------------------------------- nl_level ----
+// nl_level_pre (nonlinear.py:147) + nl_level_post (:399) on one point.
+template <typename T, bool THERMO, bool EVAP>
+CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
+                                   const NLCol<T>& col, const NLConst<T>& c) {
+  const T one = T(1), zero = T(0);
+  NLLevelOut<T> out;
+
+  // ---- phase A: carry-independent
+  const T ap = x.ap, t = x.t_fg, q = x.q2, ql = x.ql_fg, qi = x.qi_fg;
+  const T qsat_in = x.qsat, dp = x.dp, scalm = x.scalm;
+  const T rap = one / ap;
+
+  // thermodynamic coefficients
+  const T zz = c.rcpd + c.rcpd_rvtmp2 * q;
+  const T rzz = one / zz;
+  const T lfdcp = c.rlmlt * rzz;
+  const T lsdcp = c.rlstt * rzz;
+  const T lvdcp = c.rlvtt * rzz;
+
+  // dqs/dT correction factor
+  const T rl = one / (t - c.r4les);
+  const T ri = one / (t - c.r4ies);
+  T fwat, foeew;
+  if (THERMO) {
+    const bool cold = t < c.rtt;
+    fwat = cold ? T(0.545) * (m_tanh(T(0.17) * (t - c.rlptrc)) + one) : one;
+    const T z3es = cold ? c.r3ies : c.r3les;
+    const T rz4es = cold ? ri : rl;
+    foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rz4es);
+  } else {
+    fwat = foealfa(t, c);
+    foeew = foeewm(t, c);
+  }
+  const T esdp1 = foeew * rap;
+  const T facw = c.r5les * rl * rl;
+  const T faci = c.r5ies * ri * ri;
+  const T fac = fwat * facw + (one - fwat) * faci;
+  const T fac2 = one / (ap - c.retv * foeew);
+  T cor = ap * fac2;
+  if (THERMO) cor = esdp1 <= c.zqmax ? cor : c.cor_clip;
+  const T dqsdtemp = fac * cor * qsat_in;
+  const T corqs = one + c.cons3 * dqsdtemp;
+  const T qlim = m_min(q, qsat_in);
+
+  // critical humidity and ice supersaturation
+  const T crh2 = critical_rh(x.eta, col);
+  const T supsat_fac = t < c.rtice ? T(1.8) - T(0.003) * t : one;
+  const T qsat = qsat_in * supsat_fac;
+  const T qcrit = crh2 * qsat;
+
+  // Letreut & Li cloud cover
+  const T qt = q + ql + qi;
+  const bool low = qt < qcrit;
+  const bool high = qt >= qsat;
+  const bool mid = !(low || high);
+  const T qpd = qsat - qt;
+  const T qcd = qsat - qcrit;
+  const T denom_safe = mid ? qcd - scalm * (qt - qcrit) : one;
+  const T ratio = m_min(mid ? qpd / denom_safe : zero, one);
+  const T clc_mid = one - m_sqrt(ratio);
+  const T qc_mid = (scalm * qpd + (one - scalm) * qcd) * (clc_mid * clc_mid);
+  const T qc_high = (one - scalm) * (qsat - qcrit);
+  T clc = low ? zero : (high ? one : clc_mid);
+  T qc = low ? zero : (high ? qc_high : qc_mid);
+
+  // convective detrainment
+  const T gdp = c.rg / dp;
+  const T lude = c.dt * x.lude * gdp;
+  const bool lo1 = (lude >= c.rlmin) && (x.lu_next >= c.zeps2);
+  const T lu1_safe = lo1 ? x.lu_next : one;
+  const T tmp2 = m_exp(-lude / lu1_safe);
+  clc = clc + (lo1 ? (one - clc) * (one - tmp2) : zero);
+  qc = qc + (lo1 ? lude : zero);
+
+  // compensating subsidence
+  const T fac1 = one / (c.rd * t);
+  const T rho = ap * fac1;
+  const T rodqsdp = -rho * qsat_in * fac2;
+  const T ldcp = fwat * lvdcp + (one - fwat) * lsdcp;
+  const T fac3 = one / (one + ldcp * dqsdtemp);
+  const T dtdzmo = c.rg * (c.rcpd_inv - ldcp * rodqsdp) * fac3;
+  const T dqsdz = dqsdtemp * dtdzmo - c.rg * rodqsdp;
+  const T fac4 = c.rd * t * rap;
+  const T sub = c.dt * dqsdz * x.mf * fac4;
+  qc = sub < qc ? qc - sub : zero;
+
+  // new condensate and condensation rates
+  T qlwc = qc * fwat;
+  T qiwc = qc * (one - fwat);
+  const T condl = (qlwc - ql) * c.rdt;
+  const T condi = (qiwc - qi) * c.rdt;
+
+  // melt constants
+  const T cons = c.cons2_rlmlt * dp * zz;
+  const T rcons = c.dt * gdp * lfdcp;
+  const T z2s = cons * m_max(t - c.meltp2, zero);
+
+  // carry-free half of the autoconversion
+  const bool act = clc > c.zeps2;
+  const T rclc = one / (act ? clc : one);
+  const T cldl = qlwc * rclc;
+  const T ltmp1 = m_exp(-(cldl * cldl * c.lcrit_k));
+  const T dl = c.ckcodtl * (one - ltmp1);
+  const T ltmp2 = m_exp(-dl);
+  const T qlnew = clc * cldl * ltmp2;
+  const T prr = act ? m_max(qlwc - qlnew, zero) : zero;
+  qlwc = qlwc - prr;
+  const T cldi = qiwc * rclc;
+  const T itmp11 = m_exp(-(cldi * cldi * c.icrit_k));
+  out.tnd_ql = (qlwc - ql) * c.rdt;
+
+  // ---- phase B: carry-dependent
+  T covptot = m_max(carry.covptot, clc);
+  const T covpclr = m_max(covptot - clc, zero);
+
+  // melting of incoming snow
+  const T sfl = carry.sfl;
+  const T sm = sfl != zero ? m_min(sfl, z2s) : zero;
+  T rfln = carry.rfl + sm;
+  T sfln = sfl - sm;
+  const T tm = t - sm * rcons;
+
+  // melt-temperature half of the snow autoconversion
+  const T itmp12 = m_exp(T(0.025) * (tm - c.rtt));
+  const T di = c.ckcodti * itmp12 * (one - itmp11);
+  const T itmp2 = m_exp(-di);
+  const T qinew = clc * cldi * itmp2;
+  const T prs = act ? m_max(qiwc - qinew, zero) : zero;
+  qiwc = qiwc - prs;
+
+  // new precipitation and rain fraction
+  const T dr1 = c.cons2 * dp * (prr + prs);
+  const bool coldt = tm < c.rtt;
+  const T rfreeze = coldt ? c.cons2 * dp * prr : zero;
+  const T fwatr1 = coldt ? zero : one;
+  rfln = rfln + fwatr1 * dr1;
+  sfln = sfln + (one - fwatr1) * dr1;
+
+  // precipitation evaporation
+  T evapr = zero, evaps = zero, covptot_out = zero;
+  if (EVAP) {
+    const T prtot = rfln + sfln;
+    const bool eact = (prtot > c.zeps2) && (covpclr > c.zeps2);
+    const T covptot_safe = eact ? covptot : one;
+    const T covpclr_safe = eact ? covpclr : one;
+    const T preclr1 = prtot * covpclr / covptot_safe;
+    const T clcc = eact ? one - clc : one;
+    const T qe = qsat_in - (qsat_in - qlim) * covpclr / (clcc * clcc);
+    const T sqr = m_sqrt(ap / col.aph_s);
+    const T barg = eact ? sqr / T(0.00509) * preclr1 / covpclr_safe : one;
+    const T beta = c.rg_rpecons * m_pow(barg, T(0.5777));
+    const T b = c.dt * beta * (qsat_in - qe) / (one + c.dt * beta * corqs);
+    const T dtgdp = c.dt_rg / dp;
+    const T dpr1 = covpclr * b / dtgdp;
+    const T dpr = eact ? m_min(dpr1, preclr1) : zero;
+    const T preclr = preclr1 - dpr;
+    covptot = (eact && preclr <= zero) ? clc : covptot;
+    covptot_out = eact ? covptot : zero;
+    const T prtot_safe = eact ? prtot : one;
+    evapr = eact ? dpr * rfln / prtot_safe : zero;
+    evaps = eact ? dpr * sfln / prtot_safe : zero;
+    rfln = rfln - evapr;
+    sfln = sfln - evaps;
+  }
+
+  // T / q tendency update and first guess
+  const T mix = fwat * lvdcp + (one - fwat) * lsdcp;
+  const T dqdt = -(condl + condi) + (x.lude + evapr + evaps) * gdp;
+  const T tmp7 = lvdcp * evapr + lsdcp * evaps + x.lude * mix - (lsdcp - lvdcp) * rfreeze;
+  const T dtdt = lvdcp * condl + lsdcp * condi - tmp7 * gdp;
+  T ta = tm + c.dt * dtdt;
+  T qa = q + c.dt * dqdt;
+  const T qold1 = qa;
+
+  // saturation-adjustment clipping
+  cuadjtqs_nl(rap, ta, qa, c);
+
+  // post-clipping rain fraction and freezing, on the adjusted temperature
+  const T dq = m_max(qold1 - qa, zero);
+  const T dr2 = c.cons2 * dp * dq;
+  const bool coldt2 = ta < c.rtt;
+  const T rfreeze2 = coldt2 ? fwat * dr2 : zero;
+  const T fwatr2 = coldt2 ? zero : one;
+  const T condl2 = condl + fwatr2 * dq * c.rdt;
+  const T condi2 = condi + (one - fwatr2) * dq * c.rdt;
+  rfln = rfln + fwatr2 * dr2;
+  sfln = sfln + (one - fwatr2) * dr2;
+  const T rfreeze3 = rfreeze + rfreeze2;
+
+  // output tendencies
+  out.tnd_q = -(condl2 + condi2) + (x.lude + evapr + evaps) * gdp;
+  const T tmp8 = lvdcp * evapr + lsdcp * evaps + x.lude * mix - (lsdcp - lvdcp) * rfreeze3;
+  out.tnd_t = lvdcp * condl2 + lsdcp * condi2 - tmp8 * gdp;
+  out.tnd_qi = (qiwc - qi) * c.rdt;
+  out.clc = clc;
+  out.covptot = covptot_out;
+  carry.rfl = rfln;
+  carry.sfl = sfln;
+  carry.covptot = covptot;
+  return out;
+}
+
+// ------------------------------------------------------------ column body ----
+// The Body of level_scan_column: what cloudsc2_nl_pallas
+// (cloudsc2_tpu/pallas/nonlinear.py:76) computes, for one column.
+template <typename T, bool THERMO, bool EVAP>
+struct NLBody {
+  NLFields<T> f;
+  NLConst<T> c;
+  int nlev, ncols;
+
+  struct Column {
+    NLCol<T> col;
+    NLCarry<T> carry;
+  };
+
+  CLOUDSC2_HD size_t at(int k, int col) const {
+    return static_cast<size_t>(k) * static_cast<size_t>(ncols) + static_cast<size_t>(col);
+  }
+
+  // Prologue: the tropopause (the last k with 0.1 < eta[k] < 0.4 and
+  // t_fg[k] > t_fg[k+1], default 0.1; nonlinear.py:59), the critical-RH
+  // coefficients, and the zero top interface of the fluxes.
+  CLOUDSC2_HD Column begin(int col) const {
+    Column s;
+    s.col.trpaus = T(0.1);
+    T tfg_next = f.t[at(0, col)] + c.dt * f.tnd_cml_t[at(0, col)];
+    for (int k = 0; k + 1 < nlev; ++k) {
+      const T tfg = tfg_next;
+      tfg_next = f.t[at(k + 1, col)] + c.dt * f.tnd_cml_t[at(k + 1, col)];
+      const T eta = f.eta[k];
+      if (eta > T(0.1) && eta < T(0.4) && tfg > tfg_next) s.col.trpaus = eta;
+    }
+    critical_rh_coeffs(s.col);
+    s.col.aph_s = f.aph[at(nlev, col)];
+    s.carry.rfl = T(0);
+    s.carry.sfl = T(0);
+    s.carry.covptot = T(0);
+    f.fplsl[at(0, col)] = T(0);
+    f.fplsn[at(0, col)] = T(0);
+    f.fhpsl[at(0, col)] = -T(0) * c.rlvtt;
+    f.fhpsn[at(0, col)] = -T(0) * c.rlstt;
+    return s;
+  }
+
+  CLOUDSC2_HD void level(Column& s, int col, int k) const {
+    const size_t i = at(k, col);
+    const size_t ib = at(k + 1, col);
+    NLLevelIn<T> x;
+    x.ap = f.ap[i];
+    x.dp = f.aph[ib] - f.aph[i];
+    x.lu_next = k + 1 < nlev ? f.lu[ib] : T(0);
+    x.lude = f.lude[i];
+    x.mf = f.mfu[i] + f.mfd[i];
+    x.q2 = f.q[i] + c.dt * f.tnd_cml_q[i] + f.supsat[i];
+    x.ql_fg = f.ql[i] + c.dt * f.tnd_cml_ql[i];
+    x.qi_fg = f.qi[i] + c.dt * f.tnd_cml_qi[i];
+    x.qsat = f.qsat[i];
+    x.t_fg = f.t[i] + c.dt * f.tnd_cml_t[i];
+    x.eta = f.eta[k];
+    x.scalm = f.scalm[k];
+    const NLLevelOut<T> o = nl_level<T, THERMO, EVAP>(s.carry, x, s.col, c);
+    f.tnd_t[i] = o.tnd_t;
+    f.tnd_q[i] = o.tnd_q;
+    f.tnd_ql[i] = o.tnd_ql;
+    f.tnd_qi[i] = o.tnd_qi;
+    f.clc[i] = o.clc;
+    f.covptot[i] = o.covptot;
+    f.fplsl[ib] = s.carry.rfl;
+    f.fplsn[ib] = s.carry.sfl;
+    f.fhpsl[ib] = -s.carry.rfl * c.rlvtt;
+    f.fhpsn[ib] = -s.carry.sfl * c.rlstt;
+  }
+};
+
+// Fill a body from the wrapper's pointer lists (orders as in the X-lists).
+template <typename T, bool THERMO, bool EVAP>
+inline NLBody<T, THERMO, EVAP> make_nl_body(const void* const* in, void* const* out,
+                                           const void* consts, int nlev, int ncols) {
+  NLBody<T, THERMO, EVAP> b;
+  int i = 0;
+#define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
+  CLOUDSC2_NL_INPUTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
+  i = 0;
+#define CLOUDSC2_FIELD(n) b.f.n = static_cast<T*>(out[i++]);
+  CLOUDSC2_NL_OUTPUTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
+  memcpy(&b.c, consts, sizeof(NLConst<T>));
+  b.nlev = nlev;
+  b.ncols = ncols;
+  return b;
+}
+
+// Call L.template run<T, THERMO, EVAP>() for the runtime switches; this
+// instantiates all 4 switch pairs x 2 dtypes.
+template <class L>
+inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap) {
+  if (is_double) {
+    if (thermo) return evap ? launcher.template run<double, true, true>()
+                            : launcher.template run<double, true, false>();
+    return evap ? launcher.template run<double, false, true>()
+                : launcher.template run<double, false, false>();
+  }
+  if (thermo) return evap ? launcher.template run<float, true, true>()
+                          : launcher.template run<float, true, false>();
+  return evap ? launcher.template run<float, false, true>()
+              : launcher.template run<float, false, false>();
+}
+
+}  // namespace cloudsc2

@@ -1,0 +1,60 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Saturation-adjustment clipping, nonlinear part; the port of
+:mod:`cloudsc2_tpu.physics.cuadjtqs` (``_select_phase:34``, ``_nl_iter:45``,
+``cuadjtqs_nl:85``) in its default ``CUADJ_COMPACT`` form:
+
+    cond = (q*u - s) * u / (u*u + s*z2s),   s = min(foeew/ap, ZQMAX),
+    u = 1 - RETV*s
+
+Two fixed iterations; the phase constants are chosen once from the input
+temperature.  Pointwise over tensors of any shape.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.physics.fastmath import div, rcp, select
+
+
+class _Phase(NamedTuple):
+    z3es: torch.Tensor
+    z4es: torch.Tensor
+    z5alcp: torch.Tensor
+    zaldcp: torch.Tensor
+
+
+def _select_phase(t: torch.Tensor, c: Constants) -> _Phase:
+    """Liquid constants for ``t > RTT``, ice otherwise."""
+    warm = t > c.RTT
+    return _Phase(
+        z3es=select(warm, c.R3LES, c.R3IES, t),
+        z4es=select(warm, c.R4LES, c.R4IES, t),
+        z5alcp=select(warm, c.R5ALVCP, c.R5ALSCP, t),
+        zaldcp=select(warm, c.RALVDCP, c.RALSDCP, t),
+    )
+
+
+def _nl_iter(ap, t, q, p: _Phase, c: Constants, rap: Optional[torch.Tensor] = None):
+    """One adjustment iteration (compact form)."""
+    rt4 = rcp(t - p.z4es)
+    foeew = c.R2ES * torch.exp(p.z3es * (t - c.RTT) * rt4)
+    s = torch.clamp(foeew * (rap if rap is not None else rcp(ap)), max=c.ZQMAX)
+    u = 1.0 - c.RETV * s
+    z2s = p.z5alcp * rt4 * rt4
+    cond = div((q * u - s) * u, u * u + s * z2s)
+    return t + p.zaldcp * cond, q - cond
+
+
+def cuadjtqs_nl(
+    ap: torch.Tensor, t: torch.Tensor, q: torch.Tensor, c: Constants,
+    rap: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nonlinear two-iteration saturation adjustment."""
+    p = _select_phase(t, c)
+    t, q = _nl_iter(ap, t, q, p, c, rap)
+    t, q = _nl_iter(ap, t, q, p, c, rap)
+    return t, q

@@ -1,0 +1,31 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Saturation specific humidity; the port of
+:func:`cloudsc2_tpu.physics.saturation.saturation` (both ``lphylin``
+branches, ``kflag`` 1 and 2).  On the main path it runs before the NL
+kernel, as plain tensor code, as the JAX package runs it in XLA."""
+from __future__ import annotations
+
+import torch
+
+from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.physics import fcttre
+from cloudsc2_tpu_torch.physics.fastmath import div
+
+
+def saturation(
+    ap: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    kflag: int = 1,
+    lphylin: bool = True,
+    c: Constants,
+) -> torch.Tensor:
+    """Diagnose ``qsat`` from pressure ``ap`` and temperature ``t``."""
+    if lphylin:
+        alfa = fcttre.foealfa(t, c)
+        ew = alfa * fcttre.foeew_liquid(t, c) + (1.0 - alfa) * fcttre.foeew_ice(t, c)
+    else:
+        ew = fcttre.foeewmcu(t, c) if kflag == 1 else fcttre.foeewm(t, c)
+    qs = torch.clamp(div(ew, ap), max=c.ZQMAX)
+    return div(qs, 1.0 - c.RETV * qs)

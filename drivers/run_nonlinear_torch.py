@@ -1,0 +1,230 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""CLI driver: nonlinear CLOUDSC2 through the PyTorch port, with timing and
+validation against the golden files.
+
+The port's counterpart of ``drivers/run_nonlinear.py``: load the input
+state (``data/input_synth.h5`` tiled to ``--num-cols``), diagnose eta and
+saturation, run the scheme once to warm up and ``--num-runs`` timed times,
+print the runtime statistics and validate against
+``data/reference_synth_{double,single}.h5`` ("HOORAY").  On ``--device
+cuda`` the scheme runs the hand-written CUDA kernel; on ``--device cpu``
+its plain PyTorch version.  A CUDA device on a machine without one is an
+error.
+
+Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
+``h5py`` is not installed, the default input and goldens are built in
+process instead (:func:`synthetic_input`, :func:`synthetic_golden`; equal
+to the files bit for bit), so the driver also runs where neither ``click``
+nor ``h5py`` is installed.
+
+Usage:  python drivers/run_nonlinear_torch.py --device cuda --precision single --num-cols 65536
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+sys.path.insert(0, __file__.rsplit("/", 2)[0])
+
+from drivers.config import DEFAULT_CONFIG, default_input_file, default_reference_file  # noqa: E402
+
+Fields = Dict[str, np.ndarray]
+
+#: the synthetic workload behind data/input_synth.h5 and the goldens
+#: (drivers/generate_reference.py)
+SYNTH_NCOLS, SYNTH_NLEV, SYNTH_SEED = 100, 137, 0
+
+
+def _dtype(precision: str) -> Any:
+    return np.float64 if precision == "double" else np.float32
+
+
+def synthetic_input(ncols: int, precision: str):
+    """``(grid, state, dt, constants)`` equal to what
+    :func:`cloudsc2_tpu.iox.load_input` gives for ``data/input_synth.h5``
+    tiled to ``ncols``, without reading the file."""
+    from cloudsc2_tpu import iox, make_constants
+    from cloudsc2_tpu.grid import Grid
+
+    _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
+    state = {k: iox._tile_columns(v, ncols).astype(_dtype(precision)) for k, v in state.items()}
+    return Grid(ncols=ncols, nlev=SYNTH_NLEV), state, dt, make_constants(lphylin=True, ldrain1d=False)
+
+
+def synthetic_golden(ncols: int, precision: str) -> Tuple[Fields, Fields]:
+    """The golden tendencies and diagnostics of
+    ``data/reference_synth_{precision}.h5`` tiled to ``ncols``, computed in
+    process by the scalar oracle exactly as ``drivers/generate_reference.py``
+    writes them and :func:`cloudsc2_tpu.iox.read_reference` reads them."""
+    from cloudsc2_tpu import iox, make_constants
+    from cloudsc2_tpu.oracle import oracle_nonlinear, oracle_saturation
+
+    dtype = _dtype(precision)
+    _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
+    c = make_constants(lphylin=True, ldrain1d=False)
+    s = {k: v.astype(dtype) for k, v in state.items()}
+    s["eta"] = (s["ap"][:, 0] / s["aph"][-1, 0]).astype(dtype)
+    s["qsat"] = oracle_saturation(s["ap"], s["t"], c).astype(dtype)
+    tends, diags = oracle_nonlinear(s, dt, c)
+
+    def tile(d: Fields) -> Fields:
+        return {k: iox._tile_columns(np.asarray(v, np.float64), ncols).astype(dtype) for k, v in d.items()}
+
+    return tile(tends), tile(diags)
+
+
+def _have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def config_tolerances(precision: str, device_type: str, atol=None, rtol=None) -> Tuple[float, float]:
+    """The rule of ``drivers/run_nonlinear.py:config_tolerances``: the
+    double gate everywhere; in single, the goldens' f64 math against the
+    run's own f32 rounding through 137 levels gets the accelerator gate on
+    CUDA and the tight CPU gate on the CPU."""
+    if precision == "double":
+        a, r = 1e-16, 1e-10
+    else:
+        a, r = (2e-4, 1e-2) if device_type == "cuda" else (1e-8, 2e-3)
+    return (a if atol is None else atol), (r if rtol is None else rtol)
+
+
+def core(
+    config,
+    torch_config,
+    *,
+    atol: Optional[float] = None,
+    rtol: Optional[float] = None,
+    inputs=None,
+    reference: Optional[Tuple[Fields, Fields]] = None,
+) -> int:
+    """Run the scheme and validate; returns the exit code (0 on success).
+
+    ``config`` is a :class:`cloudsc2_tpu.config.Config` (precision, columns,
+    runs, checks, validation, files); ``torch_config`` a
+    :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
+    state, dt, constants)``) and ``reference`` (``(tendencies,
+    diagnostics)`` at ``config.num_cols``) replace the files when given.
+    """
+    import torch
+
+    from cloudsc2_tpu import iox, make_constants
+    from cloudsc2_tpu.utils.output import print_performance
+    from cloudsc2_tpu.utils.validation import validate
+    from cloudsc2_tpu_torch.components import Cloudsc2NL, EtaLevels, Saturation
+    from cloudsc2_tpu_torch.state import state_from_numpy
+    from cloudsc2_tpu_torch.utils.timing import Timer, device_sync, timing
+
+    device = torch_config.apply()
+    dtype = _dtype(config.precision)
+
+    if inputs is None and not config.input_file and not _have_h5py():
+        print("h5py is not installed: the default input and goldens are built in process "
+              "(equal to data/input_synth.h5 and data/reference_synth_*.h5)")
+        inputs = synthetic_input(config.num_cols, config.precision)
+        if reference is None and config.enable_validation:
+            reference = synthetic_golden(config.num_cols, config.precision)
+
+    # --- input state: the file tiled to --num-cols, else synthesis
+    if inputs is not None:
+        grid, state_np, dt, c = inputs
+    else:
+        input_file = config.input_file or default_input_file()
+        if input_file:
+            grid, state_np, dt, params = iox.load_input(input_file, ncols=config.num_cols, dtype=dtype)
+            c = make_constants(lphylin=True, ldrain1d=False, **params)
+        else:
+            grid, state_np, dt = iox.synthesize_input(ncols=config.num_cols, nlev=137, seed=0, dtype=dtype)
+            c = make_constants(lphylin=True, ldrain1d=False)
+    state = state_from_numpy(state_np, device, torch_config.dtype)
+    ncols = grid.ncols
+
+    # --- components
+    eta_levels = EtaLevels(grid, c, enable_checks=config.enable_checks)
+    saturation = Saturation(grid, c, kflag=1, lphylin=True, enable_checks=config.enable_checks)
+    cloudsc2_nl = Cloudsc2NL(grid, c, enable_checks=config.enable_checks)
+    state.update(eta_levels(state))
+
+    def run_once():
+        s = dict(state)
+        s.update(saturation(s))
+        return cloudsc2_nl(s, dt)
+
+    # warm-up (builds the kernel on first use), then the timed runs
+    tends, diags = device_sync(run_once())
+    Timer.reset()
+    runtimes = []
+    for _ in range(config.num_runs):
+        with timing("run"):
+            tends, diags = device_sync(run_once())
+        runtimes.append(Timer.get_time("run", "ms") - sum(runtimes))
+    print_performance(ncols, runtimes, nlev=grid.nlev)
+    print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    # --- validation against the golden outputs
+    if not config.enable_validation:
+        return 0
+    if reference is None:
+        if not config.reference_file:
+            return 0
+        import h5py
+
+        with h5py.File(config.reference_file, "r") as f:
+            reference = iox.read_reference(f, ncols=ncols, dtype=dtype)
+    tends_ref, diags_ref = reference
+    tends_np = {k: v.cpu().numpy() for k, v in tends.items()}
+    diags_np = {k: v.cpu().numpy() for k, v in diags.items()}
+    atol, rtol = config_tolerances(config.precision, device.type, atol, rtol)
+    failing = validate(tends_np, tends_ref, atol=atol, rtol=rtol)
+    failing += validate(diags_np, diags_ref, atol=atol, rtol=rtol)
+    if failing:
+        print(f"Validation FAILED for fields: {failing}")
+        return 1
+    print("Validation completed successfully. HOORAY HOORAY!")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--num-cols", type=int, default=100)
+    p.add_argument("--num-runs", type=int, default=1)
+    p.add_argument("--precision", choices=("double", "single"), default="double")
+    p.add_argument("--enable-checks", dest="enable_checks", action="store_true", default=False)
+    p.add_argument("--enable-validation", dest="enable_validation", action="store_true", default=True)
+    p.add_argument("--disable-validation", dest="enable_validation", action="store_false")
+    p.add_argument("--input-file", default=None, help="input HDF5 (default: data/input_synth.h5)")
+    p.add_argument("--reference-file", default=None, help="golden output HDF5")
+    p.add_argument("--atol", type=float, default=None)
+    p.add_argument("--rtol", type=float, default=None)
+    a = p.parse_args(argv)
+
+    from cloudsc2_tpu_torch.config import TorchConfig
+
+    config = (
+        DEFAULT_CONFIG.with_precision(a.precision)
+        .with_checks(a.enable_checks)
+        .with_validation(a.enable_validation)
+        .with_num_cols(a.num_cols)
+        .with_num_runs(a.num_runs)
+        .with_input_file(a.input_file)
+    )
+    reference_file = a.reference_file
+    if reference_file is None and a.input_file is None and a.enable_validation:
+        ref = default_reference_file(a.precision)
+        reference_file = ref if os.path.exists(ref) else None
+    config = config.with_reference_file(reference_file)
+    return core(config, TorchConfig(device=a.device, precision=a.precision), atol=a.atol, rtol=a.rtol)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

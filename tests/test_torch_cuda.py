@@ -1,0 +1,73 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""The CUDA NL kernel on the card (marker ``cuda``; skipped without a GPU).
+
+Run on a machine with an NVIDIA Hopper GPU and nvcc:
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+The kernel against its plain version on the same CUDA tensors, at small
+and ragged column counts: both use the device's libm, so they agree to
+the f64 double gate (rtol 1e-10, atol 1e-16) and the f32 Pallas gate
+(rtol 2e-5, atol 1e-8 / 1e-6), fhps* with the flux-residue atol of
+``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cloudsc2_tpu import iox
+from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
+from cloudsc2_tpu_torch.physics.saturation import saturation
+from cloudsc2_tpu_torch.state import state_from_numpy
+from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+from tests.torch_helpers import CONFIGS, assert_fields, flat
+
+pytestmark = pytest.mark.cuda
+
+TOL = {
+    torch.float64: ((1e-10, 1e-16), (1e-10, 1e-16)),
+    torch.float32: ((2e-5, 1e-8), (2e-5, 1e-6)),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda:0")
+
+
+def _state(ncols, dtype, c, device, seed=3):
+    _, st, dt = iox.synthesize_input(ncols=ncols, nlev=137, seed=seed)
+    s = state_from_numpy(st, device, dtype)
+    s["eta"] = eta_levels(s["ap"], s["aph"])
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    return s, dt
+
+
+@pytest.mark.parametrize("ncols", [1, 100, 1000])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain_on_card(cuda, ncols, cfg, dtype):
+    c = CONFIGS[cfg]()
+    s, dt = _state(ncols, dtype, c, cuda)
+    before = nlk.cloudsc2_nl_cuda.launches
+    got = flat({k: v.cpu() for k, v in d.items()} for d in nlk.cloudsc2_nl_cuda(s, dt, c))
+    assert nlk.cloudsc2_nl_cuda.launches == before + 1
+    want = flat({k: v.cpu() for k, v in d.items()} for d in cloudsc2_nl(s, dt, c))
+    tend, diag = TOL[dtype]
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    assert_fields(got, want, nl_tolerances(tend, diag, c, np_dtype), f"{cfg} {dtype} {ncols}")
+
+
+def test_kernel_refuses_bad_inputs(cuda):
+    c = CONFIGS["default"]()
+    s, dt = _state(64, torch.float32, c, cuda)
+    with pytest.raises(ValueError, match="is on"):
+        nlk.cloudsc2_nl_cuda({**s, "q": s["q"].cpu()}, dt, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        nlk.cloudsc2_nl_cuda({**s, "t": s["t"].t().contiguous().t()}, dt, c)
+    with pytest.raises(TypeError, match="dtype"):
+        nlk.cloudsc2_nl_cuda({**s, "lu": s["lu"].double()}, dt, c)

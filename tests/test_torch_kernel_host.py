@@ -1,0 +1,82 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""The NL kernel's own body (kernels/csrc/nl_level.h through levelscan.cuh),
+compiled for the host with g++ -ffp-contract=off, vs the plain version.
+
+This is the port's counterpart of running a Pallas kernel in interpret
+mode: the CUDA file itself only builds on a card, but its arithmetic is
+the header's, checked here.  The two use different libm exp/pow/tanh
+(glibc vs PyTorch's vectorized ones), so they agree to rounding:
+f64 rtol 1e-12 with atol 1e-13 (the f64 atol of tests/test_nonlinear.py;
+values below it are rounding residues of cancelled sums), f32 the
+tests/test_pallas.py gate (rtol 2e-5, atol 1e-8 / 1e-6), fhps* with the
+flux-residue atol of ``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cloudsc2_tpu import iox
+from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
+from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+from tests.torch_helpers import CONFIGS, ROBUST_CASES, assert_fields, assert_physical, flat, port_state, robust_state
+
+torch.set_num_threads(1)
+
+TOL = {
+    np.float64: ((1e-12, 1e-13), (1e-12, 1e-13)),
+    np.float32: ((2e-5, 1e-8), (2e-5, 1e-6)),
+}
+
+
+@pytest.fixture(scope="module")
+def synth():
+    return {dtype: iox.synthesize_input(ncols=100, nlev=137, seed=0, dtype=dtype) for dtype in TOL}
+
+
+def test_host_library_argument_lists():
+    """The compiled header reports the constant, input and output orders
+    the Python wrapper passes (a reordering would scramble the fields)."""
+    lib = nlk._load("host")
+    assert lib.cloudsc2_nl_signature().decode() == nlk.signature()
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_host_body_matches_plain(synth, cfg, dtype):
+    _, state, dt = synth[dtype]
+    c = CONFIGS[cfg]()
+    s = port_state(state, dtype, c)
+    got = flat(nlk.cloudsc2_nl_host(s, dt, c))
+    want = flat(cloudsc2_nl(s, dt, c))
+    tend, diag = TOL[dtype]
+    assert_fields(got, want, nl_tolerances(tend, diag, c, dtype), f"{cfg} {dtype.__name__}")
+    # the kernel assembles the fluxes itself: zero top row, fhps = -L * fpls
+    assert (got["fplsl"][0] == 0).all() and (got["fplsn"][0] == 0).all()
+    np.testing.assert_array_equal(got["fhpsl"], -got["fplsl"] * dtype(c.RLVTT))
+    np.testing.assert_array_equal(got["fhpsn"], -got["fplsn"] * dtype(c.RLSTT))
+    if not (c.LEVAPLS2 or c.LDRAIN1D):
+        assert (got["covptot"] == 0).all()
+
+
+@pytest.mark.parametrize("ncols", [1, 37])
+def test_host_body_ragged_column_counts(ncols):
+    """Any column count: one column, and a count that is no multiple of a
+    warp or a block."""
+    c = CONFIGS["ldrain1d"]()
+    _, state, dt = iox.synthesize_input(ncols=ncols, nlev=29, seed=4)
+    s = port_state(state, np.float64, c)
+    tend, diag = TOL[np.float64]
+    assert_fields(flat(nlk.cloudsc2_nl_host(s, dt, c)), flat(cloudsc2_nl(s, dt, c)),
+                  nl_tolerances(tend, diag, c, np.float64), f"ncols={ncols}")
+
+
+@pytest.mark.parametrize("case", ROBUST_CASES)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_host_body_finite(case, dtype):
+    """The robustness states of tests/test_robustness.py: the kernel body's
+    guarded denominators keep every output finite and physical."""
+    c = CONFIGS["default"]()
+    s, dt = robust_state(case, dtype, c)
+    assert_physical(nlk.cloudsc2_nl_host(s, dt, c))

@@ -1,0 +1,99 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""Shared inputs and checks of the PyTorch-port tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both the JAX package
+and the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cloudsc2_tpu import iox, make_constants
+from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+from cloudsc2_tpu_torch.physics.saturation import saturation
+from cloudsc2_tpu_torch.state import state_from_numpy
+from cloudsc2_tpu_torch.utils.compare import field_errors
+
+#: the switch configurations the JAX tests cover (tests/test_nonlinear.py)
+CONFIGS = {
+    "default": lambda: make_constants(lphylin=True, ldrain1d=False),
+    "levapls2": lambda: make_constants(lphylin=True, ldrain1d=False).replace(LEVAPLS2=True),
+    "ldrain1d": lambda: make_constants(lphylin=True, ldrain1d=True),
+}
+TORCH = {np.float64: torch.float64, np.float32: torch.float32}
+
+
+def port_state(state_np, dtype, c):
+    """The numpy state as CPU tensors of ``dtype`` plus the port's eta and
+    qsat (EtaLevels + Saturation)."""
+    s = state_from_numpy(state_np, torch.device("cpu"), TORCH[dtype])
+    s["eta"] = eta_levels(s["ap"], s["aph"])
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    return s
+
+
+def jax_state(state_np, dtype, c):
+    """The same numpy state for the JAX package, with its eta and qsat."""
+    import jax.numpy as jnp
+
+    from cloudsc2_tpu.physics.diagnostics import eta_levels as j_eta
+    from cloudsc2_tpu.physics.saturation import saturation as j_sat
+
+    s = {k: jnp.asarray(v, dtype) for k, v in state_np.items()}
+    s["eta"] = j_eta(s["ap"], s["aph"])
+    s["qsat"] = j_sat(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    return s
+
+
+ROBUST_CASES = ("saturated", "dry", "threshold_t", "no_convection")
+
+
+def robust_state(case, dtype, c, ncols=128, nlev=53):
+    """The pathological states of tests/test_robustness.py (seed 7),
+    built on the port's tensors."""
+    _, st, dt = iox.synthesize_input(ncols=ncols, nlev=nlev, seed=7, dtype=dtype)
+    s = port_state(st, dtype, c)
+    z = torch.zeros_like(s["q"])
+    if case == "saturated":
+        s["q"] = 2.0 * s["qsat"]
+        s["supsat"] = 0.1 * s["qsat"]
+    elif case == "dry":
+        for n in ("q", "ql", "qi", "supsat", "tnd_cml_q", "tnd_cml_ql", "tnd_cml_qi"):
+            s[n] = z
+    elif case == "threshold_t":
+        even = (torch.arange(nlev)[:, None] % 2 == 0).expand_as(s["t"])
+        s["t"] = torch.where(even, torch.full_like(s["t"], c.RTT), torch.full_like(s["t"], c.RTICE))
+        s["tnd_cml_t"] = z
+    elif case == "no_convection":
+        for n in ("lu", "lude", "mfu", "mfd"):
+            s[n] = z
+    else:
+        raise ValueError(case)
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    return s, dt
+
+
+def flat(out):
+    """``(tendencies, diagnostics)`` as one dict of numpy arrays."""
+    tends, diags = out
+    return {k: np.asarray(v) for k, v in {**tends, **diags}.items()}
+
+
+def assert_fields(got, want, tol, label=""):
+    """Every field within its ``(rtol, atol)`` of ``tol``."""
+    errs = field_errors(got, want, tol)
+    bad = {n: e for n, e in errs.items() if not e[2] <= 1.0}
+    assert not bad, f"{label}: (max abs, max rel, share of limit) {bad}"
+
+
+def assert_physical(out, *, strict_fluxes=True):
+    """Finite everywhere, clc in [0, 1], fluxes >= 0 (the invariants of
+    tests/test_robustness.py)."""
+    f = flat(out)
+    for k, v in f.items():
+        assert np.isfinite(v).all(), f"{k} has non-finite values"
+    assert (f["clc"] >= 0).all() and (f["clc"] <= 1).all()
+    if strict_fluxes:
+        assert (f["fplsl"] >= 0).all() and (f["fplsn"] >= 0).all()
