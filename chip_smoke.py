@@ -6,24 +6,39 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. card: CUDA must be available; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the NL kernel from the sources in this checkout.
-3. kernel vs plain: the CUDA kernel against its plain PyTorch version on the
-   same CUDA tensors, f64 and f32, for the three switch configurations
+2. build: compiles the NL and TL kernels from the sources in this checkout,
+   one nvcc each, both at once; prints ptxas's registers and spills for
+   every instantiation.
+3. NL kernel vs plain: the CUDA kernel against its plain PyTorch version on
+   the same CUDA tensors, f64 and f32, for the three switch configurations
    (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
    65,536 x 137; prints the worst abs/rel error per field.
-4. main path: the port's driver (``drivers/run_nonlinear_torch.py`` core())
-   through EtaLevels -> Saturation -> Cloudsc2NL on the card, double and
-   single, at 100 and 65,536 columns, validated against the golden outputs
-   (HOORAY), which are built in process as drivers/generate_reference.py
-   builds them (no h5py needed); the kernel's launch count must grow.
-5. timing at 65,536 x 137, f32 and f64: kernel and plain version with CUDA
-   events, interleaved, median of 10 runs each (a kernel run is a batch of
-   KERNEL_BATCH back-to-back calls), beside the card's name and power limit;
-   and the wrapper's host time per call (host clock around KERNEL_BATCH
+4. TL kernel vs plain: the same for the TL kernel, each configuration with
+   LREGCL on and off at 4096 x 137 and the default at 65,536 x 137, and
+   ``tangent_only`` against the ``*_i`` outputs of the full launch
+   (bitwise).
+5. NL main path: the port's driver (``drivers/run_nonlinear_torch.py``
+   core()) through EtaLevels -> Saturation -> Cloudsc2NL on the card,
+   double and single, at 100 and 65,536 columns, validated against the
+   golden outputs (HOORAY), which are built in process as
+   drivers/generate_reference.py builds them (no h5py needed); the NL
+   kernel's launch count must grow.
+6. TL path: the Taylor protocol (``drivers/run_taylor_test_torch.py``
+   core()) through the NL and TL kernels on the card: double at 1 column;
+   double per column at 65,536 columns; single with column 0 tiled over
+   4096 columns and the f32 floors -- each must print HOORAY; and, as a
+   reading, single per column at 65,536 columns.  Both launch counts must
+   grow.
+7. timing at 65,536 x 137, f32 and f64, with CUDA events, beside the
+   card's name and power limit: each kernel against its plain version
+   (kernel runs are batches of KERNEL_BATCH back-to-back calls, median of
+   10; the NL plain version median of 10, the TL plain version, slower,
+   median of 3), the TL kernel also with ``tangent_only``; and each
+   wrapper's host time per call (host clock around KERNEL_BATCH
    asynchronous calls, before the synchronize).
-6. profile: torch.profiler over main-path steps (Saturation + Cloudsc2NL,
-   f32, 65,536 x 137): device time of the NL kernel and of the rest, and
-   the device's busy share.
+8. profile: torch.profiler over NL main-path steps (Saturation +
+   Cloudsc2NL, f32, 65,536 x 137): device time of the NL kernel and of the
+   rest, and the device's busy share.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -37,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 NLEV = 137
@@ -57,7 +73,7 @@ def card_label() -> str:
 
 
 def tolerances(torch, dtype, c):
-    """Field -> (rtol, atol).  f64: the driver's double gate (rtol 1e-10,
+    """NL field -> (rtol, atol).  f64: the driver's double gate (rtol 1e-10,
     atol 1e-16).  f32: the Pallas-kernel gate of tests/test_pallas.py
     (rtol 2e-5; atol 1e-8 on tendencies, 1e-6 on diagnostics).  fhps* are
     fpls* scaled by L ~ 2.5e6, so their atol covers a flux residue
@@ -69,33 +85,52 @@ def tolerances(torch, dtype, c):
     return nl_tolerances((2e-5, 1e-8), (2e-5, 1e-6), c, "float32")
 
 
+def tl_tolerances(torch, dtype, c):
+    """TL field (and its ``*_i``) -> (rtol, atol).  f64 as the NL; f32 the
+    TL Pallas gate of tests/test_pallas.py (rtol 3e-5; atol 1e-7 on
+    tendencies, 1e-5 on diagnostics); fhps* with the flux-residue atol."""
+    from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+
+    if dtype == torch.float64:
+        return nl_tolerances((1e-10, 1e-16), (1e-10, 1e-16), c, "float64", perturbations=True)
+    return nl_tolerances((3e-5, 1e-7), (3e-5, 1e-5), c, "float32", perturbations=True)
+
+
 def compare(got, want, tol, label):
-    """Print the worst errors per field; raise beyond tolerance.  Returns
-    the largest abs error over all fields."""
+    """Print the worst abs/rel error of each field (one line when every
+    field is bitwise equal); raise beyond tolerance.  Returns the largest
+    abs error over all fields."""
     from cloudsc2_tpu_torch.utils.compare import field_errors
 
     errs = field_errors({k: v.cpu().numpy() for k, v in got.items()},
                         {k: v.cpu().numpy() for k, v in want.items()}, tol)
-    for n, (max_abs, max_rel, share) in errs.items():
-        rtol, atol = tol[n]
-        print(f"  {label} {n:8s} max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-              f"(rtol {rtol:g}, atol {atol:g}: {share:.3f} of the limit)")
+    if all(e[0] == 0.0 for e in errs.values()):
+        print(f"  {label} all {len(errs)} fields bitwise equal (max_abs 0, max_rel 0): {' '.join(errs)}")
+    else:
+        for n, (max_abs, max_rel, share) in errs.items():
+            rtol, atol = tol[n]
+            print(f"  {label} {n:8s} max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+                  f"(rtol {rtol:g}, atol {atol:g}: {share:.3f} of the limit)")
     bad = [n for n, e in errs.items() if not e[2] <= 1.0]
     if bad:
         raise AssertionError(f"{label}: kernel differs from the plain version in {bad}")
     return max(e[0] for e in errs.values())
 
 
-def make_state(torch, ncols, dtype, c, seed):
+def make_state(torch, ncols, dtype, c, seed, increment=False):
     """``(grid, state, dt)``: a seeded synthetic state on the card, with
-    ``eta`` and ``qsat`` diagnosed as the main path does."""
+    ``eta`` and ``qsat`` diagnosed as the main path does, and with
+    ``increment`` the TL's perturbations (0.01 times each field)."""
     from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+    from cloudsc2_tpu_torch.physics.increment import state_increment
     from cloudsc2_tpu_torch.physics.saturation import saturation
     from cloudsc2_tpu_torch.state import synthesize_state
 
     grid, s, dt = synthesize_state(ncols, NLEV, seed, torch.device("cuda:0"), dtype)
     s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    if increment:
+        s.update(state_increment(s, 0.01))
     return grid, s, dt
 
 
@@ -131,7 +166,40 @@ def host_ms(torch, fn, calls):
     return (t1 - t0) * 1e3 / calls
 
 
-def profile_main_path(torch, c, steps=20):
+def time_kernel(torch, kernel, plain, plain_runs):
+    """``(kernel ms, plain ms, wrapper host ms, kernel runs, plain runs)``:
+    medians over alternating runs; a kernel run is a batch of KERNEL_BATCH
+    calls, timed by CUDA events."""
+    for fn in (kernel, kernel, plain):
+        fn()
+    torch.cuda.synchronize()
+    k_ms, p_ms, h_ms = [], [], []
+    for i in range(10):
+        if i < plain_runs:
+            p_ms.append(time_ms(torch, plain, 1))
+        k_ms.append(time_ms(torch, kernel, KERNEL_BATCH) / KERNEL_BATCH)
+        h_ms.append(host_ms(torch, kernel, KERNEL_BATCH))
+    return statistics.median(k_ms), statistics.median(p_ms), statistics.median(h_ms), k_ms, p_ms
+
+
+def build_kernels(build, modules, card):
+    """Build and load every kernel library at once (one nvcc each); print
+    ptxas's registers, spills and stack for every instantiation."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        for future in [pool.submit(m.load_cuda) for m in modules.values()]:
+            future.result()  # raises the build's error, if any
+    print(f"[build] {', '.join(modules)} built and loaded in {time.perf_counter() - t0:.1f} s; {card}")
+    for name in modules:
+        entry = ""
+        for line in build.logs.get(name, "").splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"[build]   {name} {entry}: {line.strip()}")
+
+
+def profile_main_path(torch, c, card, steps=20):
     """Profile ``steps`` main-path steps (Saturation + Cloudsc2NL, f32,
     65,536 x 137): wall time per step, device time per step split into the
     NL kernel and the rest, and the device's busy share."""
@@ -168,7 +236,49 @@ def profile_main_path(torch, c, steps=20):
     busy = (kernel_us + other_us) / 1e3 / steps
     print(f"[profile f32 {BIG}x{NLEV}] main-path step: wall {wall:.4f} ms (host clock, synchronized "
           f"components), device {busy:.4f} ms = NL kernel {kernel_us / 1e3 / steps:.4f} + other "
-          f"kernels {other_us / 1e3 / steps:.4f}; device busy share {busy / wall:.3f}")
+          f"kernels {other_us / 1e3 / steps:.4f}; device busy share {busy / wall:.3f}; {card}")
+
+
+def taylor_gates(torch, nlk, tlk, card):
+    """Phase 6: the Taylor protocol through the driver on the card.  Returns
+    ``(NL launches, TL launches)`` of the phase."""
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from cloudsc2_tpu_torch.validation.taylor import FLOORS_PER_COLUMN
+    from drivers.run_nonlinear_torch import synthetic_input
+    from drivers.run_taylor_test_torch import core
+
+    cases = [  # (precision, columns, options, gate)
+        ("double", 1, {}, True),
+        ("double", BIG, {"per_column": True}, True),
+        ("single", SMALL, {"tile_column": True, "floors": "auto"}, True),
+        ("single", BIG, {"per_column": True, "floors": "auto"}, False),
+    ]
+    nlk.cloudsc2_nl_cuda.launches = 0
+    tlk.cloudsc2_tl_cuda.launches = 0
+    for precision, ncols, opts, gate in cases:
+        t0 = time.perf_counter()
+        rc, tt = core(
+            Config(precision=precision, num_cols=ncols, num_runs=1),
+            TorchConfig(device="cuda:0", precision=precision),
+            inputs=synthetic_input(ncols, precision), **opts,
+        )
+        label = f"[taylor {precision} {ncols} columns{''.join(' ' + k for k in sorted(opts))}]"
+        extra = ""
+        if opts.get("per_column"):
+            mode = "f32" if precision == "single" and opts.get("floors") == "auto" else "f64"
+            pen = tt.column_penalties(tt.norms, *FLOORS_PER_COLUMN[mode])
+            strict = tt.column_penalties(tt.norms, *FLOORS_PER_COLUMN[mode], strict=True)
+            extra = (f"; pass fraction {int((pen <= 5).sum())}/{ncols} = {float((pen <= 5).mean()):.4f}, "
+                     f"strict fraction {int((strict <= 5).sum())}/{ncols} = {float((strict <= 5).mean()):.4f}")
+        print(f"{label} exit {rc}{extra} ({'gate' if gate else 'reading'}; {time.perf_counter() - t0:.1f} s "
+              f"host clock; {card})")
+        if gate and rc != 0:
+            raise AssertionError(f"{label} failed: the Taylor verdict is not HOORAY")
+    launches = nlk.cloudsc2_nl_cuda.launches, tlk.cloudsc2_tl_cuda.launches
+    print(f"[taylor] launches in this phase: cloudsc2_nl_cuda {launches[0]}, cloudsc2_tl_cuda {launches[1]}")
+    if min(launches) == 0:
+        raise AssertionError("the Taylor path did not launch both CUDA kernels")
+    return launches
 
 
 def main() -> int:
@@ -180,7 +290,9 @@ def main() -> int:
     from cloudsc2_tpu_torch.config import Config, TorchConfig
     from cloudsc2_tpu_torch.kernels import build
     from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+    from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
     from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl as plain_nl
+    from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl as plain_tl
     from cloudsc2_tpu_torch.state import make_constants
     from cloudsc2_tpu_torch.utils.timing import Timer
     from drivers.run_nonlinear_torch import core, synthetic_golden, synthetic_input
@@ -193,15 +305,10 @@ def main() -> int:
           f"{kind}, {torch.cuda.device_count()} visible")
     torch.cuda.set_device(0)
 
-    # ---- 2. build
-    t0 = time.perf_counter()
-    nlk.load_cuda()
-    print(f"[build] nonlinear.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in build.logs.get("cloudsc2_nl", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build]   {line.strip()}")
+    # ---- 2. build, both kernels at once
+    build_kernels(build, {"cloudsc2_nl": nlk, "cloudsc2_tl": tlk}, card)
 
-    # ---- 3. kernel vs plain on the same CUDA tensors
+    # ---- 3. NL kernel vs plain on the same CUDA tensors
     c0 = make_constants(lphylin=True, ldrain1d=False)
     configs = {
         "default": c0,
@@ -221,8 +328,34 @@ def main() -> int:
             max_abs[(tag, name, ncols)] = compare(got, want, tolerances(torch, dtype, c), label)
             del s, got, want
 
-    # ---- 4. the main path through the driver, on the card
+    # ---- 4. TL kernel vs plain, and tangent_only vs the full launch
+    t0 = time.perf_counter()
+    tl_abs = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        cases = [(f"{name} lregcl={int(lreg)}", c.replace(LREGCL=lreg), SMALL)
+                 for name, c in configs.items() for lreg in (True, False)]
+        cases.append(("default", c0, BIG))
+        for name, c, ncols in cases:
+            _, s, dt = make_state(torch, ncols, dtype, c, seed=1, increment=True)
+            got = flat(tlk.cloudsc2_tl_cuda(s, dt, c))
+            only = flat(tlk.cloudsc2_tl_cuda(s, dt, c, tangent_only=True))
+            want = flat(plain_tl(s, dt, c))
+            torch.cuda.synchronize()
+            label = f"[tl-kernel-vs-plain {tag} {name} {ncols}x{NLEV}]"
+            tl_abs[(tag, name, ncols)] = compare(got, want, tl_tolerances(torch, dtype, c), label)
+            if sorted(only) != sorted(k for k in got if k.endswith("_i")):
+                raise AssertionError(f"{label} tangent_only returned {sorted(only)}")
+            differ = [k for k in only if not torch.equal(only[k], got[k])]
+            if differ:
+                raise AssertionError(f"{label} tangent_only differs from the full launch in {differ}")
+            print(f"  {label} tangent_only: all {len(only)} *_i outputs bitwise equal to the full launch")
+            del s, got, only, want
+    print(f"[tl-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
+
+    # ---- 5. the NL main path through the driver, on the card
     nlk.cloudsc2_nl_cuda.launches = 0
+    tlk.cloudsc2_tl_cuda.launches = 0
     for precision in ("double", "single"):
         for ncols in (100, BIG):
             config = Config(precision=precision, num_cols=ncols, num_runs=5)
@@ -234,7 +367,7 @@ def main() -> int:
             per_call = {label: round(Timer.get_time(label, "ms") / max(Timer.get_count(label), 1), 4)
                         for label in Timer.labels()}
             print(f"[main-path] {precision} {ncols} columns: exit {rc}; ms per call by component "
-                  f"(host clock, synchronized): {per_call}")
+                  f"(host clock, synchronized): {per_call}; {card}")
             if rc != 0:
                 raise AssertionError(f"main path {precision} x {ncols} failed validation")
     launches = nlk.cloudsc2_nl_cuda.launches
@@ -242,35 +375,45 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the CUDA kernel")
 
-    # ---- 5. timing at 65,536 x 137
-    timing = {}
+    # ---- 6. the TL path: the Taylor protocol through both kernels
+    t0 = time.perf_counter()
+    _, tl_launches = taylor_gates(torch, nlk, tlk, card)
+    print(f"[taylor] {time.perf_counter() - t0:.1f} s; {card}")
+
+    # ---- 7. timing at 65,536 x 137
+    timing, tl_timing = {}, {}
+    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         tag = "f32" if dtype == torch.float32 else "f64"
-        _, s, dt = make_state(torch, BIG, dtype, c0, seed=2)
-        kernel = lambda: nlk.cloudsc2_nl_cuda(s, dt, c0)  # noqa: E731
-        plain = lambda: plain_nl(s, dt, c0)  # noqa: E731
-        for fn in (kernel, kernel, plain):
-            fn()
-        torch.cuda.synchronize()
-        k_ms, p_ms, h_ms = [], [], []
-        for _ in range(10):  # alternating plain and kernel runs
-            p_ms.append(time_ms(torch, plain, 1))
-            k_ms.append(time_ms(torch, kernel, KERNEL_BATCH) / KERNEL_BATCH)
-            h_ms.append(host_ms(torch, kernel, KERNEL_BATCH))
-        k, p, h = statistics.median(k_ms), statistics.median(p_ms), statistics.median(h_ms)
         item = 8 if dtype == torch.float64 else 4
+        _, s, dt = make_state(torch, BIG, dtype, c0, seed=2, increment=True)
+        k, p, h, k_ms, p_ms = time_kernel(
+            torch, lambda: nlk.cloudsc2_nl_cuda(s, dt, c0), lambda: plain_nl(s, dt, c0), 10)
         nbytes = BIG * (NLEV * 28 + 5) * item  # 18 reads + 10 writes per level (see nonlinear.cu)
         timing[tag] = (k, p, h)
         print(f"[timing {tag} {BIG}x{NLEV}] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
               f"{nbytes / k / 1e6:.1f} GB/s), plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), "
               f"wrapper host time {h:.4f} ms per call (host clock, median of 10 x {KERNEL_BATCH} calls); "
               f"kernel runs {[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
+        # TL: 34 reads + 20 writes per level (+2 aph rows, +8 flux rows), see
+        # tangent_linear.cu; tangent_only writes 10 (+4 flux rows)
+        for only, nvals in ((False, (NLEV * 54 + 10)), (True, (NLEV * 44 + 6))):
+            k, p, h, k_ms, p_ms = time_kernel(
+                torch, lambda: tlk.cloudsc2_tl_cuda(s, dt, c0, tangent_only=only),
+                lambda: plain_tl(s, dt, c0, tangent_only=only), 3)
+            tl_timing[(tag, only)] = (k, p, h)
+            print(f"[tl-timing {tag} {BIG}x{NLEV}{' tangent_only' if only else ''}] kernel {k:.4f} ms "
+                  f"({BIG / k * 1e3:.4e} cols/s, {BIG * nvals * item / k / 1e6:.1f} GB/s), "
+                  f"plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), wrapper host time {h:.4f} ms per call "
+                  f"(host clock, median of 10 x {KERNEL_BATCH} calls); kernel runs "
+                  f"{[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
         del s
+    print(f"[timing] {time.perf_counter() - t0:.1f} s; {card}")
 
-    # ---- 6. where the main path's time goes (torch.profiler, f32, 65,536 columns)
-    profile_main_path(torch, c0)
+    # ---- 8. where the NL main path's time goes (torch.profiler, f32, 65,536 columns)
+    profile_main_path(torch, c0, card)
 
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "cloudsc2_nl",
@@ -287,6 +430,23 @@ def main() -> int:
         "plain_ms_f64": timing["f64"][1],
         "host_ms": timing["f32"][2],
         "host_ms_f64": timing["f64"][2],
+        "shape": [NLEV, BIG],
+    }, {
+        "name": "cloudsc2_tl",
+        "route": "cuda",
+        "source": "cloudsc2_tpu_torch/kernels/csrc/tangent_linear.cu",
+        "replaces": "cloudsc2_tpu/pallas/tangent_linear.py:69",
+        "launches": tl_launches,
+        "max_abs_err": tl_abs[("f32", "default", BIG)],
+        "max_abs_err_f64": tl_abs[("f64", "default", BIG)],
+        "ms": tl_timing[("f32", False)][0],
+        "plain_ms": tl_timing[("f32", False)][1],
+        "ms_f64": tl_timing[("f64", False)][0],
+        "plain_ms_f64": tl_timing[("f64", False)][1],
+        "ms_tangent_only": tl_timing[("f32", True)][0],
+        "ms_tangent_only_f64": tl_timing[("f64", True)][0],
+        "host_ms": tl_timing[("f32", False)][2],
+        "host_ms_f64": tl_timing[("f64", False)][2],
         "shape": [NLEV, BIG],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

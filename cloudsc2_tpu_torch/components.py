@@ -1,7 +1,8 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
 """Component layer; the port of :mod:`cloudsc2_tpu.components`
-(``Component``, ``EtaLevels``, ``Saturation``, ``Cloudsc2NL``).
+(``Component``, ``EtaLevels``, ``Saturation``, ``StateIncrement``,
+``PerturbedState``, ``Cloudsc2NL``, ``Cloudsc2TL``).
 
 Components are ``torch.nn.Module``s with the same property declarations
 (name -> ``{dims, units}``) and the same output dicts as the JAX
@@ -23,6 +24,7 @@ from cloudsc2_tpu.grid import Grid
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu.units import convert, strip_units
 from cloudsc2_tpu_torch import dispatch
+from cloudsc2_tpu_torch.physics import increment as _increment
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.utils import timing as _timing
@@ -30,8 +32,8 @@ from cloudsc2_tpu_torch.utils import timing as _timing
 Tensor = torch.Tensor
 PropertyDict = Dict[str, Dict[str, Any]]
 
-# the property tables of cloudsc2_tpu/components.py:37-81, 266-275 (that
-# module imports jax, so they are restated here)
+# the property tables of cloudsc2_tpu/components.py:37-81, 226-275, 321-335
+# (that module imports jax, so they are restated here)
 FULL = ("levels", "columns")
 IFACE = ("levels+1", "columns")
 VERT = ("levels",)
@@ -71,8 +73,15 @@ def _strip_units(value: Any, to_units: str) -> Any:
     return data if factor == 1.0 else data * factor
 
 
+_INCR = {n: (IFACE if n == "aph" else FULL) for n in _increment.INCREMENT_FIELDS}
+
+
 def _props(names: Mapping[str, Tuple[str, ...]]) -> PropertyDict:
-    return {n: {"dims": d, "units": UNITS.get(n, "")} for n, d in names.items()}
+    """Declarations with units; a perturbation ``*_i`` has its field's."""
+    return {
+        n: {"dims": d, "units": UNITS.get(n[:-2] if n.endswith("_i") else n, "")}
+        for n, d in names.items()
+    }
 
 
 class Component(torch.nn.Module):
@@ -169,6 +178,37 @@ class Saturation(Component):
         return {"qsat": qsat}
 
 
+class StateIncrement(Component):
+    """Produces the 16-field perturbation ``*_i = factor * field``."""
+
+    input_properties = _props(_INCR)
+    diagnostic_properties = _props({n + "_i": d for n, d in _INCR.items()})
+
+    def __init__(self, grid, constants, factor: float, *, ignore_supsat: bool = False, **kw):
+        super().__init__(grid, constants, **kw)
+        self.factor = factor
+        self.ignore_supsat = ignore_supsat
+
+    def forward(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        state = self._check_state(state)
+        return _increment.state_increment(state, self.factor, ignore_supsat=self.ignore_supsat)
+
+
+class PerturbedState(Component):
+    """Produces ``field + factor * field_i`` for the 16 fields."""
+
+    input_properties = _props({**_INCR, **{n + "_i": d for n, d in _INCR.items()}})
+    diagnostic_properties = _props(_INCR)
+
+    def __init__(self, grid, constants, factor: float, **kw):
+        super().__init__(grid, constants, **kw)
+        self.factor = factor
+
+    def forward(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        state = self._check_state(state)
+        return _increment.perturbed_state(state, self.factor)
+
+
 class Cloudsc2NL(Component):
     """Nonlinear CLOUDSC2: 17 inputs, 4 tendencies, 6 diagnostics.  CUDA
     tensors run the hand-written kernel, CPU tensors the plain version
@@ -183,3 +223,22 @@ class Cloudsc2NL(Component):
     ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
         state = self._check_state(state)
         return dispatch.cloudsc2_nl(state, timestep, self.constants)
+
+
+class Cloudsc2TL(Component):
+    """Tangent-linear CLOUDSC2: every field paired with its ``*_i``
+    perturbation.  CUDA tensors run the hand-written kernel, CPU tensors
+    the plain version (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_tl`)."""
+
+    input_properties = _props({**_NL_INPUTS, **{n + "_i": d for n, d in _INCR.items()}})
+    tendency_properties = {
+        **{n: {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()},
+        **{n + "_i": {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()},
+    }
+    diagnostic_properties = _props({**_NL_DIAGS, **{n + "_i": d for n, d in _NL_DIAGS.items()}})
+
+    def forward(
+        self, state: Dict[str, Tensor], timestep: float
+    ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+        state = self._check_state(state)
+        return dispatch.cloudsc2_tl(state, timestep, self.constants)

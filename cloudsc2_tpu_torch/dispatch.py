@@ -16,7 +16,9 @@ import torch
 
 from cloudsc2_tpu.params import Constants
 from cloudsc2_tpu_torch.kernels.nonlinear import cloudsc2_nl_cuda
+from cloudsc2_tpu_torch.kernels.tangent_linear import cloudsc2_tl_cuda
 from cloudsc2_tpu_torch.physics import nonlinear as _plain
+from cloudsc2_tpu_torch.physics import tangent_linear as _plain_tl
 
 Tensor = torch.Tensor
 
@@ -32,3 +34,17 @@ def cloudsc2_nl(
     if device.type == "cpu":
         return _plain.cloudsc2_nl(state, dt, c)
     raise ValueError(f"no NL implementation for device {device}")
+
+
+def cloudsc2_tl(
+    state: Dict[str, Tensor], dt: float, c: Constants, tangent_only: bool = False
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One TL step (the counterpart of ``nl_tl_fns(impl)[1]``): the CUDA
+    kernel for CUDA tensors, the plain level scan for CPU tensors.  With
+    ``tangent_only`` only the ``*_i`` outputs are returned."""
+    device = state["ap"].device
+    if device.type == "cuda":
+        return cloudsc2_tl_cuda(state, dt, c, tangent_only)
+    if device.type == "cpu":
+        return _plain_tl.cloudsc2_tl(state, dt, c, tangent_only)
+    raise ValueError(f"no TL implementation for device {device}")

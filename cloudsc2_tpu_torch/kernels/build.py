@@ -32,6 +32,9 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _lock = threading.Lock()
+#: one lock per library: two libraries build at once (one compiler process
+#: each), one library builds once
+_locks: Dict[Tuple[str, ...], threading.Lock] = {}
 _loaded: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 #: compiler output of the builds made by this process, by library name
 #: (ptxas reports registers, spills and shared memory per kernel there)
@@ -86,9 +89,12 @@ def _compile(compiler: str, sources: Sequence[str], flags: Sequence[str], name: 
 
 def load(kind: str, name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Build (once per process and per source hash) and load a library.
-    ``kind`` is "cuda" (nvcc, sm_90a) or "host" (g++)."""
+    ``kind`` is "cuda" (nvcc, sm_90a) or "host" (g++).  Calls for different
+    libraries from different threads compile in parallel."""
     key = (kind, name, *sources)
     with _lock:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
         if key not in _loaded:
             if kind == "cuda":
                 path = _compile(find_nvcc(), sources, NVCC_FLAGS, name)

@@ -7,41 +7,16 @@
 // The scalar twin of nl_level (cloudsc2_tpu/physics/nonlinear.py:607) and of
 // the plain torch version (cloudsc2_tpu_torch/physics/nonlinear.py): every
 // expression is the JAX expression with the same operand order, so that
-// the roundings are the same.  Rules that keep it so:
-//   * T is float or double.  Every literal is written T(x) and every
-//     constant arrives in T (NLConst<T>), so nothing is promoted to double
-//     in T=float: JAX rounds each Python constant to the array dtype first.
-//   * Compound constants (cons2 = 1/(RG*dt), 1/(lcrit*lcrit), ...) are
-//     folded on the host in double and rounded once (state.kernel_constants),
-//     as JAX folds them at trace time.
-//   * No FMA contraction (built with --fmad=false / -ffp-contract=off) and
-//     no fast math: the plain version runs each operation separately.
-//   * lax.rsqrt becomes T(1)/sqrt(x); x**2 becomes x*x.
-//   * The guarded denominators of the JAX body stay (denom_safe, lu1_safe,
-//     clc_safe, the evaporation *_safe), so both versions divide the same
-//     numbers.
+// the roundings are the same (the rules are in scalar_math.h).
 // Static switches are template bools, as the JAX body's Python bools:
 //   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D.
 #pragma once
 
-#include <math.h>
 #include <string.h>
 
-#include "levelscan.cuh"
+#include "scalar_math.h"
 
 namespace cloudsc2 {
-
-// ---------------------------------------------------------------- math ----
-CLOUDSC2_HD float m_exp(float x) { return expf(x); }
-CLOUDSC2_HD double m_exp(double x) { return exp(x); }
-CLOUDSC2_HD float m_tanh(float x) { return tanhf(x); }
-CLOUDSC2_HD double m_tanh(double x) { return tanh(x); }
-CLOUDSC2_HD float m_sqrt(float x) { return sqrtf(x); }
-CLOUDSC2_HD double m_sqrt(double x) { return sqrt(x); }
-CLOUDSC2_HD float m_pow(float x, float y) { return powf(x, y); }
-CLOUDSC2_HD double m_pow(double x, double y) { return pow(x, y); }
-template <typename T> CLOUDSC2_HD T m_min(T a, T b) { return b < a ? b : a; }
-template <typename T> CLOUDSC2_HD T m_max(T a, T b) { return b > a ? b : a; }
 
 // ------------------------------------------------------------ argument lists
 // Each list is mirrored in Python (state.NL_CONST_NAMES, kernels/nonlinear.py
@@ -125,6 +100,25 @@ CLOUDSC2_HD T foeewm(T t, const NLConst<T>& c) {
   const T liq = c.r2es * m_exp(c.r3les * (t - c.rtt) / (t - c.r4les));
   const T ice = c.r2es * m_exp(c.r3ies * (t - c.rtt) / (t - c.r4ies));
   return alfa * liq + (T(1) - alfa) * ice;
+}
+
+// tropopause_eta (nonlinear.py:59) for one column: the last level k with
+// 0.1 < eta[k] < 0.4 and t_fg[k] > t_fg[k+1] wins; default 0.1.  t and
+// tnd_cml_t are (nlev, ncols) with columns contiguous.
+template <typename T>
+CLOUDSC2_HD T tropopause_eta(const T* t, const T* tnd_cml_t, const T* eta, T dt, int nlev,
+                             int ncols, int col) {
+  T trpaus = T(0.1);
+  size_t i = static_cast<size_t>(col);
+  T tfg_next = t[i] + dt * tnd_cml_t[i];
+  for (int k = 0; k + 1 < nlev; ++k) {
+    const T tfg = tfg_next;
+    i += static_cast<size_t>(ncols);
+    tfg_next = t[i] + dt * tnd_cml_t[i];
+    const T e = eta[k];
+    if (e > T(0.1) && e < T(0.4) && tfg > tfg_next) trpaus = e;
+  }
+  return trpaus;
 }
 
 // critical_rh (nonlinear.py:127) with the hoisted per-column coefficients
@@ -390,19 +384,11 @@ struct NLBody {
     return static_cast<size_t>(k) * static_cast<size_t>(ncols) + static_cast<size_t>(col);
   }
 
-  // Prologue: the tropopause (the last k with 0.1 < eta[k] < 0.4 and
-  // t_fg[k] > t_fg[k+1], default 0.1; nonlinear.py:59), the critical-RH
-  // coefficients, and the zero top interface of the fluxes.
+  // Prologue: the tropopause, the critical-RH coefficients, and the zero
+  // top interface of the fluxes.
   CLOUDSC2_HD Column begin(int col) const {
     Column s;
-    s.col.trpaus = T(0.1);
-    T tfg_next = f.t[at(0, col)] + c.dt * f.tnd_cml_t[at(0, col)];
-    for (int k = 0; k + 1 < nlev; ++k) {
-      const T tfg = tfg_next;
-      tfg_next = f.t[at(k + 1, col)] + c.dt * f.tnd_cml_t[at(k + 1, col)];
-      const T eta = f.eta[k];
-      if (eta > T(0.1) && eta < T(0.4) && tfg > tfg_next) s.col.trpaus = eta;
-    }
+    s.col.trpaus = tropopause_eta(f.t, f.tnd_cml_t, f.eta, c.dt, nlev, ncols, col);
     critical_rh_coeffs(s.col);
     s.col.aph_s = f.aph[at(nlev, col)];
     s.carry.rfl = T(0);

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -81,11 +81,15 @@ def load_cuda() -> ctypes.CDLL:
     return _load("cuda")
 
 
-def _marshal(
-    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str
-) -> Tuple[List[Tensor], Dict[str, Tensor], Tensor, torch.dtype]:
-    """Check the state, and return the kernel's inputs in order, freshly
-    allocated outputs, the constant struct and the dtype."""
+def check_inputs(
+    state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[str],
+    iface: Sequence[str],
+) -> Tuple[List[Tensor], torch.dtype]:
+    """Check the state for a kernel, and return its ``inputs`` in order:
+    ``eta`` in the state's dtype and ``scalm`` computed from it, the other
+    fields as they are.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
+    ``eta``/``scalm`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one
+    float dtype, contiguous, on one device of ``device_type``."""
     check_constants(c)
     ap = state["ap"]
     if ap.dim() != 2:
@@ -101,11 +105,11 @@ def _marshal(
     eta = state["eta"]
     if eta.dtype != dtype:
         eta = eta.to(dtype)
-    fields = {n: state[n] for n in NL_INPUTS if n not in _VERT}
+    fields = {n: state[n] for n in inputs if n not in _VERT}
     fields["eta"] = eta
     fields["scalm"] = scalm_profile(eta, c)
     for n, v in fields.items():
-        want = (nlev,) if n in _VERT else ((nlev + 1, ncols) if n in _IFACE else (nlev, ncols))
+        want = (nlev,) if n in _VERT else ((nlev + 1, ncols) if n in iface else (nlev, ncols))
         if tuple(v.shape) != want:
             raise ValueError(f"field {n!r} has shape {tuple(v.shape)}, want {want}")
         if v.dtype != dtype:
@@ -114,16 +118,27 @@ def _marshal(
             raise ValueError(f"field {n!r} is on {v.device}, want {ap.device}")
         if not v.is_contiguous():
             raise ValueError(f"field {n!r} is not contiguous")
+    return [fields[n] for n in inputs], dtype
+
+
+def _marshal(
+    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str
+) -> Tuple[List[Tensor], Dict[str, Tensor], Tensor, torch.dtype]:
+    """Check the state, and return the kernel's inputs in order, freshly
+    allocated outputs, the constant struct and the dtype."""
+    ins, dtype = check_inputs(state, c, device_type, NL_INPUTS, _IFACE)
+    nlev, ncols = state["ap"].shape
     outs = {
-        n: torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=ap.device)
+        n: torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device)
         for n in NL_OUTPUTS
     }
     consts = torch.from_numpy(kernel_constants(c, dt, dtype))
-    return [fields[n] for n in NL_INPUTS], outs, consts, dtype
+    return ins, outs, consts, dtype
 
 
-def _ptrs(tensors) -> ctypes.Array:
-    return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
+def ptrs(tensors) -> ctypes.Array:
+    """A C array of the tensors' data pointers (``None`` gives a null pointer)."""
+    return (_P * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
 
 
 def _switches(c: Constants, dtype: torch.dtype) -> Tuple[int, int, int]:
@@ -157,7 +172,7 @@ def cloudsc2_nl_cuda(
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cloudsc2_nl_launch(
-            *_switches(c, dtype), _ptrs(ins), _ptrs(list(outs.values())),
+            *_switches(c, dtype), ptrs(ins), ptrs(list(outs.values())),
             consts.data_ptr(), nlev, ncols, stream,
         )
     if err != 0:
@@ -177,7 +192,7 @@ def cloudsc2_nl_host(
     lib = _load("host")
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_nl_host(
-        *_switches(c, dtype), _ptrs(ins), _ptrs(list(outs.values())),
+        *_switches(c, dtype), ptrs(ins), ptrs(list(outs.values())),
         consts.data_ptr(), nlev, ncols,
     )
     if err != 0:

@@ -1,0 +1,151 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""The CLOUDSC2 tangent-linear kernel for Hopper and its wrapper.
+
+Replaces the Pallas kernel :func:`cloudsc2_tpu.pallas.tangent_linear.
+cloudsc2_tl_pallas` (``pallas/tangent_linear.py:69``), on the level-scan
+harness ``csrc/levelscan.cuh``.  The kernel is CUDA C++
+(``csrc/tangent_linear.cu`` over ``csrc/tl_level.h``): one thread per
+column, the carry and its perturbation in registers, the levels in a loop.
+It is bound by device-memory bytes, with registers the risk; the note at
+the top of ``tangent_linear.cu`` gives the count.
+
+:func:`cloudsc2_tl_cuda` launches it on CUDA tensors and raises for
+anything else; its plain version is
+:func:`cloudsc2_tpu_torch.physics.tangent_linear.cloudsc2_tl`.
+:func:`cloudsc2_tl_host` runs the same body compiled for the CPU, for the
+tests only.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List, Tuple
+
+import torch
+
+from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.kernels import build
+from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, NL_OUTPUTS, check_inputs, ptrs
+from cloudsc2_tpu_torch.state import TL_CONST_NAMES, tl_kernel_constants
+
+Tensor = torch.Tensor
+
+#: argument orders of ``CLOUDSC2_TL_INPUTS`` / ``_OUTPUTS`` in ``tl_level.h``:
+#: the NL lists, then the perturbation of each field and output
+TL_INPUTS = NL_INPUTS[:-2] + tuple(n + "_i" for n in NL_INPUTS[:-2]) + NL_INPUTS[-2:]
+TL_OUTPUTS = NL_OUTPUTS + tuple(n + "_i" for n in NL_OUTPUTS)
+_IFACE = ("aph", "aph_i") + tuple(
+    n + s for n in ("fplsl", "fplsn", "fhpsl", "fhpsn") for s in ("", "_i")
+)
+
+_P = ctypes.c_void_p
+_ARGS = [ctypes.c_int] * 4 + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
+
+
+def signature() -> str:
+    """The argument lists the Python side passes, in the form the kernel
+    library reports them (``tl_signature`` in ``tl_level.h``)."""
+    return "".join((
+        "consts:", *(n + "," for n in TL_CONST_NAMES),
+        ";inputs:", *(n + "," for n in TL_INPUTS),
+        ";outputs:", *(n + "," for n in TL_OUTPUTS),
+    ))
+
+
+@functools.lru_cache(maxsize=None)
+def _load(kind: str) -> ctypes.CDLL:
+    if kind == "cuda":
+        lib = build.load("cuda", "cloudsc2_tl", ["tangent_linear.cu"])
+        fn = lib.cloudsc2_tl_launch
+        fn.argtypes = _ARGS + [_P]
+    else:
+        lib = build.load("host", "cloudsc2_tl_host", ["tangent_linear_host.cpp"])
+        fn = lib.cloudsc2_tl_host
+        fn.argtypes = _ARGS
+    fn.restype = ctypes.c_int
+    lib.cloudsc2_tl_signature.restype = ctypes.c_char_p
+    got = lib.cloudsc2_tl_signature().decode()
+    if got != signature():
+        raise RuntimeError(f"kernel argument lists differ from the wrapper's:\n{got}\n{signature()}")
+    return lib
+
+
+def load_cuda() -> ctypes.CDLL:
+    """Build (first use) and load the CUDA library."""
+    return _load("cuda")
+
+
+def _marshal(
+    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, tangent_only: bool
+) -> Tuple[List[Tensor], List, Tensor, Tuple[int, int, int, int]]:
+    """Check the state, and return the kernel's inputs in order, the output
+    list (fresh tensors; ``None`` for the forward outputs with
+    ``tangent_only``), the constant struct and the switches."""
+    ins, dtype = check_inputs(state, c, device_type, TL_INPUTS, _IFACE)
+    nlev, ncols = state["ap"].shape
+    outs = [
+        None if tangent_only and not n.endswith("_i") else torch.empty(
+            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
+        )
+        for n in TL_OUTPUTS
+    ]
+    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
+    switches = (
+        int(dtype == torch.float64),
+        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
+        int(bool(c.LREGCL)),
+        int(tangent_only),
+    )
+    return ins, outs, consts, switches
+
+
+def _assemble(outs: List) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """``(tendencies, diagnostics)`` as :func:`cloudsc2_tpu_torch.physics.
+    tangent_linear.cloudsc2_tl` returns them."""
+    named = {n: v for n, v in zip(TL_OUTPUTS, outs) if v is not None}
+    tends = {k[4:]: v for k, v in named.items() if k.startswith("tnd_")}
+    diags = {k: v for k, v in named.items() if not k.startswith("tnd_")}
+    return tends, diags
+
+
+def cloudsc2_tl_cuda(
+    state: Dict[str, Tensor], dt: float, c: Constants, tangent_only: bool = False
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One TL step through the CUDA kernel, on PyTorch's current stream.
+
+    Same contract as :func:`cloudsc2_tpu_torch.physics.tangent_linear.
+    cloudsc2_tl`: contiguous CUDA tensors of one float dtype, any
+    ``ncols``; with ``tangent_only`` only the ``*_i`` outputs are written
+    and returned.  Raises on anything else, on a failed build and on a
+    refused launch; never falls back to the plain version.  Each launch
+    adds one to ``cloudsc2_tl_cuda.launches``.
+    """
+    ins, outs, consts, switches = _marshal(state, dt, c, "cuda", tangent_only)
+    lib = load_cuda()
+    nlev, ncols = state["ap"].shape
+    with torch.cuda.device(state["ap"].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cloudsc2_tl_launch(
+            *switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_tl kernel launch failed: cudaError_t {err}")
+    cloudsc2_tl_cuda.launches += 1
+    return _assemble(outs)
+
+
+cloudsc2_tl_cuda.launches = 0  # type: ignore[attr-defined]
+
+
+def cloudsc2_tl_host(
+    state: Dict[str, Tensor], dt: float, c: Constants, tangent_only: bool = False
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """The kernel's body compiled for the host, on CPU tensors (tests only)."""
+    ins, outs, consts, switches = _marshal(state, dt, c, "cpu", tangent_only)
+    lib = _load("host")
+    nlev, ncols = state["ap"].shape
+    err = lib.cloudsc2_tl_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_tl host body failed: {err}")
+    return _assemble(outs)

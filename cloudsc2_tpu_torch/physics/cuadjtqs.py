@@ -1,8 +1,9 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Saturation-adjustment clipping, nonlinear part; the port of
-:mod:`cloudsc2_tpu.physics.cuadjtqs` (``_select_phase:34``, ``_nl_iter:45``,
-``cuadjtqs_nl:85``) in its default ``CUADJ_COMPACT`` form:
+"""Saturation-adjustment clipping, nonlinear and tangent-linear parts; the
+port of :mod:`cloudsc2_tpu.physics.cuadjtqs` (``_select_phase:34``,
+``_nl_iter:45``, ``cuadjtqs_nl:85``, ``_tl_iter:93``, ``cuadjtqs_tl:147``)
+in its default ``CUADJ_COMPACT`` form:
 
     cond = (q*u - s) * u / (u*u + s*z2s),   s = min(foeew/ap, ZQMAX),
     u = 1 - RETV*s
@@ -17,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from cloudsc2_tpu.params import Constants
-from cloudsc2_tpu_torch.physics.fastmath import div, rcp, select
+from cloudsc2_tpu_torch.physics.fastmath import div, rcp, sel0, select
 
 
 class _Phase(NamedTuple):
@@ -58,3 +59,43 @@ def cuadjtqs_nl(
     t, q = _nl_iter(ap, t, q, p, c, rap)
     t, q = _nl_iter(ap, t, q, p, c, rap)
     return t, q
+
+
+def _tl_iter(ap_i, t, t_i, q, q_i, p: _Phase, c: Constants, qp: torch.Tensor):
+    """One TL iteration (compact form); ``qp`` is ``1/ap``, shared by both
+    iterations.  One reciprocal of the condensation denominator serves
+    value and perturbation."""
+    qp_i = -ap_i * qp * qp
+    rt4 = rcp(t - p.z4es)
+    foeew = c.R2ES * torch.exp(p.z3es * (t - c.RTT) * rt4)
+    foeew_i = foeew * p.z3es * t_i * (c.RTT - p.z4es) * rt4 * rt4
+    qsat = qp * foeew
+    qsat_i = qp_i * foeew + qp * foeew_i
+    # the perturbation vanishes on the clipped branch
+    noclip = qsat <= c.ZQMAX
+    s = torch.clamp(qsat, max=c.ZQMAX)
+    s_i = sel0(noclip, qsat_i)
+    z2s = p.z5alcp * rt4 * rt4
+    z2s_i = -2.0 * z2s * t_i * rt4
+    u = 1.0 - c.RETV * s
+    u_i = -c.RETV * s_i
+    w = q * u - s
+    num = w * u
+    den = u * u + s * z2s
+    num_i = (q_i * u + q * u_i - s_i) * u + w * u_i
+    den_i = 2.0 * u * u_i + s_i * z2s + s * z2s_i
+    rden = rcp(den)
+    cond = num * rden
+    cond_i = (num_i - cond * den_i) * rden
+    return t + p.zaldcp * cond, t_i + p.zaldcp * cond_i, q - cond, q_i - cond_i
+
+
+def cuadjtqs_tl(
+    ap: torch.Tensor, ap_i: torch.Tensor, t: torch.Tensor, t_i: torch.Tensor,
+    q: torch.Tensor, q_i: torch.Tensor, c: Constants,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tangent-linear two-iteration saturation adjustment: ``(t, t_i, q, q_i)``."""
+    p = _select_phase(t, c)
+    qp = rcp(ap)
+    t, t_i, q, q_i = _tl_iter(ap_i, t, t_i, q, q_i, p, c, qp)
+    return _tl_iter(ap_i, t, t_i, q, q_i, p, c, qp)

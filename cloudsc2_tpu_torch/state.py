@@ -6,7 +6,7 @@ CLOUDSC2 has no weights: its parameters are the shared
 :class:`~cloudsc2_tpu.params.Constants` and the input state.  The state
 comes from the JAX package's numpy I/O (:func:`cloudsc2_tpu.iox.load_input`
 or :func:`~cloudsc2_tpu.iox.synthesize_input`) and becomes tensors here;
-the constants become the NL kernel's argument struct.  ``make_constants``
+the constants become the NL and TL kernels' argument structs.  ``make_constants``
 is the JAX package's own builder, re-exported so that callers of the port
 need import nothing from there.
 """
@@ -22,8 +22,8 @@ from cloudsc2_tpu.grid import Grid
 from cloudsc2_tpu.params import Constants, make_constants
 from cloudsc2_tpu_torch.physics.nonlinear import lcrit_icrit
 
-__all__ = ["NL_CONST_NAMES", "Constants", "kernel_constants", "make_constants",
-           "state_from_numpy", "synthesize_state"]
+__all__ = ["NL_CONST_NAMES", "TL_CONST_NAMES", "Constants", "kernel_constants",
+           "make_constants", "state_from_numpy", "synthesize_state", "tl_kernel_constants"]
 
 _NUMPY = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -38,6 +38,19 @@ NL_CONST_NAMES = (
     "r5alvcp", "r5alscp", "ralvdcp", "ralsdcp",
     "retv", "zqmax", "cor_clip", "rg", "rd", "rlmin", "zeps2",
     "lcrit_k", "icrit_k", "dt_rg", "rg_rpecons",
+)
+
+#: field order of ``struct TLConst`` in ``kernels/csrc/tl_level.h``
+#: (``CLOUDSC2_TL_CONSTS``), checked against the library as the NL list is
+TL_CONST_NAMES = (
+    "dt", "rdt", "cons2", "cons3", "cons2_rlmlt", "meltp2",
+    "rcpd", "rcpd_rvtmp2", "rcpd_inv", "rlmlt", "rlstt", "rlvtt",
+    "rtt", "rtice", "rlptrc",
+    "r2es", "r3les", "r3ies", "r4les", "r4ies", "r5les", "r5ies", "m2_r5les", "m2_r5ies",
+    "r5alvcp", "r5alscp", "ralvdcp", "ralsdcp",
+    "retv", "zqmax", "rg", "rd", "rlmin", "zeps2",
+    "ckcodtl", "ckcodti", "lcrit_k", "icrit_k", "icrit_k2", "dl_k", "di_k",
+    "dt_rg", "mdt_rg", "rg_rpecons", "beta_i_k",
 )
 
 
@@ -115,3 +128,71 @@ def kernel_constants(c: Constants, dt: float, dtype: torch.dtype) -> np.ndarray:
         "rg_rpecons": c.RG * c.RPECONS,
     }
     return np.array([float(vals[n]) for n in NL_CONST_NAMES], dtype=_NUMPY[dtype])
+
+
+def tl_kernel_constants(c: Constants, dt: float, dtype: torch.dtype) -> np.ndarray:
+    """``Constants`` and ``dt`` folded into the TL kernel's constant struct.
+
+    As :func:`kernel_constants`: each compound constant is folded in double
+    as JAX folds it at trace time, with the same operand order as the JAX
+    expression, then rounded once to ``dtype``.  That covers
+    ``ckcodtla``/``ckcodtia`` (``physics/tangent_linear.py:98-101``, inside
+    ``dl_k``/``di_k`` with LREGCL on), the ``-2*R5*`` factors (``:156``),
+    ``-dt*RG`` (``:399``) and the coefficients of ``beta`` and its
+    derivative (``:535-541``).  Returns a contiguous array in the order of
+    :data:`TL_CONST_NAMES`.
+    """
+    lcrit, icrit = lcrit_icrit(c)
+    cons2 = 1.0 / (c.RG * dt)
+    ckcodtl = 2.0 * c.RKCONV * dt
+    ckcodti = 5.0 * c.RKCONV * dt
+    lfactor = ckcodtl / 100.0 if c.LREGCL else ckcodtl
+    ifactor = ckcodti / 100.0 if c.LREGCL else ckcodti
+    vals = {
+        "dt": dt,
+        "rdt": 1.0 / dt,
+        "cons2": cons2,
+        "cons3": c.RLVTT / c.RCPD,
+        "cons2_rlmlt": cons2 / c.RLMLT,
+        "meltp2": c.RTT + 2.0,
+        "rcpd": c.RCPD,
+        "rcpd_rvtmp2": c.RCPD * c.RVTMP2,
+        "rcpd_inv": 1.0 / c.RCPD,
+        "rlmlt": c.RLMLT,
+        "rlstt": c.RLSTT,
+        "rlvtt": c.RLVTT,
+        "rtt": c.RTT,
+        "rtice": c.RTICE,
+        "rlptrc": c.RLPTRC,
+        "r2es": c.R2ES,
+        "r3les": c.R3LES,
+        "r3ies": c.R3IES,
+        "r4les": c.R4LES,
+        "r4ies": c.R4IES,
+        "r5les": c.R5LES,
+        "r5ies": c.R5IES,
+        "m2_r5les": -2.0 * c.R5LES,
+        "m2_r5ies": -2.0 * c.R5IES,
+        "r5alvcp": c.R5ALVCP,
+        "r5alscp": c.R5ALSCP,
+        "ralvdcp": c.RALVDCP,
+        "ralsdcp": c.RALSDCP,
+        "retv": c.RETV,
+        "zqmax": c.ZQMAX,
+        "rg": c.RG,
+        "rd": c.RD,
+        "rlmin": c.RLMIN,
+        "zeps2": c.ZEPS2,
+        "ckcodtl": ckcodtl,
+        "ckcodti": ckcodti,
+        "lcrit_k": 1.0 / (lcrit * lcrit),
+        "icrit_k": 1.0 / (icrit * icrit),
+        "icrit_k2": 1.0 / icrit**2.0,
+        "dl_k": 2.0 * lfactor / lcrit**2.0,
+        "di_k": ifactor,
+        "dt_rg": dt * c.RG,
+        "mdt_rg": -dt * c.RG,
+        "rg_rpecons": c.RG * c.RPECONS,
+        "beta_i_k": 0.5777 * c.RG * c.RPECONS / 0.00509,
+    }
+    return np.array([float(vals[n]) for n in TL_CONST_NAMES], dtype=_NUMPY[dtype])

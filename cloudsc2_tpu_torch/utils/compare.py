@@ -1,6 +1,6 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Field-by-field comparison of NL outputs with stated tolerances.
+"""Field-by-field comparison of NL and TL outputs with stated tolerances.
 
 Used where the kernel is held against its plain version (``chip_smoke.py``)
 and where the port is held against the JAX package (the tests).
@@ -30,15 +30,21 @@ def flux_residue(dtype) -> float:
     return 16 * float(np.finfo(np.dtype(dtype)).eps) * 1e-4
 
 
-def nl_tolerances(tend: Tol, diag: Tol, c: Constants, dtype) -> Dict[str, Tol]:
+def nl_tolerances(
+    tend: Tol, diag: Tol, c: Constants, dtype, perturbations: bool = False
+) -> Dict[str, Tol]:
     """Per-field ``(rtol, atol)``: ``tend`` for the tendencies, ``diag`` for
     ``clc, covptot, fplsl, fplsn``, and for ``fhpsl/fhpsn`` ``diag``'s rtol
-    with the atol of :func:`flux_residue` times ``L`` (when larger)."""
+    with the atol of :func:`flux_residue` times ``L`` (when larger).  With
+    ``perturbations`` (the TL's outputs), each ``*_i`` field gets its
+    field's tolerance."""
     tol = {n: tend for n in TENDENCIES}
     tol.update({n: diag for n in DIAGNOSTICS[:4]})
     res = flux_residue(dtype)
     tol["fhpsl"] = (diag[0], max(diag[1], res * c.RLVTT))
     tol["fhpsn"] = (diag[0], max(diag[1], res * c.RLSTT))
+    if perturbations:
+        tol.update({n + "_i": v for n, v in list(tol.items())})
     return tol
 
 

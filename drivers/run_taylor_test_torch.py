@@ -1,0 +1,142 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""CLI driver: Taylor (V-shape) test of the tangent-linear scheme through the
+PyTorch port.
+
+The port's counterpart of ``drivers/run_taylor_test.py``: assemble the
+state (``data/input_synth.h5`` tiled to ``--num-cols``), diagnose eta, run
+the Taylor protocol (perturb by ``--factor1``, sweep factor2 over
+1e-1..1e-10), print the norm table and the verdict, ``--num-runs`` times
+for timing.  Exit code 0 iff the penalty is <= 5.  On ``--device cuda`` the
+NL and TL run the hand-written CUDA kernels; on ``--device cpu`` their
+plain PyTorch versions.  A CUDA device on a machine without one is an
+error.
+
+Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
+``h5py`` is not installed, the default input is built in process instead
+(:func:`drivers.run_nonlinear_torch.synthetic_input`, equal to the file bit
+for bit), so the driver also runs where neither ``click`` nor ``h5py`` is
+installed.
+
+Usage:  python drivers/run_taylor_test_torch.py --device cpu --precision double
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Sequence, Tuple
+
+import numpy as np
+
+sys.path.insert(0, __file__.rsplit("/", 2)[0])
+
+from drivers.config import DEFAULT_CONFIG, default_input_file  # noqa: E402
+from drivers.run_nonlinear_torch import _dtype, _have_h5py, synthetic_input  # noqa: E402
+
+FACTOR2S = tuple(float(10.0 ** -(i + 1)) for i in range(10))
+
+
+def core(
+    config,
+    torch_config,
+    *,
+    factor1: float = 0.01,
+    factor2s: Sequence[float] = FACTOR2S,
+    floors: str = "f64",
+    tile_column: bool = False,
+    per_column: bool = False,
+    inputs=None,
+) -> Tuple[int, object]:
+    """Run the Taylor protocol ``config.num_runs`` times and print the
+    verdict; returns ``(exit code, the TaylorTest of the last run)``.
+
+    ``config`` is a :class:`cloudsc2_tpu.config.Config` (precision,
+    columns, runs, input file); ``torch_config`` a
+    :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
+    state, dt, constants)``) replaces the file when given.
+    ``tile_column`` replicates input column 0 across the batch (the
+    reference's single-column protocol at any width: the summed norms then
+    equal the single-column norms); ``per_column`` runs the verdict on
+    every column's own norm sequence.
+    """
+    from cloudsc2_tpu import iox, make_constants
+    from cloudsc2_tpu.utils.output import print_performance
+    from cloudsc2_tpu_torch.components import EtaLevels
+    from cloudsc2_tpu_torch.state import state_from_numpy
+    from cloudsc2_tpu_torch.utils.timing import Timer, timing
+    from cloudsc2_tpu_torch.validation.taylor import TaylorTest
+
+    device = torch_config.apply()
+    dtype = _dtype(config.precision)
+
+    if inputs is None and not config.input_file and not _have_h5py():
+        print("h5py is not installed: the default input is built in process "
+              "(equal to data/input_synth.h5)")
+        inputs = synthetic_input(config.num_cols, config.precision)
+    if inputs is not None:
+        grid, state_np, dt, c = inputs
+    else:
+        input_file = config.input_file or default_input_file()
+        if input_file:
+            grid, state_np, dt, params = iox.load_input(input_file, ncols=config.num_cols, dtype=dtype)
+            c = make_constants(lphylin=True, ldrain1d=False, **params)
+        else:
+            grid, state_np, dt = iox.synthesize_input(ncols=config.num_cols, nlev=137, seed=0, dtype=dtype)
+            c = make_constants(lphylin=True, ldrain1d=False)
+
+    if tile_column:
+        state_np = {
+            k: (np.repeat(v[:, :1], v.shape[1], axis=1) if np.ndim(v) == 2 else v)
+            for k, v in state_np.items()
+        }
+    state = state_from_numpy(state_np, device, torch_config.dtype)
+    state.update(EtaLevels(grid, c)(state))
+
+    tt = TaylorTest(constants=c, factor1=factor1, factor2s=factor2s, floors=floors, per_column=per_column)
+    Timer.reset()
+    test = 13
+    runtimes = []
+    for _ in range(config.num_runs):
+        with timing("run"):
+            test = tt(state, dt, verbose=True)
+        runtimes.append(Timer.get_time("run", "ms") - sum(runtimes))
+    print_performance(grid.ncols, runtimes, nlev=grid.nlev)
+    return (0 if test <= 5 else 1), tt
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--num-cols", type=int, default=1)
+    p.add_argument("--num-runs", type=int, default=1)
+    p.add_argument("--precision", choices=("double", "single"), default="double")
+    p.add_argument("--factor1", type=float, default=0.01)
+    p.add_argument("--floors", choices=("auto", "f64", "f32"), default="f64",
+                   help="verdict floor calibration: f64 = the reference constants; f32 = the "
+                   "measured single-precision V-floor; auto picks by the state dtype")
+    p.add_argument("--tile-column", action="store_true", default=False,
+                   help="replicate input column 0 across --num-cols (the reference's "
+                   "single-column protocol on a wide batch)")
+    p.add_argument("--per-column", action="store_true", default=False,
+                   help="run the V-shape verdict on every column's own norm sequence; pass iff "
+                   ">= 98%% of columns pass individually")
+    p.add_argument("--input-file", default=None, help="input HDF5 (default: data/input_synth.h5)")
+    a = p.parse_args(argv)
+
+    from cloudsc2_tpu_torch.config import TorchConfig
+
+    config = (
+        DEFAULT_CONFIG.with_precision(a.precision)
+        .with_num_cols(a.num_cols)
+        .with_num_runs(a.num_runs)
+        .with_input_file(a.input_file)
+    )
+    rc, _ = core(
+        config, TorchConfig(device=a.device, precision=a.precision), factor1=a.factor1,
+        floors=a.floors, tile_column=a.tile_column, per_column=a.per_column,
+    )
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

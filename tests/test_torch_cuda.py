@@ -1,15 +1,21 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The CUDA NL kernel on the card (marker ``cuda``; skipped without a GPU).
+"""The CUDA NL and TL kernels on the card (marker ``cuda``; skipped without a
+GPU).
 
 Run on a machine with an NVIDIA Hopper GPU and nvcc:
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+(``--noconftest``: tests/conftest.py imports jax, which that machine may
+not have; this file imports none).
 
 The kernel against its plain version on the same CUDA tensors, at small
 and ragged column counts: both use the device's libm, so they agree to
 the f64 double gate (rtol 1e-10, atol 1e-16) and the f32 Pallas gate
 (rtol 2e-5, atol 1e-8 / 1e-6), fhps* with the flux-residue atol of
-``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.
+``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.  The TL kernel (every
+field and its ``*_i``): the same f64 gate, the f32 TL gate of
+tests/test_pallas.py (rtol 3e-5, atol 1e-7 / 1e-5), fhps* likewise; its
+``tangent_only`` outputs bitwise equal to the full launch's ``*_i``.
 """
 import numpy as np
 import pytest
@@ -17,9 +23,12 @@ import torch
 
 from cloudsc2_tpu import iox
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu_torch.physics.saturation import saturation
+from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.state import state_from_numpy
 from cloudsc2_tpu_torch.utils.compare import nl_tolerances
 from tests.torch_helpers import CONFIGS, assert_fields, flat
@@ -39,12 +48,18 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _state(ncols, dtype, c, device, seed=3):
+def _state(ncols, dtype, c, device, seed=3, increment=False):
     _, st, dt = iox.synthesize_input(ncols=ncols, nlev=137, seed=seed)
     s = state_from_numpy(st, device, dtype)
     s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    if increment:
+        s.update(state_increment(s, 0.01))
     return s, dt
+
+
+def _host(out):
+    return flat({k: v.cpu() for k, v in d.items()} for d in out)
 
 
 @pytest.mark.parametrize("ncols", [1, 100, 1000])
@@ -71,3 +86,52 @@ def test_kernel_refuses_bad_inputs(cuda):
         nlk.cloudsc2_nl_cuda({**s, "t": s["t"].t().contiguous().t()}, dt, c)
     with pytest.raises(TypeError, match="dtype"):
         nlk.cloudsc2_nl_cuda({**s, "lu": s["lu"].double()}, dt, c)
+
+
+TL_TOL = {
+    torch.float64: ((1e-10, 1e-16), (1e-10, 1e-16)),
+    torch.float32: ((3e-5, 1e-7), (3e-5, 1e-5)),
+}
+
+
+@pytest.mark.parametrize("lregcl", [True, False])
+@pytest.mark.parametrize("ncols", [1, 100, 1000])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tl_kernel_matches_plain_on_card(cuda, ncols, cfg, dtype, lregcl):
+    c = CONFIGS[cfg]().replace(LREGCL=lregcl)
+    s, dt = _state(ncols, dtype, c, cuda, increment=True)
+    before = tlk.cloudsc2_tl_cuda.launches
+    got = _host(tlk.cloudsc2_tl_cuda(s, dt, c))
+    assert tlk.cloudsc2_tl_cuda.launches == before + 1
+    want = _host(cloudsc2_tl(s, dt, c))
+    tend, diag = TL_TOL[dtype]
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    tol = nl_tolerances(tend, diag, c, np_dtype, perturbations=True)
+    assert_fields(got, want, tol, f"{cfg} {dtype} {ncols} lregcl={lregcl}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tl_kernel_tangent_only_on_card(cuda, dtype):
+    c = CONFIGS["levapls2"]()
+    s, dt = _state(1000, dtype, c, cuda, increment=True)
+    full = _host(tlk.cloudsc2_tl_cuda(s, dt, c))
+    only = _host(tlk.cloudsc2_tl_cuda(s, dt, c, tangent_only=True))
+    assert sorted(only) == sorted(k for k in full if k.endswith("_i"))
+    for k in only:
+        np.testing.assert_array_equal(only[k], full[k], err_msg=k)
+
+
+def test_tl_kernel_refuses_bad_inputs(cuda):
+    c = CONFIGS["default"]()
+    s, dt = _state(64, torch.float32, c, cuda, increment=True)
+    before = tlk.cloudsc2_tl_cuda.launches
+    with pytest.raises(ValueError, match="is on"):
+        tlk.cloudsc2_tl_cuda({**s, "q_i": s["q_i"].cpu()}, dt, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlk.cloudsc2_tl_cuda({**s, "t_i": s["t_i"].t().contiguous().t()}, dt, c)
+    with pytest.raises(TypeError, match="dtype"):
+        tlk.cloudsc2_tl_cuda({**s, "lu_i": s["lu_i"].double()}, dt, c)
+    with pytest.raises(ValueError, match="shape"):
+        tlk.cloudsc2_tl_cuda({**s, "aph_i": s["aph_i"][:-1]}, dt, c, tangent_only=True)
+    assert tlk.cloudsc2_tl_cuda.launches == before

@@ -1,7 +1,8 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The NL kernel's own body (kernels/csrc/nl_level.h through levelscan.cuh),
-compiled for the host with g++ -ffp-contract=off, vs the plain version.
+"""The NL and TL kernels' own bodies (kernels/csrc/nl_level.h and
+tl_level.h through levelscan.cuh), compiled for the host with g++
+-ffp-contract=off, vs their plain versions.
 
 This is the port's counterpart of running a Pallas kernel in interpret
 mode: the CUDA file itself only builds on a card, but its arithmetic is
@@ -11,6 +12,10 @@ f64 rtol 1e-12 with atol 1e-13 (the f64 atol of tests/test_nonlinear.py;
 values below it are rounding residues of cancelled sums), f32 the
 tests/test_pallas.py gate (rtol 2e-5, atol 1e-8 / 1e-6), fhps* with the
 flux-residue atol of ``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.
+The TL (every field and its ``*_i``): f64 rtol 1e-12 with an atol of 1e-13
+times the field's largest magnitude (measured: 1.5e-15 of it), f32 the TL
+gate of tests/test_pallas.py (rtol 3e-5, atol 1e-7 / 1e-5) with the same
+flux-residue atol.
 """
 import numpy as np
 import pytest
@@ -18,9 +23,21 @@ import torch
 
 from cloudsc2_tpu import iox
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
+from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.utils.compare import nl_tolerances
-from tests.torch_helpers import CONFIGS, ROBUST_CASES, assert_fields, assert_physical, flat, port_state, robust_state
+from tests.torch_helpers import (
+    CONFIGS,
+    ROBUST_CASES,
+    assert_fields,
+    assert_physical,
+    assert_scaled,
+    flat,
+    port_state,
+    port_tl_state,
+    robust_state,
+)
 
 torch.set_num_threads(1)
 
@@ -80,3 +97,60 @@ def test_host_body_finite(case, dtype):
     c = CONFIGS["default"]()
     s, dt = robust_state(case, dtype, c)
     assert_physical(nlk.cloudsc2_nl_host(s, dt, c))
+
+
+def test_tl_host_library_argument_lists():
+    lib = tlk._load("host")
+    assert lib.cloudsc2_tl_signature().decode() == tlk.signature()
+
+
+def _assert_tl_host(got, want, c, dtype, label):
+    if dtype == np.float64:
+        assert_scaled(got, want, 1e-12, 1e-13, label)
+    else:
+        tol = nl_tolerances((3e-5, 1e-7), (3e-5, 1e-5), c, dtype, perturbations=True)
+        assert_fields(got, want, tol, label)
+
+
+@pytest.mark.parametrize("lregcl", [True, False])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_tl_host_body_matches_plain(synth, cfg, dtype, lregcl):
+    _, state, dt = synth[dtype]
+    c = CONFIGS[cfg]().replace(LREGCL=lregcl)
+    s = port_tl_state(state, dtype, c)
+    got = flat(tlk.cloudsc2_tl_host(s, dt, c))
+    _assert_tl_host(got, flat(cloudsc2_tl(s, dt, c)), c, dtype, f"{cfg} {dtype.__name__} {lregcl}")
+    # the kernel assembles the fluxes itself: zero top row, fhps = -L * fpls
+    for sfx in ("", "_i"):
+        assert (got["fplsl" + sfx][0] == 0).all() and (got["fplsn" + sfx][0] == 0).all()
+        np.testing.assert_array_equal(got["fhpsl" + sfx], -got["fplsl" + sfx] * dtype(c.RLVTT))
+        np.testing.assert_array_equal(got["fhpsn" + sfx], -got["fplsn" + sfx] * dtype(c.RLSTT))
+    if not (c.LEVAPLS2 or c.LDRAIN1D):
+        assert (got["covptot"] == 0).all() and (got["covptot_i"] == 0).all()
+
+
+@pytest.mark.parametrize("ncols", [1, 37])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_tl_host_body_ragged_and_tangent_only(ncols, dtype):
+    """Any column count; ``tangent_only`` writes exactly the ``*_i`` outputs
+    of the full launch, bit for bit."""
+    c = CONFIGS["ldrain1d"]().replace(LREGCL=False)
+    _, state, dt = iox.synthesize_input(ncols=ncols, nlev=29, seed=4, dtype=dtype)
+    s = port_tl_state(state, dtype, c)
+    full = flat(tlk.cloudsc2_tl_host(s, dt, c))
+    _assert_tl_host(full, flat(cloudsc2_tl(s, dt, c)), c, dtype, f"ncols={ncols}")
+    only = flat(tlk.cloudsc2_tl_host(s, dt, c, tangent_only=True))
+    assert sorted(only) == sorted(k for k in full if k.endswith("_i"))
+    for k in only:
+        np.testing.assert_array_equal(only[k], full[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ROBUST_CASES)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_tl_host_body_finite(case, dtype):
+    """The robustness states stay finite through the TL kernel's body, with
+    the evaporation branch on (its guarded denominators)."""
+    c = CONFIGS["levapls2"]()
+    s, dt = robust_state(case, dtype, c, increment=True)
+    assert_physical(tlk.cloudsc2_tl_host(s, dt, c), strict_fluxes=False)

@@ -15,8 +15,17 @@ import pytest
 import torch
 
 from cloudsc2_tpu import iox, make_constants
+from cloudsc2_tpu_torch import dispatch
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
-from cloudsc2_tpu_torch.state import NL_CONST_NAMES, kernel_constants, state_from_numpy
+from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+from cloudsc2_tpu_torch.physics.increment import state_increment
+from cloudsc2_tpu_torch.state import (
+    NL_CONST_NAMES,
+    TL_CONST_NAMES,
+    kernel_constants,
+    state_from_numpy,
+    tl_kernel_constants,
+)
 
 torch.set_num_threads(1)
 
@@ -38,7 +47,11 @@ def test_port_sources_never_import_jax():
     jax_modules = ("jax", "jaxlib", "cloudsc2_tpu.physics", "cloudsc2_tpu.pallas",
                    "cloudsc2_tpu.components", "cloudsc2_tpu.dispatch", "cloudsc2_tpu.parallel",
                    "cloudsc2_tpu.validation")
-    files = sorted(PORT.rglob("*.py")) + [REPO / "drivers" / "run_nonlinear_torch.py", REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "drivers" / "run_nonlinear_torch.py",
+        REPO / "drivers" / "run_taylor_test_torch.py",
+        REPO / "chip_smoke.py",
+    ]
     assert len(files) > 10
     offenders = [
         f"{p.relative_to(REPO)}: {m}"
@@ -65,7 +78,7 @@ def test_port_import_leaves_jax_unloaded():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
-    ) + ["drivers.run_nonlinear_torch"]
+    ) + ["drivers.run_nonlinear_torch", "drivers.run_taylor_test_torch"]
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -167,3 +180,72 @@ def test_wrapper_checks_shapes_dtypes_and_options():
         nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV="approx"))
     with pytest.raises(NotImplementedError, match="CUADJ_COMPACT"):
         nlk.cloudsc2_nl_host(s, dt, c.replace(CUADJ_COMPACT=False))
+
+
+def test_tl_kernel_constants_fold_in_double_and_round_once():
+    """The TL constant struct is folded in double and rounded once; the
+    LREGCL autoconversion damping lives in dl_k/di_k."""
+    c = make_constants(lphylin=True, ldrain1d=False)
+    k64 = tl_kernel_constants(c, 1800.0, torch.float64)
+    k32 = tl_kernel_constants(c, 1800.0, torch.float32)
+    assert k64.shape == k32.shape == (len(TL_CONST_NAMES),)
+    assert k64.dtype == np.float64 and k32.dtype == np.float32
+    np.testing.assert_array_equal(k32, k64.astype(np.float32))
+    on = dict(zip(TL_CONST_NAMES, k64))
+    off = dict(zip(TL_CONST_NAMES, tl_kernel_constants(c.replace(LREGCL=False), 1800.0, torch.float64)))
+    lcrit = 2.0 * c.RCLCRIT
+    assert on["dl_k"] == 2.0 * (2.0 * c.RKCONV * 1800.0 / 100.0) / lcrit**2.0
+    assert off["dl_k"] == 2.0 * (2.0 * c.RKCONV * 1800.0) / lcrit**2.0
+    assert on["di_k"] == 5.0 * c.RKCONV * 1800.0 / 100.0 and off["di_k"] == 5.0 * c.RKCONV * 1800.0
+    assert on["beta_i_k"] == 0.5777 * c.RG * c.RPECONS / 0.00509
+    assert on["mdt_rg"] == -1800.0 * c.RG
+    # the constants shared with the NL struct are the same numbers
+    nl = dict(zip(NL_CONST_NAMES, kernel_constants(c, 1800.0, torch.float64)))
+    for n in set(NL_CONST_NAMES) & set(TL_CONST_NAMES):
+        assert on[n] == nl[n], n
+
+
+def _tl_cpu_state():
+    c = make_constants()
+    _, state, dt = iox.synthesize_input(ncols=8, nlev=5, seed=0)
+    s = state_from_numpy(state, torch.device("cpu"), torch.float64)
+    s["eta"] = s["ap"][:, 0] / s["aph"][-1, 0]
+    s["qsat"] = torch.zeros_like(s["ap"])
+    s.update(state_increment(s, 0.01))
+    return s, dt, c
+
+
+def test_tl_cuda_wrapper_raises_on_cpu_tensors():
+    """The TL CUDA wrapper launches or raises: CPU tensors are refused
+    before anything is built, and the launch count does not move."""
+    s, dt, c = _tl_cpu_state()
+    before = tlk.cloudsc2_tl_cuda.launches
+    for tangent_only in (False, True):
+        with pytest.raises(ValueError, match="cuda"):
+            tlk.cloudsc2_tl_cuda(s, dt, c, tangent_only)
+    assert tlk.cloudsc2_tl_cuda.launches == before
+
+
+def test_tl_wrapper_checks_shapes_dtypes_and_options():
+    s, dt, c = _tl_cpu_state()
+    with pytest.raises(TypeError, match="dtype"):
+        tlk.cloudsc2_tl_host({**s, "q_i": s["q_i"].float()}, dt, c)
+    with pytest.raises(ValueError, match="shape"):
+        tlk.cloudsc2_tl_host({**s, "aph_i": s["aph_i"][:-1]}, dt, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlk.cloudsc2_tl_host({**s, "t_i": s["t_i"].t().contiguous().t()}, dt, c)
+    with pytest.raises(KeyError):
+        tlk.cloudsc2_tl_host({k: v for k, v in s.items() if k != "lu_i"}, dt, c)
+    with pytest.raises(NotImplementedError, match="FAST_DIV"):
+        tlk.cloudsc2_tl_host(s, dt, c.replace(FAST_DIV="approx"))
+
+
+def test_dispatch_refuses_other_devices():
+    """Dispatch goes by device: a tensor on neither the CPU nor a CUDA
+    device has no implementation, and nothing falls back."""
+    s, dt, c = _tl_cpu_state()
+    meta = {k: v.to("meta") for k, v in s.items()}
+    with pytest.raises(ValueError, match="no NL implementation"):
+        dispatch.cloudsc2_nl(meta, dt, c)
+    with pytest.raises(ValueError, match="no TL implementation"):
+        dispatch.cloudsc2_tl(meta, dt, c)

@@ -12,6 +12,7 @@ import torch
 
 from cloudsc2_tpu import iox, make_constants
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.state import state_from_numpy
 from cloudsc2_tpu_torch.utils.compare import field_errors
@@ -34,6 +35,20 @@ def port_state(state_np, dtype, c):
     return s
 
 
+def port_tl_state(state_np, dtype, c, factor=0.01):
+    """:func:`port_state` plus the TL's perturbations ``factor * field``."""
+    s = port_state(state_np, dtype, c)
+    s.update(state_increment(s, factor))
+    return s
+
+
+def as_jax(state):
+    """The port's CPU tensors as JAX arrays, the same numbers."""
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v.numpy()) for k, v in state.items()}
+
+
 def jax_state(state_np, dtype, c):
     """The same numpy state for the JAX package, with its eta and qsat."""
     import jax.numpy as jnp
@@ -50,9 +65,10 @@ def jax_state(state_np, dtype, c):
 ROBUST_CASES = ("saturated", "dry", "threshold_t", "no_convection")
 
 
-def robust_state(case, dtype, c, ncols=128, nlev=53):
+def robust_state(case, dtype, c, ncols=128, nlev=53, increment=False):
     """The pathological states of tests/test_robustness.py (seed 7),
-    built on the port's tensors."""
+    built on the port's tensors; with ``increment`` the TL's perturbations
+    (0.01 times each field) are added."""
     _, st, dt = iox.synthesize_input(ncols=ncols, nlev=nlev, seed=7, dtype=dtype)
     s = port_state(st, dtype, c)
     z = torch.zeros_like(s["q"])
@@ -72,6 +88,8 @@ def robust_state(case, dtype, c, ncols=128, nlev=53):
     else:
         raise ValueError(case)
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    if increment:
+        s.update(state_increment(s, 0.01))
     return s, dt
 
 
@@ -86,6 +104,15 @@ def assert_fields(got, want, tol, label=""):
     errs = field_errors(got, want, tol)
     bad = {n: e for n, e in errs.items() if not e[2] <= 1.0}
     assert not bad, f"{label}: (max abs, max rel, share of limit) {bad}"
+
+
+def assert_scaled(got, want, rtol, atol_scale, label=""):
+    """Every field of ``want`` within ``rtol`` and an atol of ``atol_scale``
+    times the field's largest magnitude (the oracle gates of
+    tests/test_tl.py)."""
+    tol = {n: (rtol, atol_scale * max(float(np.abs(np.asarray(w, np.float64)).max()), 1e-300))
+           for n, w in want.items()}
+    assert_fields(got, want, tol, label)
 
 
 def assert_physical(out, *, strict_fluxes=True):
