@@ -3,12 +3,12 @@
 # Licensed under the Apache License, Version 2.0.
 """Smoke test of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-Phases; any failure raises and the script exits non-zero:
+Phases, each timed; any failure raises and the script exits non-zero:
 
 1. card: CUDA must be available; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the NL and TL kernels from the sources in this checkout,
-   one nvcc each, both at once; prints ptxas's registers and spills for
-   every instantiation.
+2. build: compiles the NL, TL and AD kernels from the sources in this
+   checkout, one nvcc each, all three at once; prints ptxas's registers and
+   spills for every instantiation.
 3. NL kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, for the three switch configurations
    (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
@@ -17,26 +17,46 @@ Phases; any failure raises and the script exits non-zero:
    LREGCL on and off at 4096 x 137 and the default at 65,536 x 137, and
    ``tangent_only`` against the ``*_i`` outputs of the full launch
    (bitwise).
-5. NL main path: the port's driver (``drivers/run_nonlinear_torch.py``
+5. NL trajectory: with ``with_trajectory`` the NL kernel's outputs are
+   bitwise those of the launch without it, and its trajectory is held
+   against the plain NL's at the NL tolerances of the fluxes (printed as
+   bitwise where it is), the three configurations, at 4096 x 137 in f64 and
+   f32 and at 100 x 137 in f64 (and at 65,536 x 137 in phase 10).
+6. AD kernels vs plain: the forward and reverse kernels against the plain
+   AD (the vjp of the plain TL), the three configurations with LREGCL on
+   and off, at the shapes of phase 5 (and the default at 65,536 x 137 in
+   phase 10), per field in units of its largest magnitude, lu_i and
+   lude_i in f32 also point by point
+   (``cloudsc2_tpu_torch.utils.compare.ad_limit``); zero seeds give exactly
+   zero cotangents; ``LPHYLIN=False`` is refused.
+7. NL main path: the port's driver (``drivers/run_nonlinear_torch.py``
    core()) through EtaLevels -> Saturation -> Cloudsc2NL on the card,
    double and single, at 100 and 65,536 columns, validated against the
    golden outputs (HOORAY), which are built in process as
    drivers/generate_reference.py builds them (no h5py needed); the NL
    kernel's launch count must grow.
-6. TL path: the Taylor protocol (``drivers/run_taylor_test_torch.py``
+8. TL path: the Taylor protocol (``drivers/run_taylor_test_torch.py``
    core()) through the NL and TL kernels on the card: double at 1 column;
    double per column at 65,536 columns; single with column 0 tiled over
    4096 columns and the f32 floors -- each must print HOORAY; and, as a
    reading, single per column at 65,536 columns.  Both launch counts must
    grow.
-7. timing at 65,536 x 137, f32 and f64, with CUDA events, beside the
+9. AD path: the symmetry protocol (``drivers/run_symmetry_test_torch.py``
+   core()) through the TL kernel and the AD's forward (NL) and reverse
+   kernels: double at 100 and 65,536 columns and single at 4096 columns
+   must print HOORAY; single at 65,536 columns is a reading.  The launch
+   counts of all three must grow.
+10. timing at 65,536 x 137, f32 and f64, with CUDA events, beside the
    card's name and power limit: each kernel against its plain version
    (kernel runs are batches of KERNEL_BATCH back-to-back calls, median of
-   10; the NL plain version median of 10, the TL plain version, slower,
-   median of 3), the TL kernel also with ``tangent_only``; and each
-   wrapper's host time per call (host clock around KERNEL_BATCH
-   asynchronous calls, before the synchronize).
-8. profile: torch.profiler over NL main-path steps (Saturation +
+   10; the NL plain version median of 10, the TL and AD plain versions,
+   slower, median of 3), the TL kernel also with ``tangent_only``, the AD's
+   forward and reverse kernels apart (after holding the AD and the
+   trajectory against their plain versions at this shape), each beside its
+   bound by bytes and by operations; and each wrapper's host time per call
+   (host clock around KERNEL_BATCH asynchronous calls, before the
+   synchronize).
+11. profile: torch.profiler over NL main-path steps (Saturation +
    Cloudsc2NL, f32, 65,536 x 137): device time of the NL kernel and of the
    rest, and the device's busy share.
 
@@ -59,7 +79,7 @@ NLEV = 137
 BIG = 65536
 SMALL = 4096
 #: kernel calls per timed batch: the wrapper's host work (checks, scalm,
-#: allocation, launch; phase 5 measures it) overlaps the previous call's
+#: allocation, launch; phase 10 measures it) overlaps the previous call's
 #: kernel, so the batch times the device
 KERNEL_BATCH = 10
 
@@ -240,7 +260,7 @@ def profile_main_path(torch, c, card, steps=20):
 
 
 def taylor_gates(torch, nlk, tlk, card):
-    """Phase 6: the Taylor protocol through the driver on the card.  Returns
+    """Phase 8: the Taylor protocol through the driver on the card.  Returns
     ``(NL launches, TL launches)`` of the phase."""
     from cloudsc2_tpu_torch.config import Config, TorchConfig
     from cloudsc2_tpu_torch.validation.taylor import FLOORS_PER_COLUMN
@@ -281,6 +301,276 @@ def taylor_gates(torch, nlk, tlk, card):
     return launches
 
 
+def ad_state(torch, ncols, dtype, c, seed):
+    """``(grid, state, dt)``: the AD's input as the symmetry protocol
+    assembles it on the card: the state with eta and qsat, its increments
+    (supsat zeroed) and the plain TL's outputs as the cotangent seeds."""
+    from cloudsc2_tpu_torch.physics.increment import state_increment
+    from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
+    from cloudsc2_tpu_torch.validation.symmetry import DIAG_NAMES, TEND_NAMES
+
+    grid, s, dt = make_state(torch, ncols, dtype, c, seed)
+    s.update(state_increment(s, 0.01, ignore_supsat=True))
+    tends, diags = cloudsc2_tl(s, dt, c)
+    for n in TEND_NAMES:
+        s["tnd_" + n] = tends[n]
+        s["tnd_" + n + "_i"] = tends[n + "_i"]
+    for n in DIAG_NAMES:
+        s[n + "_i"] = diags[n + "_i"]
+    return grid, s, dt
+
+
+def compare_ad(got, want, dtype, label):
+    """Hold the AD outputs ``got`` against ``want`` at the limits of
+    ``cloudsc2_tpu_torch.utils.compare.ad_limit``: print the worst field,
+    every field above 1e-7 of its scale, and for the fields held point by
+    point their absolute gate beside the median magnitude of their nonzero
+    points; raise beyond a limit.  Returns ``(worst scaled error, worst abs
+    error)``."""
+    import numpy as np
+
+    from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors, ad_limit, dtype_name
+
+    g = {n: v.cpu().numpy().astype(np.float64) for n, v in got.items()}
+    w = {n: v.cpu().numpy().astype(np.float64) for n, v in want.items()}
+    errs = ad_errors(g, w, dtype)
+    worst = max(errs, key=lambda n: errs[n][2])
+    max_abs = max(float(np.abs(g[n] - w[n]).max()) for n in w)
+    above = {n: float(f"{e[0]:.2e}") for n, e in errs.items() if e[0] > 1e-7}
+    print(f"  {label} worst {worst} {errs[worst][0]:.3e} of its scale, {errs[worst][2]:.3f} of its "
+          f"limit; max abs {max_abs:.3e}; fields above 1e-7 of their scale: {above}")
+    if dtype_name(dtype) == "float32":
+        for n in AD_F32_WIDE:
+            a = np.abs(w[n])
+            nz = a[a > 0]
+            lim, med_lim = ad_limit(n, dtype)
+            gate = lim * float(a.max())
+            print(f"  {label} {n}: {errs[n][0]:.3e} of its scale (limit {lim:g}), absolute gate "
+                  f"{gate:.3e} beside the median nonzero |{n}| {float(np.median(nz)) if nz.size else 0.0:.3e} "
+                  f"({nz.size} of {a.size} points nonzero, {int((nz > gate).sum())} above the gate); "
+                  f"median relative difference {errs[n][1]:.3e} (limit {med_lim:g})")
+    over = {n: (f"{e[0]:.3e}", f"{e[1]:.3e}") for n, e in errs.items() if not e[2] <= 1.0}
+    if over:
+        raise AssertionError(f"{label}: kernel differs from the plain version in (scaled, median "
+                             f"relative) {over}")
+    return max(e[0] for e in errs.values()), max_abs
+
+
+def compare_trajectory(torch, nlk, plain_nl, s, dt, c, label):
+    """Phase 5's check at one state: with ``with_trajectory`` the NL
+    kernel's outputs are bitwise those without it, and its trajectory is
+    held against the plain NL's (the carry entering level k is the flux at
+    interface k: the tolerances of fplsl, fplsn and covptot).  Returns the
+    trajectory's largest abs error."""
+    plain = flat(nlk.cloudsc2_nl_cuda(s, dt, c))
+    tends, diags, traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)
+    want = plain_nl(s, dt, c, with_trajectory=True)[2]
+    torch.cuda.synchronize()
+    differ = [k for k, v in {**tends, **diags}.items() if not torch.equal(v, plain[k])]
+    if differ:
+        raise AssertionError(f"{label} with_trajectory changes the NL outputs {differ}")
+    if sorted(traj) != sorted(want):
+        raise AssertionError(f"{label} trajectory streams {sorted(traj)}, want {sorted(want)}")
+    print(f"  {label} outputs bitwise equal to the launch without it")
+    tol = tolerances(torch, s["t"].dtype, c)
+    return compare(traj, want, {"c_rfl": tol["fplsl"], "c_sfl": tol["fplsn"], "c_cov": tol["covptot"]}
+                   if "c_cov" in want else {"c_rfl": tol["fplsl"], "c_sfl": tol["fplsn"]},
+                   f"{label} trajectory vs plain:")
+
+
+def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
+    """Phases 5 and 6: the NL kernel's trajectory and the AD kernels against
+    their plain versions, at 4096 x 137 in f64 and f32 and at 100 x 137 (the
+    symmetry path's smallest shape) in f64.  Returns the worst ``(scaled,
+    abs)`` errors of the AD by ``(dtype tag, configuration, LREGCL,
+    columns)``."""
+    from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors
+
+    shapes = ((torch.float64, SMALL), (torch.float64, 100), (torch.float32, SMALL))
+    t0 = time.perf_counter()
+    for dtype, ncols in shapes:
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c in configs.items():
+            _, s, dt = make_state(torch, ncols, dtype, c, seed=1)
+            compare_trajectory(torch, nlk, plain_nl, s, dt, c, f"[nl-trajectory {tag} {name} {ncols}x{NLEV}]")
+    print(f"[nl-trajectory] {time.perf_counter() - t0:.1f} s; {card}")
+
+    t0 = time.perf_counter()
+    ad_err = {}
+    for dtype, ncols in shapes:
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c in configs.items():
+            for lreg in (True, False):
+                cc = c.replace(LREGCL=lreg)
+                _, s, dt = ad_state(torch, ncols, dtype, cc, seed=1)
+                got = flat(adk.cloudsc2_ad_cuda(s, dt, cc))
+                want = flat(plain_ad(s, dt, cc))
+                torch.cuda.synchronize()
+                label = f"[ad-kernel-vs-plain {tag} {name} lregcl={int(lreg)} {ncols}x{NLEV}]"
+                ad_err[(tag, name, lreg, ncols)] = compare_ad(got, want, dtype, label)
+                if tag == "f32" and name == "default" and lreg:
+                    # which f32 side carries the detrainment cotangents' spread
+                    s64 = {k: v.double() for k, v in s.items()}
+                    ref = flat(plain_ad(s64, dt, cc))
+                    kern, pl = ({n: float(f"{e[0]:.3e}") for n, e in ad_errors(
+                        {n: side[n].cpu().numpy() for n in AD_F32_WIDE},
+                        {n: ref[n].cpu().numpy() for n in AD_F32_WIDE}, dtype).items()}
+                        for side in (got, want))
+                    print(f"  {label} against the f64 plain AD on the same inputs (a reading): kernel "
+                          f"{kern}, plain f32 AD {pl} of the scale")
+                del s, got, want
+    # zero seeds give exactly zero cotangents; LPHYLIN=False is refused
+    c0 = configs["levapls2"]
+    _, s, dt = ad_state(torch, SMALL, torch.float32, c0, seed=1)
+    for n in adk.AD_SEEDS:
+        s[n] = torch.zeros_like(s[n])
+    tends, diags = adk.cloudsc2_ad_cuda(s, dt, c0)
+    nonzero = [k for k, v in {**tends, **diags}.items() if k.endswith("_i") and v.abs().max().item() != 0.0]
+    if nonzero:
+        raise AssertionError(f"[ad-kernel] zero seeds gave nonzero cotangents in {nonzero}")
+    try:
+        adk.cloudsc2_ad_cuda(s, dt, c0.replace(LPHYLIN=False))
+    except ValueError as e:
+        print(f"  [ad-kernel] zero seeds: every cotangent exactly 0; LPHYLIN=False refused: {e}")
+    else:
+        raise AssertionError("[ad-kernel] LPHYLIN=False was not refused on CUDA tensors")
+    print(f"[ad-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
+    return ad_err
+
+
+def symmetry_gates(torch, nlk, tlk, adk, card):
+    """Phase 9: the symmetry protocol through the driver on the card.
+    Returns the launches of the phase by kernel."""
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from drivers.run_nonlinear_torch import synthetic_input
+    from drivers.run_symmetry_test_torch import core
+
+    cases = [  # (precision, columns, gate)
+        ("double", 100, True),
+        ("double", BIG, True),
+        ("single", SMALL, True),
+        ("single", BIG, False),
+    ]
+    for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda):
+        fn.launches = 0
+    for precision, ncols, gate in cases:
+        t0 = time.perf_counter()
+        rc, err = core(
+            Config(precision=precision, num_cols=ncols, num_runs=1),
+            TorchConfig(device="cuda:0", precision=precision),
+            inputs=synthetic_input(ncols, precision),
+        )
+        label = f"[symmetry {precision} {ncols} columns]"
+        print(f"{label} exit {rc}, error {err:.6e} machine epsilons ({'gate' if gate else 'reading'}; "
+              f"{time.perf_counter() - t0:.1f} s host clock; {card})")
+        if gate and rc != 0:
+            raise AssertionError(f"{label} failed: the symmetry verdict is not HOORAY")
+    launches = {
+        "cloudsc2_nl_cuda": nlk.cloudsc2_nl_cuda.launches,
+        "cloudsc2_tl_cuda": tlk.cloudsc2_tl_cuda.launches,
+        "cloudsc2_ad_cuda": adk.cloudsc2_ad_cuda.launches,
+    }
+    print(f"[symmetry] launches in this phase: {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError("the symmetry path did not launch all three CUDA kernels")
+    return launches
+
+
+#: the card's peak rates (H100 SXM data sheet, at 700 W): HBM, and
+#: arithmetic outside the tensor cores by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+#: flops per column-level: the NL step (the census value of
+#: cloudsc2_tpu_torch.utils.output.FLOPS_PER_POINT), the TL step (the count
+#: in tangent_linear.cu's note)
+NL_FLOPS, TL_FLOPS = 360, 700
+
+
+def bound(nbytes, flops, tag):
+    """``(bound ms, bound_by)``: the larger of the byte time at the HBM rate
+    and the operation time at the peak rate for the type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[tag] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ad_timing(torch, nlk, adk, plain_ad, plain_nl, c, card):
+    """Phase 10, the AD at 65,536 x 137, f32 and f64: the kernels' outputs
+    held against the plain AD's (and the trajectory against the plain
+    NL's) at this shape; the forward kernel (NL with trajectory) and the
+    reverse kernel timed apart, each against its bound; the plain AD timed.
+
+    The bound is that of the function, not of this design: the bytes that
+    each kernel must move, against the operations of the NL step (forward)
+    and of one NL level plus one transposed TL level (reverse); both are
+    set by their bytes.  The reverse kernel's own operation count, 12-14 TL
+    levels per level (its Jacobian columns), is printed as a reading."""
+    from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
+
+    out = {}
+    ntraj = len(trajectory_names(c))
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+    ndir = 14 if evap else 12
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        item = 8 if dtype == torch.float64 else 4
+        res = {}
+        _, s, dt = ad_state(torch, BIG, dtype, c, seed=2)
+        res["traj_abs"] = compare_trajectory(
+            torch, nlk, plain_nl, s, dt, c, f"[nl-trajectory {tag} default {BIG}x{NLEV}]")
+        # the plain AD, once for the comparison (its autograd tape's peak
+        # read), then timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        want = flat(plain_ad(s, dt, c))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got = flat(adk.cloudsc2_ad_cuda(s, dt, c))
+        res["err"] = compare_ad(got, want, dtype, f"[ad-kernel-vs-plain {tag} default lregcl=1 {BIG}x{NLEV}]")
+        del got, want
+        p_ms = [time_ms(torch, lambda: plain_ad(s, dt, c), 1) for _ in range(3)]
+        res["plain"] = statistics.median(p_ms)
+        print(f"[ad-timing {tag} plain AD {BIG}x{NLEV}] {res['plain']:.2f} ms (median of 3, CUDA events; "
+              f"autograd tape peak {peak / 2**30:.2f} GiB); runs {[round(v, 1) for v in p_ms]}; {card}")
+
+        traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
+        fwd = lambda: nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)  # noqa: E731
+        rev = lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)  # noqa: E731
+        for label, fn, nvals, flops, design_flops in (
+            # forward: 18 reads + 10 writes + the trajectory per level (+5 rows)
+            ("forward", fwd, NLEV * (28 + ntraj) + 5, NL_FLOPS, NL_FLOPS),
+            # reverse: 18 raw reads + 9 seeds (+covptot_i) + the trajectory,
+            # 16 writes per level; aph, the 4 flux seeds and aph_i have a row more
+            ("reverse", rev, NLEV * (18 + 9 + int(evap) + ntraj + 16) + 6, NL_FLOPS + TL_FLOPS,
+             ndir * TL_FLOPS),
+        ):
+            for f in (fn, fn):
+                f()
+            torch.cuda.synchronize()
+            k_ms, h_ms = [], []
+            for _ in range(10):
+                k_ms.append(time_ms(torch, fn, KERNEL_BATCH) / KERNEL_BATCH)
+                h_ms.append(host_ms(torch, fn, KERNEL_BATCH))
+            k, h = statistics.median(k_ms), statistics.median(h_ms)
+            nbytes = BIG * nvals * item
+            b_ms, b_by = bound(nbytes, BIG * NLEV * flops, tag)
+            design_ms = BIG * NLEV * design_flops / PEAK_FLOPS[tag] * 1e3
+            res[label] = (k, h, b_ms, b_by, design_ms)
+            print(f"[ad-timing {tag} {BIG}x{NLEV} {label}] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
+                  f"{nbytes / k / 1e6:.1f} GB/s); bound {b_ms:.4f} ms by {b_by} (bytes "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations of the function "
+                  f"{BIG * NLEV * flops / PEAK_FLOPS[tag] * 1e3:.4f} ms): {b_ms / k:.3f} of it"
+                  + (f"; operations of this design ({ndir} TL levels per level, a reading) "
+                     f"{design_ms:.4f} ms: {design_ms / k:.3f} of them" if label == "reverse" else "")
+                  + f"; wrapper host time {h:.4f} ms per call; kernel runs {[round(x, 4) for x in k_ms]}; "
+                  f"{card}")
+        out[tag] = res
+        del s, traj, fwd, rev
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -288,12 +578,14 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from cloudsc2_tpu_torch.kernels import adjoint as adk
     from cloudsc2_tpu_torch.kernels import build
     from cloudsc2_tpu_torch.kernels import nonlinear as nlk
     from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+    from cloudsc2_tpu_torch.params import make_constants
+    from cloudsc2_tpu_torch.physics.adjoint import cloudsc2_ad as plain_ad
     from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl as plain_nl
     from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl as plain_tl
-    from cloudsc2_tpu_torch.state import make_constants
     from cloudsc2_tpu_torch.utils.timing import Timer
     from drivers.run_nonlinear_torch import core, synthetic_golden, synthetic_input
 
@@ -305,8 +597,15 @@ def main() -> int:
           f"{kind}, {torch.cuda.device_count()} visible")
     torch.cuda.set_device(0)
 
-    # ---- 2. build, both kernels at once
-    build_kernels(build, {"cloudsc2_nl": nlk, "cloudsc2_tl": tlk}, card)
+    # ---- 2. build, the three libraries at once
+    build_kernels(build, {"cloudsc2_nl": nlk, "cloudsc2_tl": tlk, "cloudsc2_ad": adk}, card)
+    phase_t = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - phase_t:.1f} s")
+        phase_t = now
 
     # ---- 3. NL kernel vs plain on the same CUDA tensors
     c0 = make_constants(lphylin=True, ldrain1d=False)
@@ -327,6 +626,8 @@ def main() -> int:
             label = f"[kernel-vs-plain {tag} {name} {ncols}x{NLEV}]"
             max_abs[(tag, name, ncols)] = compare(got, want, tolerances(torch, dtype, c), label)
             del s, got, want
+
+    phase_done("3 NL kernel vs plain")
 
     # ---- 4. TL kernel vs plain, and tangent_only vs the full launch
     t0 = time.perf_counter()
@@ -352,10 +653,15 @@ def main() -> int:
             print(f"  {label} tangent_only: all {len(only)} *_i outputs bitwise equal to the full launch")
             del s, got, only, want
     print(f"[tl-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
+    phase_done("4 TL kernel vs plain")
 
-    # ---- 5. the NL main path through the driver, on the card
-    nlk.cloudsc2_nl_cuda.launches = 0
-    tlk.cloudsc2_tl_cuda.launches = 0
+    # ---- 5, 6. the NL kernel's trajectory and the AD kernels vs plain
+    ad_err = ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card)
+    phase_done("5-6 NL trajectory and AD kernel vs plain")
+
+    # ---- 7. the NL main path through the driver, on the card
+    for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda):
+        fn.launches = 0
     for precision in ("double", "single"):
         for ncols in (100, BIG):
             config = Config(precision=precision, num_cols=ncols, num_runs=5)
@@ -375,12 +681,20 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the CUDA kernel")
 
-    # ---- 6. the TL path: the Taylor protocol through both kernels
+    phase_done("7 NL main path")
+
+    # ---- 8. the TL path: the Taylor protocol through both kernels
+    adk.cloudsc2_ad_cuda.launches = 0
     t0 = time.perf_counter()
     _, tl_launches = taylor_gates(torch, nlk, tlk, card)
     print(f"[taylor] {time.perf_counter() - t0:.1f} s; {card}")
+    phase_done("8 TL path")
 
-    # ---- 7. timing at 65,536 x 137
+    # ---- 9. the AD path: the symmetry protocol through the TL, NL and AD kernels
+    ad_launches = symmetry_gates(torch, nlk, tlk, adk, card)["cloudsc2_ad_cuda"]
+    phase_done("9 AD path")
+
+    # ---- 10. timing at 65,536 x 137
     timing, tl_timing = {}, {}
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
@@ -390,7 +704,7 @@ def main() -> int:
         k, p, h, k_ms, p_ms = time_kernel(
             torch, lambda: nlk.cloudsc2_nl_cuda(s, dt, c0), lambda: plain_nl(s, dt, c0), 10)
         nbytes = BIG * (NLEV * 28 + 5) * item  # 18 reads + 10 writes per level (see nonlinear.cu)
-        timing[tag] = (k, p, h)
+        timing[tag] = (k, p, h, *bound(nbytes, BIG * NLEV * NL_FLOPS, tag))
         print(f"[timing {tag} {BIG}x{NLEV}] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
               f"{nbytes / k / 1e6:.1f} GB/s), plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), "
               f"wrapper host time {h:.4f} ms per call (host clock, median of 10 x {KERNEL_BATCH} calls); "
@@ -401,20 +715,25 @@ def main() -> int:
             k, p, h, k_ms, p_ms = time_kernel(
                 torch, lambda: tlk.cloudsc2_tl_cuda(s, dt, c0, tangent_only=only),
                 lambda: plain_tl(s, dt, c0, tangent_only=only), 3)
-            tl_timing[(tag, only)] = (k, p, h)
+            tl_timing[(tag, only)] = (k, p, h, *bound(BIG * nvals * item, BIG * NLEV * TL_FLOPS, tag))
             print(f"[tl-timing {tag} {BIG}x{NLEV}{' tangent_only' if only else ''}] kernel {k:.4f} ms "
                   f"({BIG / k * 1e3:.4e} cols/s, {BIG * nvals * item / k / 1e6:.1f} GB/s), "
                   f"plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), wrapper host time {h:.4f} ms per call "
                   f"(host clock, median of 10 x {KERNEL_BATCH} calls); kernel runs "
                   f"{[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
         del s
+    ad_time = ad_timing(torch, nlk, adk, plain_ad, plain_nl, c0, card)
     print(f"[timing] {time.perf_counter() - t0:.1f} s; {card}")
+    phase_done("10 timing")
 
-    # ---- 8. where the NL main path's time goes (torch.profiler, f32, 65,536 columns)
+    # ---- 11. where the NL main path's time goes (torch.profiler, f32, 65,536 columns)
     profile_main_path(torch, c0, card)
+    phase_done("11 profile")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
     print(card)
+    fwd32, rev32 = ad_time["f32"]["forward"], ad_time["f32"]["reverse"]
+    fwd64, rev64 = ad_time["f64"]["forward"], ad_time["f64"]["reverse"]
     print(json.dumps({"kernels": [{
         "name": "cloudsc2_nl",
         "route": "cuda",
@@ -428,6 +747,10 @@ def main() -> int:
         "plain_ms": timing["f32"][1],
         "ms_f64": timing["f64"][0],
         "plain_ms_f64": timing["f64"][1],
+        "bound_ms": timing["f32"][3],
+        "bound_by": timing["f32"][4],
+        "bound_ms_f64": timing["f64"][3],
+        "library_ms": None,
         "host_ms": timing["f32"][2],
         "host_ms_f64": timing["f64"][2],
         "shape": [NLEV, BIG],
@@ -445,8 +768,47 @@ def main() -> int:
         "plain_ms_f64": tl_timing[("f64", False)][1],
         "ms_tangent_only": tl_timing[("f32", True)][0],
         "ms_tangent_only_f64": tl_timing[("f64", True)][0],
+        "bound_ms": tl_timing[("f32", False)][3],
+        "bound_by": tl_timing[("f32", False)][4],
+        "bound_ms_f64": tl_timing[("f64", False)][3],
+        "library_ms": None,
         "host_ms": tl_timing[("f32", False)][2],
         "host_ms_f64": tl_timing[("f64", False)][2],
+        "shape": [NLEV, BIG],
+    }, {
+        "name": "cloudsc2_ad",
+        "route": "cuda",
+        "source": "cloudsc2_tpu_torch/kernels/csrc/adjoint.cu",
+        "replaces": "cloudsc2_tpu/pallas/adjoint.py:125",
+        "harness": "the reverse form of levelscan.cuh replaces cloudsc2_tpu/pallas/levelscan.py:402 (reverse=True)",
+        "forward": "the NL kernel with_trajectory (cloudsc2_tpu/pallas/nonlinear.py:214-226)",
+        "launches": ad_launches,
+        "max_abs_err": ad_time["f32"]["err"][1],
+        "max_abs_err_f64": ad_time["f64"]["err"][1],
+        "max_scaled_err": ad_time["f32"]["err"][0],
+        "max_scaled_err_f64": ad_time["f64"]["err"][0],
+        "max_scaled_err_small": max(v[0] for k, v in ad_err.items() if k[0] == "f32"),
+        "max_scaled_err_small_f64": max(v[0] for k, v in ad_err.items() if k[0] == "f64"),
+        "traj_max_abs_err": ad_time["f32"]["traj_abs"],
+        "traj_max_abs_err_f64": ad_time["f64"]["traj_abs"],
+        "ms": fwd32[0] + rev32[0],
+        "fwd_ms": fwd32[0],
+        "rev_ms": rev32[0],
+        "plain_ms": ad_time["f32"]["plain"],
+        "ms_f64": fwd64[0] + rev64[0],
+        "fwd_ms_f64": fwd64[0],
+        "rev_ms_f64": rev64[0],
+        "plain_ms_f64": ad_time["f64"]["plain"],
+        "bound_ms": fwd32[2] + rev32[2],
+        "bound_by": "bytes" if fwd32[3] == rev32[3] == "bytes" else "operations",
+        "fwd_bound_ms": fwd32[2],
+        "rev_bound_ms": rev32[2],
+        "bound_ms_f64": fwd64[2] + rev64[2],
+        "rev_design_ops_ms": rev32[4],
+        "rev_design_ops_ms_f64": rev64[4],
+        "library_ms": None,
+        "host_ms": fwd32[1] + rev32[1],
+        "host_ms_f64": fwd64[1] + rev64[1],
         "shape": [NLEV, BIG],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,13 +2,13 @@
 # Licensed under the Apache License, Version 2.0.
 """Component layer; the port of :mod:`cloudsc2_tpu.components`
 (``Component``, ``EtaLevels``, ``Saturation``, ``StateIncrement``,
-``PerturbedState``, ``Cloudsc2NL``, ``Cloudsc2TL``).
+``PerturbedState``, ``Cloudsc2NL``, ``Cloudsc2TL``, ``Cloudsc2AD``).
 
 Components are ``torch.nn.Module``s with the same property declarations
 (name -> ``{dims, units}``) and the same output dicts as the JAX
 components; ``forward`` takes the state dict (and the timestep for the
-scheme).  Unit-tagged inputs are converted and stripped by the shared
-:mod:`cloudsc2_tpu.units`.  Each ``forward`` runs in a
+scheme).  Unit-tagged inputs are converted and stripped by
+:mod:`cloudsc2_tpu_torch.units`.  Each ``forward`` runs in a
 :func:`~cloudsc2_tpu_torch.utils.timing.timing` block named after the
 component and ends in a device sync, so the label measures execution.
 """
@@ -20,11 +20,12 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 
-from cloudsc2_tpu.grid import Grid
-from cloudsc2_tpu.params import Constants
-from cloudsc2_tpu.units import convert, strip_units
+from cloudsc2_tpu_torch.grid import Grid
+from cloudsc2_tpu_torch.params import Constants
+from cloudsc2_tpu_torch.units import convert, strip_units
 from cloudsc2_tpu_torch import dispatch
 from cloudsc2_tpu_torch.physics import increment as _increment
+from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.utils import timing as _timing
@@ -32,8 +33,8 @@ from cloudsc2_tpu_torch.utils import timing as _timing
 Tensor = torch.Tensor
 PropertyDict = Dict[str, Dict[str, Any]]
 
-# the property tables of cloudsc2_tpu/components.py:37-81, 226-275, 321-335
-# (that module imports jax, so they are restated here)
+# the property tables of cloudsc2_tpu/components.py:37-81, 226-275, 321-335,
+# 351-400 (that module imports jax, so they are restated here)
 FULL = ("levels", "columns")
 IFACE = ("levels+1", "columns")
 VERT = ("levels",)
@@ -62,8 +63,8 @@ _NL_DIAGS = {
 
 
 def _strip_units(value: Any, to_units: str) -> Any:
-    """:func:`cloudsc2_tpu.units.strip_units` for unit-tagged tensors: the
-    shared parser and dimension check give the factor, applied as a Python
+    """:func:`cloudsc2_tpu_torch.units.strip_units` for unit-tagged tensors:
+    the parser and dimension check give the factor, applied as a Python
     number so that the tensor keeps its dtype."""
     data = getattr(value, "data", None)
     units = getattr(value, "units", None)
@@ -242,3 +243,31 @@ class Cloudsc2TL(Component):
     ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
         state = self._check_state(state)
         return dispatch.cloudsc2_tl(state, timestep, self.constants)
+
+
+class Cloudsc2AD(Component):
+    """Adjoint CLOUDSC2: the NL inputs plus the output cotangent seeds in,
+    the forward outputs and the input cotangents out.  CUDA tensors run the
+    hand-written kernels (``LPHYLIN=True`` only), CPU tensors the plain
+    version (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_ad`)."""
+
+    input_properties = _props({
+        **_NL_INPUTS,
+        **{"tnd_" + n: FULL for n in TEND_UNITS},
+        **{"tnd_" + n + "_i": FULL for n in TEND_UNITS},
+        **{n + "_i": d for n, d in _NL_DIAGS.items()},
+    })
+    tendency_properties = {
+        **{n: {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()},
+        **{"cml_" + n + "_i": {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()},
+    }
+    diagnostic_properties = _props({
+        **_NL_DIAGS,
+        **{n + "_i": (IFACE if n == "aph" else FULL) for n in AD_COTANGENT_FIELDS},
+    })
+
+    def forward(
+        self, state: Dict[str, Tensor], timestep: float
+    ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+        state = self._check_state(state)
+        return dispatch.cloudsc2_ad(state, timestep, self.constants)

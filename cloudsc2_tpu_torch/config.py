@@ -1,23 +1,87 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Execution configuration: the PyTorch analogue of
-:class:`cloudsc2_tpu.config.JaxConfig` (device + precision).
+"""Configuration of the port's drivers.
 
-The driver-level :class:`cloudsc2_tpu.config.Config` (precision, column
-count, runs, validation files) is numpy-only and is reused as it is; it is
-re-exported here.
+:class:`Config` is the driver configuration (precision, column count,
+runs, checks, validation, files) with ``with_*`` builders, restated from
+:class:`cloudsc2_tpu.config.Config` without its JAX execution settings:
+where and in what precision the scheme runs is :class:`TorchConfig`.
+:data:`DEFAULT_CONFIG` and the default file paths are those of
+``drivers/config.py``.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
+from typing import Any, Optional
 
+import numpy as np
 import torch
 
-from cloudsc2_tpu.config import Config
-
-__all__ = ["Config", "DTYPES", "TorchConfig"]
+__all__ = [
+    "Config", "DEFAULT_CONFIG", "DTYPES", "TorchConfig", "default_input_file",
+    "default_reference_file",
+]
 
 DTYPES = {"double": torch.float64, "single": torch.float32}
+
+_DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "data")
+
+
+@dataclass(frozen=True)
+class Config:
+    """Driver configuration (reference ``drivers/config.py:25-48``)."""
+
+    precision: str = "double"  # "double" | "single"
+    num_cols: int = 100
+    num_runs: int = 1
+    enable_checks: bool = False
+    enable_validation: bool = True
+    input_file: Optional[str] = None
+    reference_file: Optional[str] = None
+
+    @property
+    def dtype(self) -> Any:
+        return np.float64 if self.precision == "double" else np.float32
+
+    def with_precision(self, p: str) -> "Config":
+        if p not in DTYPES:
+            raise ValueError(f"precision must be double|single, got {p!r}")
+        return dataclasses.replace(self, precision=p)
+
+    def with_checks(self, enabled: bool) -> "Config":
+        return dataclasses.replace(self, enable_checks=enabled)
+
+    def with_validation(self, enabled: bool) -> "Config":
+        return dataclasses.replace(self, enable_validation=enabled)
+
+    def with_num_cols(self, n: int) -> "Config":
+        return dataclasses.replace(self, num_cols=n)
+
+    def with_num_runs(self, n: int) -> "Config":
+        return dataclasses.replace(self, num_runs=n)
+
+    def with_input_file(self, f: Optional[str]) -> "Config":
+        return dataclasses.replace(self, input_file=f)
+
+    def with_reference_file(self, f: Optional[str]) -> "Config":
+        return dataclasses.replace(self, reference_file=f)
+
+
+DEFAULT_CONFIG = Config()
+
+
+def default_input_file() -> Optional[str]:
+    """``data/input_synth.h5`` (the upstream ``input.h5`` schema), if it
+    exists; drivers tile its columns to ``--num-cols``."""
+    path = os.path.normpath(os.path.join(_DATA_DIR, "input_synth.h5"))
+    return path if os.path.exists(path) else None
+
+
+def default_reference_file(precision: str) -> str:
+    """The golden outputs of the synthetic workload for ``precision``."""
+    return os.path.normpath(os.path.join(_DATA_DIR, f"reference_synth_{precision}.h5"))
 
 
 @dataclass(frozen=True)

@@ -14,9 +14,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
+from cloudsc2_tpu_torch.kernels.adjoint import cloudsc2_ad_cuda
 from cloudsc2_tpu_torch.kernels.nonlinear import cloudsc2_nl_cuda
 from cloudsc2_tpu_torch.kernels.tangent_linear import cloudsc2_tl_cuda
+from cloudsc2_tpu_torch.physics import adjoint as _plain_ad
 from cloudsc2_tpu_torch.physics import nonlinear as _plain
 from cloudsc2_tpu_torch.physics import tangent_linear as _plain_tl
 
@@ -48,3 +50,17 @@ def cloudsc2_tl(
     if device.type == "cpu":
         return _plain_tl.cloudsc2_tl(state, dt, c, tangent_only)
     raise ValueError(f"no TL implementation for device {device}")
+
+
+def cloudsc2_ad(
+    state: Dict[str, Tensor], dt: float, c: Constants
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One AD step (the counterpart of ``tl_ad_fns(impl)[1]``): the CUDA
+    kernels for CUDA tensors (which require ``LPHYLIN=True`` and raise
+    otherwise), the plain vjp of the TL for CPU tensors."""
+    device = state["ap"].device
+    if device.type == "cuda":
+        return cloudsc2_ad_cuda(state, dt, c)
+    if device.type == "cpu":
+        return _plain_ad.cloudsc2_ad(state, dt, c)
+    raise ValueError(f"no AD implementation for device {device}")

@@ -9,7 +9,10 @@
 // expression is the JAX expression with the same operand order, so that
 // the roundings are the same (the rules are in scalar_math.h).
 // Static switches are template bools, as the JAX body's Python bools:
-//   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D.
+//   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D,
+//   TRAJ: also write the carry entering each level, the trajectory the
+//   adjoint's reverse sweep re-linearizes around (with_trajectory of
+//   cloudsc2_tpu/pallas/nonlinear.py:214-226).
 #pragma once
 
 #include <string.h>
@@ -34,10 +37,14 @@ namespace cloudsc2 {
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
   X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t) X(eta) X(scalm)
 
-// (nlev, ncols) fields, except the fluxes (nlev+1, ncols)
+// (nlev, ncols) fields, except the fluxes (nlev+1, ncols).  The trajectory
+// c_rfl, c_sfl, c_cov is written only with TRAJ, and c_cov only with EVAP
+// too: with the evaporation branch compiled out the TL never reads the
+// covptot carry (the c_cov elision of pallas/nonlinear.py:218-225).  Those
+// not written may be null.
 #define CLOUDSC2_NL_OUTPUTS(X)                                                 \
   X(tnd_t) X(tnd_q) X(tnd_ql) X(tnd_qi) X(clc) X(covptot) X(fplsl) X(fplsn)    \
-  X(fhpsl) X(fhpsn)
+  X(fhpsl) X(fhpsn) X(c_rfl) X(c_sfl) X(c_cov)
 
 #define CLOUDSC2_STR(n) #n ","
 inline const char* nl_signature() {
@@ -369,7 +376,7 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
 // ------------------------------------------------------------ column body ----
 // The Body of level_scan_column: what cloudsc2_nl_pallas
 // (cloudsc2_tpu/pallas/nonlinear.py:76) computes, for one column.
-template <typename T, bool THERMO, bool EVAP>
+template <typename T, bool THERMO, bool EVAP, bool TRAJ>
 struct NLBody {
   NLFields<T> f;
   NLConst<T> c;
@@ -417,6 +424,11 @@ struct NLBody {
     x.t_fg = f.t[i] + c.dt * f.tnd_cml_t[i];
     x.eta = f.eta[k];
     x.scalm = f.scalm[k];
+    if (TRAJ) {
+      f.c_rfl[i] = s.carry.rfl;
+      f.c_sfl[i] = s.carry.sfl;
+      if (EVAP) f.c_cov[i] = s.carry.covptot;
+    }
     const NLLevelOut<T> o = nl_level<T, THERMO, EVAP>(s.carry, x, s.col, c);
     f.tnd_t[i] = o.tnd_t;
     f.tnd_q[i] = o.tnd_q;
@@ -432,10 +444,10 @@ struct NLBody {
 };
 
 // Fill a body from the wrapper's pointer lists (orders as in the X-lists).
-template <typename T, bool THERMO, bool EVAP>
-inline NLBody<T, THERMO, EVAP> make_nl_body(const void* const* in, void* const* out,
-                                           const void* consts, int nlev, int ncols) {
-  NLBody<T, THERMO, EVAP> b;
+template <typename T, bool THERMO, bool EVAP, bool TRAJ>
+inline NLBody<T, THERMO, EVAP, TRAJ> make_nl_body(const void* const* in, void* const* out,
+                                                 const void* consts, int nlev, int ncols) {
+  NLBody<T, THERMO, EVAP, TRAJ> b;
   int i = 0;
 #define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
   CLOUDSC2_NL_INPUTS(CLOUDSC2_FIELD)
@@ -450,20 +462,27 @@ inline NLBody<T, THERMO, EVAP> make_nl_body(const void* const* in, void* const* 
   return b;
 }
 
-// Call L.template run<T, THERMO, EVAP>() for the runtime switches; this
-// instantiates all 4 switch pairs x 2 dtypes.
+// Call L.template run<T, THERMO, EVAP, TRAJ>() for the runtime switches;
+// this instantiates all 8 switch triples x 2 dtypes.
+template <class L, typename T, bool THERMO, bool EVAP>
+inline int nl_dispatch_traj(const L& launcher, int traj) {
+  return traj ? launcher.template run<T, THERMO, EVAP, true>()
+              : launcher.template run<T, THERMO, EVAP, false>();
+}
+
+template <class L, typename T>
+inline int nl_dispatch_t(const L& launcher, int thermo, int evap, int traj) {
+  if (thermo)
+    return evap ? nl_dispatch_traj<L, T, true, true>(launcher, traj)
+                : nl_dispatch_traj<L, T, true, false>(launcher, traj);
+  return evap ? nl_dispatch_traj<L, T, false, true>(launcher, traj)
+              : nl_dispatch_traj<L, T, false, false>(launcher, traj);
+}
+
 template <class L>
-inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap) {
-  if (is_double) {
-    if (thermo) return evap ? launcher.template run<double, true, true>()
-                            : launcher.template run<double, true, false>();
-    return evap ? launcher.template run<double, false, true>()
-                : launcher.template run<double, false, false>();
-  }
-  if (thermo) return evap ? launcher.template run<float, true, true>()
-                          : launcher.template run<float, true, false>();
-  return evap ? launcher.template run<float, false, true>()
-              : launcher.template run<float, false, false>();
+inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap, int traj) {
+  return is_double ? nl_dispatch_t<L, double>(launcher, thermo, evap, traj)
+                   : nl_dispatch_t<L, float>(launcher, thermo, evap, traj);
 }
 
 }  // namespace cloudsc2

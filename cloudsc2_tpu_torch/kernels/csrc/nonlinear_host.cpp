@@ -15,9 +15,10 @@ struct HostRunner {
   const void* consts;
   int nlev, ncols;
 
-  template <typename T, bool THERMO, bool EVAP>
+  template <typename T, bool THERMO, bool EVAP, bool TRAJ>
   int run() const {
-    cloudsc2::level_scan_host(cloudsc2::make_nl_body<T, THERMO, EVAP>(in, out, consts, nlev, ncols));
+    cloudsc2::level_scan_host(
+        cloudsc2::make_nl_body<T, THERMO, EVAP, TRAJ>(in, out, consts, nlev, ncols));
     return 0;
   }
 };
@@ -30,11 +31,11 @@ const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
 // Same arguments as cloudsc2_nl_launch (nonlinear.cu) with host pointers
 // and no stream.
-int cloudsc2_nl_host(int is_double, int thermo, int evap, const void* const* in,
+int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, const void* const* in,
                      void* const* out, const void* consts, int nlev, int ncols) {
   if (nlev < 1 || ncols < 1) return 1;
   const HostRunner r{in, out, consts, nlev, ncols};
-  return cloudsc2::nl_dispatch(r, is_double, thermo, evap);
+  return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 """The CLOUDSC2 nonlinear kernel for Hopper and its wrapper.
 
 Replaces the Pallas kernel :func:`cloudsc2_tpu.pallas.nonlinear.
-cloudsc2_nl_pallas` (``pallas/nonlinear.py:76``) and, for it, the level-scan
-harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
+cloudsc2_nl_pallas` (``pallas/nonlinear.py:76``), its ``with_trajectory``
+form (``:214-226``, the adjoint's forward sweep) included, and, for it, the
+level-scan harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
 CUDA C++ (``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and
 ``csrc/levelscan.cuh``): one thread per column, the carry in registers, the
 levels in a loop.  It is bound by device-memory bytes; the note at the top
@@ -24,9 +25,14 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
-from cloudsc2_tpu_torch.physics.nonlinear import check_constants, scalm_profile
+from cloudsc2_tpu_torch.physics.nonlinear import (
+    TRAJ_OUTPUTS,
+    check_constants,
+    scalm_profile,
+    trajectory_names,
+)
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, kernel_constants
 
 Tensor = torch.Tensor
@@ -36,16 +42,18 @@ NL_INPUTS = (
     "ap", "aph", "lu", "lude", "mfd", "mfu", "q", "qi", "ql", "qsat", "supsat",
     "t", "tnd_cml_q", "tnd_cml_qi", "tnd_cml_ql", "tnd_cml_t", "eta", "scalm",
 )
-NL_OUTPUTS = (
+#: (the step's outputs, then the trajectory of ``with_trajectory``)
+STEP_OUTPUTS = (
     "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot", "fplsl", "fplsn",
     "fhpsl", "fhpsn",
 )
+NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS
 _IFACE = ("aph", "fplsl", "fplsn", "fhpsl", "fhpsn")
 _VERT = ("eta", "scalm")
 _DTYPES = (torch.float32, torch.float64)
 
 _P = ctypes.c_void_p
-_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int]
+_ARGS = [ctypes.c_int] * 4 + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
 
 
 def signature() -> str:
@@ -122,14 +130,18 @@ def check_inputs(
 
 
 def _marshal(
-    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str
+    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, with_trajectory: bool
 ) -> Tuple[List[Tensor], Dict[str, Tensor], Tensor, torch.dtype]:
     """Check the state, and return the kernel's inputs in order, freshly
-    allocated outputs, the constant struct and the dtype."""
+    allocated outputs (``None`` for a trajectory output not written), the
+    constant struct and the dtype."""
     ins, dtype = check_inputs(state, c, device_type, NL_INPUTS, _IFACE)
     nlev, ncols = state["ap"].shape
+    written = trajectory_names(c) if with_trajectory else ()
     outs = {
-        n: torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device)
+        n: None if n in TRAJ_OUTPUTS and n not in written else torch.empty(
+            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
+        )
         for n in NL_OUTPUTS
     }
     consts = torch.from_numpy(kernel_constants(c, dt, dtype))
@@ -141,61 +153,61 @@ def ptrs(tensors) -> ctypes.Array:
     return (_P * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
 
 
-def _switches(c: Constants, dtype: torch.dtype) -> Tuple[int, int, int]:
+def _switches(c: Constants, dtype: torch.dtype, with_trajectory: bool) -> Tuple[int, int, int, int]:
     return (
         int(dtype == torch.float64),
         int(bool(c.LPHYLIN or c.LDRAIN1D)),
         int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
+        int(with_trajectory),
     )
 
 
-def _assemble(outs: Dict[str, Tensor]) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+def _assemble(outs: Dict[str, Tensor], with_trajectory: bool):
     tends = {"t": outs["tnd_t"], "q": outs["tnd_q"], "ql": outs["tnd_ql"], "qi": outs["tnd_qi"]}
     diags = {n: outs[n] for n in ("clc", "covptot", "fplsl", "fplsn", "fhpsl", "fhpsn")}
-    return tends, diags
+    if not with_trajectory:
+        return tends, diags
+    return tends, diags, {n: outs[n] for n in TRAJ_OUTPUTS if outs[n] is not None}
 
 
-def cloudsc2_nl_cuda(
-    state: Dict[str, Tensor], dt: float, c: Constants
-) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+def cloudsc2_nl_cuda(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
     """One NL step through the CUDA kernel, on PyTorch's current stream.
 
     Same contract as :func:`cloudsc2_tpu_torch.physics.nonlinear.
     cloudsc2_nl`: contiguous CUDA tensors of one float dtype, any
-    ``ncols``.  Raises on anything else, on a failed build and on a refused
-    launch; never falls back to the plain version.  Each launch adds one to
-    ``cloudsc2_nl_cuda.launches``.
+    ``ncols``; ``(tendencies, diagnostics)``, and with ``with_trajectory``
+    the trajectory dict as a third element.  Raises on anything else, on a
+    failed build and on a refused launch; never falls back to the plain
+    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``.
     """
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cuda")
+    ins, outs, consts, dtype = _marshal(state, dt, c, "cuda", with_trajectory)
     lib = load_cuda()
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cloudsc2_nl_launch(
-            *_switches(c, dtype), ptrs(ins), ptrs(list(outs.values())),
+            *_switches(c, dtype, with_trajectory), ptrs(ins), ptrs(list(outs.values())),
             consts.data_ptr(), nlev, ncols, stream,
         )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
     cloudsc2_nl_cuda.launches += 1
-    return _assemble(outs)
+    return _assemble(outs, with_trajectory)
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
 
 
-def cloudsc2_nl_host(
-    state: Dict[str, Tensor], dt: float, c: Constants
-) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+def cloudsc2_nl_host(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cpu")
+    ins, outs, consts, dtype = _marshal(state, dt, c, "cpu", with_trajectory)
     lib = _load("host")
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_nl_host(
-        *_switches(c, dtype), ptrs(ins), ptrs(list(outs.values())),
+        *_switches(c, dtype, with_trajectory), ptrs(ins), ptrs(list(outs.values())),
         consts.data_ptr(), nlev, ncols,
     )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl host body failed: {err}")
-    return _assemble(outs)
+    return _assemble(outs, with_trajectory)
 

@@ -24,9 +24,9 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
-from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, NL_OUTPUTS, check_inputs, ptrs
+from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, STEP_OUTPUTS, check_inputs, ptrs
 from cloudsc2_tpu_torch.state import TL_CONST_NAMES, tl_kernel_constants
 
 Tensor = torch.Tensor
@@ -34,7 +34,7 @@ Tensor = torch.Tensor
 #: argument orders of ``CLOUDSC2_TL_INPUTS`` / ``_OUTPUTS`` in ``tl_level.h``:
 #: the NL lists, then the perturbation of each field and output
 TL_INPUTS = NL_INPUTS[:-2] + tuple(n + "_i" for n in NL_INPUTS[:-2]) + NL_INPUTS[-2:]
-TL_OUTPUTS = NL_OUTPUTS + tuple(n + "_i" for n in NL_OUTPUTS)
+TL_OUTPUTS = STEP_OUTPUTS + tuple(n + "_i" for n in STEP_OUTPUTS)
 _IFACE = ("aph", "aph_i") + tuple(
     n + s for n in ("fplsl", "fplsn", "fhpsl", "fhpsn") for s in ("", "_i")
 )

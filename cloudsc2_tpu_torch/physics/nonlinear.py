@@ -22,7 +22,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels.levelscan import level_scan
 from cloudsc2_tpu_torch.physics import fcttre
 from cloudsc2_tpu_torch.physics.cuadjtqs import cuadjtqs_nl
@@ -38,6 +38,17 @@ class NLCarry(NamedTuple):
     rfl: Tensor  # rain flux entering the level from above
     sfl: Tensor  # snow flux entering the level from above
     covptot: Tensor  # running maximum-overlap precipitation cover
+
+
+#: the trajectory of ``with_trajectory``: the carry entering each level
+TRAJ_OUTPUTS = ("c_rfl", "c_sfl", "c_cov")
+
+
+def trajectory_names(c: Constants) -> Tuple[str, ...]:
+    """The trajectory streams of ``with_trajectory``: ``c_cov`` only with
+    the evaporation branch, the one place the TL reads the covptot carry
+    (``pallas/nonlinear.py:218-225``)."""
+    return TRAJ_OUTPUTS if (c.LEVAPLS2 or c.LDRAIN1D) else TRAJ_OUTPUTS[:2]
 
 
 def check_constants(c: Constants) -> None:
@@ -393,14 +404,15 @@ def prepare_level_inputs(state: Dict[str, Tensor], dt: float, c: Constants) -> D
     return xs
 
 
-def cloudsc2_nl(
-    state: Dict[str, Tensor], dt: float, c: Constants
-) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+def cloudsc2_nl(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
     """Run the nonlinear scheme over all levels.
 
     Returns ``(tendencies, diagnostics)``: tendencies ``t, q, ql, qi``
     ``(nlev, ncols)``; diagnostics ``clc, covptot`` ``(nlev, ncols)`` and
-    ``fplsl, fplsn, fhpsl, fhpsn`` ``(nlev + 1, ncols)``.
+    ``fplsl, fplsn, fhpsl, fhpsn`` ``(nlev + 1, ncols)``.  With
+    ``with_trajectory`` a third element: the carry entering each level,
+    ``(nlev, ncols)`` each, named by :func:`trajectory_names` (the
+    trajectory the adjoint's reverse sweep re-linearizes around).
     """
     check_constants(c)
     xs = prepare_level_inputs(state, dt, c)
@@ -409,8 +421,12 @@ def cloudsc2_nl(
     coeffs = critical_rh_coeffs(trpaus)
     col = {"aph_s": state["aph"][-1], "trpaus": trpaus}
 
+    traj_names = trajectory_names(c) if with_trajectory else ()
+
     def body(carry, x, col):
+        entering = dict(zip(TRAJ_OUTPUTS, carry))
         carry, outs = nl_level(NLCarry(*carry), x, col["aph_s"], col["trpaus"], dt, c, coeffs)
+        outs.update({n: entering[n] for n in traj_names})
         return tuple(carry), outs
 
     ys = level_scan(body, xs, col, scalars, ncarry=3)
@@ -426,4 +442,6 @@ def cloudsc2_nl(
         "fhpsl": -fplsl * c.RLVTT,
         "fhpsn": -fplsn * c.RLSTT,
     }
-    return tends, diags
+    if not with_trajectory:
+        return tends, diags
+    return tends, diags, {n: ys[n] for n in traj_names}

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics import fcttre
 from cloudsc2_tpu_torch.physics.fastmath import div
 

@@ -29,7 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels.levelscan import level_scan
 from cloudsc2_tpu_torch.physics.cuadjtqs import cuadjtqs_tl
 from cloudsc2_tpu_torch.physics.fastmath import div, rcp, sel0, select

@@ -2,13 +2,11 @@
 # Licensed under the Apache License, Version 2.0.
 """How the model's parameters reach the port.
 
-CLOUDSC2 has no weights: its parameters are the shared
-:class:`~cloudsc2_tpu.params.Constants` and the input state.  The state
-comes from the JAX package's numpy I/O (:func:`cloudsc2_tpu.iox.load_input`
-or :func:`~cloudsc2_tpu.iox.synthesize_input`) and becomes tensors here;
-the constants become the NL and TL kernels' argument structs.  ``make_constants``
-is the JAX package's own builder, re-exported so that callers of the port
-need import nothing from there.
+CLOUDSC2 has no weights: its parameters are the
+:class:`~cloudsc2_tpu_torch.params.Constants` and the input state.  The
+state comes from the numpy I/O (:func:`cloudsc2_tpu_torch.iox.load_input`
+or :func:`~cloudsc2_tpu_torch.iox.synthesize_input`) and becomes tensors
+here; the constants become the kernels' argument structs.
 """
 from __future__ import annotations
 
@@ -17,13 +15,13 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from cloudsc2_tpu import iox
-from cloudsc2_tpu.grid import Grid
-from cloudsc2_tpu.params import Constants, make_constants
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.grid import Grid
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.nonlinear import lcrit_icrit
 
-__all__ = ["NL_CONST_NAMES", "TL_CONST_NAMES", "Constants", "kernel_constants",
-           "make_constants", "state_from_numpy", "synthesize_state", "tl_kernel_constants"]
+__all__ = ["NL_CONST_NAMES", "TL_CONST_NAMES", "kernel_constants", "state_from_numpy",
+           "synthesize_state", "tl_kernel_constants"]
 
 _NUMPY = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -57,8 +55,7 @@ TL_CONST_NAMES = (
 def state_from_numpy(
     state_np: Mapping[str, np.ndarray], device: torch.device, dtype: torch.dtype
 ) -> Dict[str, torch.Tensor]:
-    """The JAX package's numpy state as contiguous tensors of ``dtype`` on
-    ``device``."""
+    """A numpy state as contiguous tensors of ``dtype`` on ``device``."""
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device=device, dtype=dtype)
         for k, v in state_np.items()
@@ -68,8 +65,8 @@ def state_from_numpy(
 def synthesize_state(
     ncols: int, nlev: int, seed: int, device: torch.device, dtype: torch.dtype
 ) -> Tuple[Grid, Dict[str, torch.Tensor], float]:
-    """``(grid, state, dt)``: the JAX package's seeded synthetic state
-    (:func:`cloudsc2_tpu.iox.synthesize_input`) as tensors on ``device``."""
+    """``(grid, state, dt)``: the seeded synthetic state
+    (:func:`cloudsc2_tpu_torch.iox.synthesize_input`) as tensors on ``device``."""
     grid, state_np, dt = iox.synthesize_input(ncols=ncols, nlev=nlev, seed=seed)
     return grid, state_from_numpy(state_np, device, dtype), dt
 

@@ -1,5 +1,5 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Framework utilities.  Validation and performance output are the JAX
-package's numpy-only modules (:mod:`cloudsc2_tpu.utils.validation`,
-:mod:`cloudsc2_tpu.utils.output`); only the device sync is torch's."""
+"""Framework utilities: timing and the device sync, golden validation,
+performance output, and the field-by-field comparison of the kernels with
+their plain versions."""

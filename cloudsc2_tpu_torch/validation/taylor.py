@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from cloudsc2_tpu.params import Constants
+from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch import dispatch
 from cloudsc2_tpu_torch.physics.increment import perturbed_state, state_increment
 from cloudsc2_tpu_torch.physics.saturation import saturation

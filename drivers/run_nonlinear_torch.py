@@ -31,7 +31,11 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from drivers.config import DEFAULT_CONFIG, default_input_file, default_reference_file  # noqa: E402
+from cloudsc2_tpu_torch.config import (  # noqa: E402
+    DEFAULT_CONFIG,
+    default_input_file,
+    default_reference_file,
+)
 
 Fields = Dict[str, np.ndarray]
 
@@ -46,10 +50,11 @@ def _dtype(precision: str) -> Any:
 
 def synthetic_input(ncols: int, precision: str):
     """``(grid, state, dt, constants)`` equal to what
-    :func:`cloudsc2_tpu.iox.load_input` gives for ``data/input_synth.h5``
-    tiled to ``ncols``, without reading the file."""
-    from cloudsc2_tpu import iox, make_constants
-    from cloudsc2_tpu.grid import Grid
+    :func:`cloudsc2_tpu_torch.iox.load_input` gives for
+    ``data/input_synth.h5`` tiled to ``ncols``, without reading the file."""
+    from cloudsc2_tpu_torch import iox
+    from cloudsc2_tpu_torch.grid import Grid
+    from cloudsc2_tpu_torch.params import make_constants
 
     _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
     state = {k: iox._tile_columns(v, ncols).astype(_dtype(precision)) for k, v in state.items()}
@@ -60,9 +65,10 @@ def synthetic_golden(ncols: int, precision: str) -> Tuple[Fields, Fields]:
     """The golden tendencies and diagnostics of
     ``data/reference_synth_{precision}.h5`` tiled to ``ncols``, computed in
     process by the scalar oracle exactly as ``drivers/generate_reference.py``
-    writes them and :func:`cloudsc2_tpu.iox.read_reference` reads them."""
-    from cloudsc2_tpu import iox, make_constants
-    from cloudsc2_tpu.oracle import oracle_nonlinear, oracle_saturation
+    writes them and :func:`cloudsc2_tpu_torch.iox.read_reference` reads them."""
+    from cloudsc2_tpu_torch import iox
+    from cloudsc2_tpu_torch.oracle import oracle_nonlinear, oracle_saturation
+    from cloudsc2_tpu_torch.params import make_constants
 
     dtype = _dtype(precision)
     _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
@@ -109,7 +115,7 @@ def core(
 ) -> int:
     """Run the scheme and validate; returns the exit code (0 on success).
 
-    ``config`` is a :class:`cloudsc2_tpu.config.Config` (precision, columns,
+    ``config`` is a :class:`cloudsc2_tpu_torch.config.Config` (precision, columns,
     runs, checks, validation, files); ``torch_config`` a
     :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
     state, dt, constants)``) and ``reference`` (``(tendencies,
@@ -117,12 +123,13 @@ def core(
     """
     import torch
 
-    from cloudsc2_tpu import iox, make_constants
-    from cloudsc2_tpu.utils.output import print_performance
-    from cloudsc2_tpu.utils.validation import validate
+    from cloudsc2_tpu_torch import iox
     from cloudsc2_tpu_torch.components import Cloudsc2NL, EtaLevels, Saturation
+    from cloudsc2_tpu_torch.params import make_constants
     from cloudsc2_tpu_torch.state import state_from_numpy
+    from cloudsc2_tpu_torch.utils.output import print_performance
     from cloudsc2_tpu_torch.utils.timing import Timer, device_sync, timing
+    from cloudsc2_tpu_torch.utils.validation import validate
 
     device = torch_config.apply()
     dtype = _dtype(config.precision)

@@ -1,7 +1,7 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The CUDA NL and TL kernels on the card (marker ``cuda``; skipped without a
-GPU).
+"""The CUDA NL, TL and AD kernels on the card (marker ``cuda``; skipped
+without a GPU).
 
 Run on a machine with an NVIDIA Hopper GPU and nvcc:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,15 +15,22 @@ the f64 double gate (rtol 1e-10, atol 1e-16) and the f32 Pallas gate
 ``cloudsc2_tpu_torch.utils.compare.nl_tolerances``.  The TL kernel (every
 field and its ``*_i``): the same f64 gate, the f32 TL gate of
 tests/test_pallas.py (rtol 3e-5, atol 1e-7 / 1e-5), fhps* likewise; its
-``tangent_only`` outputs bitwise equal to the full launch's ``*_i``.
+``tangent_only`` outputs bitwise equal to the full launch's ``*_i``.  The
+NL kernel's ``with_trajectory``: the step's outputs bitwise unchanged, the
+carry entering level k bitwise the flux at interface k.  The AD kernels
+against the plain AD, every field within the limits of
+``cloudsc2_tpu_torch.utils.compare.ad_limit`` (those of chip_smoke.py), and
+the symmetry driver's HOORAY through them.
 """
 import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.kernels import adjoint as adk
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
 from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+from cloudsc2_tpu_torch.physics.adjoint import cloudsc2_ad
 from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
@@ -31,7 +38,7 @@ from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.state import state_from_numpy
 from cloudsc2_tpu_torch.utils.compare import nl_tolerances
-from tests.torch_helpers import CONFIGS, assert_fields, flat
+from tests.torch_helpers import CONFIGS, assert_ad, assert_fields, flat
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +142,70 @@ def test_tl_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shape"):
         tlk.cloudsc2_tl_cuda({**s, "aph_i": s["aph_i"][:-1]}, dt, c, tangent_only=True)
     assert tlk.cloudsc2_tl_cuda.launches == before
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nl_kernel_trajectory_on_card(cuda, cfg, dtype):
+    c = CONFIGS[cfg]()
+    s, dt = _state(1000, dtype, c, cuda)
+    plain = _host(nlk.cloudsc2_nl_cuda(s, dt, c))
+    tends, diags, traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)
+    got = _host((tends, diags))
+    for k in plain:
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    np.testing.assert_array_equal(traj["c_rfl"].cpu().numpy(), got["fplsl"][:-1])
+    np.testing.assert_array_equal(traj["c_sfl"].cpu().numpy(), got["fplsn"][:-1])
+    assert ("c_cov" in traj) == bool(c.LEVAPLS2 or c.LDRAIN1D)
+
+
+def _ad_state(ncols, dtype, c, device):
+    s, dt = _state(ncols, dtype, c, device)
+    s.update(state_increment(s, 0.01, ignore_supsat=True))
+    tends, diags = cloudsc2_tl(s, dt, c)
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n + "_i"] = tends[n + "_i"]
+    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+        s[n + "_i"] = diags[n + "_i"]
+    return s, dt
+
+
+@pytest.mark.parametrize("lregcl", [True, False])
+@pytest.mark.parametrize("ncols", [1, 1000])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ad_kernel_matches_plain_on_card(cuda, ncols, cfg, dtype, lregcl):
+    c = CONFIGS[cfg]().replace(LREGCL=lregcl)
+    s, dt = _ad_state(ncols, dtype, c, cuda)
+    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    got = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = _host(cloudsc2_ad(s, dt, c))
+    assert len(want) == 26
+    assert_ad(got, want, dtype, f"{cfg} {dtype} {ncols} {lregcl}")
+
+
+def test_ad_kernel_refuses_bad_inputs(cuda):
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(64, torch.float32, c, cuda)
+    before = adk.cloudsc2_ad_cuda.launches
+    with pytest.raises(ValueError, match="LPHYLIN"):
+        adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=False))
+    with pytest.raises(ValueError, match="is on"):
+        adk.cloudsc2_ad_cuda({**s, "clc_i": s["clc_i"].cpu()}, dt, c)
+    with pytest.raises(ValueError, match="shape"):
+        adk.cloudsc2_ad_cuda({**s, "fplsl_i": s["fplsl_i"][:-1]}, dt, c)
+    with pytest.raises(KeyError):
+        adk.cloudsc2_ad_cuda({k: v for k, v in s.items() if k != "tnd_q_i"}, dt, c)
+    assert adk.cloudsc2_ad_cuda.launches == before
+
+
+@pytest.mark.parametrize("precision", ["double", "single"])
+def test_symmetry_driver_on_card(cuda, precision, capsys):
+    from drivers.run_symmetry_test_torch import main
+
+    before = adk.cloudsc2_ad_cuda.launches
+    rc = main(["--device", "cuda", "--precision", precision, "--num-cols", "1000"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "HOORAY" in out, out
+    assert adk.cloudsc2_ad_cuda.launches == before + 1

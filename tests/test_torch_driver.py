@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox, make_constants
-from cloudsc2_tpu.units import UnitArray, UnitsError
+from cloudsc2_tpu_torch import iox
 from cloudsc2_tpu_torch.components import Cloudsc2NL, EtaLevels, Saturation
+from cloudsc2_tpu_torch.config import default_input_file, default_reference_file
+from cloudsc2_tpu_torch.params import make_constants
 from cloudsc2_tpu_torch.state import state_from_numpy
+from cloudsc2_tpu_torch.units import UnitArray, UnitsError
 from drivers import run_nonlinear_torch as drv
-from drivers.config import default_input_file, default_reference_file
 
 torch.set_num_threads(1)
 
@@ -41,8 +42,7 @@ def test_driver_cuda_without_card_raises():
 
 def test_driver_detects_wrong_answers(capsys):
     """Validation is live: a golden perturbed by 1e-6 relative fails."""
-    from cloudsc2_tpu.config import Config
-    from cloudsc2_tpu_torch.config import TorchConfig
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
 
     tends, diags = drv.synthetic_golden(100, "double")
     tends = dict(tends, t=tends["t"] * (1 + 1e-6))

@@ -1,8 +1,8 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The NL and TL kernels' own bodies (kernels/csrc/nl_level.h and
-tl_level.h through levelscan.cuh), compiled for the host with g++
--ffp-contract=off, vs their plain versions.
+"""The NL, TL and AD kernels' own bodies (kernels/csrc/nl_level.h,
+tl_level.h and ad_level.h through levelscan.cuh), compiled for the host
+with g++ -ffp-contract=off, vs their plain versions.
 
 This is the port's counterpart of running a Pallas kernel in interpret
 mode: the CUDA file itself only builds on a card, but its arithmetic is
@@ -16,24 +16,39 @@ The TL (every field and its ``*_i``): f64 rtol 1e-12 with an atol of 1e-13
 times the field's largest magnitude (measured: 1.5e-15 of it), f32 the TL
 gate of tests/test_pallas.py (rtol 3e-5, atol 1e-7 / 1e-5) with the same
 flux-residue atol.
+The NL with its trajectory: the step's outputs bitwise those without it,
+and the carry entering level k bitwise the flux at interface k.  The AD
+(the host NL with its trajectory, then the reverse body) against the plain
+AD, every field within the limits of
+``cloudsc2_tpu_torch.utils.compare.ad_limit``: a share of its largest
+magnitude, f64 1e-10 (measured 8.6e-14), f32 2e-6, lu_i 5e-5, lude_i
+1e-5 and qsat_i 2e-5 with a median relative difference below 1e-3 (the
+two f32 roundings of cotangents that sum cancelling terms; at this size
+both f32 sides' lu_i and lude_i, which go as 1/lu_next**2, stay within
+those shares of the f64 plain AD on the same inputs, which
+``test_ad_f32_detrainment_spread_is_rounding`` holds).
 """
 import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.kernels import adjoint as adk
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
 from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+from cloudsc2_tpu_torch.physics.adjoint import cloudsc2_ad
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
-from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, nl_tolerances
 from tests.torch_helpers import (
     CONFIGS,
     ROBUST_CASES,
+    assert_ad,
     assert_fields,
     assert_physical,
     assert_scaled,
     flat,
+    port_ad_state,
     port_state,
     port_tl_state,
     robust_state,
@@ -154,3 +169,98 @@ def test_tl_host_body_finite(case, dtype):
     c = CONFIGS["levapls2"]()
     s, dt = robust_state(case, dtype, c, increment=True)
     assert_physical(tlk.cloudsc2_tl_host(s, dt, c), strict_fluxes=False)
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_host_body_with_trajectory(synth, cfg, dtype):
+    """``with_trajectory`` leaves the step's outputs bitwise unchanged; the
+    carry entering level k is bitwise the flux at interface k; ``c_cov``
+    only with evaporation, within the NL tolerance of the plain one."""
+    _, state, dt = synth[dtype]
+    c = CONFIGS[cfg]()
+    s = port_state(state, dtype, c)
+    plain = flat(nlk.cloudsc2_nl_host(s, dt, c))
+    tends, diags, traj = nlk.cloudsc2_nl_host(s, dt, c, with_trajectory=True)
+    got = flat((tends, diags))
+    for k in plain:
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    evap = c.LEVAPLS2 or c.LDRAIN1D
+    assert sorted(traj) == (["c_cov", "c_rfl", "c_sfl"] if evap else ["c_rfl", "c_sfl"])
+    np.testing.assert_array_equal(traj["c_rfl"].numpy(), got["fplsl"][:-1])
+    np.testing.assert_array_equal(traj["c_sfl"].numpy(), got["fplsn"][:-1])
+    want = cloudsc2_nl(s, dt, c, with_trajectory=True)[2]
+    assert sorted(want) == sorted(traj)
+    tend, diag = TOL[dtype]
+    tol = nl_tolerances(tend, diag, c, dtype)
+    assert_fields({k: v.numpy() for k, v in traj.items()}, {k: v.numpy() for k, v in want.items()},
+                  {"c_rfl": tol["fplsl"], "c_sfl": tol["fplsn"], "c_cov": tol["covptot"]} if evap
+                  else {"c_rfl": tol["fplsl"], "c_sfl": tol["fplsn"]}, cfg)
+
+
+def test_ad_host_library_argument_lists():
+    lib = adk._load("host")
+    assert lib.cloudsc2_ad_signature().decode() == adk.signature()
+
+
+@pytest.mark.parametrize("lregcl", [True, False])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ad_host_body_matches_plain(cfg, dtype, lregcl):
+    c = CONFIGS[cfg]().replace(LREGCL=lregcl)
+    _, state, dt = iox.synthesize_input(ncols=16, nlev=137, seed=0, dtype=dtype)
+    s = port_ad_state(state, dtype, c, dt)
+    got = flat(adk.cloudsc2_ad_host(s, dt, c))
+    want = flat(cloudsc2_ad(s, dt, c))
+    assert len(want) == 26
+    assert_ad(got, want, dtype, f"{cfg} {lregcl}")
+    # the kernel assembles the cotangents itself
+    assert (got["lu_i"][0] == 0).all()
+    np.testing.assert_array_equal(got["mfu_i"], got["mfd_i"])
+    np.testing.assert_array_equal(got["q_i"], got["supsat_i"])
+    np.testing.assert_array_equal(got["cml_t_i"], (got["t_i"] * dtype(dt)).astype(dtype))
+
+
+def test_ad_f32_detrainment_spread_is_rounding():
+    """Where the f32 host body and the f32 plain AD part most (lu_i,
+    lude_i), each stays within the f32 gate of the f64 plain AD on the same
+    inputs: the spread is f32 rounding on both sides."""
+    c = CONFIGS["default"]()
+    _, state, dt = iox.synthesize_input(ncols=16, nlev=137, seed=0, dtype=np.float32)
+    s32 = port_ad_state(state, np.float32, c, dt)
+    ref = flat(cloudsc2_ad({k: v.double() for k, v in s32.items()}, dt, c))
+    for side, got in (("host body", adk.cloudsc2_ad_host(s32, dt, c)), ("plain", cloudsc2_ad(s32, dt, c))):
+        got = flat(got)
+        for n in ("lu_i", "lude_i"):
+            assert_scaled({n: got[n]}, {n: ref[n]}, 0.0, AD_F32_WIDE[n], side)
+
+
+@pytest.mark.parametrize("ncols", [1, 37])
+def test_ad_host_body_ragged_and_zero_seeds(ncols):
+    """Any column count; zero seeds give exactly zero cotangents."""
+    c = CONFIGS["ldrain1d"]()
+    _, state, dt = iox.synthesize_input(ncols=ncols, nlev=29, seed=4)
+    s = port_ad_state(state, np.float64, c, dt)
+    assert_ad(flat(adk.cloudsc2_ad_host(s, dt, c)), flat(cloudsc2_ad(s, dt, c)), np.float64, f"ncols={ncols}")
+    for n in adk.AD_SEEDS:
+        s[n] = torch.zeros_like(s[n])
+    tends, diags = adk.cloudsc2_ad_host(s, dt, c)
+    for k, v in {**tends, **diags}.items():
+        if k.endswith("_i"):
+            assert v.abs().max().item() == 0.0, k
+
+
+@pytest.mark.parametrize("case", ROBUST_CASES)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ad_host_body_finite(case, dtype):
+    """The robustness states stay finite through the AD kernels' bodies,
+    with the evaporation branch on."""
+    c = CONFIGS["levapls2"]()
+    s, dt = robust_state(case, dtype, c, ncols=32, nlev=53, increment=True)
+    tends, diags = cloudsc2_tl(s, dt, c)
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n + "_i"] = tends[n + "_i"]
+    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+        s[n + "_i"] = diags[n + "_i"]
+    for k, v in flat(adk.cloudsc2_ad_host(s, dt, c)).items():
+        assert np.isfinite(v).all(), f"{case}: {k} has non-finite values"

@@ -14,15 +14,17 @@ the plain version of the CUDA kernel) vs the JAX package and the oracle.
   ``cloudsc2_tpu_torch.utils.compare.flux_residue`` (a fully evaporated
   flux leaves a few-ulp residue of either sign, which differs between
   PyTorch's and XLA's exp).
+* ``with_trajectory`` (f32, 1024 x 53) vs the Pallas kernel's trajectory
+  at the tolerances of the fluxes and covptot.
 * invariants and the four robustness states of tests/test_robustness.py.
 """
 import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox
 from cloudsc2_tpu.oracle import oracle_nonlinear
 from cloudsc2_tpu.physics.nonlinear import cloudsc2_nl as jax_nl
+from cloudsc2_tpu_torch import iox
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu_torch.utils.compare import DIAGNOSTICS, TENDENCIES, nl_tolerances
 from tests.torch_helpers import (
@@ -31,6 +33,7 @@ from tests.torch_helpers import (
     assert_fields,
     assert_physical,
     flat,
+    jax_constants,
     jax_state,
     port_state,
     robust_state,
@@ -52,7 +55,7 @@ def test_plain_nl_matches_jax_scan_f64(synth64, cfg):
     state, dt = synth64
     c = CONFIGS[cfg]()
     got = flat(cloudsc2_nl(port_state(state, np.float64, c), dt, c))
-    want = flat(jax_nl(jax_state(state, np.float64, c), dt, c))
+    want = flat(jax_nl(jax_state(state, np.float64, c), dt, jax_constants(c)))
     assert_fields(got, want, F64_TOL, cfg)
 
 
@@ -62,7 +65,7 @@ def test_plain_nl_matches_oracle_f64(synth64, cfg):
     c = CONFIGS[cfg]()
     s = port_state(state, np.float64, c)
     got = flat(cloudsc2_nl(s, dt, c))
-    want = oracle_nonlinear({k: v.numpy() for k, v in s.items()}, dt, c)
+    want = oracle_nonlinear({k: v.numpy() for k, v in s.items()}, dt, jax_constants(c))
     assert_fields(got, {**want[0], **want[1]}, F64_TOL, cfg)
 
 
@@ -79,9 +82,33 @@ def test_plain_nl_f32_matches_pallas_interpret(synth32_small, cfg):
     state, dt = synth32_small
     c = CONFIGS[cfg]()
     got = flat(cloudsc2_nl(port_state(state, np.float32, c), dt, c))
-    want = flat(cloudsc2_nl_pallas(jax_state(state, np.float32, c), dt, c, interpret=True, wb=128))
+    want = flat(cloudsc2_nl_pallas(jax_state(state, np.float32, c), dt, jax_constants(c), interpret=True, wb=128))
     tol = nl_tolerances((2e-5, 1e-8), (2e-5, 1e-6), c, np.float32)
     assert_fields(got, want, tol, cfg)
+
+
+@pytest.mark.parametrize("cfg", ["default", "levapls2"])
+def test_plain_nl_f32_trajectory_matches_pallas_interpret(synth32_small, cfg):
+    """``with_trajectory``: the carry entering each level, as the Pallas
+    kernel's ``with_trajectory`` returns it (``c_cov`` only with
+    evaporation), at the NL tolerances of the fluxes and of covptot; the
+    step's outputs are those of the call without it, bitwise."""
+    from cloudsc2_tpu.pallas.nonlinear import cloudsc2_nl_pallas
+
+    state, dt = synth32_small
+    c = CONFIGS[cfg]()
+    s = port_state(state, np.float32, c)
+    tends, diags, traj = cloudsc2_nl(s, dt, c, with_trajectory=True)
+    plain = flat(cloudsc2_nl(s, dt, c))
+    for k, v in flat((tends, diags)).items():
+        np.testing.assert_array_equal(v, plain[k], err_msg=k)
+    want = cloudsc2_nl_pallas(jax_state(state, np.float32, c), dt, jax_constants(c), interpret=True,
+                              wb=128, with_trajectory=True)[2]
+    assert sorted(traj) == sorted(want)
+    tol = nl_tolerances((2e-5, 1e-8), (2e-5, 1e-6), c, np.float32)
+    names = {"c_rfl": "fplsl", "c_sfl": "fplsn", "c_cov": "covptot"}
+    assert_fields({k: v.numpy() for k, v in traj.items()}, {k: np.asarray(v) for k, v in want.items()},
+                  {k: tol[names[k]] for k in want}, cfg)
 
 
 def test_plain_nl_invariants(synth64):

@@ -1,9 +1,13 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""Guards of the PyTorch port (cloudsc2_tpu_torch): it never imports jax,
-its GPU smoke test refuses to run without a card, its state conversion is
-exact, and its wrappers raise rather than fall back."""
+"""Guards of the PyTorch port (cloudsc2_tpu_torch): it imports neither jax
+nor anything of the JAX package, its copies of the JAX package's numpy-only
+modules equal their originals, its GPU smoke test refuses to run without a
+card, its state conversion is exact, and its wrappers raise rather than fall
+back."""
 import ast
+import dataclasses
+import itertools
 import os
 import pathlib
 import shutil
@@ -14,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox, make_constants
-from cloudsc2_tpu_torch import dispatch
+from cloudsc2_tpu_torch import dispatch, iox
+from cloudsc2_tpu_torch.kernels import adjoint as adk
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
 from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+from cloudsc2_tpu_torch.params import Constants, constants_from_mapping, make_constants
 from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.state import (
     NL_CONST_NAMES,
@@ -31,6 +36,10 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "cloudsc2_tpu_torch"
+#: the port's drivers, which import the port only
+DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch")
+#: what the port may not import: jax, and the JAX package with any module of it
+FORBIDDEN = ("jax", "jaxlib", "cloudsc2_tpu")
 
 
 def _imported_modules(path):
@@ -42,22 +51,18 @@ def _imported_modules(path):
 
 
 def test_port_sources_never_import_jax():
-    """AST scan: no file of the port (nor its driver and smoke test)
-    imports jax or a module of the JAX package that does."""
-    jax_modules = ("jax", "jaxlib", "cloudsc2_tpu.physics", "cloudsc2_tpu.pallas",
-                   "cloudsc2_tpu.components", "cloudsc2_tpu.dispatch", "cloudsc2_tpu.parallel",
-                   "cloudsc2_tpu.validation")
-    files = sorted(PORT.rglob("*.py")) + [
-        REPO / "drivers" / "run_nonlinear_torch.py",
-        REPO / "drivers" / "run_taylor_test_torch.py",
-        REPO / "chip_smoke.py",
+    """AST scan: no file of the port (nor its drivers and smoke test)
+    imports jax, the JAX package or any module of it, nor the JAX drivers'
+    configuration (which imports the JAX package)."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "drivers" / f"{d}.py" for d in DRIVERS] + [
+        REPO / "chip_smoke.py"
     ]
     assert len(files) > 10
     offenders = [
         f"{p.relative_to(REPO)}: {m}"
         for p in files
         for m in _imported_modules(p)
-        if any(m == j or m.startswith(j + ".") for j in jax_modules)
+        if m == "drivers.config" or any(m == j or m.startswith(j + ".") for j in FORBIDDEN)
     ]
     assert not offenders, offenders
 
@@ -73,24 +78,28 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_import_leaves_jax_unloaded():
-    """Importing every module of the port and its driver in a fresh process
-    with ``import jax`` blocked succeeds, and leaves jax out of sys.modules."""
+    """Importing every module of the port and its drivers in a fresh process
+    with jax and the JAX package blocked succeeds, and leaves both out of
+    sys.modules."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
-    ) + ["drivers.run_nonlinear_torch", "drivers.run_taylor_test_torch"]
+    ) + [f"drivers.{d}" for d in DRIVERS]
     code = (
         "import importlib, importlib.abc, sys\n"
+        f"FORBIDDEN = {FORBIDDEN!r}\n"
+        "def forbidden(name):\n"
+        "    return name.split('.')[0] in FORBIDDEN\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name == 'jax' or name.startswith('jax.') or name == 'jaxlib':\n"
-        "            raise ImportError('jax is blocked: ' + name)\n"
-        "for m in [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]:\n"
+        "        if forbidden(name):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "for m in [m for m in sys.modules if forbidden(m)]:\n"
         "    del sys.modules[m]\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert 'jax' not in sys.modules\n"
+        "assert not [m for m in sys.modules if forbidden(m)]\n"
         "print('ok', len(sys.modules))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -249,3 +258,117 @@ def test_dispatch_refuses_other_devices():
         dispatch.cloudsc2_nl(meta, dt, c)
     with pytest.raises(ValueError, match="no TL implementation"):
         dispatch.cloudsc2_tl(meta, dt, c)
+    with pytest.raises(ValueError, match="no AD implementation"):
+        dispatch.cloudsc2_ad(meta, dt, c)
+
+
+def test_ad_cuda_wrapper_raises_on_cpu_tensors_and_without_lphylin():
+    """The AD CUDA wrapper launches or raises: CPU tensors are refused
+    before anything is built, LPHYLIN=False is refused on any device, and
+    neither launch count moves."""
+    s, dt, c = _tl_cpu_state()
+    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    with pytest.raises(ValueError, match="cuda"):
+        adk.cloudsc2_ad_cuda(s, dt, c)
+    with pytest.raises(ValueError, match="LPHYLIN"):
+        adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=False))
+    assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
+
+
+# ---- the port's copies of the JAX package's numpy-only modules
+
+#: every switch combination the tests use: (lphylin, ldrain1d, lregcl, LEVAPLS2)
+SWITCHES = list(itertools.product((True, False), (False, True), (True, False), (False, True)))
+
+
+@pytest.mark.parametrize("lphylin,ldrain1d,lregcl,levapls2", SWITCHES)
+def test_make_constants_equals_jax(lphylin, ldrain1d, lregcl, levapls2):
+    """The port's make_constants is the JAX package's, field by field, and
+    constants_from_mapping of the JAX bundle gives the same constants."""
+    from cloudsc2_tpu import params as jp
+
+    mine = make_constants(lphylin=lphylin, ldrain1d=ldrain1d, lregcl=lregcl).replace(LEVAPLS2=levapls2)
+    ref = jp.make_constants(lphylin=lphylin, ldrain1d=ldrain1d, lregcl=lregcl).replace(LEVAPLS2=levapls2)
+    assert [f.name for f in dataclasses.fields(mine)] == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert constants_from_mapping(dataclasses.asdict(ref)) == mine
+
+
+def test_parameter_groups_equal_jax():
+    """The six parameter groups: the same fields and defaults."""
+    from cloudsc2_tpu import params as jp
+    from cloudsc2_tpu_torch import params as pp
+
+    for name in ("YoethfParams", "YomcstParams", "YrecldpParams", "YrephliParams", "YrnclParams",
+                 "YrphncParams"):
+        assert dataclasses.asdict(getattr(pp, name)()) == dataclasses.asdict(getattr(jp, name)()), name
+
+
+def test_constants_from_mapping_round_trips_and_raises():
+    c = make_constants(ldrain1d=True).replace(FAST_DIV="approx", LREGCL=False)
+    d = dataclasses.asdict(c)
+    assert constants_from_mapping(d) == c and isinstance(constants_from_mapping(d), Constants)
+    with pytest.raises(ValueError, match="unknown keys \\['RBOGUS'\\]"):
+        constants_from_mapping({**d, "RBOGUS": 1.0})
+    with pytest.raises(ValueError, match="missing keys \\['RG'\\]"):
+        constants_from_mapping({k: v for k, v in d.items() if k != "RG"})
+
+
+def test_synthesize_input_and_oracle_nonlinear_bitwise_equal_jax():
+    """On the seed-0 input: the port's synthesize_input and oracle (with
+    oracle_saturation) give the JAX package's arrays bit for bit."""
+    from cloudsc2_tpu import iox as jiox
+    from cloudsc2_tpu import oracle as joracle
+    from cloudsc2_tpu import params as jp
+    from cloudsc2_tpu_torch import oracle
+
+    grid, state, dt = iox.synthesize_input(ncols=100, nlev=137, seed=0)
+    jgrid, jstate, jdt = jiox.synthesize_input(ncols=100, nlev=137, seed=0)
+    assert (grid.ncols, grid.nlev, dt) == (jgrid.ncols, jgrid.nlev, jdt)
+    assert state.keys() == jstate.keys()
+    for k in jstate:
+        np.testing.assert_array_equal(state[k], jstate[k], err_msg=k)
+    for mine, ref in (
+        (make_constants(), jp.make_constants()),
+        (make_constants(ldrain1d=True), jp.make_constants(ldrain1d=True)),
+    ):
+        s = dict(state, eta=state["ap"][:, 0] / state["aph"][-1, 0])
+        s["qsat"] = oracle.oracle_saturation(s["ap"], s["t"], mine)
+        np.testing.assert_array_equal(s["qsat"], joracle.oracle_saturation(s["ap"], s["t"], ref))
+        got = oracle.oracle_nonlinear(s, dt, mine)
+        want = joracle.oracle_nonlinear(s, dt, ref)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_small_copies_equal_jax(capsys):
+    """Grid, units, the driver Config, validate and the performance
+    summary give what the JAX package's modules give."""
+    from cloudsc2_tpu import config as jconfig
+    from cloudsc2_tpu import grid as jgrid
+    from cloudsc2_tpu import units as junits
+    from cloudsc2_tpu.utils import output as joutput
+    from cloudsc2_tpu.utils import validation as jvalidation
+    from cloudsc2_tpu_torch import config, grid, units
+    from cloudsc2_tpu_torch.utils import output, validation
+
+    g, jg = grid.Grid(ncols=7, nlev=5), jgrid.Grid(ncols=7, nlev=5)
+    assert (g.nlev_i, g.full_shape, g.iface_shape) == (jg.nlev_i, jg.full_shape, jg.iface_shape)
+    for a, b in (("g g^-1", "kg kg^-1"), ("hPa", "Pa"), ("J m^-2 s^-1", "W m^-2"), ("K s^-1", "K h^-1")):
+        assert units.convert(3.0, a, b) == junits.convert(3.0, a, b)
+    with pytest.raises(units.UnitsError):
+        units.convert(1.0, "kg", "K")
+    mine = config.Config().with_precision("single").with_num_cols(9).with_num_runs(2)
+    ref = jconfig.Config().with_precision("single").with_num_cols(9).with_num_runs(2)
+    for f in dataclasses.fields(mine):
+        assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    assert mine.dtype == ref.dtype
+    assert output.FLOPS_PER_POINT == joutput.FLOPS_PER_POINT
+    assert output.performance_stats(100, [1.0, 2.0]) == joutput.performance_stats(100, [1.0, 2.0])
+    a = {"x": np.ones(3), "y": np.zeros(2)}
+    b = {"x": np.ones(3) * (1 + 1e-6), "y": np.zeros(2), "z": np.ones(1)}
+    assert validation.validate(a, b) == jvalidation.validate(a, b) == ["x", "z"]
+    out = capsys.readouterr().out
+    assert out.count("FAILED") == 2 and out.count("MISSING") == 2

@@ -12,13 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox, make_constants
 from cloudsc2_tpu.physics import cuadjtqs as j_cuadj
 from cloudsc2_tpu.physics import diagnostics as j_diag
 from cloudsc2_tpu.physics import fcttre as j_fcttre
 from cloudsc2_tpu.physics import nonlinear as j_nl
 from cloudsc2_tpu.physics import saturation as j_sat
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.params import make_constants
 from cloudsc2_tpu_torch.physics import cuadjtqs, diagnostics, fcttre, nonlinear, saturation
+from tests.torch_helpers import jax_constants
 
 torch.set_num_threads(1)
 
@@ -44,7 +46,7 @@ def test_fcttre_matches_jax(name):
     c = make_constants()
     rng = np.random.default_rng(5)
     t = np.concatenate([rng.uniform(180.0, 320.0, 4000), [c.RTICE, c.RTWAT, c.RTICECU, c.RTT]])
-    _close(getattr(fcttre, name)(_t(t), c), getattr(j_fcttre, name)(jnp.asarray(t), c))
+    _close(getattr(fcttre, name)(_t(t), c), getattr(j_fcttre, name)(jnp.asarray(t), jax_constants(c)))
 
 
 @pytest.mark.parametrize("lphylin,kflag", [(True, 1), (False, 1), (False, 2)])
@@ -52,7 +54,8 @@ def test_saturation_matches_jax(synth, lphylin, kflag):
     state, _ = synth
     c = make_constants()
     got = saturation.saturation(_t(state["ap"]), _t(state["t"]), kflag=kflag, lphylin=lphylin, c=c)
-    want = j_sat.saturation(jnp.asarray(state["ap"]), jnp.asarray(state["t"]), kflag=kflag, lphylin=lphylin, c=c)
+    want = j_sat.saturation(jnp.asarray(state["ap"]), jnp.asarray(state["t"]), kflag=kflag, lphylin=lphylin,
+                            c=jax_constants(c))
     _close(got, want)
 
 
@@ -73,7 +76,7 @@ def test_cuadjtqs_nl_matches_jax():
     q = rng.uniform(0.0, 3e-2, n)
     c = make_constants()
     t_p, q_p = cuadjtqs.cuadjtqs_nl(_t(ap), _t(t), _t(q), c)
-    t_j, q_j = j_cuadj.cuadjtqs_nl(jnp.asarray(ap), jnp.asarray(t), jnp.asarray(q), c)
+    t_j, q_j = j_cuadj.cuadjtqs_nl(jnp.asarray(ap), jnp.asarray(t), jnp.asarray(q), jax_constants(c))
     _close(t_p, t_j)
     _close(q_p, q_j, atol=1e-18)
 
@@ -95,4 +98,4 @@ def test_tropopause_and_critical_rh_match_jax(synth):
         got = nonlinear.critical_rh(_t(eta[k]), trp)
         want = j_nl.critical_rh(jnp.asarray(eta[k]), trp_j)
         _close(got, want)
-    _close(nonlinear.scalm_profile(_t(eta), c), j_nl.scalm_profile(jnp.asarray(eta), c))
+    _close(nonlinear.scalm_profile(_t(eta), c), j_nl.scalm_profile(jnp.asarray(eta), jax_constants(c)))

@@ -30,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox
 from cloudsc2_tpu.oracle import oracle_tangent_linear
+from cloudsc2_tpu_torch import iox
 from cloudsc2_tpu_torch.components import Cloudsc2TL, PerturbedState, StateIncrement
 from cloudsc2_tpu_torch.physics.cuadjtqs import cuadjtqs_tl
 from cloudsc2_tpu_torch.physics.increment import INCREMENT_FIELDS, perturbed_state, state_increment
@@ -46,6 +46,7 @@ from tests.torch_helpers import (
     assert_physical,
     assert_scaled,
     flat,
+    jax_constants,
     port_state,
     port_tl_state,
     robust_state,
@@ -78,7 +79,7 @@ def tl64(synth64):
         for lregcl in LREGCL:
             c = _config(cfg, lregcl)
             s = port_tl_state(state, np.float64, c)
-            out[cfg, lregcl] = s, flat(jtl(as_jax(s), dt, c))
+            out[cfg, lregcl] = s, flat(jtl(as_jax(s), dt, jax_constants(c)))
     return out
 
 
@@ -139,7 +140,7 @@ def test_cuadjtqs_tl_matches_jax():
     q = rng.uniform(0.0, 0.03, n)
     pert = [0.01 * x * rng.uniform(-1, 1, n) for x in (ap, t, q)]
     got = cuadjtqs_tl(*(torch.from_numpy(a) for a in (ap, pert[0], t, pert[1], q, pert[2])), c)
-    want = jadj(*(np.asarray(a) for a in (ap, pert[0], t, pert[1], q, pert[2])), c)
+    want = jadj(*(np.asarray(a) for a in (ap, pert[0], t, pert[1], q, pert[2])), jax_constants(c))
     assert_scaled(
         {n: g.numpy() for n, g in zip(("t", "t_i", "q", "q_i"), got)},
         {n: np.asarray(w) for n, w in zip(("t", "t_i", "q", "q_i"), want)},
@@ -163,7 +164,7 @@ def test_plain_tl_matches_oracle(synth64, lregcl):
     c = _config("default", lregcl)
     sub = {k: v[:, :20] for k, v in state.items()}
     s = port_tl_state(sub, np.float64, c)
-    tends_o, diags_o = oracle_tangent_linear({k: v.numpy() for k, v in s.items()}, dt, c)
+    tends_o, diags_o = oracle_tangent_linear({k: v.numpy() for k, v in s.items()}, dt, jax_constants(c))
     assert_scaled(flat(cloudsc2_tl(s, dt, c)), {**tends_o, **diags_o}, 1e-9, 1e-12, lregcl)
 
 
@@ -173,7 +174,7 @@ def test_plain_tl_matches_oracle_evaporation_branch():
     _, state, dt = iox.synthesize_input(ncols=8, nlev=30, seed=0)
     c = _config("levapls2", "lregcl")
     s = port_tl_state(state, np.float64, c)
-    tends_o, diags_o = oracle_tangent_linear({k: v.numpy() for k, v in s.items()}, dt, c)
+    tends_o, diags_o = oracle_tangent_linear({k: v.numpy() for k, v in s.items()}, dt, jax_constants(c))
     assert (diags_o["covptot"] != 0).any()  # the branch is active
     assert_scaled(flat(cloudsc2_tl(s, dt, c)), {**tends_o, **diags_o}, 1e-9, 1e-12)
 
@@ -208,7 +209,7 @@ def test_plain_tl_f32_matches_pallas_interpret(synth32_small, cfg):
     c = CONFIGS[cfg]()
     s = port_tl_state(state, np.float32, c)
     got = flat(cloudsc2_tl(s, dt, c))
-    want = flat(cloudsc2_tl_pallas(as_jax(s), dt, c, interpret=True, wb=128))
+    want = flat(cloudsc2_tl_pallas(as_jax(s), dt, jax_constants(c), interpret=True, wb=128))
     assert_fields(got, want, _tl_f32_tolerances(c, want), cfg)
 
 
@@ -222,7 +223,7 @@ def test_plain_tl_f32_tangent_only_matches_pallas_interpret(synth32_small):
     s = port_tl_state(state, np.float32, c)
     got = flat(cloudsc2_tl(s, dt, c, tangent_only=True))
     full = flat(cloudsc2_tl(s, dt, c))
-    want = flat(cloudsc2_tl_pallas(as_jax(s), dt, c, interpret=True, wb=128, tangent_only=True))
+    want = flat(cloudsc2_tl_pallas(as_jax(s), dt, jax_constants(c), interpret=True, wb=128, tangent_only=True))
     assert got.keys() == want.keys() == {k for k in full if k.endswith("_i")}
     for k in got:
         np.testing.assert_array_equal(got[k], full[k], err_msg=k)
@@ -243,7 +244,7 @@ def test_plain_tl_f32_matches_jax_op_by_op(synth32_small, cfg):
     c = CONFIGS[cfg]()
     s = port_tl_state(state, np.float32, c)
     with jax.disable_jit():
-        want = flat(jtl(as_jax(s), dt, c))
+        want = flat(jtl(as_jax(s), dt, jax_constants(c)))
     assert_scaled(flat(cloudsc2_tl(s, dt, c)), want, 3e-5, 2e-6, cfg)
 
 

@@ -20,11 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from cloudsc2_tpu import iox, make_constants
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.params import make_constants
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.state import state_from_numpy
 from cloudsc2_tpu_torch.validation.taylor import FLOORS, FLOORS_PER_COLUMN, TaylorTest
-from tests.torch_helpers import as_jax
+from tests.torch_helpers import as_jax, jax_constants
 
 torch.set_num_threads(1)
 
@@ -69,13 +70,14 @@ def test_validate_matches_jax(constants):
     seqs = np.vstack([CRAFTED, np.random.default_rng(0).uniform(0.0, 2.5, size=(200, 10))])
     for floors in ("f64", "f32"):
         port = TaylorTest(constants=constants, floors=floors)
-        ref = jt.TaylorTest(constants=constants, floors=floors)
+        ref = jt.TaylorTest(constants=jax_constants(constants), floors=floors)
         for seq in seqs:
             assert port.validate(seq, verbose=False) == ref.validate(seq, verbose=False), seq
     for floors in ("f64", "f32"):
         for mat in (np.repeat(CRAFTED[:1].T, 4, axis=1), CRAFTED.T, seqs[:50].T):
-            kw = dict(constants=constants, per_column=True, floors=floors, min_strict_fraction=0.0)
-            port, ref = TaylorTest(**kw), jt.TaylorTest(**kw)
+            kw = dict(per_column=True, floors=floors, min_strict_fraction=0.0)
+            port = TaylorTest(constants=constants, **kw)
+            ref = jt.TaylorTest(constants=jax_constants(constants), **kw)
             assert port.validate(mat, verbose=False) == ref.validate(mat, verbose=False)
             assert port.strict_fraction == ref.strict_fraction
 
@@ -97,7 +99,7 @@ def test_taylor_norms_match_jax_f64(synth4, constants):
     s = _port_state({k: v[:, :4] for k, v in state.items()})
     port = TaylorTest(constants=constants)
     got = port.run(s, dt)
-    ref = _jax_taylor().TaylorTest(constants=constants, impl="scan")
+    ref = _jax_taylor().TaylorTest(constants=jax_constants(constants), impl="scan")
     want = ref.run(as_jax(s), dt)
     np.testing.assert_allclose(got[:4], want[:4], rtol=1e-8, atol=0)
     assert port.validate(verbose=False) == ref.validate(verbose=False) <= 5
@@ -116,7 +118,7 @@ def test_per_column_penalties_match_jax_f64(synth4, constants):
     _, state, dt = synth4
     s = _port_state(state)
     port = TaylorTest(constants=constants, per_column=True)
-    ref = _jax_taylor().TaylorTest(constants=constants, per_column=True, impl="scan")
+    ref = _jax_taylor().TaylorTest(constants=jax_constants(constants), per_column=True, impl="scan")
     got, want = port.run(s, dt), ref.run(as_jax(s), dt)
     assert got.shape == want.shape == (10, 100)
     np.testing.assert_allclose(got[:4], want[:4], rtol=1e-8, atol=0)

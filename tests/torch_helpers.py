@@ -3,25 +3,47 @@
 """Shared inputs and checks of the PyTorch-port tests (tests/test_torch_*.py).
 
 Inputs are made with numpy from a seed and handed to both the JAX package
-and the port.
+and the port.  The port computes with its own constants, built from the JAX
+package's by ``constants_from_mapping`` so that both packages compute with
+the same numbers; a JAX function is given :func:`jax_constants` of them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from cloudsc2_tpu import iox, make_constants
+from cloudsc2_tpu.params import Constants as JaxConstants
+from cloudsc2_tpu.params import make_constants as jax_make_constants
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.params import constants_from_mapping
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.physics.saturation import saturation
+from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.state import state_from_numpy
-from cloudsc2_tpu_torch.utils.compare import field_errors
+from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors, field_errors
 
-#: the switch configurations the JAX tests cover (tests/test_nonlinear.py)
+
+def port_constants(jc):
+    """The port's constants built from the JAX package's ``jc``: the same
+    numbers, field by field."""
+    return constants_from_mapping(dataclasses.asdict(jc))
+
+
+def jax_constants(c):
+    """The JAX package's constants with the numbers of the port's ``c``."""
+    return JaxConstants(**dataclasses.asdict(c))
+
+
+#: the switch configurations the JAX tests cover (tests/test_nonlinear.py),
+#: as the port's constants
 CONFIGS = {
-    "default": lambda: make_constants(lphylin=True, ldrain1d=False),
-    "levapls2": lambda: make_constants(lphylin=True, ldrain1d=False).replace(LEVAPLS2=True),
-    "ldrain1d": lambda: make_constants(lphylin=True, ldrain1d=True),
+    "default": lambda: port_constants(jax_make_constants(lphylin=True, ldrain1d=False)),
+    "levapls2": lambda: port_constants(
+        jax_make_constants(lphylin=True, ldrain1d=False).replace(LEVAPLS2=True)),
+    "ldrain1d": lambda: port_constants(jax_make_constants(lphylin=True, ldrain1d=True)),
 }
 TORCH = {np.float64: torch.float64, np.float32: torch.float32}
 
@@ -50,7 +72,8 @@ def as_jax(state):
 
 
 def jax_state(state_np, dtype, c):
-    """The same numpy state for the JAX package, with its eta and qsat."""
+    """The same numpy state for the JAX package, with its eta and qsat
+    (``c``: the port's constants)."""
     import jax.numpy as jnp
 
     from cloudsc2_tpu.physics.diagnostics import eta_levels as j_eta
@@ -58,7 +81,22 @@ def jax_state(state_np, dtype, c):
 
     s = {k: jnp.asarray(v, dtype) for k, v in state_np.items()}
     s["eta"] = j_eta(s["ap"], s["aph"])
-    s["qsat"] = j_sat(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    s["qsat"] = j_sat(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=jax_constants(c))
+    return s
+
+
+def port_ad_state(state_np, dtype, c, dt):
+    """:func:`port_state` as the symmetry protocol hands it to the AD: the
+    increments (supsat zeroed), and the plain TL's outputs as the forward
+    tendencies and the cotangent seeds."""
+    s = port_state(state_np, dtype, c)
+    s.update(state_increment(s, 0.01, ignore_supsat=True))
+    tends, diags = cloudsc2_tl(s, dt, c)
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n] = tends[n]
+        s["tnd_" + n + "_i"] = tends[n + "_i"]
+    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+        s[n + "_i"] = diags[n + "_i"]
     return s
 
 
@@ -113,6 +151,16 @@ def assert_scaled(got, want, rtol, atol_scale, label=""):
     tol = {n: (rtol, atol_scale * max(float(np.abs(np.asarray(w, np.float64)).max()), 1e-300))
            for n, w in want.items()}
     assert_fields(got, want, tol, label)
+
+
+def assert_ad(got, want, dtype, label="", wide=AD_F32_WIDE):
+    """Every AD output field within its limits of
+    ``cloudsc2_tpu_torch.utils.compare.ad_limit`` (``wide``: the f32 fields
+    held wider, and point by point)."""
+    assert got.keys() == want.keys(), label
+    errs = ad_errors(got, want, dtype, wide)
+    bad = {n: e for n, e in errs.items() if not e[2] <= 1.0}
+    assert not bad, f"{label}: (scaled, median relative, share of limit) {bad}"
 
 
 def assert_physical(out, *, strict_fluxes=True):
