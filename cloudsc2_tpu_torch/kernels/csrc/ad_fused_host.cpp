@@ -1,0 +1,46 @@
+// Copyright 2026.
+// Licensed under the Apache License, Version 2.0.
+//
+// Host build of the fused AD kernel's bodies (ad_fused.h through the fused
+// form of levelscan.cuh, one column's stack at a time), compiled with g++
+// -ffp-contract=off.  The CPU tests hold it bitwise against the host build
+// of the two-kernel AD and against the JAX package, so the kernel's own
+// arithmetic and stack discipline are checked on a machine without a card.
+// It is never used on the main path.
+#include "ad_fused.h"
+
+namespace {
+
+struct HostRunner {
+  const void* const* in;
+  void* const* out;
+  const void* nl_consts;
+  const void* tl_consts;
+  int nlev, ncols;
+
+  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+  int run() const {
+    const auto b =
+        cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT>(in, out, nl_consts, tl_consts, nlev, ncols);
+    cloudsc2::level_scan_fwdrev_host<decltype(b.fwd), decltype(b.rev), T>(b.fwd, b.rev);
+    return 0;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+const char* cloudsc2_ad_fused_signature() { return cloudsc2::ad_fused_signature(); }
+
+// Same arguments as cloudsc2_ad_fused_launch (ad_fused.cu) with host
+// pointers, no block size and no stream.
+int cloudsc2_ad_fused_host(int is_double, int evap, int lregcl, int resident,
+                           const void* const* in, void* const* out, const void* nl_consts,
+                           const void* tl_consts, int nlev, int ncols) {
+  if (nlev < 1 || ncols < 1) return 1;
+  const HostRunner r{in, out, nl_consts, tl_consts, nlev, ncols};
+  return cloudsc2::ad_fused_dispatch(r, is_double, evap, lregcl, resident);
+}
+
+}  // extern "C"

@@ -6,7 +6,8 @@
 // (levelscan.cuh, REVERSE).  The reverse half of cloudsc2_ad_pallas
 // (cloudsc2_tpu/pallas/adjoint.py:125): its reverse body _make_rev_body
 // (:320), its input folds _reverse_problem (:260) and its assembly
-// _assemble (:362).
+// _assemble (:362), which cloudsc2_ad_pallas_fused (:432) shares: the fused
+// kernel (ad_fused.h) runs this body too, from its stack.
 //
 // The TL level (tl_level of tl_level.h) is exactly linear in its
 // perturbations: every branch depends on forward values only.  Its
@@ -165,10 +166,18 @@ struct ADBody {
   // Prologue: the tropopause, the critical-RH coefficients, the surface
   // pressure, and zero carry cotangents.
   CLOUDSC2_HD Column begin(int col) const {
+    NLCol<T> nl;
+    nl.trpaus = tropopause_eta(f.t, f.tnd_cml_t, f.eta, c.dt, nlev, ncols, col);
+    critical_rh_coeffs(nl);
+    nl.aph_s = f.aph[at(nlev, col)];
+    return begin(nl);
+  }
+
+  // The same from per-column values already computed (by the forward
+  // sweep of the fused kernel).
+  CLOUDSC2_HD Column begin(const NLCol<T>& nl) const {
     Column s;
-    s.col.trpaus = tropopause_eta(f.t, f.tnd_cml_t, f.eta, c.dt, nlev, ncols, col);
-    critical_rh_coeffs(static_cast<NLCol<T>&>(s.col));
-    s.col.aph_s = f.aph[at(nlev, col)];
+    static_cast<NLCol<T>&>(s.col) = nl;
     s.col.aph_s_i = T(0);
     s.rfl = s.sfl = s.cov = T(0);
     s.dp_below = s.dp_bottom = s.surf = T(0);
@@ -177,13 +186,19 @@ struct ADBody {
 
   CLOUDSC2_HD void level(Column& s, int col, int k) const {
     const size_t i = at(k, col);
+    const NLCarry<T> traj{f.c_rfl[i], f.c_sfl[i], EVAP ? f.c_cov[i] : T(0)};
+    step(s, load(col, k), traj, col, k);
+  }
+
+  // The forward inputs of level k folded as the TL kernel folds them (the
+  // perturbations zero).
+  CLOUDSC2_HD TLLevelIn<T> load(int col, int k) const {
+    const size_t i = at(k, col);
     const size_t ib = at(k + 1, col);
-    const bool below = k + 1 < nlev;
-    // the forward inputs folded as the TL kernel folds them
     TLLevelIn<T> x = {};
     x.ap = f.ap[i];
     x.dp = f.aph[ib] - f.aph[i];
-    x.lu_next = below ? f.lu[ib] : T(0);
+    x.lu_next = k + 1 < nlev ? f.lu[ib] : T(0);
     x.lude = f.lude[i];
     x.mf = f.mfu[i] + f.mfd[i];
     x.q2 = f.q[i] + c.dt * f.tnd_cml_q[i] + f.supsat[i];
@@ -193,7 +208,16 @@ struct ADBody {
     x.t_fg = f.t[i] + c.dt * f.tnd_cml_t[i];
     x.eta = f.eta[k];
     x.scalm = f.scalm[k];
-    const NLCarry<T> traj{f.c_rfl[i], f.c_sfl[i], EVAP ? f.c_cov[i] : T(0)};
+    return x;
+  }
+
+  // Reverse level k around its forward inputs x and the carry traj that
+  // entered it: fold the seeds, transpose, write the level's cotangents.
+  CLOUDSC2_HD void step(Column& s, const TLLevelIn<T>& x, const NLCarry<T>& traj, int col,
+                        int k) const {
+    const size_t i = at(k, col);
+    const size_t ib = at(k + 1, col);
+    const bool below = k + 1 < nlev;
     // the seeds; a flux output k is interface k+1 and folds its enthalpy
     // partner (fhps* = -L * fpls*)
     ADWeights<T> w;

@@ -20,11 +20,11 @@
 // cotangent, lu_i shifted one level, mfu_i = mfd_i, q_i = supsat_i, cml_*_i
 // = dt * cot_*_fg).
 //
-// What bounds it: bytes.  Per column-level it reads 18 raw values (t and
-// tnd_cml_t twice, for the tropopause pass), 9 seeds (10 with evaporation)
-// and 2 trajectory values (3), and writes 16: about 45 values, 1.6 GB in
-// f32 at 65,536 x 137, an HBM floor of about 0.48 ms at 3.35 TB/s (0.97 ms
-// in f64).  The reverse level needs about one NL level and one transposed
+// What bounds it: bytes.  Per column-level it must read the 16 raw fields,
+// 9 seeds (10 with evaporation) and 2 trajectory values (3), and write 16:
+// 43 values, 1.55 GB in f32 at 65,536 x 137, an HBM floor of 0.46 ms at
+// 3.35 TB/s (0.92 ms in f64).  This code reads t and tnd_cml_t a second
+// time, for the tropopause pass (45 values).  The reverse level needs about one NL level and one transposed
 // TL level of arithmetic, some 1,060 flops per column-level: 0.14 ms at
 // 67 TFLOP/s in f32 (0.28 ms at 34 in f64), below the byte floor.  This
 // design does more: it runs the TL level 12-14 times per level, each some

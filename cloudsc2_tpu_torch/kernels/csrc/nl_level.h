@@ -12,7 +12,9 @@
 //   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D,
 //   TRAJ: also write the carry entering each level, the trajectory the
 //   adjoint's reverse sweep re-linearizes around (with_trajectory of
-//   cloudsc2_tpu/pallas/nonlinear.py:214-226).
+//   cloudsc2_tpu/pallas/nonlinear.py:214-226),
+//   TRAJ_ONLY (with TRAJ): write the trajectory and nothing else, the
+//   forward sweep of a gradient-only adjoint (traj_only, :386-392).
 #pragma once
 
 #include <string.h>
@@ -40,8 +42,8 @@ namespace cloudsc2 {
 // (nlev, ncols) fields, except the fluxes (nlev+1, ncols).  The trajectory
 // c_rfl, c_sfl, c_cov is written only with TRAJ, and c_cov only with EVAP
 // too: with the evaporation branch compiled out the TL never reads the
-// covptot carry (the c_cov elision of pallas/nonlinear.py:218-225).  Those
-// not written may be null.
+// covptot carry (the c_cov elision of pallas/nonlinear.py:218-225); with
+// TRAJ_ONLY the first ten are not written.  Those not written may be null.
 #define CLOUDSC2_NL_OUTPUTS(X)                                                 \
   X(tnd_t) X(tnd_q) X(tnd_ql) X(tnd_qi) X(clc) X(covptot) X(fplsl) X(fplsn)    \
   X(fhpsl) X(fhpsn) X(c_rfl) X(c_sfl) X(c_cov)
@@ -376,8 +378,9 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
 // ------------------------------------------------------------ column body ----
 // The Body of level_scan_column: what cloudsc2_nl_pallas
 // (cloudsc2_tpu/pallas/nonlinear.py:76) computes, for one column.
-template <typename T, bool THERMO, bool EVAP, bool TRAJ>
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false>
 struct NLBody {
+  static_assert(TRAJ || !TRAJ_ONLY, "TRAJ_ONLY requires TRAJ");
   NLFields<T> f;
   NLConst<T> c;
   int nlev, ncols;
@@ -401,14 +404,17 @@ struct NLBody {
     s.carry.rfl = T(0);
     s.carry.sfl = T(0);
     s.carry.covptot = T(0);
-    f.fplsl[at(0, col)] = T(0);
-    f.fplsn[at(0, col)] = T(0);
-    f.fhpsl[at(0, col)] = -T(0) * c.rlvtt;
-    f.fhpsn[at(0, col)] = -T(0) * c.rlstt;
+    if (!TRAJ_ONLY) {
+      f.fplsl[at(0, col)] = T(0);
+      f.fplsn[at(0, col)] = T(0);
+      f.fhpsl[at(0, col)] = -T(0) * c.rlvtt;
+      f.fhpsn[at(0, col)] = -T(0) * c.rlstt;
+    }
     return s;
   }
 
-  CLOUDSC2_HD void level(Column& s, int col, int k) const {
+  // The level's inputs, folded from the raw fields.
+  CLOUDSC2_HD NLLevelIn<T> load(int col, int k) const {
     const size_t i = at(k, col);
     const size_t ib = at(k + 1, col);
     NLLevelIn<T> x;
@@ -424,12 +430,14 @@ struct NLBody {
     x.t_fg = f.t[i] + c.dt * f.tnd_cml_t[i];
     x.eta = f.eta[k];
     x.scalm = f.scalm[k];
-    if (TRAJ) {
-      f.c_rfl[i] = s.carry.rfl;
-      f.c_sfl[i] = s.carry.sfl;
-      if (EVAP) f.c_cov[i] = s.carry.covptot;
-    }
-    const NLLevelOut<T> o = nl_level<T, THERMO, EVAP>(s.carry, x, s.col, c);
+    return x;
+  }
+
+  // The step's outputs at level k, from the level's outputs and the carry
+  // leaving it (the fluxes at interface k+1).
+  CLOUDSC2_HD void store(const Column& s, const NLLevelOut<T>& o, int col, int k) const {
+    const size_t i = at(k, col);
+    const size_t ib = at(k + 1, col);
     f.tnd_t[i] = o.tnd_t;
     f.tnd_q[i] = o.tnd_q;
     f.tnd_ql[i] = o.tnd_ql;
@@ -441,13 +449,25 @@ struct NLBody {
     f.fhpsl[ib] = -s.carry.rfl * c.rlvtt;
     f.fhpsn[ib] = -s.carry.sfl * c.rlstt;
   }
+
+  CLOUDSC2_HD void level(Column& s, int col, int k) const {
+    const NLLevelIn<T> x = load(col, k);
+    if (TRAJ) {
+      const size_t i = at(k, col);
+      f.c_rfl[i] = s.carry.rfl;
+      f.c_sfl[i] = s.carry.sfl;
+      if (EVAP) f.c_cov[i] = s.carry.covptot;
+    }
+    const NLLevelOut<T> o = nl_level<T, THERMO, EVAP>(s.carry, x, s.col, c);
+    if (!TRAJ_ONLY) store(s, o, col, k);
+  }
 };
 
 // Fill a body from the wrapper's pointer lists (orders as in the X-lists).
-template <typename T, bool THERMO, bool EVAP, bool TRAJ>
-inline NLBody<T, THERMO, EVAP, TRAJ> make_nl_body(const void* const* in, void* const* out,
-                                                 const void* consts, int nlev, int ncols) {
-  NLBody<T, THERMO, EVAP, TRAJ> b;
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false>
+inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY> make_nl_body(const void* const* in, void* const* out,
+                                                            const void* consts, int nlev, int ncols) {
+  NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY> b;
   int i = 0;
 #define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
   CLOUDSC2_NL_INPUTS(CLOUDSC2_FIELD)
@@ -462,12 +482,14 @@ inline NLBody<T, THERMO, EVAP, TRAJ> make_nl_body(const void* const* in, void* c
   return b;
 }
 
-// Call L.template run<T, THERMO, EVAP, TRAJ>() for the runtime switches;
-// this instantiates all 8 switch triples x 2 dtypes.
+// Call L.template run<T, THERMO, EVAP, TRAJ, TRAJ_ONLY>() for the runtime
+// switches (traj: 0 none, 1 the trajectory too, 2 the trajectory only);
+// this instantiates all 12 switch combinations x 2 dtypes.
 template <class L, typename T, bool THERMO, bool EVAP>
 inline int nl_dispatch_traj(const L& launcher, int traj) {
-  return traj ? launcher.template run<T, THERMO, EVAP, true>()
-              : launcher.template run<T, THERMO, EVAP, false>();
+  if (traj == 2) return launcher.template run<T, THERMO, EVAP, true, true>();
+  return traj ? launcher.template run<T, THERMO, EVAP, true, false>()
+              : launcher.template run<T, THERMO, EVAP, false, false>();
 }
 
 template <class L, typename T>

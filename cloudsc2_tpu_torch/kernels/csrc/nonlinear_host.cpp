@@ -15,10 +15,10 @@ struct HostRunner {
   const void* consts;
   int nlev, ncols;
 
-  template <typename T, bool THERMO, bool EVAP, bool TRAJ>
+  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY>
   int run() const {
     cloudsc2::level_scan_host(
-        cloudsc2::make_nl_body<T, THERMO, EVAP, TRAJ>(in, out, consts, nlev, ncols));
+        cloudsc2::make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY>(in, out, consts, nlev, ncols));
     return 0;
   }
 };
@@ -33,7 +33,7 @@ const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 // and no stream.
 int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, const void* const* in,
                      void* const* out, const void* consts, int nlev, int ncols) {
-  if (nlev < 1 || ncols < 1) return 1;
+  if (nlev < 1 || ncols < 1 || traj < 0 || traj > 2) return 1;
   const HostRunner r{in, out, consts, nlev, ncols};
   return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj);
 }

@@ -21,8 +21,9 @@
 // plus t and tnd_cml_t a second time for the tropopause pass: 34 reads.
 // It writes 20 outputs (8 tendencies, then clc, covptot, fplsl, fplsn,
 // fhpsl, fhpsn, each with its _i), 10 with tangent_only.  That is 54
-// values, 216 B per column-level in f32 and 432 B in f64: 1.94 GB in f32
-// at 65,536 x 137, an HBM floor of 0.58 ms at 3.35 TB/s (1.16 ms in f64).
+// values, 216 B per column-level in f32 and 432 B in f64; the function
+// needs 52 (each input read once): 1.87 GB in f32 at 65,536 x 137, an HBM
+// floor of 0.56 ms at 3.35 TB/s (1.12 ms in f64).
 // The arithmetic, about 700 flops with some 15 exp, a tanh, two pow and
 // 30 divides, stays below the card's balance point of about 20 flop/B.
 // The TL carries six values and keeps about twice the NL body's live

@@ -6,9 +6,11 @@
 Its device counterpart is ``csrc/levelscan.cuh``: one thread per column,
 the carry in registers, the levels in a loop.  Here the same contract is a
 Python loop over levels on ``(ncols,)`` rows, with the carry zeroed at the
-top.  The bottom-up ``reverse`` form runs only on the device (the AD's
-reverse kernel, ``csrc/adjoint.cu``); the AD's plain version needs no
-reverse loop, it is ``torch.func.vjp`` of the plain TL.
+top.  The bottom-up ``reverse`` form and the fused forward + reverse form
+(the port of ``level_scan_fwdrev_pallas``) run only in the kernels (the
+AD's reverse kernel ``csrc/adjoint.cu``, the fused AD ``csrc/ad_fused.cu``);
+the AD's plain version needs neither, it is ``torch.func.vjp`` of the plain
+TL.
 """
 from __future__ import annotations
 

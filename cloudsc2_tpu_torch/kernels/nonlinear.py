@@ -4,12 +4,14 @@
 
 Replaces the Pallas kernel :func:`cloudsc2_tpu.pallas.nonlinear.
 cloudsc2_nl_pallas` (``pallas/nonlinear.py:76``), its ``with_trajectory``
-form (``:214-226``, the adjoint's forward sweep) included, and, for it, the
-level-scan harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
-CUDA C++ (``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and
-``csrc/levelscan.cuh``): one thread per column, the carry in registers, the
-levels in a loop.  It is bound by device-memory bytes; the note at the top
-of ``nonlinear.cu`` gives the count and what the design does about it.
+form (``:214-226``, the adjoint's forward sweep) and its ``traj_only`` form
+(``:367-392,458``, the forward sweep of a gradient-only adjoint) included,
+and, for it, the level-scan harness ``level_scan_pallas``
+(``pallas/levelscan.py:402``).  The kernel is CUDA C++
+(``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and ``csrc/levelscan.cuh``):
+one thread per column, the carry in registers, the levels in a loop.  It is
+bound by device-memory bytes; the note at the top of ``nonlinear.cu`` gives
+the count and what the design does about it.
 
 :func:`cloudsc2_nl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
@@ -130,16 +132,21 @@ def check_inputs(
 
 
 def _marshal(
-    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, with_trajectory: bool
+    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, with_trajectory: bool,
+    traj_only: bool,
 ) -> Tuple[List[Tensor], Dict[str, Tensor], Tensor, torch.dtype]:
-    """Check the state, and return the kernel's inputs in order, freshly
-    allocated outputs (``None`` for a trajectory output not written), the
+    """Check the options and the state, and return the kernel's inputs in
+    order, freshly allocated outputs (``None`` for one not written), the
     constant struct and the dtype."""
+    if traj_only and not with_trajectory:
+        raise ValueError("traj_only requires with_trajectory=True")
     ins, dtype = check_inputs(state, c, device_type, NL_INPUTS, _IFACE)
     nlev, ncols = state["ap"].shape
     written = trajectory_names(c) if with_trajectory else ()
+    if not traj_only:
+        written = STEP_OUTPUTS + written
     outs = {
-        n: None if n in TRAJ_OUTPUTS and n not in written else torch.empty(
+        n: None if n not in written else torch.empty(
             (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
         )
         for n in NL_OUTPUTS
@@ -153,61 +160,74 @@ def ptrs(tensors) -> ctypes.Array:
     return (_P * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
 
 
-def _switches(c: Constants, dtype: torch.dtype, with_trajectory: bool) -> Tuple[int, int, int, int]:
+def _switches(
+    c: Constants, dtype: torch.dtype, with_trajectory: bool, traj_only: bool
+) -> Tuple[int, int, int, int]:
     return (
         int(dtype == torch.float64),
         int(bool(c.LPHYLIN or c.LDRAIN1D)),
         int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
-        int(with_trajectory),
+        2 if traj_only else int(with_trajectory),
     )
 
 
-def _assemble(outs: Dict[str, Tensor], with_trajectory: bool):
+def _assemble(outs: Dict[str, Tensor], with_trajectory: bool, traj_only: bool):
+    traj = {n: outs[n] for n in TRAJ_OUTPUTS if outs[n] is not None}
+    if traj_only:
+        return {}, {}, traj
     tends = {"t": outs["tnd_t"], "q": outs["tnd_q"], "ql": outs["tnd_ql"], "qi": outs["tnd_qi"]}
     diags = {n: outs[n] for n in ("clc", "covptot", "fplsl", "fplsn", "fhpsl", "fhpsn")}
     if not with_trajectory:
         return tends, diags
-    return tends, diags, {n: outs[n] for n in TRAJ_OUTPUTS if outs[n] is not None}
+    return tends, diags, traj
 
 
-def cloudsc2_nl_cuda(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
+def cloudsc2_nl_cuda(
+    state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
+    traj_only: bool = False,
+):
     """One NL step through the CUDA kernel, on PyTorch's current stream.
 
     Same contract as :func:`cloudsc2_tpu_torch.physics.nonlinear.
     cloudsc2_nl`: contiguous CUDA tensors of one float dtype, any
     ``ncols``; ``(tendencies, diagnostics)``, and with ``with_trajectory``
-    the trajectory dict as a third element.  Raises on anything else, on a
-    failed build and on a refused launch; never falls back to the plain
+    the trajectory dict as a third element.  ``traj_only`` (which requires
+    ``with_trajectory``, ``ValueError`` otherwise) writes the trajectory
+    alone and returns ``({}, {}, trajectory)``.  Raises on anything else, on
+    a failed build and on a refused launch; never falls back to the plain
     version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``.
     """
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cuda", with_trajectory)
+    ins, outs, consts, dtype = _marshal(state, dt, c, "cuda", with_trajectory, traj_only)
     lib = load_cuda()
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cloudsc2_nl_launch(
-            *_switches(c, dtype, with_trajectory), ptrs(ins), ptrs(list(outs.values())),
+            *_switches(c, dtype, with_trajectory, traj_only), ptrs(ins), ptrs(list(outs.values())),
             consts.data_ptr(), nlev, ncols, stream,
         )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
     cloudsc2_nl_cuda.launches += 1
-    return _assemble(outs, with_trajectory)
+    return _assemble(outs, with_trajectory, traj_only)
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
 
 
-def cloudsc2_nl_host(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
+def cloudsc2_nl_host(
+    state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
+    traj_only: bool = False,
+):
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cpu", with_trajectory)
+    ins, outs, consts, dtype = _marshal(state, dt, c, "cpu", with_trajectory, traj_only)
     lib = _load("host")
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_nl_host(
-        *_switches(c, dtype, with_trajectory), ptrs(ins), ptrs(list(outs.values())),
+        *_switches(c, dtype, with_trajectory, traj_only), ptrs(ins), ptrs(list(outs.values())),
         consts.data_ptr(), nlev, ncols,
     )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl host body failed: {err}")
-    return _assemble(outs, with_trajectory)
+    return _assemble(outs, with_trajectory, traj_only)
 

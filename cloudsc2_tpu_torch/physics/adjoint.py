@@ -43,7 +43,7 @@ AD_DIAGNOSTICS = ("clc", "covptot", "fplsl", "fplsn", "fhpsl", "fhpsn")
 
 
 def cloudsc2_ad(
-    state: Dict[str, Tensor], dt: float, c: Constants
+    state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """Run the adjoint CLOUDSC2 scheme.
 
@@ -55,7 +55,10 @@ def cloudsc2_ad(
     Returns ``(tendencies, diagnostics)``: the forward ``t, q, ql, qi`` and
     the cotangents ``cml_{t,q,ql,qi}_i`` of the accumulated tendencies; the
     forward ``clc, covptot, fplsl, fplsn, fhpsl, fhpsn`` and the 12 input
-    cotangents ``{ap,aph,t,q,qsat,ql,qi,lu,lude,mfd,mfu,supsat}_i``.
+    cotangents ``{ap,aph,t,q,qsat,ql,qi,lu,lude,mfd,mfu,supsat}_i``.  With
+    ``cotangent_only`` (``cotangent_only`` of :func:`cloudsc2_tpu.pallas.
+    adjoint.cloudsc2_ad_pallas`, for a consumer that has the forward outputs
+    from its NL run) only the cotangents: ``cml_*_i`` and the 12 ``*_i``.
     """
     check_constants(c)
     fwd = {k: v for k, v in state.items() if not k.endswith("_i")}
@@ -73,10 +76,10 @@ def cloudsc2_ad(
     seeds = ({k: state["tnd_" + k] for k in pert[0]}, {k: state[k] for k in pert[1]})
     cot = dict(zip(names, vjp_fn(seeds)))
 
-    tends = dict(tends_f)
+    tends = {} if cotangent_only else dict(tends_f)
     for n in AD_TENDENCIES:
         tends["cml_" + n + "_i"] = cot["tnd_cml_" + n + "_i"]
-    diags = dict(diags_f)
+    diags = {} if cotangent_only else dict(diags_f)
     for n in AD_COTANGENT_FIELDS:
         diags[n + "_i"] = cot[n + "_i"]
     return tends, diags

@@ -33,29 +33,20 @@ from cloudsc2_tpu_torch.physics.cuadjtqs import cuadjtqs_ad, cuadjtqs_nl
 from cloudsc2_tpu_torch.physics.increment import INCREMENT_FIELDS, state_increment
 from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu_torch.validation.symmetry import DIAG_NAMES, FIELD_PAIRS, TEND_NAMES
-from tests.torch_helpers import CONFIGS, as_jax, assert_ad, flat, jax_constants, port_ad_state, port_state
+from tests.torch_helpers import (
+    CONFIGS,
+    PALLAS_F32_WIDE,
+    as_jax,
+    assert_ad,
+    flat,
+    jax_constants,
+    port_ad_state,
+    port_state,
+)
 
 torch.set_num_threads(1)
 
 LREGCL = {"lregcl": True, "nolregcl": False}
-#: f32 against the Pallas AD: the fields held wider than the Pallas gate of
-#: 2e-6 of the scale (tests/test_pallas.py:263; there both sides are XLA's
-#: f32 vjp of one TL), in units of the field's largest magnitude.  The
-#: port's plain AD is an f32 autograd tape over the plain TL, the Pallas AD
-#: an f32 NL trajectory and one vjp per level, and where a cotangent sums
-#: terms that cancel the two f32 roundings part further.  Measured at this
-#: size, worst of the three configurations: lu_i 8.5e-5 (it goes as
-#: 1/lu_next**2 through the detrainment's exp(-lude/lu_next)), qsat_i
-#: 2.1e-5, q_i, supsat_i, ql_i, qi_i and cml_{q,ql,qi}_i 8.3e-6, clc 5.2e-6,
-#: covptot 3.7e-6, qi 2.7e-6, every other field below 1.3e-6.  Each f32 side
-#: is itself 1e-5 to 1.5e-4 of the scale from the f64 AD on the same inputs
-#: in these fields, so the spread is f32 rounding, not a different operator.
-#: lu_i and lude_i are also held point by point, as against the kernel.
-PALLAS_F32_WIDE = {
-    "lu_i": 2e-4, "lude_i": 2e-6, "qsat_i": 5e-5,
-    **{n: 2e-5 for n in ("q_i", "supsat_i", "ql_i", "qi_i", "cml_q_i", "cml_ql_i", "cml_qi_i")},
-    **{n: 1e-5 for n in ("clc", "covptot", "qi")},
-}
 
 
 def _config(cfg, lregcl):

@@ -20,7 +20,9 @@ NL kernel's ``with_trajectory``: the step's outputs bitwise unchanged, the
 carry entering level k bitwise the flux at interface k.  The AD kernels
 against the plain AD, every field within the limits of
 ``cloudsc2_tpu_torch.utils.compare.ad_limit`` (those of chip_smoke.py), and
-the symmetry driver's HOORAY through them.
+the symmetry driver's HOORAY through them.  The fused AD kernel, rolled and
+resident, bitwise the two-kernel AD and within those limits of the plain
+AD; ``cotangent_only`` and ``traj_only`` bitwise the full forms.
 """
 import numpy as np
 import pytest
@@ -209,3 +211,67 @@ def test_symmetry_driver_on_card(cuda, precision, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "HOORAY" in out, out
     assert adk.cloudsc2_ad_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("ncols", [1000, 333])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ad_fused_kernel_on_card(cuda, ncols, cfg, dtype):
+    """The fused kernel, rolled and resident, is bitwise the two-kernel AD
+    and within ``ad_limit`` of the plain AD; one launch each."""
+    c = CONFIGS[cfg]()
+    s, dt = _ad_state(ncols, dtype, c, cuda)
+    two = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    want = _host(cloudsc2_ad(s, dt, c))
+    for resident in (False, True):
+        before = adk.cloudsc2_ad_fused_cuda.launches
+        got = _host(adk.cloudsc2_ad_fused_cuda(s, dt, c, resident=resident))
+        assert adk.cloudsc2_ad_fused_cuda.launches == before + 1
+        label = f"{cfg} {dtype} {ncols} resident={resident}"
+        assert got.keys() == two.keys(), label
+        for k in two:
+            np.testing.assert_array_equal(got[k], two[k], err_msg=f"{label} {k}")
+        assert_ad(got, want, dtype, label)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gradient_only_forms_on_card(cuda, dtype):
+    """``cotangent_only`` returns the full AD's cotangents bitwise, and
+    ``traj_only`` the trajectory of ``with_trajectory``."""
+    c = CONFIGS["levapls2"]()
+    s, dt = _ad_state(1000, dtype, c, cuda)
+    full = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    only = _host(adk.cloudsc2_ad_cuda(s, dt, c, cotangent_only=True))
+    assert sorted(only) == sorted(k for k in full if k.endswith("_i")) and len(only) == 16
+    for k in only:
+        np.testing.assert_array_equal(only[k], full[k], err_msg=k)
+    tends, diags, traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)
+    assert tends == {} and diags == {}
+    want = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
+    assert sorted(traj) == sorted(want) == ["c_cov", "c_rfl", "c_sfl"]
+    for k in want:
+        np.testing.assert_array_equal(traj[k].cpu().numpy(), want[k].cpu().numpy(), err_msg=k)
+
+
+def test_ad_fused_kernel_refuses_bad_inputs(cuda):
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(64, torch.float32, c, cuda)
+    before = adk.cloudsc2_ad_fused_cuda.launches
+    with pytest.raises(ValueError, match="LPHYLIN"):
+        adk.cloudsc2_ad_fused_cuda(s, dt, c.replace(LPHYLIN=False))
+    with pytest.raises(ValueError, match="is on"):
+        adk.cloudsc2_ad_fused_cuda({**s, "clc_i": s["clc_i"].cpu()}, dt, c)
+    with pytest.raises(ValueError, match="shape"):
+        adk.cloudsc2_ad_fused_cuda({**s, "fplsl_i": s["fplsl_i"][:-1]}, dt, c, resident=True)
+    assert adk.cloudsc2_ad_fused_cuda.launches == before
+
+
+def test_ad_fused_occupancy_on_card(cuda):
+    """The card's reading of the fused kernel at the plan's block size: one
+    block per SM at 137 levels, the plan's shared memory."""
+    for dtype in (torch.float32, torch.float64):
+        for resident in (False, True):
+            occ = adk.fused_occupancy(dtype, CONFIGS["default"](), resident, 137)
+            block, nbytes = adk.fused_plan(137, dtype, False, resident)
+            assert (occ["block"], occ["shared_bytes"]) == (block, nbytes)
+            assert occ["blocks_per_sm"] == 1 and 0 < occ["registers"] <= 255, occ

@@ -10,6 +10,7 @@ import dataclasses
 import itertools
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -65,6 +66,33 @@ def test_port_sources_never_import_jax():
         if m == "drivers.config" or any(m == j or m.startswith(j + ".") for j in FORBIDDEN)
     ]
     assert not offenders, offenders
+
+
+#: the system headers the kernel sources may include (no library of finished
+#: kernels, no PyTorch headers)
+SYSTEM_HEADERS = {"cuda_runtime.h", "math.h", "string.h", "vector"}
+
+
+def test_kernel_sources_include_only_their_own_headers():
+    """Every CUDA and C++ source of the port includes only headers of its
+    own ``csrc/`` and the system headers of ``SYSTEM_HEADERS``; every
+    ``.cu`` has a host build of the same bodies, and every ``.cu`` and
+    ``.cpp`` is built by a wrapper of the port."""
+    csrc = PORT / "kernels" / "csrc"
+    sources = sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh", ".h", ".cpp"))
+    assert {p.name for p in sources} >= {"ad_fused.cu", "ad_fused_host.cpp", "ad_fused.h", "levelscan.cuh"}
+    offenders = []
+    for p in sources:
+        for quoted, angled in re.findall(r'^\s*#\s*include\s*(?:"([^"]+)"|<([^>]+)>)', p.read_text(), re.M):
+            if (quoted and not (csrc / quoted).is_file()) or (angled and angled not in SYSTEM_HEADERS):
+                offenders.append(f"{p.name}: {quoted or angled}")
+    assert not offenders, offenders
+    wrappers = "".join(p.read_text() for p in (PORT / "kernels").glob("*.py"))
+    for p in sources:
+        if p.suffix == ".cu":
+            assert (csrc / f"{p.stem}_host.cpp").is_file(), f"{p.name} has no host build"
+        if p.suffix in (".cu", ".cpp"):
+            assert f'"{p.name}"' in wrappers, f"{p.name} is built by no wrapper"
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -47,6 +47,28 @@ CONFIGS = {
 }
 TORCH = {np.float64: torch.float64, np.float32: torch.float32}
 
+#: f32 against the Pallas AD (two-kernel and fused) at 1024 x 53: the
+#: fields held wider than the Pallas gate of 2e-6 of the scale
+#: (tests/test_pallas.py:263; there both sides are XLA's f32 vjp of one
+#: TL), in units of the field's largest magnitude.  The port's plain AD is
+#: an f32 autograd tape over the plain TL, its kernels Jacobian columns of
+#: the TL level, the Pallas AD an f32 NL trajectory and one vjp per level,
+#: and where a cotangent sums terms that cancel the f32 roundings part
+#: further.  Measured for the plain AD, worst of the three configurations:
+#: lu_i 8.5e-5 (it goes as 1/lu_next**2 through the detrainment's
+#: exp(-lude/lu_next)), qsat_i 2.1e-5, q_i, supsat_i, ql_i, qi_i and
+#: cml_{q,ql,qi}_i 8.3e-6, clc 5.2e-6, covptot 3.7e-6, qi 2.7e-6, every
+#: other field below 1.3e-6; the kernels' host bodies (two-kernel and
+#: fused) reach at most 0.62 of these limits (aph_i).  Each f32 side is
+#: itself 1e-5 to 1.5e-4 of the scale from the f64 AD on the same inputs in
+#: these fields, so the spread is f32 rounding, not a different operator.
+#: lu_i and lude_i are also held point by point, as against the kernel.
+PALLAS_F32_WIDE = {
+    "lu_i": 2e-4, "lude_i": 2e-6, "qsat_i": 5e-5,
+    **{n: 2e-5 for n in ("q_i", "supsat_i", "ql_i", "qi_i", "cml_q_i", "cml_ql_i", "cml_qi_i")},
+    **{n: 1e-5 for n in ("clc", "covptot", "qi")},
+}
+
 
 def port_state(state_np, dtype, c):
     """The numpy state as CPU tensors of ``dtype`` plus the port's eta and
