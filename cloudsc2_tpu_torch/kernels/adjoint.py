@@ -12,23 +12,25 @@ form included, with its two kernels:
    level;
 2. the reverse sweep (``csrc/adjoint.cu`` over ``csrc/ad_level.h`` and the
    reverse form of ``csrc/levelscan.cuh``): one thread per column runs the
-   levels bottom-up and applies the transpose of the TL level, built from
-   its Jacobian columns, around the stored carry; it folds the raw fields
-   and seeds and writes the 16 assembled input cotangents itself.
+   levels bottom-up and applies the transpose of the TL level, written by
+   hand (one primal pass and one adjoint pass, about 700 flops per
+   column-level), around the stored carry; it folds the raw fields and
+   seeds and writes the 16 assembled input cotangents itself.
 
-Its bound is set by bytes; this design's own operations (12-14 TL levels
-per level) set its time, as the note at the top of ``adjoint.cu`` counts.
-As the Pallas kernel, it
-requires ``LPHYLIN=True``; unlike it, it takes f32 and f64 and any column
-count.
+Both are bound by bytes; the reverse level's registers (128 a thread in
+f32, 244-246 in f64) set how many columns an SM runs at once, as the note
+at the top of ``adjoint.cu`` counts.  As the Pallas kernel, it requires
+``LPHYLIN=True``; unlike it, it takes f32 and f64 and any column count.
 
 It also replaces :func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas_fused`
 (``pallas/adjoint.py:432``) and its harness ``level_scan_fwdrev_pallas``
 (``pallas/levelscan.py:87``) with one kernel (``csrc/ad_fused.cu`` over
 ``csrc/ad_fused.h`` and the fused form of ``csrc/levelscan.cuh``): the same
 two sweeps in one launch, the trajectory (and with ``resident`` the folded
-level inputs) on a stack in shared memory.  :func:`fused_plan` sizes its
-blocks to that stack.
+level inputs) on a stack in shared memory.  Its block size is the one
+that keeps the most threads on an SM: :func:`fused_plan` counts what the
+stacks allow, and :func:`fused_occupancy` asks the card, registers
+included, and picks the block a launch uses.
 
 :func:`cloudsc2_ad_cuda` and :func:`cloudsc2_ad_fused_cuda` launch on CUDA
 tensors and raise for anything else; the plain version of both is
@@ -82,8 +84,33 @@ _IFACE = ("aph", "aph_i", "fplsl_i", "fplsn_i", "fhpsl_i", "fhpsn_i", "fplsl", "
 _EVAP_ONLY = ("c_cov", "covptot_i")
 #: dynamic shared memory one block may opt in to on sm_90 (227 KB)
 MAX_SHARED_BYTES = 232_448
+#: shared memory of one SM on sm_90 (228 KB), and what the card reserves of
+#: it for each resident block
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1_024
+#: the other limits of one SM on sm_90 the plan counts: blocks and threads
+MAX_BLOCKS_PER_SM = 32
+MAX_THREADS_PER_SM = 2_048
 #: the fused kernel's block sizes, largest first (``kMaxThreads`` in ``ad_fused.cu``)
 FUSED_BLOCKS = (128, 64, 32, 16)
+
+#: argument lists of the host build's pointwise level entry
+#: (``cloudsc2_ad_level_signature`` in ``adjoint_host.cpp``; tests only): a
+#: level's forward inputs, the column's values, the carry entering the level,
+#: the input directions of ``ad_level`` (``CLOUDSC2_AD_DIRS``), the outputs it
+#: weights (``CLOUDSC2_AD_WEIGHTS``) and the branches it reports
+#: (``CLOUDSC2_AD_BRANCHES``)
+AD_LEVEL_X = AD_FUSED_RESIDENT + ("eta", "scalm")
+AD_LEVEL_COL = ("aph_s", "trpaus")
+AD_LEVEL_TRAJ = ("rfl", "sfl", "covptot")
+AD_DIRS = ("rfl", "sfl", "cov", "ap", "dp", "lu_next", "lude", "mf", "q2", "ql_fg", "qi_fg", "qsat", "t_fg",
+           "aph_s")
+AD_WEIGHTS = ("rfl", "sfl", "cov", "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot")
+AD_BRANCHES = (
+    "cold", "noclip", "qlim_sat", "cold_ice", "low", "mid", "high", "lo1", "lo3", "warm", "act", "grow",
+    "melt", "snow_all", "coldt", "eact", "big", "drained", "adj_warm", "adj_noclip1", "adj_noclip2",
+    "clipped", "coldt2",
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,6 +126,12 @@ def signature() -> str:
     """The argument lists the Python side passes, in the form the kernel
     library reports them (``ad_signature`` in ``ad_level.h``)."""
     return _names(("consts", TL_CONST_NAMES), (";inputs", AD_INPUTS), (";outputs", AD_OUTPUTS))
+
+
+def level_signature() -> str:
+    """The same for the host build's pointwise level entry."""
+    return _names(("x", AD_LEVEL_X), (";col", AD_LEVEL_COL), (";traj", AD_LEVEL_TRAJ), (";dirs", AD_DIRS),
+                  (";weights", AD_WEIGHTS), (";branches", AD_BRANCHES))
 
 
 def fused_signature() -> str:
@@ -127,9 +160,19 @@ def _load(kind: str, form: str = "ad") -> ctypes.CDLL:
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    if kind == "cuda" and form == "ad":
+        lib.cloudsc2_ad_attributes.argtypes = [_I] * 3 + [_P]
+        lib.cloudsc2_ad_attributes.restype = ctypes.c_int
     if kind == "cuda" and form == "ad_fused":
         lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 6 + [_P]
         lib.cloudsc2_ad_fused_occupancy.restype = ctypes.c_int
+    if kind == "host" and form == "ad":
+        lib.cloudsc2_ad_level_host.argtypes = [_I] * 3 + [_P] * 4 + [_I]
+        lib.cloudsc2_ad_level_host.restype = ctypes.c_int
+        lib.cloudsc2_ad_level_signature.restype = ctypes.c_char_p
+        got = lib.cloudsc2_ad_level_signature().decode()
+        if got != level_signature():
+            raise RuntimeError(f"level entry argument lists differ from the wrapper's:\n{got}\n{level_signature()}")
     sig = getattr(lib, f"cloudsc2_{form}_signature")
     sig.restype = ctypes.c_char_p
     got, want = sig().decode(), (signature() if form == "ad" else fused_signature())
@@ -242,6 +285,18 @@ def cloudsc2_ad_cuda(
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
 
 
+@functools.lru_cache(maxsize=None)
+def reverse_attributes(dtype: torch.dtype, evap: bool, lregcl: bool) -> Dict[str, int]:
+    """The reverse kernel's ``registers`` and ``local_bytes`` a thread on
+    the card (``cudaFuncGetAttributes``) for one instantiation.  Needs the
+    card."""
+    out = (ctypes.c_int * 2)()
+    err = load_cuda().cloudsc2_ad_attributes(int(dtype == torch.float64), int(evap), int(lregcl), out)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_ad attribute query failed: cudaError_t {err}")
+    return {"registers": out[0], "local_bytes": out[1]}
+
+
 def cloudsc2_ad_host(
     state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
@@ -258,6 +313,42 @@ def cloudsc2_ad_host(
     return _assemble(tends, diags, dict(zip(AD_OUTPUTS, outs)))
 
 
+def cloudsc2_ad_level_host(
+    x: Dict[str, Tensor], col: Dict[str, Tensor], traj: Dict[str, Tensor], dirs: Dict[str, Tensor],
+    weights: Dict[str, Tensor], dt: float, c: Constants, reference: bool = False,
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor], Tensor]:
+    """One level at each of a set of points, through the host build (tests
+    only): ``tl_level`` at the perturbations ``dirs`` and ``ad_level`` at the
+    output cotangents ``weights``.  Every argument is a dict of 1-D CPU
+    tensors of one float dtype and one length, named as in ``AD_LEVEL_X``,
+    ``AD_LEVEL_COL``, ``AD_LEVEL_TRAJ``, ``AD_DIRS`` and ``AD_WEIGHTS``.
+    With ``reference`` the same code runs in long double on the same inputs
+    and constants, its results rounded to float64.  Returns the TL level's
+    outputs (named as ``AD_WEIGHTS``), the AD level's cotangents (named as
+    ``AD_DIRS``) and, per point, the mask of the branches ``ad_level`` took
+    (bit i: ``AD_BRANCHES[i]``)."""
+    ins = [x[n] for n in AD_LEVEL_X] + [col[n] for n in AD_LEVEL_COL] + [traj[n] for n in AD_LEVEL_TRAJ]
+    ins += [dirs[n] for n in AD_DIRS] + [weights[n] for n in AD_WEIGHTS]
+    dtype, npoints = ins[0].dtype, ins[0].numel()
+    for t in ins:
+        if t.dtype != dtype or t.shape != (npoints,) or t.device.type != "cpu" or not t.is_contiguous():
+            raise ValueError(f"need contiguous 1-D CPU tensors of one dtype and length, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
+    precision = int(dtype == torch.float64)
+    if reference:
+        ins, consts, dtype, precision = [t.double() for t in ins], consts.double(), torch.float64, 2
+    outs = [torch.empty(npoints, dtype=dtype) for _ in AD_WEIGHTS + AD_DIRS]
+    branches = torch.zeros(npoints, dtype=torch.int32)
+    evap, lregcl = int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL))
+    err = _load("host").cloudsc2_ad_level_host(precision, evap, lregcl, ptrs(ins), ptrs(outs),
+                                               branches.data_ptr(), consts.data_ptr(), npoints)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_ad_level host entry failed: {err}")
+    n = len(AD_WEIGHTS)
+    return dict(zip(AD_WEIGHTS, outs[:n])), dict(zip(AD_DIRS, outs[n:])), branches
+
+
 # ---- the fused kernel (cloudsc2_ad_pallas_fused)
 
 
@@ -268,23 +359,36 @@ def fused_stack_slots(evap: bool, resident: bool) -> int:
     return (3 if evap else 2) + (len(AD_FUSED_RESIDENT) if resident else 0)
 
 
-def fused_plan(nlev: int, dtype: torch.dtype, evap: bool, resident: bool) -> Tuple[int, int]:
-    """``(threads a block, shared bytes a block)`` for the fused kernel: the
-    largest block of ``FUSED_BLOCKS`` whose stacks fit in
-    ``MAX_SHARED_BYTES``.  At 137 levels that is 128 threads in f32 and 64
-    in f64, resident 32 and 16.  Raises ``ValueError``, naming the bytes,
-    where not even 16 threads fit."""
+def fused_plan(nlev: int, dtype: torch.dtype, evap: bool, resident: bool) -> Tuple[int, int, int]:
+    """``(threads a block, shared bytes a block, blocks per SM)`` that the
+    fused kernel's stacks allow: of ``FUSED_BLOCKS``, the block that keeps
+    the most threads resident on one SM, ties to the larger.  A block's
+    stacks must fit in ``MAX_SHARED_BYTES``; an SM holds ``SM_SHARED_BYTES //
+    (stacks + BLOCK_RESERVED_BYTES)`` blocks, at most 32 and 2,048 threads.
+    At 137 levels with the default switches that is 64 x 3 = 192 threads in
+    f32 and 32 x 3 = 96 in f64; with evaporation 128 and 64, resident 32 and
+    16, one block each.  Registers are not counted: :func:`fused_occupancy`
+    asks the card, which counts them.  Raises ``ValueError``, naming the
+    bytes, where not even 16 threads fit."""
     item = torch.empty((), dtype=dtype).element_size()
     slots = fused_stack_slots(evap, resident)
     per_thread = slots * nlev * item
+    best = None
     for block in FUSED_BLOCKS:
-        if block * per_thread <= MAX_SHARED_BYTES:
-            return block, block * per_thread
-    raise ValueError(
-        f"the fused AD kernel's stack does not fit: {slots} values x {nlev} levels x {item} B = "
-        f"{per_thread} B a thread, {FUSED_BLOCKS[-1] * per_thread} B for {FUSED_BLOCKS[-1]} threads, "
-        f"above the {MAX_SHARED_BYTES} B of shared memory a block may hold"
-    )
+        nbytes = block * per_thread
+        if nbytes > MAX_SHARED_BYTES:
+            continue
+        per_sm = min(SM_SHARED_BYTES // (nbytes + BLOCK_RESERVED_BYTES), MAX_BLOCKS_PER_SM,
+                     MAX_THREADS_PER_SM // block)
+        if best is None or block * per_sm > best[0] * best[2]:
+            best = (block, nbytes, per_sm)
+    if best is None:
+        raise ValueError(
+            f"the fused AD kernel's stack does not fit: {slots} values x {nlev} levels x {item} B = "
+            f"{per_thread} B a thread, {FUSED_BLOCKS[-1] * per_thread} B for {FUSED_BLOCKS[-1]} threads, "
+            f"above the {MAX_SHARED_BYTES} B of shared memory a block may hold"
+        )
+    return best
 
 
 def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
@@ -311,9 +415,9 @@ def cloudsc2_ad_fused_cuda(
     state: Dict[str, Tensor], dt: float, c: Constants, resident: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One AD step through the fused CUDA kernel, on PyTorch's current
-    stream: both sweeps in one launch, with the block size of
-    :func:`fused_plan`.  Each launch adds one to
-    ``cloudsc2_ad_fused_cuda.launches``.
+    stream: both sweeps in one launch, with the block size that
+    :func:`fused_occupancy` takes from the card.
+    Each launch adds one to ``cloudsc2_ad_fused_cuda.launches``.
 
     Same contract and outputs as :func:`cloudsc2_ad_cuda`.  ``resident``
     keeps the folded level inputs on the kernel's stack too.  Raises
@@ -324,12 +428,12 @@ def cloudsc2_ad_fused_cuda(
     """
     ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cuda")
     nlev, ncols = state["ap"].shape
-    block, _ = fused_plan(nlev, outs[0].dtype, bool(switches[1]), resident)
-    lib = load_fused_cuda()
     with torch.cuda.device(state["ap"].device):
+        block = fused_occupancy(outs[0].dtype, c, resident, nlev)["block"]
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cloudsc2_ad_fused_launch(*switches, block, ptrs(ins), ptrs(outs), nl_consts.data_ptr(),
-                                           tl_consts.data_ptr(), nlev, ncols, stream)
+        err = load_fused_cuda().cloudsc2_ad_fused_launch(*switches, block, ptrs(ins), ptrs(outs),
+                                                         nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
+                                                         ncols, stream)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}")
     cloudsc2_ad_fused_cuda.launches += 1
@@ -339,19 +443,37 @@ def cloudsc2_ad_fused_cuda(
 cloudsc2_ad_fused_cuda.launches = 0  # type: ignore[attr-defined]
 
 
-def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int) -> Dict[str, int]:
-    """What the card makes of the fused kernel at :func:`fused_plan`'s block
-    size: ``block``, ``blocks_per_sm``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
-    ``local_bytes`` a thread, ``shared_bytes`` a block.  Needs the card."""
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    block, _ = fused_plan(nlev, dtype, evap, resident)
+@functools.lru_cache(maxsize=None)
+def _occupancy(switches: Tuple[int, int, int, int], block: int, nlev: int) -> Tuple[int, int, int, int]:
     out = (ctypes.c_int * 4)()
-    err = load_fused_cuda().cloudsc2_ad_fused_occupancy(
-        int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident), block, nlev, out)
+    err = load_fused_cuda().cloudsc2_ad_fused_occupancy(*switches, block, nlev, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused occupancy query failed: cudaError_t {err}")
-    return dict(zip(("block", "blocks_per_sm", "registers", "local_bytes", "shared_bytes"), (block, *out)))
+    return tuple(out)
+
+
+def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int) -> Dict[str, int]:
+    """The fused kernel's block on the card: of ``FUSED_BLOCKS`` whose
+    stacks fit a block, the one for which
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stacks and registers)
+    keeps the most threads on an SM, ties to the larger.  Returns ``block``,
+    ``blocks_per_sm``, ``threads_per_sm``, ``registers`` and ``local_bytes``
+    a thread (``cudaFuncGetAttributes``) and ``shared_bytes`` a block.
+    Raises ``ValueError`` as :func:`fused_plan` where not even 16 threads
+    fit.  Needs the card; the answers are kept per instantiation and
+    shape."""
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+    switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident))
+    block, nbytes, _ = fused_plan(nlev, dtype, evap, resident)
+    per_thread = nbytes // block
+    best = None
+    for block in FUSED_BLOCKS:
+        if block * per_thread <= MAX_SHARED_BYTES:
+            per_sm, registers, local, shared = _occupancy(switches, block, nlev)
+            if best is None or block * per_sm > best["threads_per_sm"]:
+                best = {"block": block, "blocks_per_sm": per_sm, "threads_per_sm": block * per_sm,
+                        "registers": registers, "local_bytes": local, "shared_bytes": shared}
+    return best
 
 
 def cloudsc2_ad_fused_host(

@@ -23,18 +23,25 @@
 // NL level and one transposed TL level (0.19 ms at 67 TFLOP/s f32).  This
 // design moves more: the tropopause pass reads t and tnd_cml_t twice, and
 // the rolled form reads the 16 raw fields again in the reverse sweep (69-70
-// values; resident 53-54).  Its reverse level, as adjoint.cu's, runs 12-14
-// TL levels (Jacobian columns), so its own operations set its time.
+// values; resident 53-54).  Its reverse level is adjoint.cu's, the hand
+// transpose of ad_level.h (about 700 flops, 860 with evaporation).
 //
 // What the design does about it, and what it costs: the stack is the
 // price.  It takes 2-3 values per level per thread (12-13 resident): at 137
 // levels 1,096-1,644 B a thread in f32 (6,576-7,124 resident), twice that
-// in f64.  A block may hold 232,448 B of dynamic shared memory, so the
-// wrapper picks the largest block of 128, 64, 32 or 16 threads whose stack
-// fits (kernels/adjoint.py fused_plan) and raises if not even 16 fit; at
-// 137 levels every form holds one block per SM, where the two-kernel
-// reverse kernel holds 2-3 blocks of 128 threads.  The stack is indexed
-// [slot][level][thread], so at a level a warp touches consecutive words.
+// in f64.  An SM holds 233,472 B of shared memory, 1,024 B of it reserved
+// for each resident block, and a block at most 232,448 B, so the wrapper
+// launches, of 128, 64, 32 and 16 threads, the block that keeps the most
+// threads resident on an SM: kernels/adjoint.py fused_plan counts what the
+// stacks allow and raises if not even 16 threads fit, fused_occupancy asks
+// the card (cloudsc2_ad_fused_occupancy below), registers included.
+// At 137 levels with the default switches that is 3 blocks of 64 threads
+// in f32 (192 a SM) and 3 of 32 in f64 (96); with evaporation one block of
+// 128 and of 64, resident one of 32 and of 16.  The kernel's time follows
+// its threads per SM: each thread waits on its own chain of loads and
+// divides, and at these counts few warps hide each other's latency.  The
+// stack is indexed [slot][level][thread], so at a level a warp touches
+// consecutive words.
 //
 // Built with --fmad=false, as the other kernels; never with fast math.
 #include <cuda_runtime.h>
@@ -43,9 +50,11 @@
 
 namespace {
 
-// The largest block the wrapper launches.  It sets the launch bounds only,
-// so one instantiation serves every block size: at 128 threads or fewer
-// the cap of 255 registers a thread binds first.
+// The largest block the wrapper launches (kernels/adjoint.py FUSED_BLOCKS),
+// and the kernel's launch bounds: one instantiation serves every block
+// size.  The stacks hold at most 192 threads on an SM at 137 levels, where
+// even 255 registers a thread (48,960) leave the register file unbound, so
+// the bounds ask for no minimum of blocks.
 constexpr int kMaxThreads = 128;
 // Dynamic shared memory a block may opt in to on sm_90.
 constexpr size_t kMaxSharedBytes = 232448;
@@ -63,13 +72,18 @@ struct Kernel {
            static_cast<size_t>(block) * sizeof(T);
   }
 
-  // Opt the kernel in to `bytes` of dynamic shared memory.
+  // Opt the kernel in to `bytes` of dynamic shared memory, and to the
+  // largest shared-memory carveout, so that an SM holds as many blocks as
+  // their stacks allow.
   static cudaError_t prepare(int nlev, int block, size_t* bytes) {
     if (block < 1 || block > kMaxThreads) return cudaErrorInvalidValue;
     *bytes = stack_bytes(nlev, block);
     if (*bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
-    return cudaFuncSetAttribute(fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*bytes));
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*bytes));
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
   }
 };
 

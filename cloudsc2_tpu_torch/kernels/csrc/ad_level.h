@@ -5,22 +5,36 @@
 // per-column body that runs it bottom-up through the level scan
 // (levelscan.cuh, REVERSE).  The reverse half of cloudsc2_ad_pallas
 // (cloudsc2_tpu/pallas/adjoint.py:125): its reverse body _make_rev_body
-// (:320), its input folds _reverse_problem (:260) and its assembly
-// _assemble (:362), which cloudsc2_ad_pallas_fused (:432) shares: the fused
-// kernel (ad_fused.h) runs this body too, from its stack.
+// (:320, jax.vjp of tl_level, one reverse sweep per level), its input folds
+// _reverse_problem (:260) and its assembly _assemble (:362), which
+// cloudsc2_ad_pallas_fused (:432) shares: the fused kernel (ad_fused.h) runs
+// this body too, from its stack.
 //
 // The TL level (tl_level of tl_level.h) is exactly linear in its
-// perturbations: every branch depends on forward values only.  Its
-// transpose at one level is therefore built from Jacobian columns: the
-// already checked tl_level runs once per input direction with a unit
-// perturbation there and zeros elsewhere, around the forward carry the NL
-// kernel stored entering the level (its trajectory), and each result is
-// dotted with the level's output cotangents.  That is the exact transpose
-// up to rounding, with no hand-transposed code.  The directions are the 3
-// carry perturbations, the 10 folded inputs (XI_NAMES, pallas/adjoint.py:107)
-// and, with evaporation, the surface-pressure perturbation aph_s_i: 14.
-// Without evaporation the covptot carry feeds nothing but itself (its
-// cotangent stays 0) and aph_s_i is not read, so 12 directions run.
+// perturbations: every branch depends on forward values only.  ad_level is
+// its transpose written by hand, one primal pass and one adjoint pass:
+//   (a) primal: the statements of tl_level without their perturbations,
+//       around the forward carry the NL kernel stored entering the level
+//       (its trajectory): every forward value, predicate and guarded
+//       operand the transpose reads;
+//   (b) adjoint: the perturbation statements of tl_level in reverse order,
+//       each y_i = a*x1_i + b*x2_i becoming x1_b += a*y_b, x2_b += b*y_b.
+//       A selection sends the cotangent to the branch the TL took, by the
+//       TL's own predicate; a product is taken in the order an autograd
+//       tape over the plain TL takes it, so f32 rounds as the plain AD does.
+// The saturation adjustment transposes as physics/cuadjtqs.py cuadjtqs_ad:
+// both iterations forward, then iteration 2 and iteration 1 in reverse, the
+// ap cotangent gathered through qp = 1/ap.  The tendency form, used twice by
+// the TL, is transposed twice, in reverse order.
+//
+// Its cost, counted by hand: about 700 flops per column-level with EVAP off
+// (a primal pass of about 280 with 9 exp, a tanh and 2 sqrt, an adjoint
+// pass of about 420), about 860 with evaporation (a sqrt and 2 pow more),
+// where running tl_level once per input direction (12-14 times) cost
+// 8,400-9,800.  The primal values the adjoint reads stay in registers: 128
+// a thread in f32 and 244-246 in f64 without evaporation, with no spill;
+// 159-164 and 255 with evaporation, where f64 spills 192-200 bytes (ptxas,
+// sm_90a).
 //
 // Static switches are template bools: EVAP = LEVAPLS2 || LDRAIN1D, LREGCL.
 // The AD requires LPHYLIN (the NL trajectory is the TL's forward only under
@@ -57,6 +71,23 @@ namespace cloudsc2 {
   X(rfl) X(sfl) X(cov) X(ap) X(dp) X(lu_next) X(lude) X(mf) X(q2) X(ql_fg)     \
   X(qi_fg) X(qsat) X(t_fg) X(aph_s)
 
+// The outputs of one TL level: the carry leaving it, its six perturbation
+// outputs.
+#define CLOUDSC2_AD_WEIGHTS(X)                                                 \
+  X(rfl) X(sfl) X(cov) X(tnd_t) X(tnd_q) X(tnd_ql) X(tnd_qi) X(clc) X(covptot)
+
+// The two-way choices of tl_level, as bits of the mask ad_level_traced
+// reports (for the tests): fwat's branch, esdp's clip, qlim, the ice
+// supersaturation, cloud cover low / mid / high, detrainment, subsidence,
+// the melt temperature, autoconversion, covptot's growth, melting and its
+// limit, rain freezing, evaporation, its cap and the drained cover, the
+// adjustment's phase and its two clips, the final clip, refreezing.
+// covpclr's clip is not among them: covptot = max(carry, clc) >= clc.
+#define CLOUDSC2_AD_BRANCHES(X)                                                \
+  X(cold) X(noclip) X(qlim_sat) X(cold_ice) X(low) X(mid) X(high) X(lo1) X(lo3) \
+  X(warm) X(act) X(grow) X(melt) X(snow_all) X(coldt) X(eact) X(big)            \
+  X(drained) X(adj_warm) X(adj_noclip1) X(adj_noclip2) X(clipped) X(coldt2)
+
 #define CLOUDSC2_STR(n) #n ","
 inline const char* ad_signature() {
   return "consts:" CLOUDSC2_TL_CONSTS(CLOUDSC2_STR)
@@ -65,11 +96,11 @@ inline const char* ad_signature() {
 }
 #undef CLOUDSC2_STR
 
-enum ADDir {
-#define CLOUDSC2_ENUM(n) AD_##n,
-  CLOUDSC2_AD_DIRS(CLOUDSC2_ENUM)
+// The bit of each branch in the mask.
+enum ADBranch {
+#define CLOUDSC2_ENUM(n) AD_BR_##n,
+  CLOUDSC2_AD_BRANCHES(CLOUDSC2_ENUM)
 #undef CLOUDSC2_ENUM
-  AD_NDIR
 };
 
 template <typename T>
@@ -95,51 +126,703 @@ struct ADCot {
 // seeds) and the level's six perturbation outputs.
 template <typename T>
 struct ADWeights {
-  T rfl, sfl, cov, tnd_t, tnd_q, tnd_ql, tnd_qi, clc, covptot;
+#define CLOUDSC2_FIELD(n) T n;
+  CLOUDSC2_AD_WEIGHTS(CLOUDSC2_FIELD)
+#undef CLOUDSC2_FIELD
 };
+
+// ---------------------------------------------------- saturation adjustment ----
+// One iteration of cuadjtqs_tl (tl_level.h) without its perturbations: the
+// forward values its transpose reads.  The caller advances t += zaldcp *
+// cond, q -= cond, as the TL does.
+template <typename T>
+struct AdjIter {
+  T q, rt4, foeew, s, z2s, u, w, rden, cond;
+  bool noclip;
+};
+
+template <typename T>
+CLOUDSC2_HD AdjIter<T> adj_iter(T qp, T t, T q, T z3es, T z4es, T z5alcp, const TLConst<T>& c) {
+  const T one = T(1);
+  AdjIter<T> r;
+  r.q = q;
+  r.rt4 = one / (t - z4es);
+  r.foeew = c.r2es * m_exp(z3es * (t - c.rtt) * r.rt4);
+  const T qsat = qp * r.foeew;
+  r.noclip = qsat <= c.zqmax;
+  r.s = m_min(qsat, c.zqmax);
+  r.z2s = z5alcp * r.rt4 * r.rt4;
+  r.u = one - c.retv * r.s;
+  r.w = q * r.u - r.s;
+  const T num = r.w * r.u;
+  const T den = r.u * r.u + r.s * r.z2s;
+  r.rden = one / den;
+  r.cond = num * r.rden;
+  return r;
+}
+
+// The transpose of one iteration of cuadjtqs_tl around its forward values
+// r: t_b, q_b hold the cotangents of the iteration's outputs on entry and of
+// its inputs on return; qp_b gathers the cotangent of qp_i.
+template <typename T>
+CLOUDSC2_HD void adj_iter_ad(const AdjIter<T>& r, T qp, T z3es, T z4es, T zaldcp, T& t_b, T& q_b,
+                             T& qp_b, const TLConst<T>& c) {
+  // t_i += zaldcp * cond_i; q_i -= cond_i; cond_i = (num_i - cond * den_i) * rden
+  const T num_b = (zaldcp * t_b - q_b) * r.rden;
+  const T den_b = -(num_b * r.cond);
+  // num_i = (q_i * u + q * u_i - s_i) * u + w * u_i
+  const T in_b = num_b * r.u;
+  q_b = q_b + in_b * r.u;
+  T u_b = in_b * r.q + num_b * r.w;
+  T s_b = -in_b;
+  // den_i = 2 * u * u_i + s_i * z2s + s * z2s_i
+  u_b = u_b + den_b * (T(2) * r.u);
+  s_b = s_b + den_b * r.z2s;
+  const T z2s_b = den_b * r.s;
+  // u_i = -retv * s_i
+  s_b = s_b - u_b * c.retv;
+  // z2s_i = -2 * z2s * t_i * rt4
+  t_b = t_b + z2s_b * r.rt4 * (T(-2) * r.z2s);
+  // s_i = noclip ? qsat_i : 0;  qsat_i = qp_i * foeew + qp * foeew_i
+  const T qsat_b = r.noclip ? s_b : T(0);
+  qp_b = qp_b + qsat_b * r.foeew;
+  // foeew_i = foeew * z3es * t_i * (rtt - z4es) * rt4 * rt4
+  t_b = t_b + qsat_b * qp * r.rt4 * r.rt4 * (c.rtt - z4es) * (r.foeew * z3es);
+}
 
 // ---------------------------------------------------------------- ad_level ----
 // The transpose of tl_level at one point: x holds the level's forward
 // values (its perturbations are ignored), traj the forward carry entering
 // the level, w the cotangents of the level's outputs.  Returns the
-// cotangent of every input direction.
+// cotangent of every input direction.  With EVAP off the covptot carry
+// feeds nothing but itself and aph_s is not read: g.cov and g.aph_s are 0.
+// `branches`, where not null, receives the mask of CLOUDSC2_AD_BRANCHES.
+template <typename T, bool EVAP, bool LREGCL>
+CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
+                                     const NLCarry<T>& traj, const ADWeights<T>& w,
+                                     const TLConst<T>& c, unsigned* branches) {
+  const T one = T(1), zero = T(0);
+
+  // ================================================= (a) primal ==========
+  // ---- phase A (tl_level.h:154-326)
+  const T ap = x.ap, qsat_in = x.qsat, t = x.t_fg, q = x.q2, ql = x.ql_fg, qi = x.qi_fg;
+  const T dp = x.dp, scalm = x.scalm;
+  const T zd = c.rcpd + c.rcpd_rvtmp2 * q;
+  const T zz = one / zd;
+  const T lfdcp = c.rlmlt * zz, lsdcp = c.rlstt * zz, lvdcp = c.rlvtt * zz;
+  const bool cold = t < c.rtt;
+  const T th = m_tanh(T(0.17) * (t - c.rlptrc));
+  const T fwat = cold ? T(0.545) * (th + one) : one;
+  const T z3es = cold ? c.r3ies : c.r3les;
+  const T z4es = cold ? c.r4ies : c.r4les;
+  const T rl = one / (t - c.r4les);
+  const T ri = one / (t - c.r4ies);
+  const T rz4es = cold ? ri : rl;
+  const T rap = one / ap;
+  const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rz4es);
+  const T esdp0 = foeew * rap;
+  const bool noclip = esdp0 <= c.zqmax;
+  const T esdp = m_min(esdp0, c.zqmax);
+  const T facw = c.r5les * (rl * rl);
+  const T faci = c.r5ies * (ri * ri);
+  const T fac = fwat * facw + (one - fwat) * faci;
+  const T cor = one / (one - c.retv * esdp);
+  const T dqsdtemp = fac * cor * qsat_in;
+  const T corqs = one + c.cons3 * dqsdtemp;
+  const T qlim = m_min(q, qsat_in);
+  const bool qlim_sat = q > qsat_in;
+  const T crh2 = critical_rh(x.eta, static_cast<const NLCol<T>&>(col));
+  const bool cold_ice = t < c.rtice;
+  const T supsat_fac = cold_ice ? T(1.8) - T(0.003) * t : one;
+  const T qsat = qsat_in * supsat_fac;
+  const T qcrit = crh2 * qsat;
+  const T qt = q + ql + qi;
+  const bool low = qt < qcrit;
+  const bool high = qt >= qsat;
+  const bool mid = !(low || high);
+  const T qpd = qsat - qt;
+  const T qcd = qsat - qcrit;
+  const T denom = qcd - scalm * (qt - qcrit);
+  const T rdenom = one / (mid ? denom : one);
+  const T ratio = mid ? qpd * rdenom : zero;
+  const T clc_mid = one - m_sqrt(ratio);
+  const T rtmp1 = one / m_sqrt(mid ? ratio : one);
+  T yyy = one;
+  if (LREGCL) {
+    const T rat = qpd / (mid ? qcd : one);
+    const T u = one - scalm * (one - rat);
+    yyy = m_min(T(3.5) * m_sqrt(m_max(rat * (u * u * u), zero)) / (one - scalm), T(0.3));
+  }
+  const T qc_mid = (scalm * qpd + (one - scalm) * qcd) * (clc_mid * clc_mid);
+  const T qc_high = (one - scalm) * (qsat - qcrit);
+  const T clc0 = low ? zero : (high ? one : clc_mid);
+  const T qc0 = low ? zero : (high ? qc_high : qc_mid);
+  const T rdp = one / dp;
+  const T gdp = c.rg * rdp;
+  const T lude = c.dt * x.lude * gdp;
+  const bool lo1 = (lude >= c.rlmin) && (x.lu_next >= c.zeps2);
+  const T rlu1 = one / (lo1 ? x.lu_next : one);
+  const T tmp2 = m_exp(-lude * rlu1);
+  const T clc = clc0 + (lo1 ? (one - clc0) * (one - tmp2) : zero);
+  const T qc1 = qc0 + (lo1 ? lude : zero);
+  const T fac1 = one / (c.rd * t);
+  const T rho = ap * fac1;
+  const T fac2 = one / (ap - c.retv * foeew);
+  const T rodqsdp = -rho * qsat_in * fac2;
+  const T ldcp = fwat * lvdcp + (one - fwat) * lsdcp;
+  const T fac3 = one / (one + ldcp * dqsdtemp);
+  const T dtdzmo = c.rg * (c.rcpd_inv - ldcp * rodqsdp) * fac3;
+  const T dqsdz = dqsdtemp * dtdzmo - c.rg * rodqsdp;
+  const T fac4 = c.rd * t * rap;
+  const T sub = c.dt * dqsdz * x.mf * fac4;
+  const bool lo3 = sub < qc1;
+  const T dqc = lo3 ? sub : qc1;
+  const T qc = lo3 ? qc1 - sub : zero;
+  const T qlwc = qc * fwat;
+  const T qiwc = qc * (one - fwat);
+  const T condl = (qlwc - ql) * c.rdt;
+  const T condi = (qiwc - qi) * c.rdt;
+  const T cons = c.cons2_rlmlt * dp * zd;
+  const T rcons = c.dt * gdp * lfdcp;
+  const bool warm = t > c.meltp2;
+  const T z2s = cons * m_max(t - c.meltp2, zero);
+  const bool act = clc > c.zeps2;
+  const T rclc = one / (act ? clc : one);
+  const T cldl = qlwc * rclc;
+  const T ltmp4 = m_exp(-(cldl * cldl * c.lcrit_k));
+  const T dl = c.ckcodtl * (one - ltmp4);
+  const T ltmp5 = m_exp(-dl);
+  const T qlnew = clc * cldl * ltmp5;
+  const T prr = act ? qlwc - qlnew : zero;
+  const T cldi = qiwc * rclc;
+  const T itmp41 = m_exp(-(cldi * cldi * c.icrit_k));
+
+  // ---- melt, ice autoconversion, new precipitation (:328-373)
+  const bool grow = clc > traj.covptot;
+  const T covptot = m_max(traj.covptot, clc);
+  const T covpclr1 = covptot - clc;
+  const bool pos = covpclr1 >= zero;
+  const T covpclr = m_max(covpclr1, zero);
+  const T sfl = traj.sfl;
+  const bool melt = sfl != zero;
+  const bool snow_all = sfl <= z2s;
+  const T sm = melt ? m_min(sfl, z2s) : zero;
+  T rfln = traj.rfl + sm;
+  T sfln = sfl - sm;
+  const T tm = t - sm * rcons;
+  const T itmp42 = m_exp(T(0.025) * (tm - c.rtt));
+  const T di = c.ckcodti * itmp42 * (one - itmp41);
+  const T itmp5 = m_exp(-di);
+  const T qinew = clc * cldi * itmp5;
+  const T prs = act ? qiwc - qinew : zero;
+  const T dr = c.cons2 * dp * (prr + prs);
+  const bool coldt = tm < c.rtt;
+  const T rfreeze1 = coldt ? c.cons2 * dp * prr : zero;
+  const T fwatr = coldt ? zero : one;
+  rfln = rfln + fwatr * dr;
+  sfln = sfln + (one - fwatr) * dr;
+
+  // ---- precipitation evaporation (:375-437)
+  bool eact = false, big = false, drained = false;
+  T evapr = zero, evaps = zero;
+  T prtot = zero, covptot_safe = one, covpclr_safe = one, prtot_safe = one, clcc = one;
+  T qe = zero, tmp6 = one, preclr_safe = one, beta = zero, pw = zero, vb = one, bq = zero;
+  T dtgdp = one, dpr = zero;
+  if (EVAP) {
+    prtot = rfln + sfln;
+    eact = (prtot > c.zeps2) && (covpclr > c.zeps2);
+    covptot_safe = eact ? covptot : one;
+    covpclr_safe = eact ? covpclr : one;
+    prtot_safe = eact ? prtot : one;
+    const T preclr = prtot * covpclr / covptot_safe;
+    clcc = eact ? one - clc : one;
+    qe = qsat_in - (qsat_in - qlim) * covpclr / (clcc * clcc);
+    tmp6 = m_sqrt(ap / col.aph_s);
+    preclr_safe = (eact && preclr > zero) ? preclr : one;
+    beta = c.rg_rpecons * m_pow(tmp6 * preclr_safe / (T(0.00509) * covpclr_safe), T(0.5777));
+    pw = m_pow(T(0.00509) * covpclr_safe / (tmp6 * preclr_safe), T(0.4223));
+    vb = one + c.dt * beta * corqs;
+    bq = c.dt * beta * (qsat_in - qe) / vb;
+    dtgdp = c.dt_rg / dp;
+    const T dpr0 = covpclr * bq / dtgdp;
+    big = dpr0 > preclr;
+    dpr = eact ? (big ? preclr : dpr0) : zero;
+    drained = eact && preclr - dpr <= zero;
+    evapr = eact ? dpr * rfln / prtot_safe : zero;
+    evaps = eact ? dpr * sfln / prtot_safe : zero;
+  }
+
+  // ---- tendencies and final clipping (:439-503)
+  const T mix = fwat * lvdcp + (one - fwat) * lsdcp;
+  const T lude_raw = x.lude;
+  // the forward half of tendencies (:444-457) and its tmp
+  const T ttmp1 = lvdcp * evapr + lsdcp * evaps + lude_raw * mix - (lsdcp - lvdcp) * rfreeze1;
+  const T dqdt = -(condl + condi) + (lude_raw + evapr + evaps) * gdp;
+  const T dtdt = lvdcp * condl + lsdcp * condi - ttmp1 * gdp;
+  const T ta = tm + c.dt * dtdt;
+  const T qold = q + c.dt * dqdt;
+  // cuadjtqs_tl's forward: the phase from the input temperature, qp = 1/ap
+  const bool adj_warm = ta > c.rtt;
+  const T az3es = adj_warm ? c.r3les : c.r3ies;
+  const T az4es = adj_warm ? c.r4les : c.r4ies;
+  const T az5alcp = adj_warm ? c.r5alvcp : c.r5alscp;
+  const T azaldcp = adj_warm ? c.ralvdcp : c.ralsdcp;
+  const T qp = one / ap;
+  const AdjIter<T> it1 = adj_iter(qp, ta, qold, az3es, az4es, az5alcp, c);
+  const T ta1 = ta + azaldcp * it1.cond;
+  const T qa1 = qold - it1.cond;
+  const AdjIter<T> it2 = adj_iter(qp, ta1, qa1, az3es, az4es, az5alcp, c);
+  const T ta2 = ta1 + azaldcp * it2.cond;
+  const T qa = qa1 - it2.cond;
+  const bool adj_noclip1 = it1.noclip, adj_noclip2 = it2.noclip;
+  const bool clipped = qold >= qa;
+  const T dq = m_max(qold - qa, zero);
+  const T dr2 = c.cons2 * dp * dq;
+  const bool coldt2 = ta2 < c.rtt;
+  const T fwatr2 = coldt2 ? zero : one;
+  const T condl2 = condl + fwatr2 * dq * c.rdt;
+  const T condi2 = condi + (one - fwatr2) * dq * c.rdt;
+  const T rfreeze = rfreeze1 + (coldt2 ? fwat * dr2 : zero);
+  const T ttmp2 = lvdcp * evapr + lsdcp * evaps + lude_raw * mix - (lsdcp - lvdcp) * rfreeze;
+
+  if (branches) {
+    unsigned m = 0;
+#define CLOUDSC2_BIT(n) m |= static_cast<unsigned>(n) << AD_BR_##n;
+    CLOUDSC2_AD_BRANCHES(CLOUDSC2_BIT)
+#undef CLOUDSC2_BIT
+    *branches = m;
+  }
+
+  // ================================================ (b) adjoint ==========
+  // cotangents of the input directions, and of the intermediates read in
+  // more than one place
+  T g_ap = zero, g_dp = zero, g_mf = zero, g_q = zero, g_ql = zero, g_qi = zero, g_qs = zero;
+  T g_t = zero, g_aphs = zero, g_lu = zero, g_rfl = zero, g_sfl = zero, g_cov = zero;
+  T b_lude = zero, b_gdp = zero, b_fwat = zero, b_lvdcp = zero, b_lsdcp = zero, b_mix = zero;
+  T b_evapr = zero, b_evaps = zero, b_clc = w.clc, b_rfln = w.rfl, b_sfln = w.sfl;
+  T b_cl = zero, b_ci = zero, b_rf = zero, b_qlim = zero, b_corqs = zero, b_covpclr = zero;
+
+  // the transpose of tendencies(cl, ci, rf) (:444-457), whose tmp is ttmp,
+  // at the cotangents dqdt_b, dtdt_b of its outputs
+  auto tendencies_ad = [&](T cl, T ci, T rf, T ttmp, T dqdt_b, T dtdt_b) {
+    // dqdt_i = -(cl_i + ci_i) + (lude_i + evapr_i + evaps_i) * gdp + (lude + evapr + evaps) * gdp_i
+    b_cl = b_cl - dqdt_b;
+    b_ci = b_ci - dqdt_b;
+    const T s = dqdt_b * gdp;
+    b_lude = b_lude + s;
+    if (EVAP) {
+      b_evapr = b_evapr + s;
+      b_evaps = b_evaps + s;
+    }
+    b_gdp = b_gdp + dqdt_b * (lude_raw + evapr + evaps);
+    // dtdt_i = lvdcp_i * cl + lvdcp * cl_i + lsdcp_i * ci + lsdcp * ci_i - P * gdp - tmp * gdp_i
+    b_lvdcp = b_lvdcp + dtdt_b * cl;
+    b_cl = b_cl + dtdt_b * lvdcp;
+    b_lsdcp = b_lsdcp + dtdt_b * ci;
+    b_ci = b_ci + dtdt_b * lsdcp;
+    const T p = -(dtdt_b * gdp);
+    b_gdp = b_gdp - dtdt_b * ttmp;
+    // P = lvdcp_i * evapr + lvdcp * evapr_i + lsdcp_i * evaps + lsdcp * evaps_i
+    //     + lude_i * mix + lude * mix_i - (lsdcp_i - lvdcp_i) * rf - (lsdcp - lvdcp) * rf_i
+    if (EVAP) {
+      b_lvdcp = b_lvdcp + p * evapr;
+      b_evapr = b_evapr + p * lvdcp;
+      b_lsdcp = b_lsdcp + p * evaps;
+      b_evaps = b_evaps + p * lsdcp;
+    }
+    b_lude = b_lude + p * mix;
+    b_mix = b_mix + p * lude_raw;
+    const T d = p * rf;
+    b_lsdcp = b_lsdcp - d;
+    b_lvdcp = b_lvdcp + d;
+    b_rf = b_rf - p * (lsdcp - lvdcp);
+  };
+
+  // ---- tendencies and final clipping, in reverse
+  // tnd_qi_i = (qiwc_i - qi_i) * rdt, qiwc after the ice autoconversion
+  const T a_qi = w.tnd_qi * c.rdt;
+  T b_qiwc = a_qi;
+  g_qi = g_qi - a_qi;
+  // the output tendencies: the second tendency form
+  tendencies_ad(condl2, condi2, rfreeze, ttmp2, w.tnd_q, w.tnd_t);
+  // rfreeze_i += rfreeze2_i: b_rf is the cotangent of both
+  // rfln_i += fwatr2 * dr2_i; sfln_i += (1 - fwatr2) * dr2_i
+  T b_dr2 = coldt2 ? b_sfln : b_rfln;
+  // condl_i += fwatr2 * dq_i * rdt; condi_i += (1 - fwatr2) * dq_i * rdt
+  T b_dq = (coldt2 ? b_ci : b_cl) * c.rdt;
+  // rfreeze2_i = coldt2 ? fwat_i * dr2 + fwat * dr2_i : 0
+  if (coldt2) {
+    b_fwat = b_fwat + b_rf * dr2;
+    b_dr2 = b_dr2 + b_rf * fwat;
+  }
+  // dr2_i = cons2 * (dp_i * dq + dp * dq_i)
+  {
+    const T a = b_dr2 * c.cons2;
+    g_dp = g_dp + a * dq;
+    b_dq = b_dq + a * dp;
+  }
+  // dq_i = clipped ? qold_i - qa_i : 0 (times 0.7 with LREGCL), qa_i the
+  // adjusted qold_i
+  if (LREGCL) b_dq = b_dq * T(0.7);
+  T b_qold = zero, b_ta = zero;
+  if (clipped) {
+    T b_qa = -b_dq;
+    T b_qp = zero;
+    adj_iter_ad(it2, qp, az3es, az4es, azaldcp, b_ta, b_qa, b_qp, c);
+    adj_iter_ad(it1, qp, az3es, az4es, azaldcp, b_ta, b_qa, b_qp, c);
+    // qp_i = -ap_i * qp * qp
+    g_ap = g_ap - b_qp * qp * qp;
+    b_qold = b_dq + b_qa;
+  }
+  // qold_i = q_i + dt * dqdt_i; ta_i = tm_i + dt * dtdt_i: the first tendency form
+  g_q = g_q + b_qold;
+  T b_tm = b_ta;
+  tendencies_ad(condl, condi, rfreeze1, ttmp1, b_qold * c.dt, b_ta * c.dt);
+  // mix_i = fwat_i * (lvdcp - lsdcp) + fwat * lvdcp_i + (1 - fwat) * lsdcp_i
+  b_fwat = b_fwat + b_mix * (lvdcp - lsdcp);
+  b_lvdcp = b_lvdcp + b_mix * fwat;
+  b_lsdcp = b_lsdcp + b_mix * (one - fwat);
+
+  // ---- precipitation evaporation, in reverse; b_cov is the cotangent of
+  // covptot_i (the carry leaving the level, then the one entering the drain)
+  T b_cov = zero;
+  if (EVAP) {
+    b_cov = w.cov;
+    if (eact) {
+      // rfln_i -= evapr_i; sfln_i -= evaps_i; the pre-evaporation fluxes
+      const T rfle = rfln, sfle = sfln;
+      b_evapr = b_evapr - b_rfln;
+      b_evaps = b_evaps - b_sfln;
+      // evaps_i = (dpr_i * sfln + dpr * sfln_i) / prtot_safe - dpr * sfln * prtot_i / prtot_safe^2
+      T a = b_evaps / prtot_safe;
+      T b_dpr = a * sfle;
+      b_sfln = b_sfln + a * dpr;
+      T b_prtot = -(b_evaps / (prtot_safe * prtot_safe)) * (dpr * sfle);
+      // evapr_i likewise with rfln
+      a = b_evapr / prtot_safe;
+      b_dpr = b_dpr + a * rfle;
+      b_rfln = b_rfln + a * dpr;
+      b_prtot = b_prtot - (b_evapr / (prtot_safe * prtot_safe)) * (dpr * rfle);
+      // covptot_out_i = covptot_i; covptot_i = drained ? clc_i : covptot_i
+      b_cov = b_cov + w.covptot;
+      if (drained) {
+        b_clc = b_clc + b_cov;
+        b_cov = zero;
+      }
+      // dpr_i = big ? preclr_i : dpr_i
+      T b_preclr = big ? b_dpr : zero;
+      const T b_dpr0 = big ? zero : b_dpr;
+      // dpr_i = (covpclr_i * b + covpclr * b_i) / dtgdp - covpclr * b * dtgdp_i / dtgdp^2
+      a = b_dpr0 / dtgdp;
+      b_covpclr = b_covpclr + a * bq;
+      const T b_b = a * covpclr;
+      // dtgdp_i = mdt_rg * dp_i / (dp * dp)
+      g_dp = g_dp + ((-(b_dpr0 / (dtgdp * dtgdp)) * (covpclr * bq)) / (dp * dp)) * c.mdt_rg;
+      // b_i = dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)) / vb
+      //       - dt * b * (beta_i * corqs + beta * corqs_i) / vb
+      a = (b_b / vb) * c.dt;
+      T b_beta = a * (qsat_in - qe);
+      const T e = a * beta;
+      g_qs = g_qs + e;
+      T b_qe = -e;
+      a = -(b_b / vb) * (c.dt * bq);
+      b_beta = b_beta + a * corqs;
+      b_corqs = b_corqs + a * beta;
+      // beta_i = beta_i_k * pw * (W / covpclr_safe - tmp6 * preclr_safe * covpclr_i / covpclr_safe^2),
+      // W = tmp6 * preclr_i + 0.5 * preclr_safe * ap_i / (tmp6 * aph_s)
+      //     - 0.5 * preclr_safe * tmp6 * aph_s_i / aph_s
+      const T z = b_beta * (c.beta_i_k * pw);
+      a = z * (one / covpclr_safe);
+      b_preclr = b_preclr + a * tmp6;
+      g_ap = g_ap + (a / (tmp6 * col.aph_s)) * (T(0.5) * preclr_safe);
+      g_aphs = g_aphs - (a / col.aph_s) * (T(0.5) * preclr_safe * tmp6);
+      b_covpclr = b_covpclr - (z / (covpclr_safe * covpclr_safe)) * (tmp6 * preclr_safe);
+      // qe_i = qsat_in_i - (qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i)
+      //        / clcc^2 - 2 * (qsat_in - qlim) * covpclr * clc_i / clcc^3
+      g_qs = g_qs + b_qe;
+      a = -(b_qe / (clcc * clcc));
+      g_qs = g_qs + a * covpclr;
+      b_qlim = b_qlim - a * covpclr;
+      b_covpclr = b_covpclr + a * (qsat_in - qlim);
+      b_clc = b_clc - (b_qe / (clcc * clcc * clcc)) * (T(2) * (qsat_in - qlim) * covpclr);
+      // preclr_i = (prtot_i * covpclr + prtot * covpclr_i) / covptot_safe
+      //            - prtot * covpclr * covptot_i / covptot_safe^2
+      a = b_preclr / covptot_safe;
+      b_prtot = b_prtot + a * covpclr;
+      b_covpclr = b_covpclr + a * prtot;
+      b_cov = b_cov - (b_preclr / (covptot_safe * covptot_safe)) * (prtot * covpclr);
+      // prtot_i = rfln_i + sfln_i
+      b_rfln = b_rfln + b_prtot;
+      b_sfln = b_sfln + b_prtot;
+    }
+  }
+
+  // ---- melt, ice autoconversion, new precipitation, in reverse
+  // rfln_i += fwatr * dr_i; sfln_i += (1 - fwatr) * dr_i
+  const T b_dr = coldt ? b_sfln : b_rfln;
+  // rfreeze_i = coldt ? cons2 * (dp_i * prr + dp * prr_i) : 0
+  T b_prr = zero;
+  if (coldt) {
+    const T a = b_rf * c.cons2;
+    g_dp = g_dp + a * prr;
+    b_prr = a * dp;
+  }
+  // dr_i = cons2 * (dp_i * (prr + prs) + dp * (prr_i + prs_i))
+  T b_prs;
+  {
+    const T a = b_dr * c.cons2;
+    g_dp = g_dp + a * (prr + prs);
+    const T e = a * dp;
+    b_prr = b_prr + e;
+    b_prs = e;
+  }
+  // qiwc_i -= prs_i
+  b_prs = b_prs - b_qiwc;
+  T b_cldi = zero;
+  if (act) {
+    // prs_i = qiwc_i - qinew_i
+    b_qiwc = b_qiwc + b_prs;
+    // qinew_i = clc_i * cldi * itmp5 + clc * cldi_i * itmp5 - clc * cldi * itmp5 * di_i
+    const T a = -b_prs * itmp5;
+    b_clc = b_clc + a * cldi;
+    b_cldi = a * clc;
+    const T b_di = b_prs * (clc * cldi * itmp5);
+    // di_i = di_k * itmp42 * (itmp41 * (2 * cldi * cldi_i * icrit_k2 - 0.025 * tm_i) + 0.025 * tm_i)
+    const T e = b_di * (c.di_k * itmp42);
+    const T f = e * itmp41;
+    b_cldi = b_cldi + (f * c.icrit_k2) * (T(2) * cldi);
+    b_tm = b_tm - f * T(0.025) + e * T(0.025);
+  }
+  // tm_i = t_i - (smi * rcons + sm * rcons_i)
+  g_t = g_t + b_tm;
+  T b_smi = -(b_tm * rcons);
+  const T b_rcons = -(b_tm * sm);
+  // rfln_i = rfl_i + smi; sfln_i = sfl_i - smi
+  g_rfl = b_rfln;
+  g_sfl = b_sfln;
+  b_smi = b_smi + b_rfln - b_sfln;
+  // smi = melt ? (sfl <= z2s ? sfl_i : z2s_i) : 0
+  T b_z2s = zero;
+  if (melt) {
+    if (snow_all) {
+      g_sfl = g_sfl + b_smi;
+    } else {
+      b_z2s = b_smi;
+    }
+  }
+  if (EVAP) {
+    // covpclr_i = pos ? covptot_i - clc_i : 0
+    if (pos) {
+      b_cov = b_cov + b_covpclr;
+      b_clc = b_clc - b_covpclr;
+    }
+    // covptot_i = grow ? clc_i : carry covptot_i
+    if (grow) {
+      b_clc = b_clc + b_cov;
+    } else {
+      g_cov = b_cov;
+    }
+  }
+
+  // ---- phase A, in reverse
+  // tnd_ql_i = (qlwc_i - ql_i) * rdt, qlwc after the autoconversion
+  const T a_ql = w.tnd_ql * c.rdt;
+  T b_qlwc = a_ql;
+  g_ql = g_ql - a_ql;
+  if (act) {
+    // cldi_i = (qiwc_i - cldi * clc_i) * rclc
+    T a = b_cldi * rclc;
+    b_qiwc = b_qiwc + a;
+    b_clc = b_clc - a * cldi;
+    // qlwc_i -= prr_i; prr_i = qlwc_i - qlnew_i
+    b_prr = b_prr - a_ql;
+    b_qlwc = b_qlwc + b_prr;
+    // qlnew_i = clc_i * cldl * ltmp5 + clc * cldl_i * ltmp5 - clc * cldl * ltmp5 * dl_i
+    a = -b_prr * ltmp5;
+    b_clc = b_clc + a * cldl;
+    T b_cldl = a * clc;
+    // dl_i = dl_k * ltmp4 * cldl * cldl_i
+    b_cldl = b_cldl + (b_prr * (clc * cldl * ltmp5)) * (c.dl_k * ltmp4 * cldl);
+    // cldl_i = (qlwc_i - cldl * clc_i) * rclc
+    a = b_cldl * rclc;
+    b_qlwc = b_qlwc + a;
+    b_clc = b_clc - a * cldl;
+  }
+  // z2s_i = warm ? cons_i * (t - meltp2) + cons * t_i : 0
+  T b_cons = zero;
+  if (warm) {
+    b_cons = b_z2s * (t - c.meltp2);
+    g_t = g_t + b_z2s * cons;
+  }
+  // rcons_i = dt * (gdp_i * lfdcp + gdp * lfdcp_i)
+  T a = b_rcons * c.dt;
+  b_gdp = b_gdp + a * lfdcp;
+  const T b_lfdcp = a * gdp;
+  // cons_i = cons2_rlmlt * (dp_i * zd + dp * zd_i)
+  a = b_cons * c.cons2_rlmlt;
+  g_dp = g_dp + a * zd;
+  T b_zd = a * dp;
+  // condl_i = (qlwc_i - ql_i) * rdt; condi_i = (qiwc_i - qi_i) * rdt
+  a = b_cl * c.rdt;
+  b_qlwc = b_qlwc + a;
+  g_ql = g_ql - a;
+  a = b_ci * c.rdt;
+  b_qiwc = b_qiwc + a;
+  g_qi = g_qi - a;
+  // qlwc_i = qc_i * fwat + qc * fwat_i; qiwc_i = qc_i * (1 - fwat) - qc * fwat_i
+  const T b_qc = b_qlwc * fwat + b_qiwc * (one - fwat);
+  b_fwat = b_fwat + b_qlwc * qc - b_qiwc * qc;
+  // qc_i = lo3 ? qc_i - dqc_i_sub : 0; the subsidence terms feed dqc_i_sub alone
+  T b_qc1 = zero;
+  T b_foeew = zero, b_dqsdtemp = b_corqs * c.cons3;  // corqs_i = cons3 * dqsdtemp_i
+  if (lo3) {
+    b_qc1 = b_qc;
+    // dqc_i_sub = (dt * (dqsdz_i * mf + dqsdz * mf_i) - dqc * rho_i) * fac4 (times 0.1 with LREGCL)
+    T s = -b_qc;
+    if (LREGCL) s = s * T(0.1);
+    a = s * fac4;
+    const T e = a * c.dt;
+    const T b_dqsdz = e * x.mf;
+    g_mf = e * dqsdz;
+    T b_rho = -(a * dqc);
+    // dqsdz_i = dqsdtemp_i * dtdzmo + dqsdtemp * dtdzmo_i - rg * rodqsdp_i
+    b_dqsdtemp = b_dqsdtemp + b_dqsdz * dtdzmo;
+    T b_rodqsdp = -(b_dqsdz * c.rg);
+    // dtdzmo_i = -(rg * (ldcp_i * rodqsdp + ldcp * rodqsdp_i)
+    //              + dtdzmo * (ldcp_i * dqsdtemp + ldcp * dqsdtemp_i)) * fac3
+    const T m = -((b_dqsdz * dqsdtemp) * fac3);
+    const T r = m * c.rg;
+    T b_ldcp = r * rodqsdp;
+    b_rodqsdp = b_rodqsdp + r * ldcp;
+    const T d = m * dtdzmo;
+    b_ldcp = b_ldcp + d * dqsdtemp;
+    b_dqsdtemp = b_dqsdtemp + d * ldcp;
+    // ldcp_i = fwat_i * (lvdcp - lsdcp) + fwat * lvdcp_i + (1 - fwat) * lsdcp_i
+    b_fwat = b_fwat + b_ldcp * (lvdcp - lsdcp);
+    b_lvdcp = b_lvdcp + b_ldcp * fwat;
+    b_lsdcp = b_lsdcp + b_ldcp * (one - fwat);
+    // rodqsdp_i = (-rho_i * qsat_in - rho * qsat_in_i
+    //              + rho * qsat_in * (ap_i - retv * foeew_i) * fac2) * fac2
+    const T o = b_rodqsdp * fac2;
+    b_rho = b_rho - o * qsat_in;
+    g_qs = g_qs - o * rho;
+    const T h = (o * fac2) * (rho * qsat_in);
+    g_ap = g_ap + h;
+    b_foeew = b_foeew - h * c.retv;
+    // rho_i = (ap_i - ap * t_i * (rd * fac1)) * fac1
+    const T k = b_rho * fac1;
+    g_ap = g_ap + k;
+    g_t = g_t - (k * (c.rd * fac1)) * ap;
+  }
+  // qc_i += lo1 ? lude_i : 0; clc_i += lo1 ? clc_i_conv : 0, with
+  // clc_i_conv = -clc_i * (1 - tmp2) + (1 - clc) * tmp2 * ((lude_i - lude * lu_next_i * rlu1) * rlu1)
+  T b_ludes = zero, b_clc0 = b_clc;
+  if (lo1) {
+    b_ludes = b_qc1;
+    b_clc0 = b_clc - b_clc * (one - tmp2);
+    const T e = (b_clc * ((one - clc0) * tmp2)) * rlu1;
+    b_ludes = b_ludes + e;
+    g_lu = -(e * rlu1) * lude;
+  }
+  // lude_i = dt * (x.lude_i * gdp + x.lude * gdp_i)
+  a = b_ludes * c.dt;
+  b_lude = b_lude + a * gdp;
+  b_gdp = b_gdp + a * x.lude;
+  // gdp_i = -rg * dp_i * (rdp * rdp)
+  g_dp = g_dp + (b_gdp * (rdp * rdp)) * (-c.rg);
+  // clc_i = low ? 0 : (high ? 0 : clc_mid_i); qc_i = low ? 0 : (high ? qc_high_i : qc_mid_i)
+  T b_qsat = zero, b_qcrit = zero, b_qt = zero;
+  if (mid) {
+    // qc_mid_i = (scalm * qpd_i + (1 - scalm) * qcd_i) * clc_mid^2
+    //            + 2 * (scalm * qpd + (1 - scalm) * qcd) * clc_mid * clc_mid_i
+    a = b_qc1 * (clc_mid * clc_mid);
+    T b_qpd = a * scalm, b_qcd = a * (one - scalm);
+    T b_cm = b_clc0 + b_qc1 * (T(2) * (scalm * qpd + (one - scalm) * qcd) * clc_mid);
+    if (LREGCL) b_cm = b_cm * yyy;
+    // clc_mid_i = -0.5 * rtmp1 * (qpd_i * denom - qpd * (qcd_i - scalm * (qt_i - qcrit_i))) * rdenom^2
+    const T e = (b_cm * (rdenom * rdenom)) * (T(-0.5) * rtmp1);
+    b_qpd = b_qpd + e * denom;
+    const T f = -(e * qpd);
+    b_qcd = b_qcd + f;
+    const T h = -(f * scalm);
+    b_qt = h;
+    b_qcrit = -h;
+    // qpd_i = qsat_i - qt_i; qcd_i = qsat_i - qcrit_i
+    b_qsat = b_qpd + b_qcd;
+    b_qt = b_qt - b_qpd;
+    b_qcrit = b_qcrit - b_qcd;
+  } else if (high) {
+    // qc_high_i = (1 - scalm) * (qsat_i - qcrit_i)
+    a = b_qc1 * (one - scalm);
+    b_qsat = a;
+    b_qcrit = -a;
+  }
+  // qt_i = q_i + ql_i + qi_i
+  g_q = g_q + b_qt;
+  g_ql = g_ql + b_qt;
+  g_qi = g_qi + b_qt;
+  // qcrit_i = crh2 * qsat_i
+  b_qsat = b_qsat + b_qcrit * crh2;
+  // qsat_i = qsat_in_i * supsat_fac + qsat_in * supsat_fac_i;
+  // supsat_fac_i = cold_ice ? -0.003 * t_i : 0
+  g_qs = g_qs + b_qsat * supsat_fac;
+  if (cold_ice) g_t = g_t + (b_qsat * qsat_in) * T(-0.003);
+  // qlim_i = q > qsat_in ? qsat_in_i : q_i
+  if (EVAP) {
+    if (qlim_sat) {
+      g_qs = g_qs + b_qlim;
+    } else {
+      g_q = g_q + b_qlim;
+    }
+  }
+  // dqsdtemp_i = fac_i * cor * qsat_in + fac * cor_i * qsat_in + fac * cor * qsat_in_i
+  a = b_dqsdtemp * qsat_in;
+  const T b_fac = a * cor;
+  const T b_cor = a * fac;
+  g_qs = g_qs + b_dqsdtemp * (fac * cor);
+  // cor_i = retv * esdp_i * cor^2; esdp_i = noclip ? esdp0_i : 0;
+  // esdp0_i = (foeew_i - esdp0 * ap_i) * rap
+  if (noclip) {
+    a = ((b_cor * (cor * cor)) * c.retv) * rap;
+    b_foeew = b_foeew + a;
+    g_ap = g_ap - a * esdp0;
+  }
+  // fac_i = fwat_i * (facw - faci) + fwat * facw_i + (1 - fwat) * faci_i,
+  // facw_i = m2_r5les * t_i * rl^3, faci_i = m2_r5ies * t_i * ri^3
+  b_fwat = b_fwat + b_fac * (facw - faci);
+  g_t = g_t + ((b_fac * fwat) * (rl * rl * rl)) * c.m2_r5les;
+  g_t = g_t + ((b_fac * (one - fwat)) * (ri * ri * ri)) * c.m2_r5ies;
+  // foeew_i = z3es * (rtt - z4es) * t_i * foeew * rz4es^2
+  g_t = g_t + ((b_foeew * (rz4es * rz4es)) * foeew) * (z3es * (c.rtt - z4es));
+  // fwat_i = cold ? 0.545 * 0.17 * t_i * (1 - th * th) : 0
+  if (cold) g_t = g_t + (b_fwat * (one - th * th)) * T(0.545 * 0.17);
+  // l*dcp_i = L * zz_i; zz_i = -zd_i * zz^2; zd_i = rcpd_rvtmp2 * q_i
+  const T b_zz = b_lfdcp * c.rlmlt + b_lsdcp * c.rlstt + b_lvdcp * c.rlvtt;
+  b_zd = b_zd - b_zz * (zz * zz);
+  g_q = g_q + b_zd * c.rcpd_rvtmp2;
+
+  ADCot<T> g;
+  g.rfl = g_rfl;
+  g.sfl = g_sfl;
+  g.cov = g_cov;
+  g.ap = g_ap;
+  g.dp = g_dp;
+  g.lu_next = g_lu;
+  g.lude = b_lude;
+  g.mf = g_mf;
+  g.q2 = g_q;
+  g.ql_fg = g_ql;
+  g.qi_fg = g_qi;
+  g.qsat = g_qs;
+  g.t_fg = g_t;
+  g.aph_s = g_aphs;
+  return g;
+}
+
 template <typename T, bool EVAP, bool LREGCL>
 CLOUDSC2_HD ADCot<T> ad_level(const TLLevelIn<T>& x, const TLCol<T>& col, const NLCarry<T>& traj,
                               const ADWeights<T>& w, const TLConst<T>& c) {
-  ADCot<T> g;
-#define CLOUDSC2_ZERO(n) g.n = T(0);
-  CLOUDSC2_AD_DIRS(CLOUDSC2_ZERO)
-#undef CLOUDSC2_ZERO
-  // one TL level per direction; kept rolled, so the body is compiled once
-#ifdef __CUDACC__
-#pragma unroll 1
-#endif
-  for (int d = 0; d < AD_NDIR; ++d) {
-    if (!EVAP && (d == AD_cov || d == AD_aph_s)) continue;
-    TLCarry<T> carry{traj.rfl, traj.sfl, traj.covptot,
-                     T(d == AD_rfl), T(d == AD_sfl), T(d == AD_cov)};
-    TLLevelIn<T> xd = x;
-    xd.ap_i = T(d == AD_ap);
-    xd.dp_i = T(d == AD_dp);
-    xd.lu_next_i = T(d == AD_lu_next);
-    xd.lude_i = T(d == AD_lude);
-    xd.mf_i = T(d == AD_mf);
-    xd.q2_i = T(d == AD_q2);
-    xd.ql_fg_i = T(d == AD_ql_fg);
-    xd.qi_fg_i = T(d == AD_qi_fg);
-    xd.qsat_i = T(d == AD_qsat);
-    xd.t_fg_i = T(d == AD_t_fg);
-    TLCol<T> cold = col;
-    cold.aph_s_i = T(d == AD_aph_s);
-    const TLLevelOut<T> o = tl_level<T, EVAP, LREGCL>(carry, xd, cold, c);
-    T v = carry.rfl_i * w.rfl + carry.sfl_i * w.sfl + o.tnd_t_i * w.tnd_t +
-          o.tnd_q_i * w.tnd_q + o.tnd_ql_i * w.tnd_ql + o.tnd_qi_i * w.tnd_qi + o.clc_i * w.clc;
-    if (EVAP) v = v + carry.covptot_i * w.cov + o.covptot_i * w.covptot;
-#define CLOUDSC2_PICK(n) g.n = d == AD_##n ? v : g.n;
-    CLOUDSC2_AD_DIRS(CLOUDSC2_PICK)
-#undef CLOUDSC2_PICK
-  }
-  return g;
+  return ad_level_traced<T, EVAP, LREGCL>(x, col, traj, w, c, nullptr);
 }
 
 // ------------------------------------------------------------ column body ----

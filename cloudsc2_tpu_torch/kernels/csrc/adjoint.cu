@@ -11,35 +11,34 @@
 // and the carry entering each level.  This kernel is the reverse sweep:
 // one thread per column runs the levels bottom-up with the carry cotangents
 // in registers, and at each level applies the transpose of the TL level
-// around the stored carry (ad_level.h: 12 or 14 Jacobian columns of
-// tl_level).  It also does what the JAX wrapper does around its kernel in
-// XLA: the folds of the raw fields (dp, q2, the first guesses, mf, lu_next,
-// the tropopause and critical-RH coefficients), the fold of the flux seeds
-// (s_fpls = fpls_i[k+1] - L * fhps_i[k+1]), and the assembly of the 16
-// input cotangents (aph_i from cot_dp and the column sum of the surface
-// cotangent, lu_i shifted one level, mfu_i = mfd_i, q_i = supsat_i, cml_*_i
-// = dt * cot_*_fg).
+// around the stored carry (ad_level.h: tl_level transposed by hand, one
+// primal pass and one adjoint pass, as the Pallas kernel's jax.vjp of
+// tl_level sweeps once).  It also does what the JAX wrapper does around its
+// kernel in XLA: the folds of the raw fields (dp, q2, the first guesses,
+// mf, lu_next, the tropopause and critical-RH coefficients), the fold of
+// the flux seeds (s_fpls = fpls_i[k+1] - L * fhps_i[k+1]), and the assembly
+// of the 16 input cotangents (aph_i from cot_dp and the column sum of the
+// surface cotangent, lu_i shifted one level, mfu_i = mfd_i, q_i = supsat_i,
+// cml_*_i = dt * cot_*_fg).
 //
 // What bounds it: bytes.  Per column-level it must read the 16 raw fields,
 // 9 seeds (10 with evaporation) and 2 trajectory values (3), and write 16:
 // 43 values, 1.55 GB in f32 at 65,536 x 137, an HBM floor of 0.46 ms at
 // 3.35 TB/s (0.92 ms in f64).  This code reads t and tnd_cml_t a second
-// time, for the tropopause pass (45 values).  The reverse level needs about one NL level and one transposed
-// TL level of arithmetic, some 1,060 flops per column-level: 0.14 ms at
-// 67 TFLOP/s in f32 (0.28 ms at 34 in f64), below the byte floor.  This
-// design does more: it runs the TL level 12-14 times per level, each some
-// 700 flops with about 15 exp, a tanh, two pow and 30 divides, roughly
-// 10,000 flops per column-level, far above the card's balance point of
-// about 20 flop/B, so its own operations, not the bound, set its time.
+// time, for the tropopause pass (45 values).  The function's arithmetic,
+// one NL level and one transposed TL level, is some 1,060 flops per
+// column-level (0.14 ms at 67 TFLOP/s in f32, 0.28 ms at 34 in f64); the
+// hand transpose does about 700 (860 with evaporation), recomputing the
+// level's forward values itself, below the byte floor.
 //
-// What the design does about it: correctness first.  The Jacobian-column
-// transpose reuses the bitwise-checked tl_level instead of hand-transposed
-// code; the direction loop is kept rolled (#pragma unroll 1) so the level
-// body is compiled once and the registers stay those of one TL level plus
-// the 14 accumulators.  Everything but the inputs and outputs stays in
-// registers, loads and stores are coalesced (columns contiguous).  The fast
-// form, a hand transpose of tl_level.h that costs about one TL level per
-// level, is queued.
+// What the design does about it: everything but the inputs and outputs
+// stays in registers, one reverse sweep per level, loads and stores
+// coalesced (columns contiguous).  Its cost is registers: the primal values
+// the adjoint reads are live through it, 128 a thread in f32 (4 blocks of
+// 128 per SM) and 244-246 in f64 (2 blocks), no spill without evaporation.
+// On an H100 at 65,536 x 137 it runs at about 0.6 of the byte floor
+// (PERF.md); fewer registers, or the next level's loads issued before this
+// level's arithmetic, are what is left.
 //
 // Built with --fmad=false, as the NL and TL kernels; never with fast math.
 #include <cuda_runtime.h>
@@ -66,6 +65,23 @@ struct Launcher {
   }
 };
 
+// What the card makes of one instantiation: registers a thread, local
+// (spill) bytes a thread.
+struct Attributes {
+  int* out;
+
+  template <typename T, bool EVAP, bool LREGCL>
+  int run() const {
+    const auto fn = &cloudsc2::level_scan_kernel<cloudsc2::ADBody<T, EVAP, LREGCL>, true>;
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    return 0;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -82,6 +98,13 @@ int cloudsc2_ad_launch(int is_double, int evap, int lregcl, const void* const* i
   if (nlev < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Launcher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
   return cloudsc2::ad_dispatch(l, is_double, evap, lregcl);
+}
+
+// Fill out[0..1] for the instantiation: registers a thread and local bytes
+// a thread (cudaFuncGetAttributes).  Returns a cudaError_t.
+int cloudsc2_ad_attributes(int is_double, int evap, int lregcl, int* out) {
+  const Attributes a{out};
+  return cloudsc2::ad_dispatch(a, is_double, evap, lregcl);
 }
 
 }  // extern "C"

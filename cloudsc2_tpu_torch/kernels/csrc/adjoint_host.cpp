@@ -5,8 +5,33 @@
 // reverse form of levelscan.cuh), compiled with g++ -ffp-contract=off.  The
 // CPU tests run it, after the host NL body with its trajectory, against the
 // plain AD, so the kernel's own arithmetic is checked on a machine without
-// a card.  It is never used on the main path.
+// a card.  A second entry runs one level pointwise, tl_level forward and
+// ad_level in reverse, for the tests of the transpose's duality, in the
+// arrays' type or, as their reference, in long double.  Neither is used on
+// the main path.
+#include <math.h>
+
+// long double math for the reference evaluation, declared before the level
+// bodies so that their templates find it
+namespace cloudsc2 {
+inline long double m_exp(long double x) { return expl(x); }
+inline long double m_tanh(long double x) { return tanhl(x); }
+inline long double m_sqrt(long double x) { return sqrtl(x); }
+inline long double m_pow(long double x, long double y) { return powl(x, y); }
+}  // namespace cloudsc2
+
 #include "ad_level.h"
+
+// The pointwise level entry's arrays, one value per point: the level's
+// forward inputs, the column's surface pressure and tropopause, the carry
+// entering the level, the perturbation of each input direction and the
+// cotangent of each output; then the TL level's outputs and the AD level's
+// cotangents.
+#define CLOUDSC2_LEVEL_X(X)                                                    \
+  X(ap) X(dp) X(lu_next) X(lude) X(mf) X(q2) X(ql_fg) X(qi_fg) X(qsat) X(t_fg)  \
+  X(eta) X(scalm)
+#define CLOUDSC2_LEVEL_COL(X) X(aph_s) X(trpaus)
+#define CLOUDSC2_LEVEL_TRAJ(X) X(rfl) X(sfl) X(covptot)
 
 namespace {
 
@@ -25,6 +50,80 @@ struct HostRunner {
   }
 };
 
+// tl_level and ad_level at each point, as the AD body calls them, on
+// arrays of S in the arithmetic of T.
+template <typename S>
+struct LevelRunner {
+  const void* const* in;
+  void* const* out;
+  unsigned* branches;
+  const void* consts;
+  int npoints;
+
+  template <typename T, bool EVAP, bool LREGCL>
+  int run() const {
+    cloudsc2::TLConst<T> c;
+    int k = 0;
+#define CLOUDSC2_READ(n) c.n = static_cast<T>(static_cast<const S*>(consts)[k++]);
+    CLOUDSC2_TL_CONSTS(CLOUDSC2_READ)
+#undef CLOUDSC2_READ
+    for (int p = 0; p < npoints; ++p) {
+      int i = 0;
+      auto next = [&]() { return static_cast<T>(static_cast<const S*>(in[i++])[p]); };
+      cloudsc2::TLLevelIn<T> x = {};
+#define CLOUDSC2_READ(n) x.n = next();
+      CLOUDSC2_LEVEL_X(CLOUDSC2_READ)
+#undef CLOUDSC2_READ
+      cloudsc2::TLCol<T> col = {};
+      col.aph_s = next();
+      col.trpaus = next();
+      cloudsc2::critical_rh_coeffs(static_cast<cloudsc2::NLCol<T>&>(col));
+      cloudsc2::NLCarry<T> traj;
+#define CLOUDSC2_READ(n) traj.n = next();
+      CLOUDSC2_LEVEL_TRAJ(CLOUDSC2_READ)
+#undef CLOUDSC2_READ
+      cloudsc2::ADCot<T> d;
+#define CLOUDSC2_READ(n) d.n = next();
+      CLOUDSC2_AD_DIRS(CLOUDSC2_READ)
+#undef CLOUDSC2_READ
+      cloudsc2::ADWeights<T> w;
+#define CLOUDSC2_READ(n) w.n = next();
+      CLOUDSC2_AD_WEIGHTS(CLOUDSC2_READ)
+#undef CLOUDSC2_READ
+      // the TL level at the perturbations d
+      cloudsc2::TLCarry<T> carry{traj.rfl, traj.sfl, traj.covptot, d.rfl, d.sfl, d.cov};
+      cloudsc2::TLLevelIn<T> xd = x;
+      xd.ap_i = d.ap;
+      xd.dp_i = d.dp;
+      xd.lu_next_i = d.lu_next;
+      xd.lude_i = d.lude;
+      xd.mf_i = d.mf;
+      xd.q2_i = d.q2;
+      xd.ql_fg_i = d.ql_fg;
+      xd.qi_fg_i = d.qi_fg;
+      xd.qsat_i = d.qsat;
+      xd.t_fg_i = d.t_fg;
+      cloudsc2::TLCol<T> cold = col;
+      cold.aph_s_i = d.aph_s;
+      const cloudsc2::TLLevelOut<T> o = cloudsc2::tl_level<T, EVAP, LREGCL>(carry, xd, cold, c);
+      const cloudsc2::ADWeights<T> tl{carry.rfl_i, carry.sfl_i, carry.covptot_i, o.tnd_t_i,
+                                      o.tnd_q_i,   o.tnd_ql_i,  o.tnd_qi_i,      o.clc_i,
+                                      o.covptot_i};
+      // the AD level at the weights w
+      const cloudsc2::ADCot<T> g =
+          cloudsc2::ad_level_traced<T, EVAP, LREGCL>(x, col, traj, w, c, branches + p);
+      int j = 0;
+#define CLOUDSC2_WRITE(n) static_cast<S*>(out[j++])[p] = static_cast<S>(tl.n);
+      CLOUDSC2_AD_WEIGHTS(CLOUDSC2_WRITE)
+#undef CLOUDSC2_WRITE
+#define CLOUDSC2_WRITE(n) static_cast<S*>(out[j++])[p] = static_cast<S>(g.n);
+      CLOUDSC2_AD_DIRS(CLOUDSC2_WRITE)
+#undef CLOUDSC2_WRITE
+    }
+    return 0;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -38,6 +137,39 @@ int cloudsc2_ad_host(int is_double, int evap, int lregcl, const void* const* in,
   if (nlev < 1 || ncols < 1) return 1;
   const HostRunner r{in, out, consts, nlev, ncols};
   return cloudsc2::ad_dispatch(r, is_double, evap, lregcl);
+}
+
+#define CLOUDSC2_STR(n) #n ","
+// The pointwise level entry's argument lists, in the order of its arrays.
+const char* cloudsc2_ad_level_signature() {
+  return "x:" CLOUDSC2_LEVEL_X(CLOUDSC2_STR)
+         ";col:" CLOUDSC2_LEVEL_COL(CLOUDSC2_STR)
+         ";traj:" CLOUDSC2_LEVEL_TRAJ(CLOUDSC2_STR)
+         ";dirs:" CLOUDSC2_AD_DIRS(CLOUDSC2_STR)
+         ";weights:" CLOUDSC2_AD_WEIGHTS(CLOUDSC2_STR)
+         ";branches:" CLOUDSC2_AD_BRANCHES(CLOUDSC2_STR);
+}
+#undef CLOUDSC2_STR
+
+// At each of npoints points, tl_level at the given perturbations and
+// ad_level at the given weights.  precision: 0 float, 1 double, 2 long
+// double arithmetic on double arrays and constants.  in: host arrays of
+// npoints values in the order x, col, traj, dirs (the perturbation of each
+// direction), weights (the cotangent of each output); consts: TLConst's
+// values; out: the TL level's outputs in the order of weights, then the AD
+// level's cotangents in the order of dirs; branches: npoints masks of the
+// branches ad_level took (bit i: the i-th name of ";branches:").
+int cloudsc2_ad_level_host(int precision, int evap, int lregcl, const void* const* in,
+                           void* const* out, unsigned* branches, const void* consts,
+                           int npoints) {
+  if (npoints < 1 || precision < 0 || precision > 2) return 1;
+  if (precision == 0) {
+    return cloudsc2::ad_dispatch_t<LevelRunner<float>, float>(
+        LevelRunner<float>{in, out, branches, consts, npoints}, evap, lregcl);
+  }
+  const LevelRunner<double> r{in, out, branches, consts, npoints};
+  return precision == 1 ? cloudsc2::ad_dispatch_t<LevelRunner<double>, double>(r, evap, lregcl)
+                        : cloudsc2::ad_dispatch_t<LevelRunner<double>, long double>(r, evap, lregcl);
 }
 
 }  // extern "C"

@@ -52,18 +52,19 @@ def nl_tolerances(
 #: field: the largest abs difference in units of the field's largest
 #: magnitude.  f64: 1e-10 for every field.  f32: the Pallas AD's gate 2e-6
 #: (tests/test_pallas.py:263), except ``AD_F32_WIDE``.  The two sides round
-#: differently (the kernel's Jacobian columns of the TL level around the NL
+#: differently (the kernel's hand-transposed TL level around the NL
 #: trajectory, the plain AD's autograd tape over the plain TL), and three
 #: cotangents sum terms that cancel: the detrainment's lu_i and lude_i,
 #: which go as 1/lu_next**2 through exp(-lude/lu_next) and span many
 #: decades, and qsat_i, through the saturation adjustment.  Their f32
-#: roundings part by up to 2.5e-5 (lu_i), 2.4e-6 (lude_i) and 8.0e-6
-#: (qsat_i) of the scale, where every other field stays below 6e-7
-#: (measured on an H100 at 1000, 4096 and 65,536 x 137, and by the g++
-#: build at 64 and 100 x 137).  A few large points set those scales, so the
-#: three are also held point by point: the median relative difference over
-#: their nonzero points stays below ``AD_F32_MEDIAN_REL`` (measured: below
-#: 3e-5; a wrong term puts it near 1).
+#: roundings part by up to 1.5e-6 (lu_i), 3.3e-6 (lude_i) and 1.6e-7
+#: (qsat_i) of the scale, where every other cotangent stays below 1e-7 and
+#: the forward outputs below 4.4e-7 (measured on an H100 at 4000, 4096 and
+#: 65,536 x 137; the kernels' earlier transpose from Jacobian columns of the
+#: TL level parted by up to 5.0e-5, 2.4e-6 and 8.0e-6).  A few large points
+#: set those scales, so the three are also held point by point: the median
+#: relative difference over their nonzero points stays below
+#: ``AD_F32_MEDIAN_REL`` (measured: 0; a wrong term puts it near 1).
 AD_SCALED = {"float64": 1e-10, "float32": 2e-6}
 AD_F32_WIDE = {"lu_i": 5e-5, "lude_i": 1e-5, "qsat_i": 2e-5}
 AD_F32_MEDIAN_REL = 1e-3

@@ -21,8 +21,9 @@ their host builds (g++ -ffp-contract=off) and the plain AD.
   ``PALLAS_F32_WIDE``, and bitwise the full form's ``*_i`` outputs;
   ``traj_only`` bitwise the trajectory of ``with_trajectory``;
 * refusals: ``traj_only`` without ``with_trajectory``, ``LPHYLIN=False``,
-  CPU tensors on the CUDA entry, a stack that does not fit; and the
-  shared-memory plan's block sizes.
+  CPU tensors on the CUDA entry, a stack that does not fit; and the plan's
+  block sizes and blocks per SM (the block that keeps the most threads on
+  an SM).
 """
 import numpy as np
 import pytest
@@ -204,16 +205,52 @@ def test_dispatch_sends_cpu_tensors_to_the_plain_ad():
         dispatch.cloudsc2_ad_fused({k: v.to("meta") for k, v in s.items()}, dt, c)
 
 
-@pytest.mark.parametrize("tag,evap,resident,block", [
-    ("f32", False, False, 128), ("f32", True, False, 128), ("f64", False, False, 64), ("f64", True, False, 64),
-    ("f32", False, True, 32), ("f32", True, True, 32), ("f64", False, True, 16), ("f64", True, True, 16),
+@pytest.mark.parametrize("tag,evap,resident,block,per_sm", [
+    ("f32", False, False, 64, 3), ("f32", True, False, 128, 1), ("f64", False, False, 32, 3),
+    ("f64", True, False, 64, 1), ("f32", False, True, 32, 1), ("f32", True, True, 32, 1),
+    ("f64", False, True, 16, 1), ("f64", True, True, 16, 1),
 ])
-def test_fused_plan_block_sizes_at_137_levels(tag, evap, resident, block):
+def test_fused_plan_block_sizes_at_137_levels(tag, evap, resident, block, per_sm):
     dtype = torch.float64 if tag == "f64" else torch.float32
-    got, nbytes = adk.fused_plan(137, dtype, evap, resident)
+    got, nbytes, got_per_sm = adk.fused_plan(137, dtype, evap, resident)
     item = 8 if tag == "f64" else 4
-    assert (got, nbytes) == (block, block * adk.fused_stack_slots(evap, resident) * 137 * item)
-    assert nbytes <= adk.MAX_SHARED_BYTES < 2 * nbytes  # one block fills the shared memory
+    assert (got, nbytes, got_per_sm) == (block, block * adk.fused_stack_slots(evap, resident) * 137 * item, per_sm)
+    # the plan fills the SM: no other block keeps more threads resident on it
+    # (a block of b threads: 233,472 // (b x stack + 1,024) blocks per SM)
+    assert nbytes <= adk.MAX_SHARED_BYTES
+    for other in adk.FUSED_BLOCKS:
+        b = other * nbytes // block
+        if b <= adk.MAX_SHARED_BYTES:
+            assert other * (adk.SM_SHARED_BYTES // (b + adk.BLOCK_RESERVED_BYTES)) <= block * per_sm, other
+
+
+def test_fused_plan_counts_threads():
+    """At few levels the SM's 2,048 threads bound the blocks, not the
+    stacks; ties go to the larger block."""
+    # 2 values x 11 levels x 4 B: every block fits 16 or more times
+    assert adk.fused_plan(11, torch.float32, False, False) == (128, 128 * 88, 16)
+
+
+def test_fused_occupancy_takes_the_cards_best_block(monkeypatch):
+    """The launch's block is the card's (here a stand-in for its occupancy
+    query): of the blocks whose stacks fit, the most threads per SM, ties
+    to the larger; a block whose stacks do not fit is never asked about."""
+    c = CONFIGS["default"]()
+    block, nbytes, per_sm = adk.fused_plan(137, torch.float32, False, False)
+    # the stacks alone: the card agrees with the plan
+    card = {b: adk.SM_SHARED_BYTES // (b * nbytes // block + adk.BLOCK_RESERVED_BYTES) for b in adk.FUSED_BLOCKS}
+    monkeypatch.setattr(adk, "_occupancy", lambda switches, b, nlev: (card[b], 128, 0, b * nbytes // block))
+    assert adk.fused_occupancy(torch.float32, c, False, 137) == {
+        "block": block, "blocks_per_sm": per_sm, "threads_per_sm": block * per_sm, "registers": 128,
+        "local_bytes": 0, "shared_bytes": nbytes}
+    # registers cut 64 threads to 2 blocks: 128 x 1 and 64 x 2 tie below 32 x 6 and 16 x 12
+    card = {128: 1, 64: 2, 32: 6, 16: 12}
+    assert adk.fused_occupancy(torch.float32, c, False, 137)["block"] == 32
+    # f64 resident: only 16 threads fit, and only they are asked about
+    asked = []
+    monkeypatch.setattr(adk, "_occupancy", lambda switches, b, nlev: asked.append(b) or (1, 238, 0, 0))
+    assert adk.fused_occupancy(torch.float64, c, True, 137)["block"] == 16
+    assert asked == [16]
 
 
 def test_fused_plan_raises_where_16_threads_do_not_fit():

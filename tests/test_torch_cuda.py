@@ -266,12 +266,22 @@ def test_ad_fused_kernel_refuses_bad_inputs(cuda):
     assert adk.cloudsc2_ad_fused_cuda.launches == before
 
 
+def test_ad_reverse_attributes_on_card(cuda):
+    """The reverse kernel's registers a thread, as the launch bounds allow,
+    and no local memory in the default instantiations."""
+    for dtype in (torch.float32, torch.float64):
+        att = adk.reverse_attributes(dtype, False, True)
+        assert 0 < att["registers"] <= 255 and att["local_bytes"] == 0, att
+
+
 def test_ad_fused_occupancy_on_card(cuda):
-    """The card's reading of the fused kernel at the plan's block size: one
-    block per SM at 137 levels, the plan's shared memory."""
+    """The card's pick of the fused kernel's block is the plan's at 137
+    levels: its blocks per SM (192 / 96 threads in f32 / f64 rolled, one
+    block resident) and its shared memory."""
     for dtype in (torch.float32, torch.float64):
         for resident in (False, True):
             occ = adk.fused_occupancy(dtype, CONFIGS["default"](), resident, 137)
-            block, nbytes = adk.fused_plan(137, dtype, False, resident)
-            assert (occ["block"], occ["shared_bytes"]) == (block, nbytes)
-            assert occ["blocks_per_sm"] == 1 and 0 < occ["registers"] <= 255, occ
+            block, nbytes, per_sm = adk.fused_plan(137, dtype, False, resident)
+            assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ
+            assert occ["threads_per_sm"] == (192 if dtype == torch.float32 else 96) or resident, occ
+            assert 0 < occ["registers"] <= 255, occ

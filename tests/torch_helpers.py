@@ -51,10 +51,10 @@ TORCH = {np.float64: torch.float64, np.float32: torch.float32}
 #: fields held wider than the Pallas gate of 2e-6 of the scale
 #: (tests/test_pallas.py:263; there both sides are XLA's f32 vjp of one
 #: TL), in units of the field's largest magnitude.  The port's plain AD is
-#: an f32 autograd tape over the plain TL, its kernels Jacobian columns of
-#: the TL level, the Pallas AD an f32 NL trajectory and one vjp per level,
-#: and where a cotangent sums terms that cancel the f32 roundings part
-#: further.  Measured for the plain AD, worst of the three configurations:
+#: an f32 autograd tape over the plain TL, its kernels the TL level
+#: transposed by hand around the NL trajectory, the Pallas AD an f32 NL
+#: trajectory and one vjp per level, and where a cotangent sums terms that
+#: cancel the f32 roundings part further.  Measured for the plain AD, worst of the three configurations:
 #: lu_i 8.5e-5 (it goes as 1/lu_next**2 through the detrainment's
 #: exp(-lude/lu_next)), qsat_i 2.1e-5, q_i, supsat_i, ql_i, qi_i and
 #: cml_{q,ql,qi}_i 8.3e-6, clc 5.2e-6, covptot 3.7e-6, qi 2.7e-6, every
