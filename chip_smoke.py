@@ -6,13 +6,31 @@
 Phases, each timed; any failure raises and the script exits non-zero:
 
 1. card: CUDA must be available; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the NL, TL, AD (reverse) and fused AD kernels from the
-   sources in this checkout, one nvcc each, all four at once; prints
-   ptxas's registers and spills for every instantiation.
+2. build: compiles the NL (every divide mode), TL, AD (reverse) and fused
+   AD kernels from the sources in this checkout, one nvcc each, all four
+   at once; prints each library's build time, and ptxas's registers and
+   spills for every instantiation.
 3. NL kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, for the three switch configurations
    (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
-   65,536 x 137; prints the worst abs/rel error per field.
+   65,536 x 137; prints the worst abs/rel error per field.  The fused
+   kernel (``fuse_saturation``) against ``Saturation`` + the unfused kernel,
+   f64 and f32, the three configurations and LPHYLIN=False with kflag 1
+   and 2 (a convective ramp apart from foealfa's, so the two branches
+   differ) at 4096 x 137 and the default at 65,536 x 137: bitwise
+   (printed), or its reading printed and held at the NL tolerances with
+   qsat at rtol 1e-6, atol 1e-10 (f32); at the default and 4096 x 137 its
+   ``with_trajectory`` and ``traj_only`` forms bitwise the fused launch and
+   the unfused trajectory.  The divide modes: the faithful and approx f32
+   kernels, fused and unfused (the three configurations at 4096 x 137, and
+   fused the default at 65,536 x 137), against the plain exact version,
+   per field in units of its largest magnitude, at the gate of their form
+   (``cloudsc2_tpu_torch.utils.compare.div_gate``), and not bitwise the
+   exact kernel; f64 with FAST_DIV set bitwise the exact kernel.  The
+   kernel's reciprocal alone (``rcp_cuda``) at 2**20 points: exact the
+   correctly rounded 1/x, approx (``rcp.approx.ftz.f32``) within 1 ulp and
+   not 1/x everywhere, faithful bitwise one Newton step of approx, within 2
+   ulps, and not approx everywhere.
 4. TL kernel vs plain: the same for the TL kernel, each configuration with
    LREGCL on and off at 4096 x 137 and the default at 65,536 x 137, and
    ``tangent_only`` against the ``*_i`` outputs of the full launch
@@ -33,14 +51,22 @@ Phases, each timed; any failure raises and the script exits non-zero:
    reading); at each of these the
    fused kernel, rolled and resident, bitwise against the two-kernel AD
    and within those limits of the plain AD, and ``cotangent_only`` bitwise
-   the full AD's cotangents; zero seeds give exactly zero cotangents;
-   ``LPHYLIN=False`` is refused by both AD entries.
+   the full AD's cotangents; f32 at 1000 x 137 with the seed of
+   tests/test_torch_cuda.py (LEVAPLS2 and LDRAIN1D, LREGCL on), held the
+   same way and, kernel and plain f32 AD, against the f64 plain AD (a
+   reading); zero seeds give exactly zero cotangents; ``LPHYLIN=False`` is
+   refused by both AD entries and by the ``Cloudsc2AD`` component, whose
+   error names the plain AD, launching no kernel.
 7. NL main path: the port's driver (``drivers/run_nonlinear_torch.py``
-   core()) through EtaLevels -> Saturation -> Cloudsc2NL on the card,
-   double and single, at 100 and 65,536 columns, validated against the
-   golden outputs (HOORAY), which are built in process as
-   drivers/generate_reference.py builds them (no h5py needed); the NL
-   kernel's launch count must grow.
+   core()) through EtaLevels -> Cloudsc2NL with saturation fused in (the
+   driver's default) on the card, double and single, at 100 and 65,536
+   columns, validated against the golden outputs (HOORAY), which are
+   built in process as drivers/generate_reference.py builds them (no h5py
+   needed); then the two-stage path (``--no-fuse-saturation``: Saturation
+   -> Cloudsc2NL) in single at 65,536, and ``--fast-div faithful`` and
+   ``approx`` in single at 100 and 65,536 columns, at the driver's single
+   gate; the NL kernel's launch count must grow, and that under a
+   non-exact divide too.
 8. TL path: the Taylor protocol (``drivers/run_taylor_test_torch.py``
    core()) through the NL and TL kernels on the card: double at 1 column;
    double per column at 65,536 columns; single with column 0 tiled over
@@ -71,10 +97,13 @@ Phases, each timed; any failure raises and the script exits non-zero:
    output written once) and, as a reading, the operations of the
    hand-transposed reverse level by its hand count; and each wrapper's host
    time per call (host clock around KERNEL_BATCH asynchronous calls, before
-   the synchronize).
-11. profile: torch.profiler over NL main-path steps (Saturation +
-   Cloudsc2NL, f32, 65,536 x 137): device time of the NL kernel and of the
-   rest, and the device's busy share.
+   the synchronize); the fused NL kernel against its bound, beside the
+   two-stage Saturation + unfused kernel, and in f32 the faithful and
+   approx fused kernels beside the exact one.
+11. profile: torch.profiler over NL main-path steps, fused (Cloudsc2NL
+   with saturation fused in) and two-stage (Saturation + Cloudsc2NL), f32,
+   65,536 x 137: wall time, device time of the NL kernel and of the rest,
+   and the device's busy share.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -222,12 +251,19 @@ def time_kernel(torch, kernel, plain, plain_runs):
 
 def build_kernels(build, loaders, card):
     """Build and load every kernel library at once (one nvcc each); print
-    ptxas's registers, spills and stack for every instantiation."""
+    each library's build time, and ptxas's registers, spills and stack for
+    every instantiation."""
+    def timed(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
-        for future in [pool.submit(load) for load in loaders.values()]:
-            future.result()  # raises the build's error, if any
-    print(f"[build] {', '.join(loaders)} built and loaded in {time.perf_counter() - t0:.1f} s; {card}")
+        futures = {name: pool.submit(timed, load) for name, load in loaders.items()}
+        took = {name: f.result() for name, f in futures.items()}  # raises the build's error, if any
+    print(f"[build] {', '.join(loaders)} built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{n} {t:.1f} s' for n, t in took.items())}, at once); {card}")
     for name in loaders:
         entry = ""
         for line in build.logs.get(name, "").splitlines():
@@ -237,21 +273,30 @@ def build_kernels(build, loaders, card):
                 print(f"[build]   {name} {entry}: {line.strip()}")
 
 
-def profile_main_path(torch, c, card, steps=20):
-    """Profile ``steps`` main-path steps (Saturation + Cloudsc2NL, f32,
-    65,536 x 137): wall time per step, device time per step split into the
-    NL kernel and the rest, and the device's busy share."""
+def profile_main_path(torch, c, card, fused, steps=20):
+    """Profile ``steps`` main-path steps (f32, 65,536 x 137), ``fused``
+    (Cloudsc2NL with saturation fused in, the driver's default) or
+    two-stage (Saturation + Cloudsc2NL): wall time per step, device time
+    per step split into the NL kernel and the rest, and the device's busy
+    share.  Returns ``(wall, device, NL kernel, other)`` ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from cloudsc2_tpu_torch.components import Cloudsc2NL, Saturation
 
     grid, s, dt = make_state(torch, BIG, torch.float32, c, seed=2)
-    sat, nl = Saturation(grid, c), Cloudsc2NL(grid, c)
+    if fused:
+        del s["qsat"]
+        nl = Cloudsc2NL(grid, c, fuse_saturation=True)
 
-    def step():
-        x = dict(s)
-        x.update(sat(x))
-        return nl(x, dt)
+        def step():
+            return nl(dict(s), dt)
+    else:
+        sat, nl = Saturation(grid, c), Cloudsc2NL(grid, c)
+
+        def step():
+            x = dict(s)
+            x.update(sat(x))
+            return nl(x, dt)
 
     for _ in range(3):
         step()
@@ -272,9 +317,13 @@ def profile_main_path(torch, c, card, steps=20):
         else:
             other_us += us
     busy = (kernel_us + other_us) / 1e3 / steps
-    print(f"[profile f32 {BIG}x{NLEV}] main-path step: wall {wall:.4f} ms (host clock, synchronized "
-          f"components), device {busy:.4f} ms = NL kernel {kernel_us / 1e3 / steps:.4f} + other "
+    path = "fused (Cloudsc2NL with saturation)" if fused else "two-stage (Saturation + Cloudsc2NL)"
+    print(f"[profile f32 {BIG}x{NLEV}] {path} main-path step: wall {wall:.4f} ms (host clock, "
+          f"synchronized components), device {busy:.4f} ms = NL kernel {kernel_us / 1e3 / steps:.4f} + other "
           f"kernels {other_us / 1e3 / steps:.4f}; device busy share {busy / wall:.3f}; {card}")
+    if kernel_us == 0.0:
+        raise AssertionError(f"the profile of the {path} path shows no NL kernel time")
+    return wall, busy, kernel_us / 1e3 / steps, other_us / 1e3 / steps
 
 
 def taylor_gates(torch, nlk, tlk, card):
@@ -319,6 +368,178 @@ def taylor_gates(torch, nlk, tlk, card):
     return launches
 
 
+def scaled_errors(got, want):
+    """Per field of ``want``: the largest abs difference over the field's
+    largest magnitude (inf where ``got`` is not finite)."""
+    out = {}
+    for n, w in want.items():
+        g, w = got[n].double(), w.double()
+        finite = bool(g.isfinite().all())
+        out[n] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300) if finite else float("inf")
+    return out
+
+
+def nl_fused_checks(torch, nlk, configs, card):
+    """Phase 3, the fused kernel: against ``Saturation`` + the unfused
+    kernel on the same CUDA tensors; at the default and 4096 x 137 also its
+    ``with_trajectory`` and ``traj_only`` forms.  Returns the largest abs
+    error by ``(dtype tag, configuration, columns)`` (0 where bitwise)."""
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+
+    c0 = configs["default"]
+    # a convective liquid-fraction ramp apart from foealfa's, so that the
+    # kflag 1 (foeewmcu) and kflag 2 (foeewm) branches give different qsat
+    nolph = c0.replace(LPHYLIN=False, RTICECU=c0.RTT - 38.0, RTWAT_RTICECU_R=1.0 / 38.0)
+    cases = [(name, c, 1, SMALL) for name, c in configs.items()]
+    cases += [("lphylin=False kflag=1", nolph, 1, SMALL), ("lphylin=False kflag=2", nolph, 2, SMALL),
+              ("default", c0, 1, BIG)]
+    out = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c, kflag, ncols in cases:
+            _, s, dt = make_state(torch, ncols, dtype, c, seed=1)
+            qsat = saturation(s["ap"], s["t"], kflag=kflag, lphylin=c.LPHYLIN, c=c)
+            s["qsat"] = qsat
+            want = {**flat(nlk.cloudsc2_nl_cuda(s, dt, c)), "qsat": qsat}
+            bare = {k: v for k, v in s.items() if k != "qsat"}
+            got = flat(nlk.cloudsc2_nl_cuda(bare, dt, c, fuse_saturation=True, kflag=kflag))
+            torch.cuda.synchronize()
+            label = f"[nl-fused-vs-two-stage {tag} {name} {ncols}x{NLEV}]"
+            if name == "lphylin=False kflag=2":
+                other = saturation(s["ap"], s["t"], kflag=1, lphylin=False, c=c)
+                if torch.equal(other, qsat):
+                    raise AssertionError(f"{label}: kflag 1 and 2 give the same qsat; the case checks nothing")
+            if sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want):
+                print(f"  {label} all {len(want)} fields bitwise equal, qsat included")
+                out[(tag, name, ncols)] = 0.0
+            else:
+                tol = dict(tolerances(torch, dtype, c),
+                           qsat=(1e-6, 1e-10) if dtype == torch.float32 else (1e-10, 1e-16))
+                out[(tag, name, ncols)] = compare(got, want, tol, f"{label} not bitwise:")
+            if name == "default" and ncols == SMALL:
+                tends, diags, traj = nlk.cloudsc2_nl_cuda(bare, dt, c, with_trajectory=True,
+                                                          fuse_saturation=True)
+                only = nlk.cloudsc2_nl_cuda(bare, dt, c, with_trajectory=True, traj_only=True,
+                                            fuse_saturation=True)
+                two = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
+                torch.cuda.synchronize()
+                assert_bitwise(torch, {**tends, **diags}, got, f"{label} with_trajectory against the fused launch")
+                if only[0] or only[1]:
+                    raise AssertionError(f"{label} traj_only returned step outputs")
+                assert_bitwise(torch, only[2], traj, f"{label} traj_only against with_trajectory")
+                if out[(tag, name, ncols)] == 0.0:
+                    assert_bitwise(torch, traj, two, f"{label} fused trajectory against the unfused one")
+                print(f"  {label} with_trajectory: outputs bitwise the fused launch's; traj_only: its "
+                      f"{len(traj)} trajectory streams bitwise and nothing else"
+                      + ("; the trajectory bitwise the unfused kernel's" if out[(tag, name, ncols)] == 0.0 else ""))
+            del s, bare, got, want
+    print(f"[nl-fused-vs-two-stage] {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
+def nl_divide_checks(torch, nlk, plain_nl, configs, card):
+    """Phase 3, the divide modes: the faithful and approx f32 kernels, fused
+    and unfused (the three configurations at 4096, and fused the default at
+    65,536), against the plain exact version at the gate of their form
+    (``cloudsc2_tpu_torch.utils.compare.div_gate``), per field in units of
+    its largest magnitude, and not bitwise the exact kernel of their form;
+    f64 with FAST_DIV set bitwise the exact kernel.  Returns the worst
+    scaled and abs errors by ``(mode, configuration, columns, form)``."""
+    from cloudsc2_tpu_torch.utils.compare import DIV_GATES, div_gate
+
+    c0 = configs["default"]
+    cases = [(name, c, SMALL, fused) for fused in (True, False) for name, c in configs.items()]
+    cases += [("default", c0, BIG, True)]
+    out = {}
+    t0 = time.perf_counter()
+    for name, c, ncols, fused in cases:
+        _, s, dt = make_state(torch, ncols, torch.float32, c, seed=1)
+        if fused:
+            del s["qsat"]
+        form = "fused" if fused else "unfused"
+        want = flat(plain_nl(s, dt, c, fuse_saturation=fused))
+        exact = flat(nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=fused))
+        for mode in ("faithful", "approx"):
+            got = flat(nlk.cloudsc2_nl_cuda(s, dt, c.replace(FAST_DIV=mode), fuse_saturation=fused))
+            torch.cuda.synchronize()
+            errs = scaled_errors(got, want)
+            max_abs = max(float((got[k].double() - want[k].double()).abs().max()) for k in want)
+            share = {k: v / div_gate(k, fused) for k, v in errs.items()}
+            worst = max(share, key=share.get)
+            moved = sorted(k for k in exact if not torch.equal(got[k], exact[k]))
+            label = f"[nl-{mode}-vs-plain-exact f32 {name} {form} {ncols}x{NLEV}]"
+            print(f"  {label} worst {worst} {errs[worst]:.3e} of its scale ({share[worst]:.3f} of its gate; "
+                  f"gates {DIV_GATES[form]}); max abs {max_abs:.3e}; by field "
+                  f"{{{', '.join(f'{k}: {v:.2e}' for k, v in errs.items())}}}; {len(moved)} of {len(exact)} "
+                  f"fields not bitwise the exact kernel's")
+            if not share[worst] <= 1.0:
+                raise AssertionError(f"{label}: {worst} {errs[worst]:.3e} of its scale, above its gate")
+            if not moved:
+                raise AssertionError(f"{label}: bitwise the exact kernel; the divide mode did not act")
+            out[(mode, name, ncols, form)] = (max(errs.values()), max_abs)
+            del got
+        del s, want, exact
+    for name in ("default", "levapls2"):
+        c = configs[name]
+        _, s, dt = make_state(torch, SMALL, torch.float64, c, seed=1)
+        bare = {k: v for k, v in s.items() if k != "qsat"}
+        exact = flat(nlk.cloudsc2_nl_cuda(s, dt, c))
+        exact_fused = flat(nlk.cloudsc2_nl_cuda(bare, dt, c, fuse_saturation=True))
+        for mode in ("faithful", "approx"):
+            cm = c.replace(FAST_DIV=mode)
+            assert_bitwise(torch, flat(nlk.cloudsc2_nl_cuda(s, dt, cm)), exact,
+                           f"[nl f64 FAST_DIV={mode} {name}] against the exact kernel")
+            assert_bitwise(torch, flat(nlk.cloudsc2_nl_cuda(bare, dt, cm, fuse_saturation=True)), exact_fused,
+                           f"[nl f64 FAST_DIV={mode} {name} fused] against the exact kernel")
+        print(f"  [nl f64 FAST_DIV {name} {SMALL}x{NLEV}] faithful and approx, fused and unfused: every "
+              f"field bitwise the exact kernel's")
+        del s, bare
+    print(f"[nl-divide-modes] {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
+def rcp_checks(torch, nlk, card):
+    """Phase 3, the kernel's reciprocal alone (``rcp_cuda``, the divide
+    policies' ``rcp<D>``) at 2**20 seeded float32 points of either sign
+    over 1e-30 to 1e30: exact bitwise the correctly rounded 1/x; approx (PTX
+    rcp.approx.ftz.f32) within 1 ulp of 1/x (the PTX bound) and not it
+    everywhere; faithful bitwise approx's ``r * (2 - x * r)`` in three
+    rounded operations, within 2 ulps (the step's own roundings: x * r
+    near 1 loses up to an ulp of r, the product rounds once more), and not
+    approx everywhere.  Returns the largest ulp error and
+    the share of points off the correctly rounded 1/x, by mode."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n = 1 << 20
+    x = (10.0 ** (torch.rand(n, generator=g, dtype=torch.float64) * 60 - 30)
+         * torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0).double()).float().cuda()
+    exact = 1.0 / x.double()
+    want = exact.float()
+    ulp = (torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()).double()
+    r = {m: nlk.rcp_cuda(x, m) for m in ("exact", "faithful", "approx")}
+    torch.cuda.synchronize()
+    out = {m: (float(((v.double() - exact).abs() / ulp).max()), float((v != want).double().mean()))
+           for m, v in r.items()}
+    print(f"  [rcp {n} points] largest error in ulps of 1/x and share of points off its correct "
+          f"rounding: {{{', '.join(f'{m}: ({u:.4f}, {f:.4e})' for m, (u, f) in out.items())}}}")
+    a = r["approx"]
+    if not torch.equal(r["exact"], want):
+        raise AssertionError("[rcp] exact is not the correctly rounded 1/x")
+    for m, lim in (("faithful", 2.0), ("approx", 1.0)):
+        if not out[m][0] <= lim:
+            raise AssertionError(f"[rcp] {m}: {out[m][0]:.4f} ulps from 1/x, above {lim:g}")
+    if not out["approx"][1] > 0:
+        raise AssertionError("[rcp] approx is the IEEE divide at every point")
+    if not torch.equal(r["faithful"], a * (2.0 - x * a)):
+        raise AssertionError("[rcp] faithful is not one Newton step r * (2 - x * r) of approx")
+    if torch.equal(r["faithful"], a):
+        raise AssertionError("[rcp] faithful is approx at every point: no Newton step")
+    print(f"  [rcp] exact the correctly rounded 1/x; approx within 1 ulp; faithful within 2, one Newton step of "
+          f"approx, bitwise, and {float((r['faithful'] != a).double().mean()):.4e} of its points apart "
+          f"from it; {card}")
+    return out
+
+
 def ad_state(torch, ncols, dtype, c, seed):
     """``(grid, state, dt)``: the AD's input as the symmetry protocol
     assembles it on the card: the state with eta and qsat, its increments
@@ -347,7 +568,7 @@ def compare_ad(got, want, dtype, label):
     error)``."""
     import numpy as np
 
-    from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors, ad_limit, dtype_name
+    from cloudsc2_tpu_torch.utils.compare import AD_F32_KERNEL_WIDE, ad_errors, ad_limit, dtype_name
 
     g = {n: v.cpu().numpy().astype(np.float64) for n, v in got.items()}
     w = {n: v.cpu().numpy().astype(np.float64) for n, v in want.items()}
@@ -358,7 +579,7 @@ def compare_ad(got, want, dtype, label):
     print(f"  {label} worst {worst} {errs[worst][0]:.3e} of its scale, {errs[worst][2]:.3f} of its "
           f"limit; max abs {max_abs:.3e}; fields above 1e-7 of their scale: {above}")
     if dtype_name(dtype) == "float32":
-        for n in AD_F32_WIDE:
+        for n in AD_F32_KERNEL_WIDE:
             a = np.abs(w[n])
             nz = a[a > 0]
             lim, med_lim = ad_limit(n, dtype)
@@ -441,7 +662,7 @@ def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
     Returns the worst ``(scaled, abs)`` errors of the two AD designs
     against the plain AD (the same numbers: their outputs are bitwise
     equal) by ``(dtype tag, configuration, LREGCL, columns)``."""
-    from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors
+    from cloudsc2_tpu_torch.utils.compare import AD_F32_SPREAD_WIDE, ad_errors
 
     shapes = ((torch.float64, SMALL), (torch.float64, 100), (torch.float32, SMALL))
     t0 = time.perf_counter()
@@ -454,26 +675,29 @@ def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
 
     t0 = time.perf_counter()
     ad_err = {}
-    cases = [(dtype, ncols, name, c, lreg) for dtype, ncols in shapes for name, c in configs.items()
+    cases = [(dtype, ncols, name, c, lreg, 1) for dtype, ncols in shapes for name, c in configs.items()
              for lreg in (True, False)]
-    cases += [(dtype, RAGGED, "default", configs["default"], True) for dtype in (torch.float64, torch.float32)]
-    for dtype, ncols, name, c, lreg in cases:
+    cases += [(dtype, RAGGED, "default", configs["default"], True, 1) for dtype in (torch.float64, torch.float32)]
+    # the state of tests/test_torch_cuda.py (seed 3) at which qsat_i read
+    # its largest kernel-against-plain error, with evaporation and LREGCL
+    cases += [(torch.float32, 1000, name, configs[name], True, 3) for name in ("levapls2", "ldrain1d")]
+    for dtype, ncols, name, c, lreg, seed in cases:
         tag = "f64" if dtype == torch.float64 else "f32"
         cc = c.replace(LREGCL=lreg)
-        _, s, dt = ad_state(torch, ncols, dtype, cc, seed=1)
+        _, s, dt = ad_state(torch, ncols, dtype, cc, seed=seed)
         got = flat(adk.cloudsc2_ad_cuda(s, dt, cc))
         want = flat(plain_ad(s, dt, cc))
         torch.cuda.synchronize()
-        label = f"[ad-kernel-vs-plain {tag} {name} lregcl={int(lreg)} {ncols}x{NLEV}]"
+        label = f"[ad-kernel-vs-plain {tag} {name} lregcl={int(lreg)} {ncols}x{NLEV} seed {seed}]"
         ad_err[(tag, name, lreg, ncols)] = compare_ad(got, want, dtype, label)
         fused_checks(torch, adk, s, dt, cc, got, label)
-        if tag == "f32" and name == "default" and lreg and ncols in (SMALL, RAGGED):
+        if tag == "f32" and ((name == "default" and lreg and ncols in (SMALL, RAGGED)) or seed == 3):
             # which f32 side carries the detrainment cotangents' spread
             s64 = {k: v.double() for k, v in s.items()}
             ref = flat(plain_ad(s64, dt, cc))
             kern, pl = ({n: float(f"{e[0]:.3e}") for n, e in ad_errors(
-                {n: side[n].cpu().numpy() for n in AD_F32_WIDE},
-                {n: ref[n].cpu().numpy() for n in AD_F32_WIDE}, dtype).items()}
+                {n: side[n].cpu().numpy() for n in AD_F32_SPREAD_WIDE},
+                {n: ref[n].cpu().numpy() for n in AD_F32_SPREAD_WIDE}, dtype, AD_F32_SPREAD_WIDE).items()}
                 for side in (got, want))
             print(f"  {label} against the f64 plain AD on the same inputs (a reading): kernel "
                   f"{kern}, plain f32 AD {pl} of the scale")
@@ -495,6 +719,24 @@ def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
                   f"refused: {e}")
         else:
             raise AssertionError(f"[ad-kernel] {fn.__name__}: LPHYLIN=False was not refused on CUDA tensors")
+    # nor does the component run a plain AD on the card for it: it refuses,
+    # naming the plain AD, before any launch
+    from cloudsc2_tpu_torch.components import Cloudsc2AD
+
+    c1 = c0.replace(LPHYLIN=False)
+    grid, s, dt = ad_state(torch, SMALL, torch.float32, c1, seed=1)
+    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches, adk.cloudsc2_ad_fused_cuda.launches)
+    try:
+        Cloudsc2AD(grid, c1)(s, dt)
+    except ValueError as e:
+        said = str(e)
+    else:
+        raise AssertionError("[ad-component] Cloudsc2AD ran LPHYLIN=False on CUDA tensors")
+    after = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches, adk.cloudsc2_ad_fused_cuda.launches)
+    if after != before or "physics.adjoint.cloudsc2_ad" not in said:
+        raise AssertionError(f"[ad-component] LPHYLIN=False: counts {before} -> {after}; {said}")
+    print(f"  [ad-component f32 levapls2 LPHYLIN=False {SMALL}x{NLEV}] Cloudsc2AD refused before any "
+          f"launch: {said}")
     print(f"[ad-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
     return ad_err
 
@@ -810,8 +1052,8 @@ def main() -> int:
     torch.cuda.set_device(0)
 
     # ---- 2. build, the four libraries at once
-    build_kernels(build, {"cloudsc2_nl": nlk.load_cuda, "cloudsc2_tl": tlk.load_cuda,
-                          "cloudsc2_ad": adk.load_cuda, "cloudsc2_ad_fused": adk.load_fused_cuda}, card)
+    build_kernels(build, {"cloudsc2_nl": nlk.load_cuda, "cloudsc2_tl": tlk.load_cuda, "cloudsc2_ad": adk.load_cuda,
+                          "cloudsc2_ad_fused": adk.load_fused_cuda}, card)
     phase_t = time.perf_counter()
 
     def phase_done(name):
@@ -839,6 +1081,9 @@ def main() -> int:
             label = f"[kernel-vs-plain {tag} {name} {ncols}x{NLEV}]"
             max_abs[(tag, name, ncols)] = compare(got, want, tolerances(torch, dtype, c), label)
             del s, got, want
+    fused_abs = nl_fused_checks(torch, nlk, configs, card)
+    div_err = nl_divide_checks(torch, nlk, plain_nl, configs, card)
+    rcp_err = rcp_checks(torch, nlk, card)
 
     phase_done("3 NL kernel vs plain")
 
@@ -875,24 +1120,29 @@ def main() -> int:
     # ---- 7. the NL main path through the driver, on the card
     for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda):
         fn.launches = 0
-    for precision in ("double", "single"):
-        for ncols in (100, BIG):
-            config = Config(precision=precision, num_cols=ncols, num_runs=5)
-            rc = core(
-                config, TorchConfig(device="cuda:0", precision=precision),
-                inputs=synthetic_input(ncols, precision),
-                reference=synthetic_golden(ncols, precision),
-            )
-            per_call = {label: round(Timer.get_time(label, "ms") / max(Timer.get_count(label), 1), 4)
-                        for label in Timer.labels()}
-            print(f"[main-path] {precision} {ncols} columns: exit {rc}; ms per call by component "
-                  f"(host clock, synchronized): {per_call}; {card}")
-            if rc != 0:
-                raise AssertionError(f"main path {precision} x {ncols} failed validation")
+    nlk.cloudsc2_nl_cuda.fast_div_launches = 0
+    runs = [(p, n, {}) for p in ("double", "single") for n in (100, BIG)]
+    runs += [("single", BIG, {"fuse_saturation": False})]
+    runs += [("single", n, {"fast_div": m}) for m in ("faithful", "approx") for n in (100, BIG)]
+    for precision, ncols, opts in runs:
+        config = Config(precision=precision, num_cols=ncols, num_runs=5 if not opts else 2)
+        rc = core(
+            config, TorchConfig(device="cuda:0", precision=precision),
+            inputs=synthetic_input(ncols, precision),
+            reference=synthetic_golden(ncols, precision), **opts,
+        )
+        per_call = {label: round(Timer.get_time(label, "ms") / max(Timer.get_count(label), 1), 4)
+                    for label in Timer.labels()}
+        path = "two-stage" if opts.get("fuse_saturation") is False else "fused"
+        print(f"[main-path] {precision} {ncols} columns, {path}, divide {opts.get('fast_div', 'exact')}: "
+              f"exit {rc}; ms per call by component (host clock, synchronized): {per_call}; {card}")
+        if rc != 0:
+            raise AssertionError(f"main path {precision} x {ncols} {opts} failed validation")
     launches = nlk.cloudsc2_nl_cuda.launches
-    print(f"[main-path] cloudsc2_nl_cuda launches: {launches}")
-    if launches == 0:
-        raise AssertionError("the main path never launched the CUDA kernel")
+    fast_launches = nlk.cloudsc2_nl_cuda.fast_div_launches
+    print(f"[main-path] cloudsc2_nl_cuda launches: {launches}, of them under a non-exact divide {fast_launches}")
+    if launches == 0 or fast_launches == 0:
+        raise AssertionError("the main path never launched the CUDA kernel (or never under a non-exact divide)")
 
     phase_done("7 NL main path")
 
@@ -910,7 +1160,9 @@ def main() -> int:
     phase_done("9 AD path")
 
     # ---- 10. timing at 65,536 x 137
-    timing, tl_timing = {}, {}
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+
+    timing, tl_timing, fused_timing, div_timing = {}, {}, {}, {}
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         tag = "f32" if dtype == torch.float32 else "f64"
@@ -926,6 +1178,33 @@ def main() -> int:
               f"{nbytes / k / 1e6:.1f} GB/s), plain {p:.2f} ms ({BIG / p * 1e3:.4e} cols/s), "
               f"wrapper host time {h:.4f} ms per call (host clock, median of 10 x {KERNEL_BATCH} calls); "
               f"kernel runs {[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
+        # the fused kernel: the same 26 values (qsat written, not read), and
+        # the two-stage path it replaces (Saturation's passes + the kernel)
+        bare = {k: v for k, v in s.items() if k != "qsat"}
+        k, p, h, k_ms, p_ms = time_kernel(
+            torch, lambda: nlk.cloudsc2_nl_cuda(bare, dt, c0, fuse_saturation=True),
+            lambda: plain_nl(bare, dt, c0, fuse_saturation=True), 3)
+        two, _, two_ms = kernel_ms(
+            torch, lambda: nlk.cloudsc2_nl_cuda(dict(bare, qsat=saturation(s["ap"], s["t"], c=c0)), dt, c0), 10)
+        fused_timing[tag] = (k, p, h, *bound(nbytes, BIG * NLEV * NL_FLOPS, tag), two)
+        print(f"[timing {tag} {BIG}x{NLEV} fused] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
+              f"{nbytes / k / 1e6:.1f} GB/s; bound {fused_timing[tag][3]:.4f} ms by {fused_timing[tag][4]}: "
+              f"{fused_timing[tag][3] / k:.3f} of it), plain fused {p:.2f} ms, wrapper host time {h:.4f} ms per "
+              f"call; the two-stage Saturation + unfused kernel {two:.4f} ms (CUDA events, median of 10 x "
+              f"{KERNEL_BATCH} calls); kernel runs {[round(x, 4) for x in k_ms]}; two-stage runs "
+              f"{[round(x, 4) for x in two_ms]}; {card}")
+        if dtype == torch.float32:
+            for mode in ("faithful", "approx"):
+                cm = c0.replace(FAST_DIV=mode)
+                k, p, h, k_ms, p_ms = time_kernel(
+                    torch, lambda cm=cm: nlk.cloudsc2_nl_cuda(bare, dt, cm, fuse_saturation=True),
+                    lambda cm=cm: plain_nl(bare, dt, cm, fuse_saturation=True), 3)
+                div_timing[mode] = (k, p, h)
+                print(f"[timing f32 {BIG}x{NLEV} fused, divide {mode}] kernel {k:.4f} ms beside the exact "
+                      f"divide's {fused_timing[tag][0]:.4f} ms ({k / fused_timing[tag][0]:.3f} of it), plain "
+                      f"{p:.2f} ms, wrapper host time {h:.4f} ms per call; kernel runs "
+                      f"{[round(x, 4) for x in k_ms]}; {card}")
+        del bare
         # TL: 32 inputs read once and 20 outputs written per level (+2 aph
         # rows, +8 flux rows); tangent_only writes 10 (+4 flux rows)
         for only, nvals in ((False, (NLEV * 52 + 10)), (True, (NLEV * 42 + 6))):
@@ -943,8 +1222,8 @@ def main() -> int:
     print(f"[timing] {time.perf_counter() - t0:.1f} s; {card}")
     phase_done("10 timing")
 
-    # ---- 11. where the NL main path's time goes (torch.profiler, f32, 65,536 columns)
-    profile_main_path(torch, c0, card)
+    # ---- 11. where the NL main paths' time goes (torch.profiler, f32, 65,536 columns)
+    profiles = {fused: profile_main_path(torch, c0, card, fused) for fused in (True, False)}
     phase_done("11 profile")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
@@ -976,6 +1255,30 @@ def main() -> int:
         "host_ms_f64": timing["f64"][2],
         "ms_traj_only": ad_time["f32"]["traj_only forward"][0],
         "ms_traj_only_f64": ad_time["f64"]["traj_only forward"][0],
+        "ms_fused": fused_timing["f32"][0],
+        "plain_ms_fused": fused_timing["f32"][1],
+        "ms_fused_f64": fused_timing["f64"][0],
+        "plain_ms_fused_f64": fused_timing["f64"][1],
+        "bound_ms_fused": fused_timing["f32"][3],
+        "bound_ms_fused_f64": fused_timing["f64"][3],
+        "ms_two_stage": fused_timing["f32"][5],
+        "ms_two_stage_f64": fused_timing["f64"][5],
+        "max_abs_err_fused_vs_two_stage": fused_abs[("f32", "default", BIG)],
+        "max_abs_err_fused_vs_two_stage_f64": fused_abs[("f64", "default", BIG)],
+        "ms_faithful": div_timing["faithful"][0],
+        "plain_ms_faithful": div_timing["faithful"][1],
+        "host_ms_faithful": div_timing["faithful"][2],
+        "ms_approx": div_timing["approx"][0],
+        "plain_ms_approx": div_timing["approx"][1],
+        "launches_fast_div": fast_launches,
+        "max_scaled_err_faithful": div_err[("faithful", "default", BIG, "fused")][0],
+        "max_abs_err_faithful": div_err[("faithful", "default", BIG, "fused")][1],
+        "max_scaled_err_approx": div_err[("approx", "default", BIG, "fused")][0],
+        "max_abs_err_approx": div_err[("approx", "default", BIG, "fused")][1],
+        "fast_div_err_against": "the plain exact version (fused form, f32)",
+        "rcp_ulps": {m: v[0] for m, v in rcp_err.items()},
+        "profile_fused": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[True])),
+        "profile_two_stage": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[False])),
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_tl",

@@ -213,17 +213,30 @@ class PerturbedState(Component):
 class Cloudsc2NL(Component):
     """Nonlinear CLOUDSC2: 17 inputs, 4 tendencies, 6 diagnostics.  CUDA
     tensors run the hand-written kernel, CPU tensors the plain version
-    (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_nl`)."""
+    (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_nl`).
+
+    With ``fuse_saturation`` the step also does the ``Saturation``
+    component's work (``kflag``, and the constants' ``LPHYLIN``): ``qsat``
+    is no input, and it is a seventh diagnostic (the JAX package's
+    ``cloudsc2_nl_pallas(..., fuse_saturation=True)``)."""
 
     input_properties = _props(_NL_INPUTS)
     tendency_properties = {n: {"dims": FULL, "units": u} for n, u in TEND_UNITS.items()}
     diagnostic_properties = _props(_NL_DIAGS)
 
+    def __init__(self, grid, constants, *, fuse_saturation: bool = False, kflag: int = 1, **kw):
+        super().__init__(grid, constants, **kw)
+        self.fuse_saturation = fuse_saturation
+        self.kflag = kflag
+        if fuse_saturation:
+            self.input_properties = _props({n: d for n, d in _NL_INPUTS.items() if n != "qsat"})
+            self.diagnostic_properties = _props({**_NL_DIAGS, "qsat": FULL})
+
     def forward(
         self, state: Dict[str, Tensor], timestep: float
     ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
         state = self._check_state(state)
-        return dispatch.cloudsc2_nl(state, timestep, self.constants)
+        return dispatch.cloudsc2_nl(state, timestep, self.constants, self.fuse_saturation, self.kflag)
 
 
 class Cloudsc2TL(Component):
@@ -248,8 +261,15 @@ class Cloudsc2TL(Component):
 class Cloudsc2AD(Component):
     """Adjoint CLOUDSC2: the NL inputs plus the output cotangent seeds in,
     the forward outputs and the input cotangents out.  CUDA tensors run the
-    hand-written kernels (``LPHYLIN=True`` only), CPU tensors the plain
-    version (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_ad`)."""
+    hand-written kernels, CPU tensors the plain version
+    (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_ad`).
+
+    The kernels take ``LPHYLIN=True`` only, so ``LPHYLIN=False`` on CUDA
+    tensors raises ``ValueError`` (the JAX component falls back to its
+    exact scan adjoint there, ``cloudsc2_tpu/components.py:410-423``; this
+    one never runs a plain version on the card): a caller who wants the
+    plain AD for it calls
+    :func:`cloudsc2_tpu_torch.physics.adjoint.cloudsc2_ad`."""
 
     input_properties = _props({
         **_NL_INPUTS,

@@ -26,15 +26,17 @@ Tensor = torch.Tensor
 
 
 def cloudsc2_nl(
-    state: Dict[str, Tensor], dt: float, c: Constants
+    state: Dict[str, Tensor], dt: float, c: Constants, fuse_saturation: bool = False, kflag: int = 1
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One NL step: the CUDA kernel for CUDA tensors, the plain level scan
-    for CPU tensors."""
+    for CPU tensors.  With ``fuse_saturation`` the step diagnoses ``qsat``
+    itself (``kflag`` and ``c.LPHYLIN`` pick the branch) and returns it
+    among the diagnostics: the fused kernel, or the plain fused form."""
     device = state["ap"].device
     if device.type == "cuda":
-        return cloudsc2_nl_cuda(state, dt, c)
+        return cloudsc2_nl_cuda(state, dt, c, fuse_saturation=fuse_saturation, kflag=kflag)
     if device.type == "cpu":
-        return _plain.cloudsc2_nl(state, dt, c)
+        return _plain.cloudsc2_nl(state, dt, c, fuse_saturation=fuse_saturation, kflag=kflag)
     raise ValueError(f"no NL implementation for device {device}")
 
 

@@ -57,7 +57,7 @@ from cloudsc2_tpu_torch.kernels.nonlinear import (
 )
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS, AD_DIAGNOSTICS, AD_TENDENCIES
-from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS
+from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, TL_CONST_NAMES, kernel_constants, tl_kernel_constants
 
 Tensor = torch.Tensor
@@ -198,7 +198,9 @@ def check_lphylin(c: Constants) -> None:
     if not c.LPHYLIN:
         raise ValueError(
             "the AD kernels require LPHYLIN=True (their forward sweep is the NL "
-            "step, whose trajectory is the TL forward only under linearized physics)"
+            "step, whose trajectory is the TL forward only under linearized physics); "
+            "for LPHYLIN=False call the plain AD, "
+            "cloudsc2_tpu_torch.physics.adjoint.cloudsc2_ad, on CPU or CUDA tensors"
         )
 
 
@@ -278,6 +280,7 @@ def cloudsc2_ad_cuda(
     refused launch; never falls back to the plain version.
     """
     check_lphylin(c)
+    check_constants(c)  # before the forward launch: the NL kernel takes more divide modes
     tends, diags, traj = cloudsc2_nl_cuda(state, dt, c, with_trajectory=True, traj_only=cotangent_only)
     return _assemble(tends, diags, cloudsc2_ad_reverse_cuda(state, traj, dt, c))
 
@@ -303,6 +306,7 @@ def cloudsc2_ad_host(
     """The kernels' bodies compiled for the host, on CPU tensors (tests
     only): the host NL body with its trajectory, then the reverse body."""
     check_lphylin(c)
+    check_constants(c)
     tends, diags, traj = cloudsc2_nl_host(state, dt, c, with_trajectory=True, traj_only=cotangent_only)
     ins, outs, consts, switches = _reverse(state, traj, dt, c, "cpu")
     lib = _load("host")

@@ -8,13 +8,17 @@
 // the plain torch version (cloudsc2_tpu_torch/physics/nonlinear.py): every
 // expression is the JAX expression with the same operand order, so that
 // the roundings are the same (the rules are in scalar_math.h).
-// Static switches are template bools, as the JAX body's Python bools:
+// Static switches are template parameters, as the JAX body's Python values:
 //   THERMO = LPHYLIN || LDRAIN1D,   EVAP = LEVAPLS2 || LDRAIN1D,
 //   TRAJ: also write the carry entering each level, the trajectory the
 //   adjoint's reverse sweep re-linearizes around (with_trajectory of
 //   cloudsc2_tpu/pallas/nonlinear.py:214-226),
 //   TRAJ_ONLY (with TRAJ): write the trajectory and nothing else, the
-//   forward sweep of a gradient-only adjoint (traj_only, :386-392).
+//   forward sweep of a gradient-only adjoint (traj_only, :386-392),
+//   FUSE: diagnose qsat inside the kernel from ap and t instead of reading
+//   it, and write it (unless TRAJ_ONLY) (fuse_saturation, :105-110,
+//   :186-212, :394-395, :483-484),
+//   D: the divide policy of Constants.FAST_DIV (scalar_math.h).
 #pragma once
 
 #include <string.h>
@@ -26,15 +30,19 @@ namespace cloudsc2 {
 // ------------------------------------------------------------ argument lists
 // Each list is mirrored in Python (state.NL_CONST_NAMES, kernels/nonlinear.py
 // NL_INPUTS / NL_OUTPUTS); nl_signature() reports them for the wrapper to check.
+// (sat_tice, sat_twat_r: the liquid-fraction ramp of the fused saturation,
+// foealfa's RTICE or foealfcu's RTICECU by LPHYLIN and kflag)
 #define CLOUDSC2_NL_CONSTS(X)                                                  \
   X(dt) X(rdt) X(ckcodtl) X(ckcodti) X(cons2) X(cons3) X(cons2_rlmlt)          \
   X(meltp2) X(rcpd) X(rcpd_rvtmp2) X(rcpd_inv) X(rlmlt) X(rlstt) X(rlvtt)      \
   X(rtt) X(rtice) X(rtwat) X(rtwat_rtice_r) X(rlptrc) X(r2es) X(r3les)         \
   X(r3ies) X(r4les) X(r4ies) X(r5les) X(r5ies) X(r5alvcp) X(r5alscp)           \
   X(ralvdcp) X(ralsdcp) X(retv) X(zqmax) X(cor_clip) X(rg) X(rd) X(rlmin)      \
-  X(zeps2) X(lcrit_k) X(icrit_k) X(dt_rg) X(rg_rpecons)
+  X(zeps2) X(lcrit_k) X(icrit_k) X(dt_rg) X(rg_rpecons) X(sat_tice)            \
+  X(sat_twat_r)
 
-// (nlev, ncols) fields, except aph (nlev+1, ncols) and eta, scalm (nlev,)
+// (nlev, ncols) fields, except aph (nlev+1, ncols) and eta, scalm (nlev,);
+// with FUSE qsat is not read and may be null
 #define CLOUDSC2_NL_INPUTS(X)                                                  \
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
   X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t) X(eta) X(scalm)
@@ -43,14 +51,21 @@ namespace cloudsc2 {
 // c_rfl, c_sfl, c_cov is written only with TRAJ, and c_cov only with EVAP
 // too: with the evaporation branch compiled out the TL never reads the
 // covptot carry (the c_cov elision of pallas/nonlinear.py:218-225); with
-// TRAJ_ONLY the first ten are not written.  Those not written may be null.
+// TRAJ_ONLY the first ten are not written.  qsat_out, the diagnosed qsat,
+// is written only with FUSE and without TRAJ_ONLY.  Those not written may
+// be null.
 #define CLOUDSC2_NL_OUTPUTS(X)                                                 \
   X(tnd_t) X(tnd_q) X(tnd_ql) X(tnd_qi) X(clc) X(covptot) X(fplsl) X(fplsn)    \
-  X(fhpsl) X(fhpsn) X(c_rfl) X(c_sfl) X(c_cov)
+  X(fhpsl) X(fhpsn) X(c_rfl) X(c_sfl) X(c_cov) X(qsat_out)
+
+// the int switches of the launch entry points, in their order (traj: 0 none,
+// 1 the trajectory too, 2 the trajectory only; div: a DivMode)
+#define CLOUDSC2_NL_SWITCHES(X) X(is_double) X(thermo) X(evap) X(traj) X(fuse) X(div)
 
 #define CLOUDSC2_STR(n) #n ","
 inline const char* nl_signature() {
-  return "consts:" CLOUDSC2_NL_CONSTS(CLOUDSC2_STR)
+  return "switches:" CLOUDSC2_NL_SWITCHES(CLOUDSC2_STR)
+         ";consts:" CLOUDSC2_NL_CONSTS(CLOUDSC2_STR)
          ";inputs:" CLOUDSC2_NL_INPUTS(CLOUDSC2_STR)
          ";outputs:" CLOUDSC2_NL_OUTPUTS(CLOUDSC2_STR);
 }
@@ -103,12 +118,36 @@ CLOUDSC2_HD T foealfa(T t, const NLConst<T>& c) {
   return m_min(T(1), x * x);
 }
 
-template <typename T>
-CLOUDSC2_HD T foeewm(T t, const NLConst<T>& c) {
-  const T alfa = foealfa(t, c);
-  const T liq = c.r2es * m_exp(c.r3les * (t - c.rtt) / (t - c.r4les));
-  const T ice = c.r2es * m_exp(c.r3ies * (t - c.rtt) / (t - c.r4ies));
+// The mixed-phase saturation pressure alfa * liquid + (1 - alfa) * ice,
+// alfa the ramp from tice up to RTWAT with scale twat_r: foeewm
+// (fcttre.py:40) with foealfa's RTICE, foeewmcu (:51) with foealfcu's
+// RTICECU.
+template <int D, typename T>
+CLOUDSC2_HD T foeew_mixed(T t, T tice, T twat_r, const NLConst<T>& c) {
+  const T x = (m_min(m_max(t, tice), c.rtwat) - tice) * twat_r;
+  const T alfa = m_min(T(1), x * x);
+  const T liq = c.r2es * m_exp(fdiv<D>(c.r3les * (t - c.rtt), t - c.r4les));
+  const T ice = c.r2es * m_exp(fdiv<D>(c.r3ies * (t - c.rtt), t - c.r4ies));
   return alfa * liq + (T(1) - alfa) * ice;
+}
+
+template <int D, typename T>
+CLOUDSC2_HD T foeewm(T t, const NLConst<T>& c) {
+  return foeew_mixed<D>(t, c.rtice, c.rtwat_rtice_r, c);
+}
+
+// saturation (physics/saturation.py:52-59) at one point: qsat from the
+// state temperature t (not the first guess).  Its branch is keyed on LPHYLIN
+// and kflag, not on THERMO: LPHYLIN blends with foealfa, as foeewm does
+// (kflag 2 without LPHYLIN), and kflag 1 without LPHYLIN is foeewmcu; the
+// host picks the ramp (sat_tice, sat_twat_r).  Its divides are its own,
+// not the level body's 1/ap: sharing that reciprocal moved the fused path
+// off the unfused one (pallas/nonlinear.py:270-276).
+template <int D, typename T>
+CLOUDSC2_HD T saturation(T ap, T t, const NLConst<T>& c) {
+  const T ew = foeew_mixed<D>(t, c.sat_tice, c.sat_twat_r, c);
+  const T qs = m_min(fdiv<D>(ew, ap), c.zqmax);
+  return fdiv<D>(qs, T(1) - c.retv * qs);
 }
 
 // tropopause_eta (nonlinear.py:59) for one column: the last level k with
@@ -153,7 +192,7 @@ CLOUDSC2_HD void critical_rh_coeffs(NLCol<T>& col) {
 }
 
 // cuadjtqs_nl (physics/cuadjtqs.py:85), compact form, rap = 1/ap
-template <typename T>
+template <int D, typename T>
 CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
   const bool warm = t > c.rtt;
   const T z3es = warm ? c.r3les : c.r3ies;
@@ -161,12 +200,12 @@ CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
   const T z5alcp = warm ? c.r5alvcp : c.r5alscp;
   const T zaldcp = warm ? c.ralvdcp : c.ralsdcp;
   for (int it = 0; it < 2; ++it) {
-    const T rt4 = T(1) / (t - z4es);
+    const T rt4 = rcp<D>(t - z4es);
     const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rt4);
     const T s = m_min(foeew * rap, c.zqmax);
     const T u = T(1) - c.retv * s;
     const T z2s = z5alcp * rt4 * rt4;
-    const T cond = (q * u - s) * u / (u * u + s * z2s);
+    const T cond = fdiv<D>((q * u - s) * u, u * u + s * z2s);
     t = t + zaldcp * cond;
     q = q - cond;
   }
@@ -174,7 +213,7 @@ CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
 
 // ---------------------------------------------------------------- nl_level ----
 // nl_level_pre (nonlinear.py:147) + nl_level_post (:399) on one point.
-template <typename T, bool THERMO, bool EVAP>
+template <typename T, bool THERMO, bool EVAP, int D = DIV_EXACT>
 CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
                                    const NLCol<T>& col, const NLConst<T>& c) {
   const T one = T(1), zero = T(0);
@@ -183,18 +222,18 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
   // ---- phase A: carry-independent
   const T ap = x.ap, t = x.t_fg, q = x.q2, ql = x.ql_fg, qi = x.qi_fg;
   const T qsat_in = x.qsat, dp = x.dp, scalm = x.scalm;
-  const T rap = one / ap;
+  const T rap = rcp<D>(ap);
 
   // thermodynamic coefficients
   const T zz = c.rcpd + c.rcpd_rvtmp2 * q;
-  const T rzz = one / zz;
+  const T rzz = rcp<D>(zz);
   const T lfdcp = c.rlmlt * rzz;
   const T lsdcp = c.rlstt * rzz;
   const T lvdcp = c.rlvtt * rzz;
 
   // dqs/dT correction factor
-  const T rl = one / (t - c.r4les);
-  const T ri = one / (t - c.r4ies);
+  const T rl = rcp<D>(t - c.r4les);
+  const T ri = rcp<D>(t - c.r4ies);
   T fwat, foeew;
   if (THERMO) {
     const bool cold = t < c.rtt;
@@ -204,13 +243,13 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
     foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rz4es);
   } else {
     fwat = foealfa(t, c);
-    foeew = foeewm(t, c);
+    foeew = foeewm<D>(t, c);
   }
   const T esdp1 = foeew * rap;
   const T facw = c.r5les * rl * rl;
   const T faci = c.r5ies * ri * ri;
   const T fac = fwat * facw + (one - fwat) * faci;
-  const T fac2 = one / (ap - c.retv * foeew);
+  const T fac2 = rcp<D>(ap - c.retv * foeew);
   T cor = ap * fac2;
   if (THERMO) cor = esdp1 <= c.zqmax ? cor : c.cor_clip;
   const T dqsdtemp = fac * cor * qsat_in;
@@ -231,7 +270,7 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
   const T qpd = qsat - qt;
   const T qcd = qsat - qcrit;
   const T denom_safe = mid ? qcd - scalm * (qt - qcrit) : one;
-  const T ratio = m_min(mid ? qpd / denom_safe : zero, one);
+  const T ratio = m_min(mid ? fdiv<D>(qpd, denom_safe) : zero, one);
   const T clc_mid = one - m_sqrt(ratio);
   const T qc_mid = (scalm * qpd + (one - scalm) * qcd) * (clc_mid * clc_mid);
   const T qc_high = (one - scalm) * (qsat - qcrit);
@@ -239,20 +278,20 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
   T qc = low ? zero : (high ? qc_high : qc_mid);
 
   // convective detrainment
-  const T gdp = c.rg / dp;
+  const T gdp = fdiv<D>(c.rg, dp);
   const T lude = c.dt * x.lude * gdp;
   const bool lo1 = (lude >= c.rlmin) && (x.lu_next >= c.zeps2);
   const T lu1_safe = lo1 ? x.lu_next : one;
-  const T tmp2 = m_exp(-lude / lu1_safe);
+  const T tmp2 = m_exp(fdiv<D>(-lude, lu1_safe));
   clc = clc + (lo1 ? (one - clc) * (one - tmp2) : zero);
   qc = qc + (lo1 ? lude : zero);
 
   // compensating subsidence
-  const T fac1 = one / (c.rd * t);
+  const T fac1 = rcp<D>(c.rd * t);
   const T rho = ap * fac1;
   const T rodqsdp = -rho * qsat_in * fac2;
   const T ldcp = fwat * lvdcp + (one - fwat) * lsdcp;
-  const T fac3 = one / (one + ldcp * dqsdtemp);
+  const T fac3 = rcp<D>(one + ldcp * dqsdtemp);
   const T dtdzmo = c.rg * (c.rcpd_inv - ldcp * rodqsdp) * fac3;
   const T dqsdz = dqsdtemp * dtdzmo - c.rg * rodqsdp;
   const T fac4 = c.rd * t * rap;
@@ -272,7 +311,7 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
 
   // carry-free half of the autoconversion
   const bool act = clc > c.zeps2;
-  const T rclc = one / (act ? clc : one);
+  const T rclc = rcp<D>(act ? clc : one);
   const T cldl = qlwc * rclc;
   const T ltmp1 = m_exp(-(cldl * cldl * c.lcrit_k));
   const T dl = c.ckcodtl * (one - ltmp1);
@@ -318,22 +357,22 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
     const bool eact = (prtot > c.zeps2) && (covpclr > c.zeps2);
     const T covptot_safe = eact ? covptot : one;
     const T covpclr_safe = eact ? covpclr : one;
-    const T preclr1 = prtot * covpclr / covptot_safe;
+    const T preclr1 = fdiv<D>(prtot * covpclr, covptot_safe);
     const T clcc = eact ? one - clc : one;
-    const T qe = qsat_in - (qsat_in - qlim) * covpclr / (clcc * clcc);
-    const T sqr = m_sqrt(ap / col.aph_s);
-    const T barg = eact ? sqr / T(0.00509) * preclr1 / covpclr_safe : one;
+    const T qe = qsat_in - fdiv<D>((qsat_in - qlim) * covpclr, clcc * clcc);
+    const T sqr = m_sqrt(fdiv<D>(ap, col.aph_s));
+    const T barg = eact ? fdiv<D>(sqr / T(0.00509) * preclr1, covpclr_safe) : one;
     const T beta = c.rg_rpecons * m_pow(barg, T(0.5777));
-    const T b = c.dt * beta * (qsat_in - qe) / (one + c.dt * beta * corqs);
-    const T dtgdp = c.dt_rg / dp;
-    const T dpr1 = covpclr * b / dtgdp;
+    const T b = fdiv<D>(c.dt * beta * (qsat_in - qe), one + c.dt * beta * corqs);
+    const T dtgdp = fdiv<D>(c.dt_rg, dp);
+    const T dpr1 = fdiv<D>(covpclr * b, dtgdp);
     const T dpr = eact ? m_min(dpr1, preclr1) : zero;
     const T preclr = preclr1 - dpr;
     covptot = (eact && preclr <= zero) ? clc : covptot;
     covptot_out = eact ? covptot : zero;
     const T prtot_safe = eact ? prtot : one;
-    evapr = eact ? dpr * rfln / prtot_safe : zero;
-    evaps = eact ? dpr * sfln / prtot_safe : zero;
+    evapr = eact ? fdiv<D>(dpr * rfln, prtot_safe) : zero;
+    evaps = eact ? fdiv<D>(dpr * sfln, prtot_safe) : zero;
     rfln = rfln - evapr;
     sfln = sfln - evaps;
   }
@@ -348,7 +387,7 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
   const T qold1 = qa;
 
   // saturation-adjustment clipping
-  cuadjtqs_nl(rap, ta, qa, c);
+  cuadjtqs_nl<D>(rap, ta, qa, c);
 
   // post-clipping rain fraction and freezing, on the adjusted temperature
   const T dq = m_max(qold1 - qa, zero);
@@ -378,7 +417,8 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
 // ------------------------------------------------------------ column body ----
 // The Body of level_scan_column: what cloudsc2_nl_pallas
 // (cloudsc2_tpu/pallas/nonlinear.py:76) computes, for one column.
-template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false>
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false, bool FUSE = false,
+          int D = DIV_EXACT>
 struct NLBody {
   static_assert(TRAJ || !TRAJ_ONLY, "TRAJ_ONLY requires TRAJ");
   NLFields<T> f;
@@ -413,7 +453,8 @@ struct NLBody {
     return s;
   }
 
-  // The level's inputs, folded from the raw fields.
+  // The level's inputs, folded from the raw fields; with FUSE qsat is
+  // diagnosed from ap and t instead of read.
   CLOUDSC2_HD NLLevelIn<T> load(int col, int k) const {
     const size_t i = at(k, col);
     const size_t ib = at(k + 1, col);
@@ -426,7 +467,11 @@ struct NLBody {
     x.q2 = f.q[i] + c.dt * f.tnd_cml_q[i] + f.supsat[i];
     x.ql_fg = f.ql[i] + c.dt * f.tnd_cml_ql[i];
     x.qi_fg = f.qi[i] + c.dt * f.tnd_cml_qi[i];
-    x.qsat = f.qsat[i];
+    if constexpr (FUSE) {
+      x.qsat = saturation<D>(x.ap, f.t[i], c);
+    } else {
+      x.qsat = f.qsat[i];
+    }
     x.t_fg = f.t[i] + c.dt * f.tnd_cml_t[i];
     x.eta = f.eta[k];
     x.scalm = f.scalm[k];
@@ -452,22 +497,24 @@ struct NLBody {
 
   CLOUDSC2_HD void level(Column& s, int col, int k) const {
     const NLLevelIn<T> x = load(col, k);
+    const size_t i = at(k, col);
     if (TRAJ) {
-      const size_t i = at(k, col);
       f.c_rfl[i] = s.carry.rfl;
       f.c_sfl[i] = s.carry.sfl;
       if (EVAP) f.c_cov[i] = s.carry.covptot;
     }
-    const NLLevelOut<T> o = nl_level<T, THERMO, EVAP>(s.carry, x, s.col, c);
+    if (FUSE && !TRAJ_ONLY) f.qsat_out[i] = x.qsat;
+    const NLLevelOut<T> o = nl_level<T, THERMO, EVAP, D>(s.carry, x, s.col, c);
     if (!TRAJ_ONLY) store(s, o, col, k);
   }
 };
 
 // Fill a body from the wrapper's pointer lists (orders as in the X-lists).
-template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false>
-inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY> make_nl_body(const void* const* in, void* const* out,
-                                                            const void* consts, int nlev, int ncols) {
-  NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY> b;
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false, bool FUSE = false,
+          int D = DIV_EXACT>
+inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> make_nl_body(const void* const* in, void* const* out,
+                                                                     const void* consts, int nlev, int ncols) {
+  NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> b;
   int i = 0;
 #define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
   CLOUDSC2_NL_INPUTS(CLOUDSC2_FIELD)
@@ -482,29 +529,93 @@ inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY> make_nl_body(const void* const* 
   return b;
 }
 
-// Call L.template run<T, THERMO, EVAP, TRAJ, TRAJ_ONLY>() for the runtime
-// switches (traj: 0 none, 1 the trajectory too, 2 the trajectory only);
-// this instantiates all 12 switch combinations x 2 dtypes.
-template <class L, typename T, bool THERMO, bool EVAP>
+// Call L.template run<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>() for the
+// runtime switches (traj: 0 none, 1 the trajectory too, 2 the trajectory
+// only): 96 bodies, the exact divide in float and double and the faithful
+// and approx policies in float, the only type the JAX kernel takes them in
+// (f64 divides exactly).  Every body combines FUSE with every TRAJ form, as
+// the JAX kernel accepts them.
+template <class L, typename T, int D, bool THERMO, bool EVAP, bool FUSE>
 inline int nl_dispatch_traj(const L& launcher, int traj) {
-  if (traj == 2) return launcher.template run<T, THERMO, EVAP, true, true>();
-  return traj ? launcher.template run<T, THERMO, EVAP, true, false>()
-              : launcher.template run<T, THERMO, EVAP, false, false>();
+  if (traj == 2) return launcher.template run<T, THERMO, EVAP, true, true, FUSE, D>();
+  return traj ? launcher.template run<T, THERMO, EVAP, true, false, FUSE, D>()
+              : launcher.template run<T, THERMO, EVAP, false, false, FUSE, D>();
 }
 
-template <class L, typename T>
-inline int nl_dispatch_t(const L& launcher, int thermo, int evap, int traj) {
+template <class L, typename T, int D, bool THERMO, bool EVAP>
+inline int nl_dispatch_fuse(const L& launcher, int traj, int fuse) {
+  return fuse ? nl_dispatch_traj<L, T, D, THERMO, EVAP, true>(launcher, traj)
+              : nl_dispatch_traj<L, T, D, THERMO, EVAP, false>(launcher, traj);
+}
+
+template <class L, typename T, int D>
+inline int nl_dispatch_t(const L& launcher, int thermo, int evap, int traj, int fuse) {
   if (thermo)
-    return evap ? nl_dispatch_traj<L, T, true, true>(launcher, traj)
-                : nl_dispatch_traj<L, T, true, false>(launcher, traj);
-  return evap ? nl_dispatch_traj<L, T, false, true>(launcher, traj)
-              : nl_dispatch_traj<L, T, false, false>(launcher, traj);
+    return evap ? nl_dispatch_fuse<L, T, D, true, true>(launcher, traj, fuse)
+                : nl_dispatch_fuse<L, T, D, true, false>(launcher, traj, fuse);
+  return evap ? nl_dispatch_fuse<L, T, D, false, true>(launcher, traj, fuse)
+              : nl_dispatch_fuse<L, T, D, false, false>(launcher, traj, fuse);
+}
+
+// The switches' range, checked by both entries before nl_dispatch; returns
+// true when valid.
+inline bool nl_switches_valid(int nlev, int ncols, int is_double, int traj, int div) {
+  return nlev >= 1 && ncols >= 1 && traj >= 0 && traj <= 2 && div >= DIV_EXACT && div <= DIV_APPROX &&
+         !(is_double && div != DIV_EXACT);
 }
 
 template <class L>
-inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap, int traj) {
-  return is_double ? nl_dispatch_t<L, double>(launcher, thermo, evap, traj)
-                   : nl_dispatch_t<L, float>(launcher, thermo, evap, traj);
+inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap, int traj, int fuse, int div) {
+  if (is_double) return nl_dispatch_t<L, double, DIV_EXACT>(launcher, thermo, evap, traj, fuse);
+  if (div == DIV_FAITHFUL) return nl_dispatch_t<L, float, DIV_FAITHFUL>(launcher, thermo, evap, traj, fuse);
+  if (div == DIV_APPROX) return nl_dispatch_t<L, float, DIV_APPROX>(launcher, thermo, evap, traj, fuse);
+  return nl_dispatch_t<L, float, DIV_EXACT>(launcher, thermo, evap, traj, fuse);
 }
+
+#ifdef __CUDACC__
+// rcp<D> alone, one point a thread (cloudsc2_rcp_probe, nonlinear.cu).
+template <int D>
+__global__ void rcp_probe_kernel(const float* x, float* r, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) r[i] = rcp<D>(x[i]);
+}
+#endif
+
+#ifdef __CUDACC__
+// The device launcher (nonlinear.cu): one thread per
+// column, 128 a block, on the caller's stream; returns the launch's
+// cudaError_t.
+struct NLLauncher {
+  const void* const* in;
+  void* const* out;
+  const void* consts;
+  int nlev, ncols;
+  cudaStream_t stream;
+
+  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
+  int run() const {
+    const auto body = make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols);
+    const int threads = 128;
+    const int blocks = (ncols + threads - 1) / threads;
+    level_scan_kernel<<<blocks, threads, 0, stream>>>(body);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+#endif
+
+// The host build's runner (nonlinear_host.cpp):
+// the columns in a loop.
+struct NLHostRunner {
+  const void* const* in;
+  void* const* out;
+  const void* consts;
+  int nlev, ncols;
+
+  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
+  int run() const {
+    level_scan_host(make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols));
+    return 0;
+  }
+};
 
 }  // namespace cloudsc2

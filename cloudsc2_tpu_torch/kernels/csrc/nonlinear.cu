@@ -4,6 +4,12 @@
 // CLOUDSC2 nonlinear step on Hopper (sm_90a): the port of the Pallas kernel
 // cloudsc2_nl_pallas (cloudsc2_tpu/pallas/nonlinear.py:76) and of its
 // level-scan harness level_scan_pallas (cloudsc2_tpu/pallas/levelscan.py:402).
+// It holds the exact divide in float and double, and the FAST_DIV faithful
+// and approx policies (cloudsc2_tpu/physics/fastmath.py:34-78) in float:
+// every divide the JAX body routes through fastmath.rcp / div becomes the
+// hardware approximate reciprocal, PTX rcp.approx.ftz.f32, with one Newton
+// step in faithful (scalar_math.h says how and why).  The JAX kernel divides
+// non-f32 operands exactly, so a double step takes the exact policy only.
 //
 // What it computes: one whole NL step for every column, including what the
 // JAX wrapper does around its kernel in XLA (first-guess combines, dp, mf,
@@ -11,10 +17,13 @@
 // assembly of the fluxes (zero top interface, fhps* = -L * fpls*).  Only eta
 // and scalm, two (nlev,) vectors, come from torch.
 //
-// With traj (the adjoint's forward sweep) it also writes the carry entering
-// each level: c_rfl, c_sfl, and c_cov when evaporation is compiled in; with
-// traj = 2 (traj_only, the forward sweep of a gradient-only adjoint) it
-// writes that trajectory and nothing else.
+// With fuse (fuse_saturation, pallas/nonlinear.py:105-110) it diagnoses qsat
+// from ap and t at each point instead of reading it, and writes it: the
+// Saturation component and the NL step in one launch.  With traj (the
+// adjoint's forward sweep) it also writes the carry entering each level:
+// c_rfl, c_sfl, and c_cov when evaporation is compiled in; with traj = 2
+// (traj_only, the forward sweep of a gradient-only adjoint) it writes that
+// trajectory and nothing else.
 //
 // What bounds it: bytes.  Per column-level it reads the 16 input fields once
 // plus t and tnd_cml_t a second time for the tropopause pass (18 reads), and
@@ -22,7 +31,11 @@
 // the function needs 26, each input read once), against
 // roughly 300 flops (about a dozen exp, eight divides), under 3 flop/B.  An
 // H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores) balances at
-// about 20 flop/B, so the memory stream is the limit.
+// about 20 flop/B, so the memory stream is the limit.  Fused, it reads qsat
+// no more and writes it: the same 26 values, and the Saturation
+// component's own passes over memory (about 20 elementwise launches) are
+// gone.  The divide policy changes the cost of about 25 divides a
+// column-level, not a byte.
 //
 // What the design does about it: one thread per column keeps the carry
 // (rfl, sfl, covptot) and every intermediate in registers, so nothing but
@@ -39,43 +52,41 @@
 
 #include "nl_level.h"
 
-namespace {
-
-struct Launcher {
-  const void* const* in;
-  void* const* out;
-  const void* consts;
-  int nlev, ncols;
-  cudaStream_t stream;
-
-  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY>
-  int run() const {
-    const auto body =
-        cloudsc2::make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY>(in, out, consts, nlev, ncols);
-    const int threads = 128;
-    const int blocks = (ncols + threads - 1) / threads;
-    cloudsc2::level_scan_kernel<<<blocks, threads, 0, stream>>>(body);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
-
-}  // namespace
-
 extern "C" {
 
 const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
-// Launch one NL step on `stream`.  traj: 0 none, 1 the trajectory too, 2
-// the trajectory only.  in/out: device pointers in the order of
-// CLOUDSC2_NL_INPUTS/OUTPUTS (the outputs not written may be null);
-// consts: host pointer to NLConst<T>.  Returns the cudaError_t of the
-// launch (0 on success).
-int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, const void* const* in,
-                       void* const* out, const void* consts, int nlev, int ncols,
-                       void* stream) {
-  if (nlev < 1 || ncols < 1 || traj < 0 || traj > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const Launcher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
-  return cloudsc2::nl_dispatch(l, is_double, thermo, evap, traj);
+// Launch one NL step on `stream`.  Switches in the order of
+// CLOUDSC2_NL_SWITCHES (nl_level.h); div is 0 (exact), 1 (faithful) or 2
+// (approx), and 0 when is_double.  in/out: device pointers in the order of
+// CLOUDSC2_NL_INPUTS/OUTPUTS (those not read or written may be null);
+// consts: host pointer to NLConst<T>.  Returns the cudaError_t of the launch
+// (0 on success).
+int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, int div,
+                       const void* const* in, void* const* out, const void* consts, int nlev,
+                       int ncols, void* stream) {
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cloudsc2::NLLauncher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
+  return cloudsc2::nl_dispatch(l, is_double, thermo, evap, traj, fuse, div);
+}
+
+// rcp<div>(x[i]) into r[i] for i < n, on `stream`: the divide policies'
+// reciprocal on its own, for the checks of chip_smoke.py and the card
+// tests (never on the main path).  Returns the launch's cudaError_t.
+int cloudsc2_rcp_probe(int div, const float* x, float* r, int n, void* stream) {
+  if (n < 1 || div < cloudsc2::DIV_EXACT || div > cloudsc2::DIV_APPROX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (div == cloudsc2::DIV_FAITHFUL)
+    cloudsc2::rcp_probe_kernel<cloudsc2::DIV_FAITHFUL><<<blocks, threads, 0, s>>>(x, r, n);
+  else if (div == cloudsc2::DIV_APPROX)
+    cloudsc2::rcp_probe_kernel<cloudsc2::DIV_APPROX><<<blocks, threads, 0, s>>>(x, r, n);
+  else
+    cloudsc2::rcp_probe_kernel<cloudsc2::DIV_EXACT><<<blocks, threads, 0, s>>>(x, r, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

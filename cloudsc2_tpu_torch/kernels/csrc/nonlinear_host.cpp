@@ -2,40 +2,36 @@
 // Licensed under the Apache License, Version 2.0.
 //
 // Host build of the NL kernel's body (nl_level.h through levelscan.cuh),
-// compiled with g++ -ffp-contract=off.  The CPU tests run it against the
-// plain torch version, so the kernel's own arithmetic is checked on a
-// machine without a card.  It is never used on the main path.
+// every divide policy (the approximate reciprocal as Pallas interpret mode
+// models it, scalar_math.h rcp_approx), compiled with g++
+// -ffp-contract=off.  The CPU tests run it against the plain torch version
+// and against cloudsc2_nl_pallas in interpret mode, so the kernel's own
+// arithmetic is checked on a machine without a card.  It is never used on
+// the main path.
 #include "nl_level.h"
-
-namespace {
-
-struct HostRunner {
-  const void* const* in;
-  void* const* out;
-  const void* consts;
-  int nlev, ncols;
-
-  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY>
-  int run() const {
-    cloudsc2::level_scan_host(
-        cloudsc2::make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY>(in, out, consts, nlev, ncols));
-    return 0;
-  }
-};
-
-}  // namespace
 
 extern "C" {
 
 const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
 // Same arguments as cloudsc2_nl_launch (nonlinear.cu) with host pointers
-// and no stream.
-int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, const void* const* in,
-                     void* const* out, const void* consts, int nlev, int ncols) {
-  if (nlev < 1 || ncols < 1 || traj < 0 || traj > 2) return 1;
-  const HostRunner r{in, out, consts, nlev, ncols};
-  return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj);
+// and no stream; returns 0 on success.
+int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, int fuse, int div,
+                     const void* const* in, void* const* out, const void* consts, int nlev, int ncols) {
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div)) return 1;
+  const cloudsc2::NLHostRunner r{in, out, consts, nlev, ncols};
+  return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj, fuse, div);
+}
+
+// As cloudsc2_rcp_probe (nonlinear.cu) on host pointers; returns 0 on
+// success.
+int cloudsc2_rcp_probe_host(int div, const float* x, float* r, int n) {
+  if (n < 1 || div < cloudsc2::DIV_EXACT || div > cloudsc2::DIV_APPROX) return 1;
+  for (int i = 0; i < n; ++i)
+    r[i] = div == cloudsc2::DIV_FAITHFUL ? cloudsc2::rcp<cloudsc2::DIV_FAITHFUL>(x[i])
+         : div == cloudsc2::DIV_APPROX   ? cloudsc2::rcp<cloudsc2::DIV_APPROX>(x[i])
+                                         : cloudsc2::rcp<cloudsc2::DIV_EXACT>(x[i]);
+  return 0;
 }
 
 }  // extern "C"

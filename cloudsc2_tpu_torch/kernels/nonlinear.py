@@ -4,34 +4,41 @@
 
 Replaces the Pallas kernel :func:`cloudsc2_tpu.pallas.nonlinear.
 cloudsc2_nl_pallas` (``pallas/nonlinear.py:76``), its ``with_trajectory``
-form (``:214-226``, the adjoint's forward sweep) and its ``traj_only`` form
-(``:367-392,458``, the forward sweep of a gradient-only adjoint) included,
-and, for it, the level-scan harness ``level_scan_pallas``
-(``pallas/levelscan.py:402``).  The kernel is CUDA C++
-(``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and ``csrc/levelscan.cuh``):
-one thread per column, the carry in registers, the levels in a loop.  It is
-bound by device-memory bytes; the note at the top of ``nonlinear.cu`` gives
-the count and what the design does about it.
+form (``:214-226``, the adjoint's forward sweep), its ``traj_only`` form
+(``:367-392,458``, the forward sweep of a gradient-only adjoint), its
+``fuse_saturation`` form (``:105-110,186-212``, ``qsat`` diagnosed inside
+the kernel and returned) and its ``FAST_DIV`` divide modes
+(``physics/fastmath.py:34-78``) included, and, for it, the level-scan
+harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
+CUDA C++ (``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and
+``csrc/levelscan.cuh``, the exact divide in float and double and the
+faithful and approx modes in float): one thread per column, the
+carry in registers, the levels in a loop.  It is bound by device-memory
+bytes; the note at the top of ``nonlinear.cu`` gives the count and what the
+design does about it.
 
 :func:`cloudsc2_nl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
 :func:`cloudsc2_tpu_torch.physics.nonlinear.cloudsc2_nl`.
 :func:`cloudsc2_nl_host` runs the same body compiled for the CPU, for the
-tests only.
+tests only.  :func:`rcp_cuda` / :func:`rcp_host` run the divide policies'
+reciprocal alone, for the checks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
+from cloudsc2_tpu_torch.physics.fastmath import DIV_MODES
 from cloudsc2_tpu_torch.physics.nonlinear import (
     TRAJ_OUTPUTS,
     check_constants,
+    check_nl_constants,
     scalm_profile,
     trajectory_names,
 )
@@ -44,25 +51,29 @@ NL_INPUTS = (
     "ap", "aph", "lu", "lude", "mfd", "mfu", "q", "qi", "ql", "qsat", "supsat",
     "t", "tnd_cml_q", "tnd_cml_qi", "tnd_cml_ql", "tnd_cml_t", "eta", "scalm",
 )
-#: (the step's outputs, then the trajectory of ``with_trajectory``)
+#: (the step's outputs, then the trajectory of ``with_trajectory``, then
+#: the ``qsat`` of ``fuse_saturation``)
 STEP_OUTPUTS = (
     "tnd_t", "tnd_q", "tnd_ql", "tnd_qi", "clc", "covptot", "fplsl", "fplsn",
     "fhpsl", "fhpsn",
 )
-NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS
+NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS + ("qsat_out",)
+#: the int switches of the launch, in the order of ``CLOUDSC2_NL_SWITCHES``
+NL_SWITCHES = ("is_double", "thermo", "evap", "traj", "fuse", "div")
 _IFACE = ("aph", "fplsl", "fplsn", "fhpsl", "fhpsn")
 _VERT = ("eta", "scalm")
 _DTYPES = (torch.float32, torch.float64)
 
 _P = ctypes.c_void_p
-_ARGS = [ctypes.c_int] * 4 + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
+_ARGS = [ctypes.c_int] * len(NL_SWITCHES) + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
 
 
 def signature() -> str:
     """The argument lists the Python side passes, in the form the kernel
     library reports them (``nl_signature`` in ``nl_level.h``)."""
     return "".join((
-        "consts:", *(n + "," for n in NL_CONST_NAMES),
+        "switches:", *(n + "," for n in NL_SWITCHES),
+        ";consts:", *(n + "," for n in NL_CONST_NAMES),
         ";inputs:", *(n + "," for n in NL_INPUTS),
         ";outputs:", *(n + "," for n in NL_OUTPUTS),
     ))
@@ -71,14 +82,16 @@ def signature() -> str:
 @functools.lru_cache(maxsize=None)
 def _load(kind: str) -> ctypes.CDLL:
     if kind == "cuda":
-        lib = build.load("cuda", "cloudsc2_nl", ["nonlinear.cu"])
-        fn = lib.cloudsc2_nl_launch
+        lib = build.load(kind, "cloudsc2_nl", ["nonlinear.cu"])
+        fn, probe = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe
         fn.argtypes = _ARGS + [_P]
+        probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
     else:
-        lib = build.load("host", "cloudsc2_nl_host", ["nonlinear_host.cpp"])
-        fn = lib.cloudsc2_nl_host
+        lib = build.load(kind, "cloudsc2_nl_host", ["nonlinear_host.cpp"])
+        fn, probe = lib.cloudsc2_nl_host, lib.cloudsc2_rcp_probe_host
         fn.argtypes = _ARGS
-    fn.restype = ctypes.c_int
+        probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int]
+    fn.restype = probe.restype = ctypes.c_int
     lib.cloudsc2_nl_signature.restype = ctypes.c_char_p
     got = lib.cloudsc2_nl_signature().decode()
     if got != signature():
@@ -93,14 +106,16 @@ def load_cuda() -> ctypes.CDLL:
 
 def check_inputs(
     state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[str],
-    iface: Sequence[str],
+    iface: Sequence[str], check: Callable[[Constants], None] = check_constants,
 ) -> Tuple[List[Tensor], torch.dtype]:
-    """Check the state for a kernel, and return its ``inputs`` in order:
-    ``eta`` in the state's dtype and ``scalm`` computed from it, the other
-    fields as they are.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
-    ``eta``/``scalm`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one
-    float dtype, contiguous, on one device of ``device_type``."""
-    check_constants(c)
+    """Check the constants with ``check`` (by default the TL's and AD's:
+    exact divide only) and the state for a kernel, and return its
+    ``inputs`` in order: ``eta`` in the state's dtype and ``scalm``
+    computed from it, the other fields as they are.  Fields named in
+    ``iface`` are ``(nlev + 1, ncols)``, ``eta``/``scalm`` ``(nlev,)``, the
+    rest ``(nlev, ncols)``; all of one float dtype, contiguous, on one
+    device of ``device_type``."""
+    check(c)
     ap = state["ap"]
     if ap.dim() != 2:
         raise ValueError(f"ap must be (nlev, ncols), got shape {tuple(ap.shape)}")
@@ -133,26 +148,38 @@ def check_inputs(
 
 def _marshal(
     state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, with_trajectory: bool,
-    traj_only: bool,
-) -> Tuple[List[Tensor], Dict[str, Tensor], Tensor, torch.dtype]:
+    traj_only: bool, fuse_saturation: bool, kflag: int,
+) -> Tuple[List[Optional[Tensor]], Dict[str, Optional[Tensor]], Tensor, Tuple[int, ...]]:
     """Check the options and the state, and return the kernel's inputs in
-    order, freshly allocated outputs (``None`` for one not written), the
-    constant struct and the dtype."""
+    order (``None`` for ``qsat`` when fused), freshly allocated outputs
+    (``None`` for one not written), the constant struct and the switches."""
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
-    ins, dtype = check_inputs(state, c, device_type, NL_INPUTS, _IFACE)
+    names = tuple(n for n in NL_INPUTS if not (fuse_saturation and n == "qsat"))
+    ins, dtype = check_inputs(state, c, device_type, names, _IFACE, check_nl_constants)
+    if fuse_saturation:
+        ins.insert(NL_INPUTS.index("qsat"), None)
     nlev, ncols = state["ap"].shape
     written = trajectory_names(c) if with_trajectory else ()
     if not traj_only:
-        written = STEP_OUTPUTS + written
+        written = STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
     outs = {
         n: None if n not in written else torch.empty(
             (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
         )
         for n in NL_OUTPUTS
     }
-    consts = torch.from_numpy(kernel_constants(c, dt, dtype))
-    return ins, outs, consts, dtype
+    consts = torch.from_numpy(kernel_constants(c, dt, dtype, kflag))
+    switches = (
+        int(dtype == torch.float64),
+        int(bool(c.LPHYLIN or c.LDRAIN1D)),
+        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
+        2 if traj_only else int(with_trajectory),
+        int(fuse_saturation),
+        # fastmath: a non-f32 operand always divides exactly
+        DIV_MODES.index(c.FAST_DIV) if dtype == torch.float32 else 0,
+    )
+    return ins, outs, consts, switches
 
 
 def ptrs(tensors) -> ctypes.Array:
@@ -160,23 +187,14 @@ def ptrs(tensors) -> ctypes.Array:
     return (_P * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
 
 
-def _switches(
-    c: Constants, dtype: torch.dtype, with_trajectory: bool, traj_only: bool
-) -> Tuple[int, int, int, int]:
-    return (
-        int(dtype == torch.float64),
-        int(bool(c.LPHYLIN or c.LDRAIN1D)),
-        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
-        2 if traj_only else int(with_trajectory),
-    )
-
-
-def _assemble(outs: Dict[str, Tensor], with_trajectory: bool, traj_only: bool):
+def _assemble(outs: Dict[str, Optional[Tensor]], with_trajectory: bool, traj_only: bool):
     traj = {n: outs[n] for n in TRAJ_OUTPUTS if outs[n] is not None}
     if traj_only:
         return {}, {}, traj
     tends = {"t": outs["tnd_t"], "q": outs["tnd_q"], "ql": outs["tnd_ql"], "qi": outs["tnd_qi"]}
     diags = {n: outs[n] for n in ("clc", "covptot", "fplsl", "fplsn", "fhpsl", "fhpsn")}
+    if outs["qsat_out"] is not None:
+        diags["qsat"] = outs["qsat_out"]
     if not with_trajectory:
         return tends, diags
     return tends, diags, traj
@@ -184,7 +202,7 @@ def _assemble(outs: Dict[str, Tensor], with_trajectory: bool, traj_only: bool):
 
 def cloudsc2_nl_cuda(
     state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
-    traj_only: bool = False,
+    traj_only: bool = False, fuse_saturation: bool = False, kflag: int = 1,
 ):
     """One NL step through the CUDA kernel, on PyTorch's current stream.
 
@@ -193,41 +211,78 @@ def cloudsc2_nl_cuda(
     ``ncols``; ``(tendencies, diagnostics)``, and with ``with_trajectory``
     the trajectory dict as a third element.  ``traj_only`` (which requires
     ``with_trajectory``, ``ValueError`` otherwise) writes the trajectory
-    alone and returns ``({}, {}, trajectory)``.  Raises on anything else, on
-    a failed build and on a refused launch; never falls back to the plain
-    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``.
+    alone and returns ``({}, {}, trajectory)``.  ``fuse_saturation``
+    diagnoses ``qsat`` in the kernel (``kflag`` and ``c.LPHYLIN`` pick the
+    branch, as for the ``Saturation`` component) instead of reading the
+    state's, which may then be absent, and returns it as the diagnostic
+    ``qsat`` (not with ``traj_only``).  ``c.FAST_DIV`` picks the divide
+    mode (float32; float64 divides exactly).  Raises on anything else, on a
+    failed build and on a refused launch; never falls back to the plain
+    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, and a
+    launch under a non-exact divide also to ``.fast_div_launches``.
     """
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cuda", with_trajectory, traj_only)
+    ins, outs, consts, switches = _marshal(
+        state, dt, c, "cuda", with_trajectory, traj_only, fuse_saturation, kflag)
     lib = load_cuda()
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cloudsc2_nl_launch(
-            *_switches(c, dtype, with_trajectory, traj_only), ptrs(ins), ptrs(list(outs.values())),
-            consts.data_ptr(), nlev, ncols, stream,
+            *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols, stream,
         )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
     cloudsc2_nl_cuda.launches += 1
+    cloudsc2_nl_cuda.fast_div_launches += int(switches[-1] != 0)
     return _assemble(outs, with_trajectory, traj_only)
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 
 
 def cloudsc2_nl_host(
     state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
-    traj_only: bool = False,
+    traj_only: bool = False, fuse_saturation: bool = False, kflag: int = 1,
 ):
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    ins, outs, consts, dtype = _marshal(state, dt, c, "cpu", with_trajectory, traj_only)
+    ins, outs, consts, switches = _marshal(
+        state, dt, c, "cpu", with_trajectory, traj_only, fuse_saturation, kflag)
     lib = _load("host")
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_nl_host(
-        *_switches(c, dtype, with_trajectory, traj_only), ptrs(ins), ptrs(list(outs.values())),
-        consts.data_ptr(), nlev, ncols,
+        *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,
     )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl host body failed: {err}")
     return _assemble(outs, with_trajectory, traj_only)
 
+
+def _rcp(x: Tensor, mode: str, device_type: str) -> Tensor:
+    if x.dtype != torch.float32 or x.device.type != device_type or not x.is_contiguous() or x.numel() < 1:
+        raise ValueError(f"need a non-empty contiguous float32 tensor on {device_type}")
+    r = torch.empty_like(x)
+    lib = _load(device_type if device_type == "cuda" else "host")
+    if device_type == "cuda":
+        with torch.cuda.device(x.device):
+            err = lib.cloudsc2_rcp_probe(DIV_MODES.index(mode), x.data_ptr(), r.data_ptr(), x.numel(),
+                                         torch.cuda.current_stream().cuda_stream)
+    else:
+        err = lib.cloudsc2_rcp_probe_host(DIV_MODES.index(mode), x.data_ptr(), r.data_ptr(), x.numel())
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_rcp_probe failed: {err}")
+    return r
+
+
+def rcp_cuda(x: Tensor, mode: str) -> Tensor:
+    """The kernel's reciprocal under the divide ``mode`` (``scalar_math.h``
+    ``rcp<D>``: on the card PTX ``rcp.approx.ftz.f32``, with one Newton step
+    in ``faithful``), point by point on a float32 CUDA tensor.  For the
+    checks; the NL kernel inlines it."""
+    return _rcp(x, mode, "cuda")
+
+
+def rcp_host(x: Tensor, mode: str) -> Tensor:
+    """:func:`rcp_cuda` of the host build (the approximate reciprocal as
+    Pallas interpret mode models it), on a float32 CPU tensor."""
+    return _rcp(x, mode, "cpu")

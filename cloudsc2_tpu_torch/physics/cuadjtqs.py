@@ -41,13 +41,15 @@ def _select_phase(t: torch.Tensor, c: Constants) -> _Phase:
 
 
 def _nl_iter(ap, t, q, p: _Phase, c: Constants, rap: Optional[torch.Tensor] = None):
-    """One adjustment iteration (compact form)."""
-    rt4 = rcp(t - p.z4es)
+    """One adjustment iteration (compact form); its divides under
+    ``c.FAST_DIV`` (``cuadjtqs.py:67-74``)."""
+    fd = c.FAST_DIV
+    rt4 = rcp(t - p.z4es, fd)
     foeew = c.R2ES * torch.exp(p.z3es * (t - c.RTT) * rt4)
-    s = torch.clamp(foeew * (rap if rap is not None else rcp(ap)), max=c.ZQMAX)
+    s = torch.clamp(foeew * (rap if rap is not None else rcp(ap, fd)), max=c.ZQMAX)
     u = 1.0 - c.RETV * s
     z2s = p.z5alcp * rt4 * rt4
-    cond = div((q * u - s) * u, u * u + s * z2s)
+    cond = div((q * u - s) * u, u * u + s * z2s, fd)
     return t + p.zaldcp * cond, q - cond
 
 

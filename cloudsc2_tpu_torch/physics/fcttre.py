@@ -1,7 +1,8 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
 """Thermodynamic helper functions (IFS ``fcttre`` library); the port of
-:mod:`cloudsc2_tpu.physics.fcttre`.  Pointwise over tensors of any shape."""
+:mod:`cloudsc2_tpu.physics.fcttre`.  Pointwise over tensors of any shape;
+the saturation pressures divide under ``c.FAST_DIV`` (``fcttre.py:33,38``)."""
 from __future__ import annotations
 
 import torch
@@ -24,12 +25,12 @@ def foealfcu(t: torch.Tensor, c: Constants) -> torch.Tensor:
 
 def foeew_liquid(t: torch.Tensor, c: Constants) -> torch.Tensor:
     """Saturation vapour pressure over liquid water."""
-    return c.R2ES * torch.exp(div(c.R3LES * (t - c.RTT), t - c.R4LES))
+    return c.R2ES * torch.exp(div(c.R3LES * (t - c.RTT), t - c.R4LES, c.FAST_DIV))
 
 
 def foeew_ice(t: torch.Tensor, c: Constants) -> torch.Tensor:
     """Saturation vapour pressure over ice."""
-    return c.R2ES * torch.exp(div(c.R3IES * (t - c.RTT), t - c.R4IES))
+    return c.R2ES * torch.exp(div(c.R3IES * (t - c.RTT), t - c.R4IES, c.FAST_DIV))
 
 
 def foeewm(t: torch.Tensor, c: Constants) -> torch.Tensor:

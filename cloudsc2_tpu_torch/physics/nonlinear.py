@@ -12,9 +12,17 @@ same sequence of roundings as ``kernels/csrc/nl_level.h``, and
 operand.  Every ``where`` keeps the JAX version's guarded operands (safe
 denominators), because both sides of a ``torch.where`` are evaluated.
 
-Only the JAX defaults are ported: exact division (``FAST_DIV="exact"``)
-and the compact saturation adjustment (``CUADJ_COMPACT=True``).
-``MASK_SELECT`` is bit-identical to the select form and is ignored.
+Every divide that the JAX body routes through ``fastmath`` divides under
+``c.FAST_DIV`` here too (:mod:`cloudsc2_tpu_torch.physics.fastmath`: exact,
+or the approximate reciprocal as Pallas interpret mode models it, with or
+without a Newton step).  Only the compact saturation adjustment
+(``CUADJ_COMPACT=True``) is ported.  ``MASK_SELECT`` is bit-identical to
+the select form and is ignored.
+
+With ``fuse_saturation`` :func:`cloudsc2_nl` diagnoses ``qsat`` itself
+(:func:`cloudsc2_tpu_torch.physics.saturation.saturation`) and returns it
+among the diagnostics: the plain version of the kernel's fused form
+(``fuse_saturation`` of ``cloudsc2_tpu/pallas/nonlinear.py:105-110``).
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels.levelscan import level_scan
 from cloudsc2_tpu_torch.physics import fcttre
 from cloudsc2_tpu_torch.physics.cuadjtqs import cuadjtqs_nl
-from cloudsc2_tpu_torch.physics.fastmath import div, rcp, scalar, sel0, select
+from cloudsc2_tpu_torch.physics.fastmath import DIV_MODES, div, rcp, scalar, sel0, select
+from cloudsc2_tpu_torch.physics.saturation import saturation
 
 Tensor = torch.Tensor
 Coeffs = Tuple[Tensor, Tensor, Tensor]
@@ -51,12 +60,21 @@ def trajectory_names(c: Constants) -> Tuple[str, ...]:
     return TRAJ_OUTPUTS if (c.LEVAPLS2 or c.LDRAIN1D) else TRAJ_OUTPUTS[:2]
 
 
-def check_constants(c: Constants) -> None:
-    """Raise for the JAX options this port does not implement."""
-    if c.FAST_DIV != "exact":
-        raise NotImplementedError(f"FAST_DIV={c.FAST_DIV!r} is not ported (exact only)")
+def check_nl_constants(c: Constants) -> None:
+    """Raise for the JAX options the port's NL does not implement: it takes
+    every divide mode, and the compact saturation adjustment only."""
+    if c.FAST_DIV not in DIV_MODES:
+        raise ValueError(f"FAST_DIV={c.FAST_DIV!r} is none of {DIV_MODES}")
     if not c.CUADJ_COMPACT:
         raise NotImplementedError("CUADJ_COMPACT=False is not ported (compact form only)")
+
+
+def check_constants(c: Constants) -> None:
+    """Raise for the JAX options the port's TL and AD do not implement:
+    those of :func:`check_nl_constants`, and every divide mode but exact."""
+    check_nl_constants(c)
+    if c.FAST_DIV != "exact":
+        raise NotImplementedError(f"FAST_DIV={c.FAST_DIV!r} is not ported to the TL and AD (exact only)")
 
 
 def tropopause_eta(eta: Tensor, t_fg: Tensor) -> Tensor:
@@ -117,8 +135,9 @@ def nl_level_pre(
     detrainment, subsidence, condensation rates, melt constants and the
     carry-free half of the autoconversion.  Returns what phase B reads
     (the JAX version also returns every intermediate, for its adjoint)."""
+    fd = c.FAST_DIV
     ap = x["ap"]
-    rap = rcp(ap)
+    rap = rcp(ap, fd)
     qsat_in = x["qsat"]
     t = x["t_fg"]
     q = x["q"] + dt * x["tnd_cml_q"] + x["supsat"]
@@ -131,14 +150,14 @@ def nl_level_pre(
 
     dp = x["aph1"] - x["aph0"]
     zz = c.RCPD + c.RCPD * c.RVTMP2 * q
-    rzz = rcp(zz)
+    rzz = rcp(zz, fd)
     lfdcp = c.RLMLT * rzz
     lsdcp = c.RLSTT * rzz
     lvdcp = c.RLVTT * rzz
     pre.update(dp=dp, lsdcp=lsdcp, lvdcp=lvdcp)
 
-    rl = rcp(t - c.R4LES)
-    ri = rcp(t - c.R4IES)
+    rl = rcp(t - c.R4LES, fd)
+    ri = rcp(t - c.R4IES, fd)
     thermo = c.LPHYLIN or c.LDRAIN1D
     if thermo:
         cold = t < c.RTT
@@ -153,7 +172,7 @@ def nl_level_pre(
     facw = c.R5LES * rl * rl
     faci = c.R5IES * ri * ri
     fac = fwat * facw + (1.0 - fwat) * faci
-    fac2 = rcp(ap - c.RETV * foeew)
+    fac2 = rcp(ap - c.RETV * foeew, fd)
     cor = ap * fac2
     if thermo:
         cor = torch.where(esdp1 <= c.ZQMAX, cor, 1.0 / (1.0 - c.RETV * c.ZQMAX))
@@ -177,7 +196,7 @@ def nl_level_pre(
     qpd = qsat - qt
     qcd = qsat - qcrit
     denom_safe = torch.where(mid, qcd - scalm * (qt - qcrit), 1.0)
-    ratio = torch.clamp(sel0(mid, div(qpd, denom_safe)), max=1.0)
+    ratio = torch.clamp(sel0(mid, div(qpd, denom_safe, fd)), max=1.0)
     clc_mid = 1.0 - torch.sqrt(ratio)
     qc_mid = (scalm * qpd + (1.0 - scalm) * qcd) * (clc_mid * clc_mid)
     qc_high = (1.0 - scalm) * (qsat - qcrit)
@@ -185,22 +204,22 @@ def nl_level_pre(
     qc = torch.where(low, 0.0, torch.where(high, qc_high, qc_mid))
 
     # convective detrainment
-    gdp = div(c.RG, dp)
+    gdp = div(c.RG, dp, fd)
     lude = dt * x["lude"] * gdp
     lu1 = x["lu_next"]
     lo1 = (lude >= c.RLMIN) & (lu1 >= c.ZEPS2)
     lu1_safe = torch.where(lo1, lu1, 1.0)
-    tmp2 = torch.exp(div(-lude, lu1_safe))
+    tmp2 = torch.exp(div(-lude, lu1_safe, fd))
     clc = clc + sel0(lo1, (1.0 - clc) * (1.0 - tmp2))
     qc = qc + sel0(lo1, lude)
     pre.update(gdp=gdp, clc=clc)
 
     # compensating subsidence
-    fac1 = rcp(c.RD * t)
+    fac1 = rcp(c.RD * t, fd)
     rho = ap * fac1
     rodqsdp = -rho * qsat_in * fac2
     ldcp = fwat * lvdcp + (1.0 - fwat) * lsdcp
-    fac3 = rcp(1.0 + ldcp * dqsdtemp)
+    fac3 = rcp(1.0 + ldcp * dqsdtemp, fd)
     dtdzmo = c.RG * (1.0 / c.RCPD - ldcp * rodqsdp) * fac3
     dqsdz = dqsdtemp * dtdzmo - c.RG * rodqsdp
     fac4 = c.RD * t * rap
@@ -225,7 +244,7 @@ def nl_level_pre(
     lcrit, icrit = lcrit_icrit(c)
     ckcodtl = 2.0 * c.RKCONV * dt
     act = clc > c.ZEPS2
-    rclc = rcp(torch.where(act, clc, 1.0))
+    rclc = rcp(torch.where(act, clc, 1.0), fd)
     cldl = qlwc * rclc
     ltmp1 = torch.exp(-(cldl * cldl * (1.0 / (lcrit * lcrit))))
     dl = ckcodtl * (1.0 - ltmp1)
@@ -240,8 +259,8 @@ def nl_level_pre(
     pre["tnd_ql"] = (qlwc - ql) * rdt
 
     if c.LEVAPLS2 or c.LDRAIN1D:
-        pre["sqr"] = torch.sqrt(div(ap, aph_s))
-        pre["dtgdp"] = div(dt * c.RG, dp)
+        pre["sqr"] = torch.sqrt(div(ap, aph_s, fd))
+        pre["dtgdp"] = div(dt * c.RG, dp, fd)
     return pre
 
 
@@ -253,6 +272,7 @@ def nl_level_post(
     precipitation evaporation, tendencies and the saturation adjustment.
     ``xp`` is the level's raw inputs merged with :func:`nl_level_pre`."""
     rfl, sfl, covptot = carry
+    fd = c.FAST_DIV
     cons2 = 1.0 / (c.RG * dt)
     ckcodti = 5.0 * c.RKCONV * dt
     rdt = 1.0 / dt
@@ -301,20 +321,20 @@ def nl_level_post(
         eact = (prtot > c.ZEPS2) & (covpclr > c.ZEPS2)
         covptot_safe = torch.where(eact, covptot, 1.0)
         covpclr_safe = torch.where(eact, covpclr, 1.0)
-        preclr1 = div(prtot * covpclr, covptot_safe)
+        preclr1 = div(prtot * covpclr, covptot_safe, fd)
         clcc = torch.where(eact, 1.0 - clc, 1.0)
-        qe = qsat_in - div((qsat_in - xp["qlim"]) * covpclr, clcc * clcc)
-        barg = torch.where(eact, div(div(xp["sqr"], 0.00509) * preclr1, covpclr_safe), 1.0)
+        qe = qsat_in - div((qsat_in - xp["qlim"]) * covpclr, clcc * clcc, fd)
+        barg = torch.where(eact, div(div(xp["sqr"], 0.00509) * preclr1, covpclr_safe, fd), 1.0)
         beta = c.RG * c.RPECONS * barg**0.5777
-        b = div(dt * beta * (qsat_in - qe), 1.0 + dt * beta * xp["corqs"])
-        dpr1 = div(covpclr * b, xp["dtgdp"])
+        b = div(dt * beta * (qsat_in - qe), 1.0 + dt * beta * xp["corqs"], fd)
+        dpr1 = div(covpclr * b, xp["dtgdp"], fd)
         dpr = sel0(eact, torch.minimum(dpr1, preclr1))
         preclr = preclr1 - dpr
         covptot = torch.where(eact & (preclr <= 0.0), clc, covptot)
         covptot_out = sel0(eact, covptot)
         prtot_safe = torch.where(eact, prtot, 1.0)
-        evapr = sel0(eact, div(dpr * rfln, prtot_safe))
-        evaps = sel0(eact, div(dpr * sfln, prtot_safe))
+        evapr = sel0(eact, div(dpr * rfln, prtot_safe, fd))
+        evaps = sel0(eact, div(dpr * sfln, prtot_safe, fd))
         rfln = rfln - evapr
         sfln = sfln - evaps
     else:
@@ -404,7 +424,10 @@ def prepare_level_inputs(state: Dict[str, Tensor], dt: float, c: Constants) -> D
     return xs
 
 
-def cloudsc2_nl(state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False):
+def cloudsc2_nl(
+    state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
+    fuse_saturation: bool = False, kflag: int = 1,
+):
     """Run the nonlinear scheme over all levels.
 
     Returns ``(tendencies, diagnostics)``: tendencies ``t, q, ql, qi``
@@ -412,9 +435,16 @@ def cloudsc2_nl(state: Dict[str, Tensor], dt: float, c: Constants, with_trajecto
     ``fplsl, fplsn, fhpsl, fhpsn`` ``(nlev + 1, ncols)``.  With
     ``with_trajectory`` a third element: the carry entering each level,
     ``(nlev, ncols)`` each, named by :func:`trajectory_names` (the
-    trajectory the adjoint's reverse sweep re-linearizes around).
+    trajectory the adjoint's reverse sweep re-linearizes around).  With
+    ``fuse_saturation`` the state's ``qsat`` is not read: it is diagnosed
+    from ``ap`` and ``t`` (the ``Saturation`` component's ``kflag``, and
+    ``c.LPHYLIN``) and returned as the diagnostic ``qsat``.
     """
-    check_constants(c)
+    check_nl_constants(c)
+    qsat = None
+    if fuse_saturation:
+        qsat = saturation(state["ap"], state["t"], kflag=kflag, lphylin=c.LPHYLIN, c=c)
+        state = dict(state, qsat=qsat)
     xs = prepare_level_inputs(state, dt, c)
     scalars = {"eta": xs.pop("eta"), "scalm": xs.pop("scalm")}
     trpaus = tropopause_eta(scalars["eta"], xs["t_fg"])
@@ -442,6 +472,8 @@ def cloudsc2_nl(state: Dict[str, Tensor], dt: float, c: Constants, with_trajecto
         "fhpsl": -fplsl * c.RLVTT,
         "fhpsn": -fplsn * c.RLSTT,
     }
+    if qsat is not None:
+        diags["qsat"] = qsat
     if not with_trajectory:
         return tends, diags
     return tends, diags, {n: ys[n] for n in traj_names}

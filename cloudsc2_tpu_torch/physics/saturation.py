@@ -2,8 +2,10 @@
 # Licensed under the Apache License, Version 2.0.
 """Saturation specific humidity; the port of
 :func:`cloudsc2_tpu.physics.saturation.saturation` (both ``lphylin``
-branches, ``kflag`` 1 and 2).  On the main path it runs before the NL
-kernel, as plain tensor code, as the JAX package runs it in XLA."""
+branches, ``kflag`` 1 and 2; its divides under ``c.FAST_DIV``).  It runs
+before the NL kernel as plain tensor code, as the JAX package runs it in
+XLA, or inside the kernel (``kernels/csrc/nl_level.h``, ``saturation``)
+with ``fuse_saturation``."""
 from __future__ import annotations
 
 import torch
@@ -27,5 +29,5 @@ def saturation(
         ew = alfa * fcttre.foeew_liquid(t, c) + (1.0 - alfa) * fcttre.foeew_ice(t, c)
     else:
         ew = fcttre.foeewmcu(t, c) if kflag == 1 else fcttre.foeewm(t, c)
-    qs = torch.clamp(div(ew, ap), max=c.ZQMAX)
-    return div(qs, 1.0 - c.RETV * qs)
+    qs = torch.clamp(div(ew, ap, c.FAST_DIV), max=c.ZQMAX)
+    return div(qs, 1.0 - c.RETV * qs, c.FAST_DIV)

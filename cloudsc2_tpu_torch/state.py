@@ -35,7 +35,7 @@ NL_CONST_NAMES = (
     "r2es", "r3les", "r3ies", "r4les", "r4ies", "r5les", "r5ies",
     "r5alvcp", "r5alscp", "ralvdcp", "ralsdcp",
     "retv", "zqmax", "cor_clip", "rg", "rd", "rlmin", "zeps2",
-    "lcrit_k", "icrit_k", "dt_rg", "rg_rpecons",
+    "lcrit_k", "icrit_k", "dt_rg", "rg_rpecons", "sat_tice", "sat_twat_r",
 )
 
 #: field order of ``struct TLConst`` in ``kernels/csrc/tl_level.h``
@@ -71,16 +71,21 @@ def synthesize_state(
     return grid, state_from_numpy(state_np, device, dtype), dt
 
 
-def kernel_constants(c: Constants, dt: float, dtype: torch.dtype) -> np.ndarray:
+def kernel_constants(c: Constants, dt: float, dtype: torch.dtype, kflag: int = 1) -> np.ndarray:
     """``Constants`` and ``dt`` folded into the NL kernel's constant struct.
 
     Compound constants are folded in double, as JAX folds them at trace
     time (``physics/nonlinear.py:189-191, 349, 371, 421``), and each is
-    then rounded once to ``dtype``.  Returns a contiguous array in the
-    order of :data:`NL_CONST_NAMES`.
+    then rounded once to ``dtype``.  ``sat_tice``/``sat_twat_r`` are the
+    liquid-fraction ramp of the fused saturation, picked as
+    :func:`cloudsc2_tpu_torch.physics.saturation.saturation` picks its
+    branch: ``foeewmcu``'s (RTICECU) for ``kflag`` 1 without ``LPHYLIN``,
+    else ``foealfa``'s (RTICE).  Returns a contiguous array in the order of
+    :data:`NL_CONST_NAMES`.
     """
     lcrit, icrit = lcrit_icrit(c)
     cons2 = 1.0 / (c.RG * dt)
+    convective = not c.LPHYLIN and kflag == 1
     vals = {
         "dt": dt,
         "rdt": 1.0 / dt,
@@ -123,6 +128,8 @@ def kernel_constants(c: Constants, dt: float, dtype: torch.dtype) -> np.ndarray:
         "icrit_k": 1.0 / (icrit * icrit),
         "dt_rg": dt * c.RG,
         "rg_rpecons": c.RG * c.RPECONS,
+        "sat_tice": c.RTICECU if convective else c.RTICE,
+        "sat_twat_r": c.RTWAT_RTICECU_R if convective else c.RTWAT_RTICE_R,
     }
     return np.array([float(vals[n]) for n in NL_CONST_NAMES], dtype=_NUMPY[dtype])
 

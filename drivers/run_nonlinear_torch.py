@@ -4,13 +4,23 @@
 validation against the golden files.
 
 The port's counterpart of ``drivers/run_nonlinear.py``: load the input
-state (``data/input_synth.h5`` tiled to ``--num-cols``), diagnose eta and
-saturation, run the scheme once to warm up and ``--num-runs`` timed times,
-print the runtime statistics and validate against
+state (``data/input_synth.h5`` tiled to ``--num-cols``), diagnose eta,
+run the scheme once to warm up and ``--num-runs`` timed times, print the
+runtime statistics and validate against
 ``data/reference_synth_{double,single}.h5`` ("HOORAY").  On ``--device
 cuda`` the scheme runs the hand-written CUDA kernel; on ``--device cpu``
 its plain PyTorch version.  A CUDA device on a machine without one is an
 error.
+
+By default (``--fuse-saturation``) one NL step also diagnoses saturation,
+in the kernel: the counterpart of the JAX driver's single-kernel path
+(``cloudsc2_nl_pallas(..., fuse_saturation=True)``, ``run_nonlinear.py:196-209``).
+``--no-fuse-saturation`` runs the ``Saturation`` component and then the NL
+step, as two stages.  ``--fast-div`` picks the NL kernel's divide mode
+(``Constants.FAST_DIV``: exact, faithful, approx); float64 always divides
+exactly, as the JAX kernel does.  A ``Saturation`` component run apart
+(``--no-fuse-saturation``) divides exactly: it is no kernel, and the JAX
+package keeps the non-exact modes inside its kernels.
 
 Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
 ``h5py`` is not installed, the default input and goldens are built in
@@ -96,7 +106,11 @@ def config_tolerances(precision: str, device_type: str, atol=None, rtol=None) ->
     """The rule of ``drivers/run_nonlinear.py:config_tolerances``: the
     double gate everywhere; in single, the goldens' f64 math against the
     run's own f32 rounding through 137 levels gets the accelerator gate on
-    CUDA and the tight CPU gate on the CPU."""
+    CUDA and the tight CPU gate on the CPU, whatever the divide mode.  A
+    non-exact ``--fast-div`` on the CPU, where the plain version computes
+    Pallas interpret mode's bfloat16 reciprocal, fails the tight gate
+    (PERF.md, section 2); give ``--rtol`` / ``--atol`` to hold it to
+    another."""
     if precision == "double":
         a, r = 1e-16, 1e-10
     else:
@@ -112,6 +126,8 @@ def core(
     rtol: Optional[float] = None,
     inputs=None,
     reference: Optional[Tuple[Fields, Fields]] = None,
+    fuse_saturation: bool = True,
+    fast_div: str = "exact",
 ) -> int:
     """Run the scheme and validate; returns the exit code (0 on success).
 
@@ -120,6 +136,8 @@ def core(
     :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
     state, dt, constants)``) and ``reference`` (``(tendencies,
     diagnostics)`` at ``config.num_cols``) replace the files when given.
+    ``fuse_saturation`` and ``fast_div`` are ``--fuse-saturation`` and
+    ``--fast-div``.
     """
     import torch
 
@@ -154,17 +172,26 @@ def core(
             c = make_constants(lphylin=True, ldrain1d=False)
     state = state_from_numpy(state_np, device, torch_config.dtype)
     ncols = grid.ncols
+    if fast_div != "exact" and config.precision == "double":
+        print(f"--fast-div {fast_div} with --precision double: float64 divides exactly, so this run is exact")
+    c_nl = c.replace(FAST_DIV=fast_div)
 
     # --- components
     eta_levels = EtaLevels(grid, c, enable_checks=config.enable_checks)
-    saturation = Saturation(grid, c, kflag=1, lphylin=True, enable_checks=config.enable_checks)
-    cloudsc2_nl = Cloudsc2NL(grid, c, enable_checks=config.enable_checks)
     state.update(eta_levels(state))
+    if fuse_saturation:
+        cloudsc2_nl = Cloudsc2NL(grid, c_nl, fuse_saturation=True, kflag=1, enable_checks=config.enable_checks)
 
-    def run_once():
-        s = dict(state)
-        s.update(saturation(s))
-        return cloudsc2_nl(s, dt)
+        def run_once():
+            return cloudsc2_nl(dict(state), dt)
+    else:
+        saturation = Saturation(grid, c, kflag=1, lphylin=True, enable_checks=config.enable_checks)
+        cloudsc2_nl = Cloudsc2NL(grid, c_nl, enable_checks=config.enable_checks)
+
+        def run_once():
+            s = dict(state)
+            s.update(saturation(s))
+            return cloudsc2_nl(s, dt)
 
     # warm-up (builds the kernel on first use), then the timed runs
     tends, diags = device_sync(run_once())
@@ -189,7 +216,8 @@ def core(
             reference = iox.read_reference(f, ncols=ncols, dtype=dtype)
     tends_ref, diags_ref = reference
     tends_np = {k: v.cpu().numpy() for k, v in tends.items()}
-    diags_np = {k: v.cpu().numpy() for k, v in diags.items()}
+    # the fused step's qsat is no golden field (validate walks the union of keys)
+    diags_np = {k: v.cpu().numpy() for k, v in diags.items() if k != "qsat"}
     atol, rtol = config_tolerances(config.precision, device.type, atol, rtol)
     failing = validate(tends_np, tends_ref, atol=atol, rtol=rtol)
     failing += validate(diags_np, diags_ref, atol=atol, rtol=rtol)
@@ -213,6 +241,10 @@ def main(argv=None) -> int:
     p.add_argument("--reference-file", default=None, help="golden output HDF5")
     p.add_argument("--atol", type=float, default=None)
     p.add_argument("--rtol", type=float, default=None)
+    p.add_argument("--fuse-saturation", action=argparse.BooleanOptionalAction, default=True,
+                   help="diagnose saturation inside the NL step (default) or as its own component before it")
+    p.add_argument("--fast-div", choices=("exact", "faithful", "approx"), default="exact",
+                   help="the NL kernel's divide mode (Constants.FAST_DIV); float64 divides exactly")
     a = p.parse_args(argv)
 
     from cloudsc2_tpu_torch.config import TorchConfig
@@ -230,7 +262,8 @@ def main(argv=None) -> int:
         ref = default_reference_file(a.precision)
         reference_file = ref if os.path.exists(ref) else None
     config = config.with_reference_file(reference_file)
-    return core(config, TorchConfig(device=a.device, precision=a.precision), atol=a.atol, rtol=a.rtol)
+    return core(config, TorchConfig(device=a.device, precision=a.precision), atol=a.atol, rtol=a.rtol,
+                fuse_saturation=a.fuse_saturation, fast_div=a.fast_div)
 
 
 if __name__ == "__main__":

@@ -208,3 +208,23 @@ def test_component_runs_the_plain_ad(synth, ad64):
         np.testing.assert_array_equal(got[n], want[n], err_msg=n)
     with pytest.raises(KeyError, match="clc_i"):
         ad({k: v for k, v in s.items() if k != "clc_i"}, dt)
+
+
+def test_ad_component_without_lphylin_on_cpu_tensors_does_not_warn():
+    """Cloudsc2AD with LPHYLIN=False on CPU tensors runs the plain AD, as
+    with LPHYLIN=True, bitwise and without a warning (on CUDA tensors it
+    raises: no kernel takes it, tests/test_torch_cuda.py)."""
+    import warnings
+
+    from cloudsc2_tpu_torch.grid import Grid
+
+    c = CONFIGS["default"]().replace(LPHYLIN=False)
+    _, state, dt = iox.synthesize_input(ncols=8, nlev=29, seed=1)
+    s = port_ad_state(state, np.float64, c, dt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = flat(Cloudsc2AD(Grid(ncols=8, nlev=29), c)(s, dt))
+    want = flat(cloudsc2_ad(s, dt, c))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -22,7 +22,13 @@ against the plain AD, every field within the limits of
 ``cloudsc2_tpu_torch.utils.compare.ad_limit`` (those of chip_smoke.py), and
 the symmetry driver's HOORAY through them.  The fused AD kernel, rolled and
 resident, bitwise the two-kernel AD and within those limits of the plain
-AD; ``cotangent_only`` and ``traj_only`` bitwise the full forms.
+AD; ``cotangent_only`` and ``traj_only`` bitwise the full forms.  The
+fused NL kernel bitwise ``Saturation`` + the unfused kernel; the faithful
+and approx f32 kernels within ``div_gate`` of the plain exact version and
+not bitwise the exact kernel (f64 with FAST_DIV set bitwise exact), the
+reciprocal alone (``rcp_cuda``): approx within an ulp, faithful one Newton
+step of approx; ``Cloudsc2AD`` with LPHYLIN=False
+raises, launching no kernel.
 """
 import numpy as np
 import pytest
@@ -39,7 +45,7 @@ from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl
 from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.state import state_from_numpy
-from cloudsc2_tpu_torch.utils.compare import nl_tolerances
+from cloudsc2_tpu_torch.utils.compare import div_gate, nl_tolerances
 from tests.torch_helpers import CONFIGS, assert_ad, assert_fields, flat
 
 pytestmark = pytest.mark.cuda
@@ -159,6 +165,116 @@ def test_nl_kernel_trajectory_on_card(cuda, cfg, dtype):
     np.testing.assert_array_equal(traj["c_rfl"].cpu().numpy(), got["fplsl"][:-1])
     np.testing.assert_array_equal(traj["c_sfl"].cpu().numpy(), got["fplsn"][:-1])
     assert ("c_cov" in traj) == bool(c.LEVAPLS2 or c.LDRAIN1D)
+
+
+def _convective(c):
+    """LPHYLIN off and a convective liquid-fraction ramp apart from
+    foealfa's, so that saturation's kflag 1 and 2 branches differ."""
+    return c.replace(LPHYLIN=False, RTICECU=c.RTT - 38.0, RTWAT_RTICECU_R=1.0 / 38.0)
+
+
+FUSED_CASES = [(name, make, 1) for name, make in CONFIGS.items()] + [
+    ("lphylin=False kflag=1", lambda: _convective(CONFIGS["default"]()), 1),
+    ("lphylin=False kflag=2", lambda: _convective(CONFIGS["default"]()), 2),
+]
+
+
+@pytest.mark.parametrize("ncols", [1, 1000])
+@pytest.mark.parametrize("label,make,kflag", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_is_saturation_then_the_kernel_on_card(cuda, label, make, kflag, ncols, dtype):
+    """The fused kernel is bitwise ``Saturation`` + the unfused kernel on
+    the same tensors (the same level code and the device's libm on both
+    sides, --fmad=false), qsat included; one launch, the state's qsat not
+    read."""
+    c = make()
+    s, dt = _state(ncols, dtype, c, cuda)
+    qsat = saturation(s["ap"], s["t"], kflag=kflag, lphylin=c.LPHYLIN, c=c)
+    want = _host(nlk.cloudsc2_nl_cuda(dict(s, qsat=qsat), dt, c))
+    want["qsat"] = qsat.cpu().numpy()
+    before = nlk.cloudsc2_nl_cuda.launches
+    got = _host(nlk.cloudsc2_nl_cuda({k: v for k, v in s.items() if k != "qsat"}, dt, c,
+                                     fuse_saturation=True, kflag=kflag))
+    assert nlk.cloudsc2_nl_cuda.launches == before + 1
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{label} {k}")
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("mode", ["faithful", "approx"])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_divide_modes_on_card(cuda, cfg, mode, fused):
+    """The faithful and approx f32 kernels against the plain exact version,
+    per field in units of its largest magnitude, at the gate of their form
+    (``cloudsc2_tpu_torch.utils.compare.div_gate``), and not bitwise the
+    exact kernel (a divide mode that fell back to the IEEE divide would
+    pass the gate); f64 with the mode set is bitwise the exact kernel."""
+    c = CONFIGS[cfg]()
+    s, dt = _state(1000, torch.float32, c, cuda)
+    if fused:
+        del s["qsat"]
+    before = (nlk.cloudsc2_nl_cuda.launches, nlk.cloudsc2_nl_cuda.fast_div_launches)
+    got = nlk.cloudsc2_nl_cuda(s, dt, c.replace(FAST_DIV=mode), fuse_saturation=fused)
+    assert (nlk.cloudsc2_nl_cuda.launches, nlk.cloudsc2_nl_cuda.fast_div_launches) == (before[0] + 1, before[1] + 1)
+    got, want = _host(got), _host(cloudsc2_nl(s, dt, c, fuse_saturation=fused))
+    for k, w in want.items():
+        w = w.astype(np.float64)
+        scaled = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
+        assert scaled <= div_gate(k, fused), (k, scaled)
+    exact32 = _host(nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=fused))
+    assert any(not np.array_equal(got[k], exact32[k]) for k in exact32)
+    s64, dt = _state(100, torch.float64, c, cuda)
+    if fused:
+        del s64["qsat"]
+    exact = _host(nlk.cloudsc2_nl_cuda(s64, dt, c, fuse_saturation=fused))
+    fast = _host(nlk.cloudsc2_nl_cuda(s64, dt, c.replace(FAST_DIV=mode), fuse_saturation=fused))
+    for k in exact:
+        np.testing.assert_array_equal(fast[k], exact[k], err_msg=k)
+
+
+def test_rcp_on_card(cuda):
+    """The kernel's reciprocal alone at 2**20 seeded float32 points of either
+    sign over 1e-30 to 1e30: exact is the correctly rounded 1/x; approx
+    (PTX rcp.approx.ftz.f32) within 1 ulp of 1/x and not the IEEE divide
+    everywhere; faithful bitwise approx's r * (2 - x * r) in three rounded
+    operations, within 2 ulps, and not approx everywhere."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    n = 1 << 20
+    x = (10.0 ** (torch.rand(n, generator=g, dtype=torch.float64) * 60 - 30)
+         * torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0).double()).float().to(cuda)
+    want = (1.0 / x.double()).float()
+    r = {m: nlk.rcp_cuda(x, m) for m in ("exact", "faithful", "approx")}
+    assert torch.equal(r["exact"], want)
+    ulp = (torch.nextafter(want.abs(), torch.tensor(float("inf"), device=cuda)) - want.abs()).double()
+    for m, lim in (("approx", 1.0), ("faithful", 2.0)):
+        assert float(((r[m].double() - 1.0 / x.double()).abs() / ulp).max()) <= lim, m
+    assert not torch.equal(r["approx"], want)
+    a = r["approx"]
+    assert torch.equal(r["faithful"], a * (2.0 - x * a))
+    assert not torch.equal(r["faithful"], a)
+
+
+def test_ad_component_without_lphylin_refuses_on_card(cuda):
+    """Cloudsc2AD with LPHYLIN=False on CUDA tensors raises ValueError that
+    names the plain AD (physics.adjoint.cloudsc2_ad), before any launch of
+    an AD kernel or of the NL kernel, their forward sweep; the plain AD
+    itself runs on those tensors."""
+    from cloudsc2_tpu_torch.components import Cloudsc2AD
+    from cloudsc2_tpu_torch.grid import Grid
+
+    c = CONFIGS["levapls2"]().replace(LPHYLIN=False)
+    s, dt = _ad_state(100, torch.float32, c, cuda)
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n] = torch.zeros_like(s["ap"])
+    counts = lambda: (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches,  # noqa: E731
+                      adk.cloudsc2_ad_fused_cuda.launches)
+    before = counts()
+    with pytest.raises(ValueError, match="LPHYLIN=True.*physics.adjoint.cloudsc2_ad"):
+        Cloudsc2AD(Grid(ncols=100, nlev=137), c)(s, dt)
+    assert counts() == before
+    want = _host(cloudsc2_ad(s, dt, c))
+    assert len(want) == 26 and all(np.isfinite(v).all() for v in want.values())
 
 
 def _ad_state(ncols, dtype, c, device):

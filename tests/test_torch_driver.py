@@ -32,6 +32,44 @@ def test_driver_cpu_hooray(precision, ncols, capsys):
     assert "HOORAY" in out and "FAILED" not in out
 
 
+@pytest.mark.parametrize("opts", [
+    {},
+    {"fuse_saturation": False},
+    {"fast_div": "faithful"},
+], ids=["fused", "two-stage", "fused-faithful"])
+def test_driver_core_cpu_paths_validate(opts, capsys):
+    """core() on the CPU, in process, single at 130 columns: the fused
+    default and the two-stage path (``--no-fuse-saturation``) print HOORAY
+    against the goldens at the driver's single CPU gate (rtol 2e-3 / atol
+    1e-8, the JAX driver's rule, for every divide mode); the fused path
+    with ``--fast-div faithful``, whose plain version computes interpret
+    mode's bfloat16 reciprocal and misses that gate, prints HOORAY when
+    given the gate of the accelerator runs (``--rtol 1e-2 --atol 2e-4``).
+    The fused step's qsat is left out of the validation."""
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+
+    gate = {"atol": 2e-4, "rtol": 1e-2} if "fast_div" in opts else {}
+    rc = drv.core(
+        Config(precision="single", num_cols=130), TorchConfig(device="cpu", precision="single"),
+        inputs=drv.synthetic_input(130, "single"), reference=drv.synthetic_golden(130, "single"),
+        **opts, **gate,
+    )
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "HOORAY" in out and "FAILED" not in out and "qsat" not in out
+    assert drv.config_tolerances("single", "cpu") == (1e-8, 2e-3)
+    assert drv.config_tolerances("single", "cuda") == (2e-4, 1e-2)
+
+
+def test_driver_fast_div_in_double_runs_exact(capsys):
+    """--fast-div with --precision double says that the run is exact, and it
+    validates at the double gate."""
+    rc = drv.main(["--device", "cpu", "--precision", "double", "--num-cols", "100", "--fast-div", "approx"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "divides exactly, so this run is exact" in out and "HOORAY" in out
+
+
 def test_driver_cuda_without_card_raises():
     """--device cuda on a machine without CUDA is an error, not a CPU run."""
     if torch.cuda.is_available():
@@ -93,6 +131,25 @@ def test_components_strip_units(small):
     torch.testing.assert_close(Saturation(grid, c)(hpa)["qsat"], qsat, rtol=1e-15, atol=0)
     with pytest.raises(UnitsError):
         Saturation(grid, c)(dict(s, t=UnitArray(s["t"], "kg")))
+
+
+def test_fused_component_declares_qsat_as_a_diagnostic(small):
+    """Cloudsc2NL with fuse_saturation takes no qsat and returns it: the
+    plain fused form, equal to Saturation + Cloudsc2NL bitwise on the CPU."""
+    grid, state, dt, c = small
+    s = state_from_numpy(state, torch.device("cpu"), torch.float64)
+    s.update(EtaLevels(grid, c)(s))
+    nl = Cloudsc2NL(grid, c, fuse_saturation=True, enable_checks=True)
+    assert "qsat" not in nl.input_properties and "qsat" in nl.diagnostic_properties
+    assert "qsat" in Cloudsc2NL.input_properties and "qsat" not in Cloudsc2NL.diagnostic_properties
+    tends, diags = nl(s, dt)
+    s.update(Saturation(grid, c)(s))
+    want_t, want_d = Cloudsc2NL(grid, c)(s, dt)
+    torch.testing.assert_close(diags.pop("qsat"), s["qsat"], rtol=0, atol=0)
+    for got, want in ((tends, want_t), (diags, want_d)):
+        assert got.keys() == want.keys()
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
 
 def test_components_checks_and_cpu_dispatch(small):

@@ -184,6 +184,13 @@ def test_kernel_constants_fold_in_double_and_round_once():
     assert at["lcrit_k"] == 1.0 / (2.0 * c.RCLCRIT) ** 2
     ldrain = dict(zip(NL_CONST_NAMES, kernel_constants(make_constants(ldrain1d=True), 1800.0, torch.float64)))
     assert ldrain["icrit_k"] == 1.0 / (0.0001 * 0.0001)
+    # the fused saturation's ramp: foeewmcu's only for kflag 1 without LPHYLIN
+    cu = c.replace(LPHYLIN=False, RTICECU=c.RTT - 38.0, RTWAT_RTICECU_R=1.0 / 38.0)
+    for cc, kflag, want in ((c, 1, (c.RTICE, c.RTWAT_RTICE_R)), (cu, 2, (c.RTICE, c.RTWAT_RTICE_R)),
+                            (cu, 1, (cu.RTICECU, cu.RTWAT_RTICECU_R)),
+                            (cu.replace(LDRAIN1D=True), 1, (cu.RTICECU, cu.RTWAT_RTICECU_R))):
+        got = dict(zip(NL_CONST_NAMES, kernel_constants(cc, 1800.0, torch.float64, kflag)))
+        assert (got["sat_tice"], got["sat_twat_r"]) == want
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors():
@@ -213,8 +220,18 @@ def test_wrapper_checks_shapes_dtypes_and_options():
         nlk.cloudsc2_nl_host({**s, "aph": s["aph"][:-1]}, dt, c)
     with pytest.raises(ValueError, match="contiguous"):
         nlk.cloudsc2_nl_host({**s, "t": s["t"].t().contiguous().t()}, dt, c)
-    with pytest.raises(NotImplementedError, match="FAST_DIV"):
-        nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV="approx"))
+    # the NL takes every divide mode (f64 divides exactly: the same numbers);
+    # the TL (test_tl_wrapper_checks_shapes_dtypes_and_options) and the AD
+    # still refuse the non-exact ones
+    exact = nlk.cloudsc2_nl_host(s, dt, c)
+    for mode in ("faithful", "approx"):
+        got = nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV=mode))
+        for want, have in zip(exact, got):
+            assert all(torch.equal(have[k], want[k]) for k in want)
+        with pytest.raises(NotImplementedError, match="FAST_DIV"):
+            tlk.cloudsc2_tl_host({**s, **state_increment(s, 0.01)}, dt, c.replace(FAST_DIV=mode))
+    with pytest.raises(ValueError, match="FAST_DIV"):
+        nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV="fast"))
     with pytest.raises(NotImplementedError, match="CUADJ_COMPACT"):
         nlk.cloudsc2_nl_host(s, dt, c.replace(CUADJ_COMPACT=False))
 
@@ -300,6 +317,21 @@ def test_ad_cuda_wrapper_raises_on_cpu_tensors_and_without_lphylin():
         adk.cloudsc2_ad_cuda(s, dt, c)
     with pytest.raises(ValueError, match="LPHYLIN"):
         adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=False))
+    assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["faithful", "approx"])
+def test_ad_refuses_fast_div_before_its_forward_launch(mode):
+    """The AD takes the exact divide only, and refuses the others before
+    its forward sweep (the NL kernel, which takes them) runs: on the CUDA
+    entry no count moves, on the host entry nothing runs."""
+    s, dt, c = _tl_cpu_state()
+    cm = c.replace(FAST_DIV=mode)
+    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    with pytest.raises(NotImplementedError, match="FAST_DIV"):
+        adk.cloudsc2_ad_host(s, dt, cm)
+    with pytest.raises(NotImplementedError, match="FAST_DIV"):
+        dispatch.cloudsc2_ad(s, dt, cm)
     assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
 
 

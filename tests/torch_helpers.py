@@ -23,7 +23,7 @@ from cloudsc2_tpu_torch.physics.increment import state_increment
 from cloudsc2_tpu_torch.physics.saturation import saturation
 from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
 from cloudsc2_tpu_torch.state import state_from_numpy
-from cloudsc2_tpu_torch.utils.compare import AD_F32_WIDE, ad_errors, field_errors
+from cloudsc2_tpu_torch.utils.compare import AD_F32_KERNEL_WIDE, ad_errors, field_errors
 
 
 def port_constants(jc):
@@ -175,7 +175,7 @@ def assert_scaled(got, want, rtol, atol_scale, label=""):
     assert_fields(got, want, tol, label)
 
 
-def assert_ad(got, want, dtype, label="", wide=AD_F32_WIDE):
+def assert_ad(got, want, dtype, label="", wide=AD_F32_KERNEL_WIDE):
     """Every AD output field within its limits of
     ``cloudsc2_tpu_torch.utils.compare.ad_limit`` (``wide``: the f32 fields
     held wider, and point by point)."""
