@@ -6,10 +6,14 @@
 Phases, each timed; any failure raises and the script exits non-zero:
 
 1. card: CUDA must be available; prints ``nvidia-smi`` name and power limit.
-2. build: compiles the NL (every divide mode), TL, AD (reverse) and fused
-   AD kernels from the sources in this checkout, one nvcc each, all four
-   at once; prints each library's build time, and ptxas's registers and
-   spills for every instantiation.
+2. build: compiles the NL, TL, AD (reverse) and fused AD kernels from the
+   sources in this checkout, one library per form
+   (``cloudsc2_tpu_torch.kernels.build.form``: the NL's two, one per
+   saturation-adjustment form, each with every divide mode; the TL's and
+   AD's three, compact with the exact divide, compact with faithful and
+   approx, and CUADJ_COMPACT=False with every divide), eleven nvcc
+   processes at once; prints each library's build time, and ptxas's
+   registers and spills for every instantiation.
 3. NL kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, for the three switch configurations
    (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
@@ -30,11 +34,23 @@ Phases, each timed; any failure raises and the script exits non-zero:
    kernel's reciprocal alone (``rcp_cuda``) at 2**20 points: exact the
    correctly rounded 1/x, approx (``rcp.approx.ftz.f32``) within 1 ulp and
    not 1/x everywhere, faithful bitwise one Newton step of approx, within 2
-   ulps, and not approx everywhere.
+   ulps, and not approx everywhere.  CUADJ_COMPACT=False: the NL kernel
+   against the plain NL in that form, f64 and f32, the three configurations
+   at 4096 x 137 and the default at 65,536 x 137, at the NL tolerances; at
+   the default and 4096 x 137 its fused form bitwise Saturation + the
+   unfused kernel, its trajectory forms, and its faithful and approx f32
+   forms against the plain exact NL in that form at ``div_gate``.
 4. TL kernel vs plain: the same for the TL kernel, each configuration with
    LREGCL on and off at 4096 x 137 and the default at 65,536 x 137, and
    ``tangent_only`` against the ``*_i`` outputs of the full launch
-   (bitwise).
+   (bitwise).  The divide modes: the faithful and approx f32 TL kernel (the
+   three configurations at 4096, the default at 65,536) against the plain
+   exact TL, per field in units of its largest magnitude, at
+   ``div_gate(field, "tl")``, not bitwise the exact kernel, its
+   ``tangent_only`` form bitwise its full launch; f64 with FAST_DIV set
+   bitwise the exact kernel.  CUADJ_COMPACT=False: the TL kernel against the
+   plain TL in that form (f64 and f32, the same shapes) at the TL
+   tolerances.
 5. NL trajectory: with ``with_trajectory`` the NL kernel's outputs are
    bitwise those of the launch without it, its trajectory is held against
    the plain NL's at the NL tolerances of the fluxes (printed as bitwise
@@ -54,9 +70,19 @@ Phases, each timed; any failure raises and the script exits non-zero:
    the full AD's cotangents; f32 at 1000 x 137 with the seed of
    tests/test_torch_cuda.py (LEVAPLS2 and LDRAIN1D, LREGCL on), held the
    same way and, kernel and plain f32 AD, against the f64 plain AD (a
-   reading); zero seeds give exactly zero cotangents; ``LPHYLIN=False`` is
-   refused by both AD entries and by the ``Cloudsc2AD`` component, whose
-   error names the plain AD, launching no kernel.
+   reading); zero seeds give exactly zero cotangents.  ``LPHYLIN=False``
+   (f64 and f32, the three configurations at 4096 x 137): the two-kernel
+   AD, ``cotangent_only``, the fused kernel rolled and resident and the
+   ``Cloudsc2AD`` component on CUDA tensors launch the kernels and are
+   bitwise the ``LPHYLIN=True`` launch on the same state, and within
+   ``ad_limit`` of the plain AD under LPHYLIN=False.  The divide modes (f32,
+   the three configurations at 4096 and the default at 65,536): the
+   two-kernel AD against the plain exact AD at ``div_gate(field, "ad")``,
+   not bitwise the exact kernels, the fused kernel (rolled, resident) and
+   ``cotangent_only`` bitwise it; f64 with FAST_DIV set bitwise the exact
+   kernels.  CUADJ_COMPACT=False (f64 and f32, the same shapes): the
+   two-kernel AD against the plain AD in that form at ``ad_limit``, the
+   fused kernel and ``cotangent_only`` bitwise it.
 7. NL main path: the port's driver (``drivers/run_nonlinear_torch.py``
    core()) through EtaLevels -> Cloudsc2NL with saturation fused in (the
    driver's default) on the card, double and single, at 100 and 65,536
@@ -81,7 +107,15 @@ Phases, each timed; any failure raises and the script exits non-zero:
    ``SymmetryTest.get_norm1`` / ``get_norm2`` / ``validate``) through the
    fused AD kernel, rolled and resident, and through the ``cotangent_only``
    AD, double at 65,536 columns and single at 4096: HOORAY, and the fused
-   kernel's launch count must grow.
+   kernel's launch count must grow.  Then this slice's forms, at 65,536
+   columns through the drivers, each with the launch counts at 0 before it
+   and read after (its kernels must have launched in its form): symmetry
+   HOORAY under LPHYLIN=False (double, single), faithful and approx
+   (single) and CUADJ_COMPACT=False (double, single); Taylor HOORAY under
+   faithful (single, column 0 tiled, the f32 floors) and CUADJ_COMPACT=False
+   (double, per column); Taylor under approx (single, per column) a
+   reading, with its pass and strict fractions; and the fused symmetry path
+   at 4096 columns under each of the four forms.
 10. timing at 65,536 x 137, f32 and f64, with CUDA events, beside the
    card's name and power limit: each kernel against its plain version
    (kernel runs are batches of KERNEL_BATCH back-to-back calls, median of
@@ -99,19 +133,26 @@ Phases, each timed; any failure raises and the script exits non-zero:
    time per call (host clock around KERNEL_BATCH asynchronous calls, before
    the synchronize); the fused NL kernel against its bound, beside the
    two-stage Saturation + unfused kernel, and in f32 the faithful and
-   approx fused kernels beside the exact one.
+   approx fused kernels beside the exact one.  This slice's forms: the NL
+   kernel, the TL kernel, the two-kernel AD (the reverse kernel also alone)
+   and the fused AD rolled under faithful and approx (f32) and
+   CUADJ_COMPACT=False (f32 and f64), beside the exact compact form's times
+   of this run, with the reverse and fused kernels' registers and the
+   fused kernel's block held to the plan.
 11. profile: torch.profiler over NL main-path steps, fused (Cloudsc2NL
    with saturation fused in) and two-stage (Saturation + Cloudsc2NL), f32,
    65,536 x 137: wall time, device time of the NL kernel and of the rest,
    and the device's busy share.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The line before the last is a JSON summary of the kernels, each with its
+forms of this slice under ``forms``; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -184,6 +225,15 @@ def compare(got, want, tol, label):
     return max(e[0] for e in errs.values())
 
 
+@functools.lru_cache(maxsize=6)
+def synthetic(ncols, seed):
+    """The seeded synthetic input in numpy, made once per shape and seed
+    (6.5 s at 65,536 columns on one core)."""
+    from cloudsc2_tpu_torch import iox
+
+    return iox.synthesize_input(ncols=ncols, nlev=NLEV, seed=seed)
+
+
 def make_state(torch, ncols, dtype, c, seed, increment=False):
     """``(grid, state, dt)``: a seeded synthetic state on the card, with
     ``eta`` and ``qsat`` diagnosed as the main path does, and with
@@ -191,9 +241,10 @@ def make_state(torch, ncols, dtype, c, seed, increment=False):
     from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
     from cloudsc2_tpu_torch.physics.increment import state_increment
     from cloudsc2_tpu_torch.physics.saturation import saturation
-    from cloudsc2_tpu_torch.state import synthesize_state
+    from cloudsc2_tpu_torch.state import state_from_numpy
 
-    grid, s, dt = synthesize_state(ncols, NLEV, seed, torch.device("cuda:0"), dtype)
+    grid, st, dt = synthetic(ncols, seed)
+    s = state_from_numpy(st, torch.device("cuda:0"), dtype)
     s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
     if increment:
@@ -465,7 +516,7 @@ def nl_divide_checks(torch, nlk, plain_nl, configs, card):
             torch.cuda.synchronize()
             errs = scaled_errors(got, want)
             max_abs = max(float((got[k].double() - want[k].double()).abs().max()) for k in want)
-            share = {k: v / div_gate(k, fused) for k, v in errs.items()}
+            share = {k: v / div_gate(k, form) for k, v in errs.items()}
             worst = max(share, key=share.get)
             moved = sorted(k for k in exact if not torch.equal(got[k], exact[k]))
             label = f"[nl-{mode}-vs-plain-exact f32 {name} {form} {ncols}x{NLEV}]"
@@ -543,14 +594,15 @@ def rcp_checks(torch, nlk, card):
 def ad_state(torch, ncols, dtype, c, seed):
     """``(grid, state, dt)``: the AD's input as the symmetry protocol
     assembles it on the card: the state with eta and qsat, its increments
-    (supsat zeroed) and the plain TL's outputs as the cotangent seeds."""
+    (supsat zeroed) and the TL's outputs as the cotangent seeds, from the TL
+    kernel (bitwise the plain TL's on the card, phase 4)."""
+    from cloudsc2_tpu_torch.kernels.tangent_linear import cloudsc2_tl_cuda
     from cloudsc2_tpu_torch.physics.increment import state_increment
-    from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
     from cloudsc2_tpu_torch.validation.symmetry import DIAG_NAMES, TEND_NAMES
 
     grid, s, dt = make_state(torch, ncols, dtype, c, seed)
     s.update(state_increment(s, 0.01, ignore_supsat=True))
-    tends, diags = cloudsc2_tl(s, dt, c)
+    tends, diags = cloudsc2_tl_cuda(s, dt, c)
     for n in TEND_NAMES:
         s["tnd_" + n] = tends[n]
         s["tnd_" + n + "_i"] = tends[n + "_i"]
@@ -702,7 +754,7 @@ def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
             print(f"  {label} against the f64 plain AD on the same inputs (a reading): kernel "
                   f"{kern}, plain f32 AD {pl} of the scale")
         del s, got, want
-    # zero seeds give exactly zero cotangents; LPHYLIN=False is refused
+    # zero seeds give exactly zero cotangents
     c0 = configs["levapls2"]
     _, s, dt = ad_state(torch, SMALL, torch.float32, c0, seed=1)
     for n in adk.AD_SEEDS:
@@ -712,31 +764,7 @@ def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
         nonzero = [k for k, v in {**tends, **diags}.items() if k.endswith("_i") and v.abs().max().item() != 0.0]
         if nonzero:
             raise AssertionError(f"[ad-kernel] {fn.__name__}: zero seeds gave nonzero cotangents in {nonzero}")
-        try:
-            fn(s, dt, c0.replace(LPHYLIN=False))
-        except ValueError as e:
-            print(f"  [ad-kernel] {fn.__name__}: zero seeds give every cotangent exactly 0; LPHYLIN=False "
-                  f"refused: {e}")
-        else:
-            raise AssertionError(f"[ad-kernel] {fn.__name__}: LPHYLIN=False was not refused on CUDA tensors")
-    # nor does the component run a plain AD on the card for it: it refuses,
-    # naming the plain AD, before any launch
-    from cloudsc2_tpu_torch.components import Cloudsc2AD
-
-    c1 = c0.replace(LPHYLIN=False)
-    grid, s, dt = ad_state(torch, SMALL, torch.float32, c1, seed=1)
-    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches, adk.cloudsc2_ad_fused_cuda.launches)
-    try:
-        Cloudsc2AD(grid, c1)(s, dt)
-    except ValueError as e:
-        said = str(e)
-    else:
-        raise AssertionError("[ad-component] Cloudsc2AD ran LPHYLIN=False on CUDA tensors")
-    after = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches, adk.cloudsc2_ad_fused_cuda.launches)
-    if after != before or "physics.adjoint.cloudsc2_ad" not in said:
-        raise AssertionError(f"[ad-component] LPHYLIN=False: counts {before} -> {after}; {said}")
-    print(f"  [ad-component f32 levapls2 LPHYLIN=False {SMALL}x{NLEV}] Cloudsc2AD refused before any "
-          f"launch: {said}")
+        print(f"  [ad-kernel] {fn.__name__}: zero seeds give every cotangent exactly 0")
     print(f"[ad-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
     return ad_err
 
@@ -779,13 +807,15 @@ def symmetry_gates(torch, nlk, tlk, adk, card):
     return launches
 
 
-def fused_symmetry_gates(torch, adk, card):
+def fused_symmetry_gates(torch, adk, card, cases=(("double", BIG, "", {}), ("single", SMALL, "", {}))):
     """Phase 9, second part: the symmetry protocol through the fused AD
     kernel, rolled and resident, and through the ``cotangent_only`` AD, as
     ``SymmetryTest.run`` assembles it (saturation, the increment with
     supsat zeroed, y = M x through the TL kernel, the TL outputs as seeds,
-    x* = M* y), double at 65,536 columns and single at 4096; each must print
-    HOORAY.  Returns the fused kernel's launches in the phase."""
+    x* = M* y), by default double at 65,536 columns and single at 4096
+    (``cases``: precision, columns, form, constants change); each must
+    print HOORAY.  Returns the fused kernel's launches in the phase (all,
+    non-exact divide, CUADJ_COMPACT=False)."""
     from cloudsc2_tpu_torch import dispatch
     from cloudsc2_tpu_torch.components import EtaLevels
     from cloudsc2_tpu_torch.physics.increment import state_increment
@@ -794,10 +824,11 @@ def fused_symmetry_gates(torch, adk, card):
     from cloudsc2_tpu_torch.validation.symmetry import DIAG_NAMES, TEND_NAMES, SymmetryTest
     from drivers.run_nonlinear_torch import synthetic_input
 
-    adk.cloudsc2_ad_fused_cuda.launches = 0
-    for precision, ncols in (("double", BIG), ("single", SMALL)):
+    reset_counts(adk.cloudsc2_ad_fused_cuda)
+    for precision, ncols, form_label, change in cases:
         t0 = time.perf_counter()
         grid, state_np, dt, c = synthetic_input(ncols, precision)
+        c = c.replace(**change)
         s = state_from_numpy(state_np, torch.device("cuda:0"), torch.float64 if precision == "double"
                              else torch.float32)
         s.update(EtaLevels(grid, c)(s))
@@ -822,18 +853,376 @@ def fused_symmetry_gates(torch, adk, card):
             norm2 = st.get_norm2(incr, tends_ad, diags_ad).cpu().numpy()
             del tends_ad, diags_ad
             err = st.validate(norm1, norm2, verbose=False)
-            label = f"[symmetry {form} {precision} {ncols} columns]"
+            label = f"[symmetry {form} {form_label + ' ' if form_label else ''}{precision} {ncols} columns]"
             print(f"{label} error {err:.6e} machine epsilons: {'HOORAY' if err < 1e4 else 'failed'} "
                   f"(gate; {time.perf_counter() - t0:.1f} s host clock so far; {card})")
             if not err < 1e4:
                 raise AssertionError(f"{label} failed: the symmetry verdict is not HOORAY")
         del s, incr
         torch.cuda.empty_cache()
-    launches = adk.cloudsc2_ad_fused_cuda.launches
-    print(f"[symmetry] fused-kernel launches in this phase: cloudsc2_ad_fused_cuda {launches}")
-    if launches == 0:
+    f = adk.cloudsc2_ad_fused_cuda
+    launches = (f.launches, f.fast_div_launches, f.ref_launches)
+    print(f"[symmetry] fused-kernel launches in this phase (all, non-exact divide, CUADJ_COMPACT=False): "
+          f"cloudsc2_ad_fused_cuda {launches}")
+    if launches[0] == 0:
         raise AssertionError("the fused symmetry path did not launch the fused kernel")
     return launches
+
+
+#: this slice's forms: (label, constants change); the divide modes run in f32
+DIV_FORMS = (("faithful", {"FAST_DIV": "faithful"}), ("approx", {"FAST_DIV": "approx"}))
+REF_FORM = ("CUADJ_COMPACT=False", {"CUADJ_COMPACT": False})
+
+
+def reset_counts(*fns):
+    """Set every launch count of the wrappers ``fns`` to 0."""
+    for fn in fns:
+        fn.launches = fn.fast_div_launches = fn.ref_launches = 0
+
+
+def report_divide(torch, got, want, exact, form, label):
+    """Hold a non-exact divide's outputs ``got`` against the plain exact
+    version ``want`` at ``div_gate(field, form)`` per field in units of its
+    largest magnitude, and require them not bitwise the exact kernel's
+    ``exact``; print the reading.  Returns ``(worst scaled, worst abs)``."""
+    from cloudsc2_tpu_torch.utils.compare import DIV_GATES, div_gate
+
+    errs = scaled_errors(got, want)
+    max_abs = max(float((got[k].double() - want[k].double()).abs().max()) for k in want)
+    share = {k: v / div_gate(k, form) for k, v in errs.items()}
+    worst = max(share, key=share.get)
+    moved = sorted(k for k in exact if not torch.equal(got[k], exact[k]))
+    top = dict(sorted(errs.items(), key=lambda kv: -kv[1])[:6])
+    print(f"  {label} worst {worst} {errs[worst]:.3e} of its scale ({share[worst]:.3f} of its gate; gates "
+          f"{DIV_GATES[form]}); max abs {max_abs:.3e}; largest fields "
+          f"{{{', '.join(f'{k}: {v:.2e}' for k, v in top.items())}}}; {len(moved)} of {len(exact)} fields "
+          f"not bitwise the exact kernel's")
+    if not share[worst] <= 1.0:
+        raise AssertionError(f"{label}: {worst} {errs[worst]:.3e} of its scale, above its gate")
+    if not moved:
+        raise AssertionError(f"{label}: bitwise the exact kernel; the divide mode did not act")
+    return max(errs.values()), max_abs
+
+
+def tl_form_checks(torch, tlk, plain_tl, configs, card):
+    """Phase 4, this slice's forms of the TL kernel: under faithful and
+    approx (f32; the three configurations at 4096 and the default at 65,536)
+    against the plain exact TL at ``div_gate(field, "tl")``, not bitwise the
+    exact kernel, ``tangent_only`` bitwise the full launch; f64 with
+    FAST_DIV set bitwise the exact kernel; with ``CUADJ_COMPACT=False``
+    (f64 and f32, the same shapes) against the plain TL of that form at the
+    TL tolerances.  Returns the worst errors by ``(form, dtype tag,
+    configuration, columns)``."""
+    c0 = configs["default"]
+    cases = [(name, c, SMALL) for name, c in configs.items()] + [("default", c0, BIG)]
+    out = {}
+    t0 = time.perf_counter()
+    for name, c, ncols in cases:
+        _, s, dt = make_state(torch, ncols, torch.float32, c, seed=1, increment=True)
+        want = flat(plain_tl(s, dt, c))
+        exact = flat(tlk.cloudsc2_tl_cuda(s, dt, c))
+        for mode, change in DIV_FORMS:
+            cm = c.replace(**change)
+            got = flat(tlk.cloudsc2_tl_cuda(s, dt, cm))
+            only = flat(tlk.cloudsc2_tl_cuda(s, dt, cm, tangent_only=True))
+            torch.cuda.synchronize()
+            label = f"[tl-{mode}-vs-plain-exact f32 {name} {ncols}x{NLEV}]"
+            out[(mode, "f32", name, ncols)] = report_divide(torch, got, want, exact, "tl", label)
+            assert_bitwise(torch, only, {k: v for k, v in got.items() if k.endswith("_i")},
+                           f"{label} tangent_only against the full launch")
+            del got, only
+        del s, want, exact
+    for name in ("default", "levapls2"):
+        c = configs[name]
+        _, s, dt = make_state(torch, SMALL, torch.float64, c, seed=1, increment=True)
+        exact = flat(tlk.cloudsc2_tl_cuda(s, dt, c))
+        for mode, change in DIV_FORMS:
+            assert_bitwise(torch, flat(tlk.cloudsc2_tl_cuda(s, dt, c.replace(**change))), exact,
+                           f"[tl f64 FAST_DIV={mode} {name}] against the exact kernel")
+        print(f"  [tl f64 FAST_DIV {name} {SMALL}x{NLEV}] faithful and approx: every field bitwise the exact "
+              f"kernel's; tangent_only bitwise the full launch in every f32 case above")
+        del s, exact
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c, ncols in cases:
+            cr = c.replace(**REF_FORM[1])
+            _, s, dt = make_state(torch, ncols, dtype, cr, seed=1, increment=True)
+            got = flat(tlk.cloudsc2_tl_cuda(s, dt, cr))
+            want = flat(plain_tl(s, dt, cr))
+            torch.cuda.synchronize()
+            label = f"[tl-kernel-vs-plain CUADJ_COMPACT=False {tag} {name} {ncols}x{NLEV}]"
+            out[("ref", tag, name, ncols)] = compare(got, want, tl_tolerances(torch, dtype, cr), label)
+            del s, got, want
+    print(f"[tl-forms] {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
+def nl_compact_checks(torch, nlk, plain_nl, configs, card):
+    """Phase 3, the NL kernel with ``CUADJ_COMPACT=False``: against the plain
+    NL of that form (f64 and f32; the three configurations at 4096 and the
+    default at 65,536) at the NL tolerances; at the default and 4096 x 137
+    its fused form bitwise ``Saturation`` + the unfused kernel, its
+    trajectory forms (``compare_trajectory``), and its faithful and approx
+    f32 forms, fused and unfused, against the plain exact NL of that form at
+    ``div_gate``.  Returns the worst errors by ``(form, dtype tag,
+    configuration, columns)``."""
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+
+    c0 = configs["default"]
+    cases = [(name, c, SMALL) for name, c in configs.items()] + [("default", c0, BIG)]
+    out = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c, ncols in cases:
+            cr = c.replace(**REF_FORM[1])
+            _, s, dt = make_state(torch, ncols, dtype, cr, seed=1)
+            got = flat(nlk.cloudsc2_nl_cuda(s, dt, cr))
+            want = flat(plain_nl(s, dt, cr))
+            torch.cuda.synchronize()
+            label = f"[nl-kernel-vs-plain CUADJ_COMPACT=False {tag} {name} {ncols}x{NLEV}]"
+            out[("ref", tag, name, ncols)] = compare(got, want, tolerances(torch, dtype, cr), label)
+            if name == "default" and ncols == SMALL:
+                bare = {k: v for k, v in s.items() if k != "qsat"}
+                fused = flat(nlk.cloudsc2_nl_cuda(bare, dt, cr, fuse_saturation=True))
+                assert_bitwise(torch, fused, {**got, "qsat": saturation(s["ap"], s["t"], c=cr)},
+                               f"{label} fused against Saturation + the unfused kernel")
+                print(f"  {label} fused: every field bitwise Saturation + the unfused kernel")
+                compare_trajectory(torch, nlk, plain_nl, s, dt, cr, f"{label} trajectory")
+                if dtype == torch.float32:
+                    for fused_form in (False, True):
+                        x = bare if fused_form else s
+                        w = flat(plain_nl(x, dt, cr, fuse_saturation=fused_form))
+                        e = flat(nlk.cloudsc2_nl_cuda(x, dt, cr, fuse_saturation=fused_form))
+                        form = "fused" if fused_form else "unfused"
+                        for mode, change in DIV_FORMS:
+                            g = flat(nlk.cloudsc2_nl_cuda(x, dt, cr.replace(**change), fuse_saturation=fused_form))
+                            out[(mode, tag, name, form)] = report_divide(
+                                torch, g, w, e, form, f"[nl-{mode}-vs-plain-exact CUADJ_COMPACT=False f32 "
+                                                      f"{name} {form} {ncols}x{NLEV}]")
+                del bare, fused
+            del s, got, want
+    print(f"[nl-compact] {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
+def ad_form_checks(torch, adk, nlk, plain_ad, configs, card):
+    """Phase 6, this slice's forms of the AD kernels.  ``LPHYLIN=False``
+    (f64 and f32, the three configurations at 4096, on the state whose qsat
+    ``Saturation(lphylin=False)`` made): the two-kernel AD, its
+    ``cotangent_only`` form, the fused kernel rolled and resident and the
+    ``Cloudsc2AD`` component on CUDA tensors run the kernels and are bitwise
+    the ``LPHYLIN=True`` launch on the same state, and within ``ad_limit``
+    of the plain AD under ``LPHYLIN=False``.  The divide modes (f32; the
+    three configurations at 4096, the default at 65,536): the two-kernel AD
+    against the plain exact AD at ``div_gate(field, "ad")`` and not bitwise
+    the exact kernels; the fused kernel, rolled and resident, and
+    ``cotangent_only`` bitwise the two-kernel AD in the same mode; f64 with
+    FAST_DIV set bitwise the exact kernels.  ``CUADJ_COMPACT=False`` (f64
+    and f32, the same shapes): against the plain AD of that form at
+    ``ad_limit``, the fused kernel and ``cotangent_only`` bitwise.  Returns
+    the worst errors by ``(form, dtype tag, configuration, columns)``."""
+    from cloudsc2_tpu_torch.components import Cloudsc2AD
+
+    c0 = configs["default"]
+    out = {}
+    t0 = time.perf_counter()
+    counted = (nlk.cloudsc2_nl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda)
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c in configs.items():
+            off = c.replace(LPHYLIN=False)
+            grid, s, dt = ad_state(torch, SMALL, dtype, off, seed=1)
+            on = flat(adk.cloudsc2_ad_cuda(s, dt, c))
+            label = f"[ad LPHYLIN=False {tag} {name} {SMALL}x{NLEV}]"
+            reset_counts(*counted)
+            runs = {
+                "two-kernel AD": flat(adk.cloudsc2_ad_cuda(s, dt, off)),
+                "Cloudsc2AD": flat(Cloudsc2AD(grid, off)(s, dt)),
+                "fused rolled": flat(adk.cloudsc2_ad_fused_cuda(s, dt, off)),
+                "fused resident": flat(adk.cloudsc2_ad_fused_cuda(s, dt, off, resident=True)),
+            }
+            only = flat(adk.cloudsc2_ad_cuda(s, dt, off, cotangent_only=True))
+            torch.cuda.synchronize()
+            counts = tuple(fn.launches for fn in counted)
+            if min(counts) == 0:
+                raise AssertionError(f"{label}: launches (NL, AD, fused) {counts}; a kernel did not run")
+            for form, got in runs.items():
+                assert_bitwise(torch, got, on, f"{label} {form} against the LPHYLIN=True launch")
+            assert_bitwise(torch, only, {k: v for k, v in on.items() if k.endswith("_i")},
+                           f"{label} cotangent_only against the LPHYLIN=True launch")
+            print(f"  {label} two-kernel AD, Cloudsc2AD, fused rolled and resident: every field bitwise the "
+                  f"LPHYLIN=True launch, cotangent_only its cotangents; launches (NL, AD, fused) {counts}")
+            out[("lphylin=False", tag, name, SMALL)] = compare_ad(
+                runs["two-kernel AD"], flat(plain_ad(s, dt, off)), dtype, f"{label} against the plain AD")
+            del s, on, runs, only
+    cases = [(name, c, SMALL) for name, c in configs.items()] + [("default", c0, BIG)]
+    for name, c, ncols in cases:
+        _, s, dt = ad_state(torch, ncols, torch.float32, c, seed=1)
+        want = flat(plain_ad(s, dt, c))
+        exact = flat(adk.cloudsc2_ad_cuda(s, dt, c))
+        for mode, change in DIV_FORMS:
+            cm = c.replace(**change)
+            got = flat(adk.cloudsc2_ad_cuda(s, dt, cm))
+            torch.cuda.synchronize()
+            label = f"[ad-{mode}-vs-plain-exact f32 {name} {ncols}x{NLEV}]"
+            out[(mode, "f32", name, ncols)] = report_divide(torch, got, want, exact, "ad", label)
+            fused_checks(torch, adk, s, dt, cm, got, label)
+            del got
+        del s, want, exact
+    for name in ("default", "levapls2"):
+        c = configs[name]
+        _, s, dt = ad_state(torch, SMALL, torch.float64, c, seed=1)
+        exact = flat(adk.cloudsc2_ad_cuda(s, dt, c))
+        for mode, change in DIV_FORMS:
+            cm = c.replace(**change)
+            assert_bitwise(torch, flat(adk.cloudsc2_ad_cuda(s, dt, cm)), exact,
+                           f"[ad f64 FAST_DIV={mode} {name}] against the exact kernels")
+            assert_bitwise(torch, flat(adk.cloudsc2_ad_fused_cuda(s, dt, cm)), exact,
+                           f"[ad f64 FAST_DIV={mode} {name} fused] against the exact kernels")
+        print(f"  [ad f64 FAST_DIV {name} {SMALL}x{NLEV}] faithful and approx, two-kernel and fused: every field "
+              f"bitwise the exact kernels'")
+        del s, exact
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        for name, c, ncols in cases:
+            cr = c.replace(**REF_FORM[1])
+            _, s, dt = ad_state(torch, ncols, dtype, cr, seed=1)
+            got = flat(adk.cloudsc2_ad_cuda(s, dt, cr))
+            want = flat(plain_ad(s, dt, cr))
+            torch.cuda.synchronize()
+            label = f"[ad-kernel-vs-plain CUADJ_COMPACT=False {tag} {name} {ncols}x{NLEV}]"
+            out[("ref", tag, name, ncols)] = compare_ad(got, want, dtype, label)
+            fused_checks(torch, adk, s, dt, cr, got, label)
+            del s, got, want
+    print(f"[ad-forms] {time.perf_counter() - t0:.1f} s; {card}")
+    return out
+
+
+def form_protocol_gates(torch, nlk, tlk, adk, card):
+    """Phases 8 and 9 for this slice's forms, through the drivers at 65,536
+    x 137: the symmetry protocol under LPHYLIN=False (double, single), the
+    faithful and approx divides (single) and CUADJ_COMPACT=False (double,
+    single); the Taylor protocol under faithful (single, column 0 tiled,
+    the f32 floors) and CUADJ_COMPACT=False (double, per column): each must
+    print HOORAY.  The Taylor protocol under approx (single, per column, the
+    f32 floors) is a reading: the JAX package sets no gate there, and the
+    hardware reciprocal is not the function whose derivative the TL takes.
+    Each path is driven with the counts at 0 and read after: its kernels
+    must have launched in its form.  Returns the launches by path."""
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from cloudsc2_tpu_torch.validation.taylor import FLOORS_PER_COLUMN
+    from drivers.run_nonlinear_torch import synthetic_input
+    from drivers.run_symmetry_test_torch import core as symmetry
+    from drivers.run_taylor_test_torch import core as taylor
+
+    counted = (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda)
+    cases = [  # (protocol, precision, form, constants change, options, gate)
+        ("symmetry", "double", "LPHYLIN=False", {"LPHYLIN": False}, {}, True),
+        ("symmetry", "single", "LPHYLIN=False", {"LPHYLIN": False}, {}, True),
+        ("symmetry", "single", "faithful", {"FAST_DIV": "faithful"}, {}, True),
+        ("symmetry", "single", "approx", {"FAST_DIV": "approx"}, {}, True),
+        ("symmetry", "double", "CUADJ_COMPACT=False", {"CUADJ_COMPACT": False}, {}, True),
+        ("symmetry", "single", "CUADJ_COMPACT=False", {"CUADJ_COMPACT": False}, {}, True),
+        ("taylor", "single", "faithful", {"FAST_DIV": "faithful"}, {"tile_column": True, "floors": "auto"}, True),
+        ("taylor", "double", "CUADJ_COMPACT=False", {"CUADJ_COMPACT": False}, {"per_column": True}, True),
+        ("taylor", "single", "approx", {"FAST_DIV": "approx"}, {"per_column": True, "floors": "auto"}, False),
+    ]
+    launches = {}
+    for protocol, precision, form, change, opts, gate in cases:
+        grid, st, dt, c = synthetic_input(BIG, precision)
+        inputs = (grid, st, dt, c.replace(**change))
+        reset_counts(*counted)
+        t0 = time.perf_counter()
+        tconfig = TorchConfig(device="cuda:0", precision=precision)
+        config = Config(precision=precision, num_cols=BIG, num_runs=1)
+        label = f"[{protocol} {form} {precision} {BIG} columns{''.join(' ' + k for k in sorted(opts))}]"
+        extra = ""
+        if protocol == "symmetry":
+            rc, err = symmetry(config, tconfig, inputs=inputs)
+            extra = f", error {err:.6e} machine epsilons"
+        else:
+            rc, tt = taylor(config, tconfig, inputs=inputs, **opts)
+            if opts.get("per_column"):
+                mode = "f32" if precision == "single" else "f64"
+                pen = tt.column_penalties(tt.norms, *FLOORS_PER_COLUMN[mode])
+                strict = tt.column_penalties(tt.norms, *FLOORS_PER_COLUMN[mode], strict=True)
+                extra = (f"; pass fraction {int((pen <= 5).sum())}/{BIG} = {float((pen <= 5).mean()):.4f}, "
+                         f"strict fraction {int((strict <= 5).sum())}/{BIG} = {float((strict <= 5).mean()):.4f}")
+        counts = {fn.__name__: (fn.launches, fn.fast_div_launches, fn.ref_launches) for fn in counted}
+        print(f"{label} exit {rc}{extra} ({'gate' if gate else 'reading'}; {time.perf_counter() - t0:.1f} s host "
+              f"clock); launches (all, non-exact divide, CUADJ_COMPACT=False): {counts}; {card}")
+        if gate and rc != 0:
+            raise AssertionError(f"{label} failed: the verdict is not HOORAY")
+        used = [tlk.cloudsc2_tl_cuda] + ([adk.cloudsc2_ad_cuda] if protocol == "symmetry" else
+                                         [nlk.cloudsc2_nl_cuda])
+        slot = 1 if "FAST_DIV" in change else 2 if "CUADJ_COMPACT" in change else 0
+        missing = [fn.__name__ for fn in used if counts[fn.__name__][slot] == 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched in the form {form}")
+        launches[(protocol, precision, form)] = counts
+    return launches
+
+
+def form_timing(torch, nlk, tlk, adk, build, c0, card):
+    """Phase 10, this slice's forms at 65,536 x 137 with CUDA events (batches
+    of KERNEL_BATCH calls, median of 10; the fused AD median of 3): the NL
+    kernel (unfused), the TL kernel, the two-kernel AD (forward + reverse,
+    the reverse also alone) and the fused AD rolled, under faithful and
+    approx (f32) and with CUADJ_COMPACT=False (f32 and f64), each beside the
+    default form (exact, compact) timed the same way in the same loop (the
+    times of ``time_kernel`` alternate with the plain version's runs and
+    read higher, so they are not set beside these); each form's
+    bound is its function's, the same bytes as the exact compact form; the
+    reverse and fused kernels' registers and local bytes (the card's) and
+    ptxas's spills, and the fused kernel's block, rolled and resident, held
+    to the plan.  Returns
+    ``{(tag, form): {kernel: ms}}``."""
+    from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        forms = (("default", {}),) + (DIV_FORMS if dtype == torch.float32 else ()) + (REF_FORM,)
+        for form, change in forms:
+            c = c0.replace(**change)
+            _, s, dt = make_state(torch, BIG, dtype, c, seed=2, increment=True)
+            res = {"nl": kernel_ms(torch, lambda: nlk.cloudsc2_nl_cuda(s, dt, c), 10)[0],
+                   "tl": kernel_ms(torch, lambda: tlk.cloudsc2_tl_cuda(s, dt, c), 10)[0]}
+            del s
+            _, s, dt = ad_state(torch, BIG, dtype, c, seed=2)
+            traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
+            res["ad"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_cuda(s, dt, c), 10)[0]
+            res["reverse"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c), 10)[0]
+            res["fused rolled"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_fused_cuda(s, dt, c), 3)[0]
+            suffix, _ = build.form(bool(c.CUADJ_COMPACT), div_switch(c, dtype) != 0)
+            d = f"Li{div_switch(c, dtype)}E"
+            rev = kernel_usage(build, adk, c, dtype, "cloudsc2_ad" + suffix, "reverse",
+                               ("ADBodyIfLb0ELb1E" if tag == "f32" else "ADBodyIdLb0ELb1E") + d)
+            fus = kernel_usage(build, adk, c, dtype, "cloudsc2_ad_fused" + suffix, "fused rolled",
+                               ("ADFusedRevIfLb0ELb1ELb0E" if tag == "f32" else "ADFusedRevIdLb0ELb1ELb0E") + d)
+            plan = adk.fused_plan(NLEV, dtype, False, False)
+            if (fus["block"], fus["blocks_per_sm"], fus["shared_bytes"]) != (plan[0], plan[2], plan[1]):
+                raise AssertionError(f"[form-timing {tag} {form}] the card's block {fus} is not the plan's {plan}")
+            occ, res_plan = adk.fused_occupancy(dtype, c, True, NLEV), adk.fused_plan(NLEV, dtype, False, True)
+            if (occ["block"], occ["blocks_per_sm"], occ["shared_bytes"]) != (res_plan[0], res_plan[2], res_plan[1]):
+                raise AssertionError(f"[form-timing {tag} {form}] resident: the card's block {occ} is not the "
+                                     f"plan's {res_plan}")
+            res["reverse registers"], res["fused registers"] = rev, fus
+            print(f"[form-timing {tag} {BIG}x{NLEV} {form}] NL kernel {res['nl']:.4f} ms, TL kernel "
+                  f"{res['tl']:.4f} ms, two-kernel AD {res['ad']:.4f} ms (reverse alone {res['reverse']:.4f}), "
+                  f"fused AD rolled {res['fused rolled']:.4f} ms (CUDA events); reverse kernel {rev['registers']} "
+                  f"registers, {rev['local_bytes']} B local, ptxas spills {rev['spill_stores']}/{rev['spill_loads']} B; "
+                  f"fused {fus['registers']} registers, block {fus['block']} x {fus['blocks_per_sm']} per SM "
+                  f"(plan {plan[0]} x {plan[2]}); {card}")
+            if form != "default":
+                base = out[(tag, "default")]
+                print(f"  [form-timing {tag} {form}] against the default form: "
+                      + ", ".join(f"{k} {res[k] / base[k]:.3f}" for k in ("nl", "tl", "ad", "reverse", "fused rolled")))
+            out[(tag, form)] = res
+            del s, traj
+            torch.cuda.empty_cache()
+    return out
 
 
 #: the card's peak rates (H100 SXM data sheet, at 700 W): HBM, and
@@ -897,8 +1286,11 @@ def kernel_usage(build, adk, c, dtype, lib, form, key):
     block the card picks, with that plan), and the spill bytes ptxas
     reported where this process built the library (None where not); raises
     where ptxas's registers differ from the card's."""
+    from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
+
     if form == "reverse":
-        usage = dict(adk.reverse_attributes(dtype, bool(c.LEVAPLS2 or c.LDRAIN1D), bool(c.LREGCL)))
+        usage = dict(adk.reverse_attributes(dtype, bool(c.LEVAPLS2 or c.LDRAIN1D), bool(c.LREGCL),
+                                            div_switch(c, dtype), bool(c.CUADJ_COMPACT)))
     else:
         usage = dict(adk.fused_occupancy(dtype, c, form == "fused resident", NLEV))
     regs, usage["spill_stores"], usage["spill_loads"] = ptxas_usage(build, lib, key)
@@ -1051,9 +1443,17 @@ def main() -> int:
           f"{kind}, {torch.cuda.device_count()} visible")
     torch.cuda.set_device(0)
 
-    # ---- 2. build, the four libraries at once
-    build_kernels(build, {"cloudsc2_nl": nlk.load_cuda, "cloudsc2_tl": tlk.load_cuda, "cloudsc2_ad": adk.load_cuda,
-                          "cloudsc2_ad_fused": adk.load_fused_cuda}, card)
+    # ---- 2. build: every library of every form at once
+    loaders = {}
+    for compact, fast in build.NL_FORMS:
+        loaders["cloudsc2_nl" + build.form(compact, fast, nl=True)[0]] = (
+            lambda compact=compact: nlk.load_cuda(compact))
+    for name, load in (("cloudsc2_tl", tlk.load_cuda), ("cloudsc2_ad", adk.load_cuda),
+                       ("cloudsc2_ad_fused", adk.load_fused_cuda)):
+        for compact, fast in build.FORMS:
+            loaders[name + build.form(compact, fast)[0]] = (
+                lambda load=load, compact=compact, fast=fast: load(compact, fast))
+    build_kernels(build, loaders, card)
     phase_t = time.perf_counter()
 
     def phase_done(name):
@@ -1084,6 +1484,7 @@ def main() -> int:
     fused_abs = nl_fused_checks(torch, nlk, configs, card)
     div_err = nl_divide_checks(torch, nlk, plain_nl, configs, card)
     rcp_err = rcp_checks(torch, nlk, card)
+    nl_forms = nl_compact_checks(torch, nlk, plain_nl, configs, card)
 
     phase_done("3 NL kernel vs plain")
 
@@ -1111,10 +1512,12 @@ def main() -> int:
             print(f"  {label} tangent_only: all {len(only)} *_i outputs bitwise equal to the full launch")
             del s, got, only, want
     print(f"[tl-kernel-vs-plain] {time.perf_counter() - t0:.1f} s; {card}")
+    tl_forms = tl_form_checks(torch, tlk, plain_tl, configs, card)
     phase_done("4 TL kernel vs plain")
 
     # ---- 5, 6. the NL kernel's trajectory and the AD kernels vs plain
     ad_err = ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card)
+    ad_forms = ad_form_checks(torch, adk, nlk, plain_ad, configs, card)
     phase_done("5-6 NL trajectory and AD kernel vs plain")
 
     # ---- 7. the NL main path through the driver, on the card
@@ -1156,8 +1559,20 @@ def main() -> int:
     # ---- 9. the AD path: the symmetry protocol through the TL, NL and AD kernels, then
     # through the fused AD kernel and the cotangent_only AD
     ad_launches = symmetry_gates(torch, nlk, tlk, adk, card)["cloudsc2_ad_cuda"]
-    fused_launches = fused_symmetry_gates(torch, adk, card)
+    fused_launches = fused_symmetry_gates(torch, adk, card)[0]
     phase_done("9 AD path")
+    form_launches = form_protocol_gates(torch, nlk, tlk, adk, card)
+    fused_form_launches = {
+        form: fused_symmetry_gates(torch, adk, card, ((precision, SMALL, form, change),))
+        for form, precision, change in (("LPHYLIN=False", "single", {"LPHYLIN": False}),
+                                        ("faithful", "single", {"FAST_DIV": "faithful"}),
+                                        ("approx", "single", {"FAST_DIV": "approx"}),
+                                        ("CUADJ_COMPACT=False", "double", {"CUADJ_COMPACT": False}))
+    }
+    for form, counts in fused_form_launches.items():
+        if counts[1 if form in ("faithful", "approx") else 2 if form == REF_FORM[0] else 0] == 0:
+            raise AssertionError(f"[symmetry fused {form}] the fused kernel never launched in the form")
+    phase_done("8-9 this slice's forms: the Taylor and symmetry paths")
 
     # ---- 10. timing at 65,536 x 137
     from cloudsc2_tpu_torch.physics.saturation import saturation
@@ -1219,6 +1634,7 @@ def main() -> int:
                   f"{[round(x, 4) for x in k_ms]}; plain runs {[round(x, 1) for x in p_ms]}; {card}")
         del s
     ad_time = ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c0, card)
+    form_time = form_timing(torch, nlk, tlk, adk, build, c0, card)
     print(f"[timing] {time.perf_counter() - t0:.1f} s; {card}")
     phase_done("10 timing")
 
@@ -1234,6 +1650,75 @@ def main() -> int:
     res32, res64 = ad_time["f32"]["fused resident"], ad_time["f64"]["fused resident"]
     occ = {(tag, form): ad_time[tag][f"fused {form} occupancy"] for tag in ("f32", "f64")
            for form in ("rolled", "resident")}
+    ref = REF_FORM[0]
+    modes = [m for m, _ in DIV_FORMS]
+
+    def path_launches(form, name):
+        """Launches of the wrapper ``name`` in ``form`` on this slice's
+        Taylor and symmetry paths (phases 8-9, counts from 0 in each)."""
+        slot = 1 if form in modes else 2 if form == ref else 0
+        return sum(counts[name][slot] for (_, _, f), counts in form_launches.items() if f == form)
+
+    def ref_row(kernel, bound_f32, bound_f64, err):
+        return {"ms": form_time[("f32", ref)][kernel], "ms_f64": form_time[("f64", ref)][kernel],
+                "ms_compact": form_time[("f32", "default")][kernel],
+                "ms_compact_f64": form_time[("f64", "default")][kernel], "bound_ms": bound_f32,
+                "bound_ms_f64": bound_f64, "bound_by": "bytes", **err}
+
+    def mode_row(mode, kernel, bound_f32, err):
+        return {"ms": form_time[("f32", mode)][kernel], "ms_exact": form_time[("f32", "default")][kernel],
+                "bound_ms": bound_f32, "bound_by": "bytes", **err}
+
+    nl_forms_json = {
+        ref: ref_row("nl", timing["f32"][3], timing["f64"][3],
+                     {"launches": path_launches(ref, "cloudsc2_nl_cuda"),
+                      "max_abs_err": nl_forms[("ref", "f32", "default", BIG)],
+                      "max_abs_err_f64": nl_forms[("ref", "f64", "default", BIG)]}),
+        **{f"{m} unfused": mode_row(m, "nl", timing["f32"][3], {}) for m in modes},
+    }
+    tl_forms_json = {
+        ref: ref_row("tl", tl_timing[("f32", False)][3], tl_timing[("f64", False)][3],
+                     {"launches": path_launches(ref, "cloudsc2_tl_cuda"),
+                      "max_abs_err": tl_forms[("ref", "f32", "default", BIG)],
+                      "max_abs_err_f64": tl_forms[("ref", "f64", "default", BIG)]}),
+        **{m: mode_row(m, "tl", tl_timing[("f32", False)][3],
+                       {"launches": path_launches(m, "cloudsc2_tl_cuda"),
+                        "max_scaled_err": tl_forms[(m, "f32", "default", BIG)][0],
+                        "max_abs_err": tl_forms[(m, "f32", "default", BIG)][1],
+                        "err_against": "the plain exact TL"}) for m in modes},
+    }
+    ad_forms_json = {
+        ref: ref_row("ad", fused32[2], fused64[2],
+                     {"rev_ms": form_time[("f32", ref)]["reverse"], "rev_ms_f64": form_time[("f64", ref)]["reverse"],
+                      "launches": path_launches(ref, "cloudsc2_ad_cuda"),
+                      "max_scaled_err": ad_forms[("ref", "f32", "default", BIG)][0],
+                      "max_scaled_err_f64": ad_forms[("ref", "f64", "default", BIG)][0],
+                      "max_abs_err": ad_forms[("ref", "f32", "default", BIG)][1],
+                      "max_abs_err_f64": ad_forms[("ref", "f64", "default", BIG)][1],
+                      "rev_registers": {t: form_time[(t, ref)]["reverse registers"] for t in ("f32", "f64")}}),
+        **{m: mode_row(m, "ad", fused32[2],
+                       {"rev_ms": form_time[("f32", m)]["reverse"],
+                        "rev_ms_exact": form_time[("f32", "default")]["reverse"],
+                        "rev_bound_ms": rev32[2], "launches": path_launches(m, "cloudsc2_ad_cuda"),
+                        "max_scaled_err": ad_forms[(m, "f32", "default", BIG)][0],
+                        "max_abs_err": ad_forms[(m, "f32", "default", BIG)][1],
+                        "err_against": "the plain exact AD",
+                        "rev_registers": form_time[("f32", m)]["reverse registers"]}) for m in modes},
+        "LPHYLIN=False": {"launches": path_launches("LPHYLIN=False", "cloudsc2_ad_cuda"),
+                          "bitwise_vs_lphylin_true": True,
+                          "max_scaled_err": max(v[0] for k, v in ad_forms.items() if k[:2] == ("lphylin=False", "f32")),
+                          "max_scaled_err_f64": max(v[0] for k, v in ad_forms.items()
+                                                    if k[:2] == ("lphylin=False", "f64"))},
+    }
+    fused_forms_json = {
+        ref: ref_row("fused rolled", fused32[2], fused64[2],
+                     {"launches": fused_form_launches[ref][2], "bitwise_vs_two_kernel_ad": True,
+                      "registers": {t: form_time[(t, ref)]["fused registers"] for t in ("f32", "f64")}}),
+        **{m: mode_row(m, "fused rolled", fused32[2],
+                       {"launches": fused_form_launches[m][1], "bitwise_vs_two_kernel_ad": True,
+                        "registers": form_time[("f32", m)]["fused registers"]}) for m in modes},
+        "LPHYLIN=False": {"launches": fused_form_launches["LPHYLIN=False"][0], "bitwise_vs_lphylin_true": True},
+    }
     print(json.dumps({"kernels": [{
         "name": "cloudsc2_nl",
         "route": "cuda",
@@ -1279,6 +1764,7 @@ def main() -> int:
         "rcp_ulps": {m: v[0] for m, v in rcp_err.items()},
         "profile_fused": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[True])),
         "profile_two_stage": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[False])),
+        "forms": nl_forms_json,
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_tl",
@@ -1300,6 +1786,7 @@ def main() -> int:
         "library_ms": None,
         "host_ms": tl_timing[("f32", False)][2],
         "host_ms_f64": tl_timing[("f64", False)][2],
+        "forms": tl_forms_json,
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad",
@@ -1341,6 +1828,7 @@ def main() -> int:
         "fwd_ms_traj_only_f64": ad_time["f64"]["traj_only forward"][0],
         "bound_ms_cotangent_only": ad_time["f32"]["cotangent_only step"][2],
         "bound_ms_cotangent_only_f64": ad_time["f64"]["cotangent_only step"][2],
+        "forms": ad_forms_json,
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad_fused",
@@ -1368,6 +1856,7 @@ def main() -> int:
         "host_ms_f64": fused64[1],
         "occupancy": {f"{form}_{tag}": occ[tag, form] for tag, form in occ},
         "registers": {f"{form}_{tag}": ad_time[tag][f"fused {form} registers"] for tag, form in occ},
+        "forms": fused_forms_json,
         "shape": [NLEV, BIG],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -264,12 +264,12 @@ class Cloudsc2AD(Component):
     hand-written kernels, CPU tensors the plain version
     (:func:`cloudsc2_tpu_torch.dispatch.cloudsc2_ad`).
 
-    The kernels take ``LPHYLIN=True`` only, so ``LPHYLIN=False`` on CUDA
-    tensors raises ``ValueError`` (the JAX component falls back to its
-    exact scan adjoint there, ``cloudsc2_tpu/components.py:410-423``; this
-    one never runs a plain version on the card): a caller who wants the
-    plain AD for it calls
-    :func:`cloudsc2_tpu_torch.physics.adjoint.cloudsc2_ad`."""
+    With ``LPHYLIN=False`` the JAX component falls back to its exact scan
+    adjoint (``cloudsc2_tpu/components.py:410-423``), because its Pallas
+    kernels refuse it.  The AD does not read ``LPHYLIN``, and this
+    component's kernels take it (their forward sweep runs under
+    linearized physics, the TL's own forward): the same numbers as under
+    ``LPHYLIN=True``, as the scan adjoint gives."""
 
     input_properties = _props({
         **_NL_INPUTS,

@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from cloudsc2_tpu_torch.params import Constants
-from cloudsc2_tpu_torch.kernels.adjoint import check_lphylin, cloudsc2_ad_cuda, cloudsc2_ad_fused_cuda
+from cloudsc2_tpu_torch.kernels.adjoint import cloudsc2_ad_cuda, cloudsc2_ad_fused_cuda
 from cloudsc2_tpu_torch.kernels.nonlinear import cloudsc2_nl_cuda
 from cloudsc2_tpu_torch.kernels.tangent_linear import cloudsc2_tl_cuda
 from cloudsc2_tpu_torch.physics import adjoint as _plain_ad
@@ -58,8 +58,8 @@ def cloudsc2_ad(
     state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One AD step (the counterpart of ``tl_ad_fns(impl)[1]``): the CUDA
-    kernels for CUDA tensors (which require ``LPHYLIN=True`` and raise
-    otherwise), the plain vjp of the TL for CPU tensors.  With
+    kernels for CUDA tensors, the plain vjp of the TL for CPU tensors,
+    under any ``LPHYLIN`` (the AD does not read it).  With
     ``cotangent_only`` only the cotangents are returned."""
     device = state["ap"].device
     if device.type == "cuda":
@@ -73,12 +73,11 @@ def cloudsc2_ad_fused(
     state: Dict[str, Tensor], dt: float, c: Constants, resident: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One AD step in one kernel (the counterpart of
-    ``cloudsc2_ad_pallas_fused``, which takes ``LPHYLIN=True`` only and
-    raises otherwise, on any device): the fused CUDA kernel for CUDA tensors
+    ``cloudsc2_ad_pallas_fused``): the fused CUDA kernel for CUDA tensors
     (``resident`` keeps the level inputs on its stack), for CPU tensors the
     plain AD, which computes the same function (``resident`` changes
-    nothing there)."""
-    check_lphylin(c)
+    nothing there).  Unlike the Pallas kernel, which refuses
+    ``LPHYLIN=False``, both take it: the AD does not read it."""
     device = state["ap"].device
     if device.type == "cuda":
         return cloudsc2_ad_fused_cuda(state, dt, c, resident)

@@ -19,8 +19,15 @@ form included, with its two kernels:
 
 Both are bound by bytes; the reverse level's registers (128 a thread in
 f32, 244-246 in f64) set how many columns an SM runs at once, as the note
-at the top of ``adjoint.cu`` counts.  As the Pallas kernel, it requires
-``LPHYLIN=True``; unlike it, it takes f32 and f64 and any column count.
+at the top of ``adjoint.cu`` counts.  Unlike the Pallas kernel, it takes
+f32 and f64, any column count, and ``LPHYLIN=False``: the TL, and so the
+AD, does not read ``LPHYLIN`` (``physics/tangent_linear.py:26-27``), and the
+forward sweep runs the NL step under linearized physics
+(:func:`forward_constants`), which is the TL's own forward, so both
+settings give the same numbers, as the JAX package's scan adjoint does.
+It takes the ``FAST_DIV`` divide modes (float32; float64 divides exactly)
+and both ``CUADJ_COMPACT`` forms, one library each
+(:func:`cloudsc2_tpu_torch.kernels.build.form`).
 
 It also replaces :func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas_fused`
 (``pallas/adjoint.py:432``) and its harness ``level_scan_fwdrev_pallas``
@@ -53,11 +60,13 @@ from cloudsc2_tpu_torch.kernels.nonlinear import (
     check_inputs,
     cloudsc2_nl_cuda,
     cloudsc2_nl_host,
+    count_launch,
+    div_switch,
     ptrs,
 )
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS, AD_DIAGNOSTICS, AD_TENDENCIES
-from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants
+from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, TL_CONST_NAMES, kernel_constants, tl_kernel_constants
 
 Tensor = torch.Tensor
@@ -114,8 +123,8 @@ AD_BRANCHES = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_I] * 3 + [_P, _P, _P, _I, _I]
-_FUSED_ARGS = [_I] * 4 + [_P] * 4 + [_I, _I]
+_ARGS = [_I] * 5 + [_P, _P, _P, _I, _I]
+_FUSED_ARGS = [_I] * 6 + [_P] * 4 + [_I, _I]
 
 
 def _names(*groups) -> str:
@@ -142,7 +151,7 @@ def fused_signature() -> str:
     )
 
 
-#: library name, source, C entry and its arguments, by (kind, form)
+#: library name, source, C entry and its arguments, by (kind, kernel)
 _LIBRARIES = {
     ("cuda", "ad"): ("cloudsc2_ad", "adjoint.cu", "cloudsc2_ad_launch", _ARGS + [_P]),
     ("host", "ad"): ("cloudsc2_ad_host", "adjoint_host.cpp", "cloudsc2_ad_host", _ARGS),
@@ -154,20 +163,21 @@ _LIBRARIES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _load(kind: str, form: str = "ad") -> ctypes.CDLL:
+def _load(kind: str, form: str = "ad", compact: bool = True, fast: bool = False) -> ctypes.CDLL:
     name, source, entry, argtypes = _LIBRARIES[kind, form]
-    lib = build.load(kind, name, [source])
+    suffix, defines = build.form(compact, fast)
+    lib = build.load(kind, name + suffix, [source], defines)
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     if kind == "cuda" and form == "ad":
-        lib.cloudsc2_ad_attributes.argtypes = [_I] * 3 + [_P]
+        lib.cloudsc2_ad_attributes.argtypes = [_I] * 5 + [_P]
         lib.cloudsc2_ad_attributes.restype = ctypes.c_int
     if kind == "cuda" and form == "ad_fused":
-        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 6 + [_P]
+        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 8 + [_P]
         lib.cloudsc2_ad_fused_occupancy.restype = ctypes.c_int
     if kind == "host" and form == "ad":
-        lib.cloudsc2_ad_level_host.argtypes = [_I] * 3 + [_P] * 4 + [_I]
+        lib.cloudsc2_ad_level_host.argtypes = [_I] * 5 + [_P] * 4 + [_I]
         lib.cloudsc2_ad_level_host.restype = ctypes.c_int
         lib.cloudsc2_ad_level_signature.restype = ctypes.c_char_p
         got = lib.cloudsc2_ad_level_signature().decode()
@@ -181,27 +191,32 @@ def _load(kind: str, form: str = "ad") -> ctypes.CDLL:
     return lib
 
 
-def load_cuda() -> ctypes.CDLL:
+def load_cuda(compact: bool = True, fast: bool = False) -> ctypes.CDLL:
     """Build (first use) and load the CUDA library of the two-kernel AD's
-    reverse kernel."""
-    return _load("cuda")
+    reverse kernel, of one form (:func:`cloudsc2_tpu_torch.kernels.build.form`)."""
+    return _load("cuda", "ad", compact, fast)
 
 
-def load_fused_cuda() -> ctypes.CDLL:
-    """Build (first use) and load the CUDA library of the fused AD kernel."""
-    return _load("cuda", "ad_fused")
+def load_fused_cuda(compact: bool = True, fast: bool = False) -> ctypes.CDLL:
+    """Build (first use) and load the CUDA library of the fused AD kernel,
+    of one form."""
+    return _load("cuda", "ad_fused", compact, fast)
 
 
-def check_lphylin(c: Constants) -> None:
-    """The kernels' forward sweep is the NL step, whose trajectory is the
-    TL's forward only under linearized physics."""
-    if not c.LPHYLIN:
-        raise ValueError(
-            "the AD kernels require LPHYLIN=True (their forward sweep is the NL "
-            "step, whose trajectory is the TL forward only under linearized physics); "
-            "for LPHYLIN=False call the plain AD, "
-            "cloudsc2_tpu_torch.physics.adjoint.cloudsc2_ad, on CPU or CUDA tensors"
-        )
+def _form_lib(kind: str, form: str, switches: Tuple[int, ...]) -> ctypes.CDLL:
+    """The library of the form the switches name (their last two: ``div``,
+    ``compact``)."""
+    return _load(kind, form, bool(switches[-1]), switches[-2] != 0)
+
+
+def forward_constants(c: Constants) -> Constants:
+    """The constants of the AD's forward sweep: ``c`` under linearized
+    physics.  The forward sweep is the NL step with ``THERMO = LPHYLIN or
+    LDRAIN1D`` on, which is the TL's own forward (the TL always takes the
+    tanh water fraction and clips ``esdp``); the TL and AD read no
+    ``LPHYLIN``, so ``LPHYLIN=False`` gives bitwise the launch of
+    ``LPHYLIN=True``."""
+    return c if c.LPHYLIN else c.replace(LPHYLIN=True)
 
 
 def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Tuple[str, ...],
@@ -222,13 +237,14 @@ def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: T
 
 
 def _reverse(state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants,
-             device_type: str) -> Tuple[list, list, Tensor, Tuple[int, int, int]]:
+             device_type: str) -> Tuple[list, list, Tensor, Tuple[int, ...]]:
     """Check the state, the seeds and the trajectory, and return the reverse
     kernel's inputs in order (``None`` for one it does not read), fresh
     outputs, the constant struct and the switches."""
     ins, outs, dtype = _marshal({**state, **traj}, c, device_type, AD_INPUTS, AD_OUTPUTS)
     consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
-    switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)))
+    switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
+                div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
     return ins, outs, consts, switches
 
 
@@ -249,17 +265,17 @@ def cloudsc2_ad_reverse_cuda(
     """The reverse kernel alone, on PyTorch's current stream: the 16 input
     cotangents (named as in ``AD_OUTPUTS``) from the state, its seeds and
     the forward trajectory ``traj``.  Each launch adds one to
-    ``cloudsc2_ad_cuda.launches``."""
-    check_lphylin(c)
+    ``cloudsc2_ad_cuda.launches`` (and by its form, see
+    :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
     ins, outs, consts, switches = _reverse(state, traj, dt, c, "cuda")
-    lib = load_cuda()
+    lib = _form_lib("cuda", "ad", switches)
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cloudsc2_ad_launch(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols, stream)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad kernel launch failed: cudaError_t {err}")
-    cloudsc2_ad_cuda.launches += 1
+    count_launch(cloudsc2_ad_cuda, switches)
     return dict(zip(AD_OUTPUTS, outs))
 
 
@@ -275,26 +291,30 @@ def cloudsc2_ad_cuda(
 
     Same contract as :func:`cloudsc2_tpu_torch.physics.adjoint.
     cloudsc2_ad`: contiguous CUDA tensors of one float dtype, any
-    ``ncols``.  Raises ``ValueError`` with ``LPHYLIN=False``, and raises on
-    anything else the kernels do not take, on a failed build and on a
-    refused launch; never falls back to the plain version.
+    ``ncols``, any ``LPHYLIN`` (the forward sweep runs under
+    :func:`forward_constants`), ``FAST_DIV`` and ``CUADJ_COMPACT``.  Raises
+    on anything the kernels do not take, on a failed build and on a refused
+    launch; never falls back to the plain version.
     """
-    check_lphylin(c)
-    check_constants(c)  # before the forward launch: the NL kernel takes more divide modes
-    tends, diags, traj = cloudsc2_nl_cuda(state, dt, c, with_trajectory=True, traj_only=cotangent_only)
+    tends, diags, traj = cloudsc2_nl_cuda(state, dt, forward_constants(c), with_trajectory=True,
+                                          traj_only=cotangent_only)
     return _assemble(tends, diags, cloudsc2_ad_reverse_cuda(state, traj, dt, c))
 
 
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 @functools.lru_cache(maxsize=None)
-def reverse_attributes(dtype: torch.dtype, evap: bool, lregcl: bool) -> Dict[str, int]:
+def reverse_attributes(dtype: torch.dtype, evap: bool, lregcl: bool, div: int = 0,
+                       compact: bool = True) -> Dict[str, int]:
     """The reverse kernel's ``registers`` and ``local_bytes`` a thread on
-    the card (``cudaFuncGetAttributes``) for one instantiation.  Needs the
-    card."""
+    the card (``cudaFuncGetAttributes``) for one instantiation (``div``: the
+    divide switch, ``compact``: the library's form).  Needs the card."""
     out = (ctypes.c_int * 2)()
-    err = load_cuda().cloudsc2_ad_attributes(int(dtype == torch.float64), int(evap), int(lregcl), out)
+    switches = (int(dtype == torch.float64), int(evap), int(lregcl), div, int(compact))
+    err = _form_lib("cuda", "ad", switches).cloudsc2_ad_attributes(*switches, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad attribute query failed: cudaError_t {err}")
     return {"registers": out[0], "local_bytes": out[1]}
@@ -305,11 +325,10 @@ def cloudsc2_ad_host(
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The kernels' bodies compiled for the host, on CPU tensors (tests
     only): the host NL body with its trajectory, then the reverse body."""
-    check_lphylin(c)
-    check_constants(c)
-    tends, diags, traj = cloudsc2_nl_host(state, dt, c, with_trajectory=True, traj_only=cotangent_only)
+    tends, diags, traj = cloudsc2_nl_host(state, dt, forward_constants(c), with_trajectory=True,
+                                          traj_only=cotangent_only)
     ins, outs, consts, switches = _reverse(state, traj, dt, c, "cpu")
-    lib = _load("host")
+    lib = _form_lib("host", "ad", switches)
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_ad_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
     if err != 0:
@@ -325,9 +344,11 @@ def cloudsc2_ad_level_host(
     only): ``tl_level`` at the perturbations ``dirs`` and ``ad_level`` at the
     output cotangents ``weights``.  Every argument is a dict of 1-D CPU
     tensors of one float dtype and one length, named as in ``AD_LEVEL_X``,
-    ``AD_LEVEL_COL``, ``AD_LEVEL_TRAJ``, ``AD_DIRS`` and ``AD_WEIGHTS``.
+    ``AD_LEVEL_COL``, ``AD_LEVEL_TRAJ``, ``AD_DIRS`` and ``AD_WEIGHTS``;
+    ``c.FAST_DIV`` (float32) and ``c.CUADJ_COMPACT`` pick the level's form.
     With ``reference`` the same code runs in long double on the same inputs
-    and constants, its results rounded to float64.  Returns the TL level's
+    and constants (under a non-exact divide, from the approximate
+    reciprocal of the same float operands), its results rounded to float64.  Returns the TL level's
     outputs (named as ``AD_WEIGHTS``), the AD level's cotangents (named as
     ``AD_DIRS``) and, per point, the mask of the branches ``ad_level`` took
     (bit i: ``AD_BRANCHES[i]``)."""
@@ -340,13 +361,15 @@ def cloudsc2_ad_level_host(
                              f"{tuple(t.shape)} on {t.device}")
     consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
     precision = int(dtype == torch.float64)
+    div, compact = div_switch(c, dtype), int(bool(c.CUADJ_COMPACT))
     if reference:
         ins, consts, dtype, precision = [t.double() for t in ins], consts.double(), torch.float64, 2
     outs = [torch.empty(npoints, dtype=dtype) for _ in AD_WEIGHTS + AD_DIRS]
     branches = torch.zeros(npoints, dtype=torch.int32)
     evap, lregcl = int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL))
-    err = _load("host").cloudsc2_ad_level_host(precision, evap, lregcl, ptrs(ins), ptrs(outs),
-                                               branches.data_ptr(), consts.data_ptr(), npoints)
+    err = _load("host", "ad", bool(compact), div != 0).cloudsc2_ad_level_host(
+        precision, evap, lregcl, div, compact, ptrs(ins), ptrs(outs), branches.data_ptr(),
+        consts.data_ptr(), npoints)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_level host entry failed: {err}")
     n = len(AD_WEIGHTS)
@@ -396,16 +419,15 @@ def fused_plan(nlev: int, dtype: torch.dtype, evap: bool, resident: bool) -> Tup
 
 
 def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
-           device_type: str) -> Tuple[list, list, Tensor, Tensor, Tuple[int, int, int, int]]:
+           device_type: str) -> Tuple[list, list, Tensor, Tensor, Tuple[int, ...]]:
     """Check the options and the state, and return the fused kernel's inputs
     in order, fresh outputs, the NL and TL constant structs and the
-    switches."""
-    check_lphylin(c)
+    switches (the NL constants those of :func:`forward_constants`)."""
     ins, outs, dtype = _marshal(state, c, device_type, AD_FUSED_INPUTS, AD_FUSED_OUTPUTS)
-    nl_consts = torch.from_numpy(kernel_constants(c, dt, dtype))
+    nl_consts = torch.from_numpy(kernel_constants(forward_constants(c), dt, dtype))
     tl_consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
     switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
-                int(resident))
+                int(resident), div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
     return ins, outs, nl_consts, tl_consts, switches
 
 
@@ -421,36 +443,39 @@ def cloudsc2_ad_fused_cuda(
     """One AD step through the fused CUDA kernel, on PyTorch's current
     stream: both sweeps in one launch, with the block size that
     :func:`fused_occupancy` takes from the card.
-    Each launch adds one to ``cloudsc2_ad_fused_cuda.launches``.
+    Each launch adds one to ``cloudsc2_ad_fused_cuda.launches`` (and by
+    its form, as the reverse kernel's).
 
-    Same contract and outputs as :func:`cloudsc2_ad_cuda`.  ``resident``
-    keeps the folded level inputs on the kernel's stack too.  Raises
-    ``ValueError`` with ``LPHYLIN=False`` and where the stack does not fit
-    (before anything is launched), and raises on anything else the kernel
-    does not take, on a failed build and on a refused launch; never falls
-    back to the plain version or to the two-kernel AD.
+    Same contract and outputs as :func:`cloudsc2_ad_cuda`, every form
+    included.  ``resident`` keeps the folded level inputs on the kernel's
+    stack too.  Raises ``ValueError`` where the stack does not fit (before
+    anything is launched), and raises on anything else the kernel does not
+    take, on a failed build and on a refused launch; never falls back to
+    the plain version or to the two-kernel AD.
     """
     ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cuda")
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         block = fused_occupancy(outs[0].dtype, c, resident, nlev)["block"]
         stream = torch.cuda.current_stream().cuda_stream
-        err = load_fused_cuda().cloudsc2_ad_fused_launch(*switches, block, ptrs(ins), ptrs(outs),
-                                                         nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
-                                                         ncols, stream)
+        err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_launch(
+            *switches, block, ptrs(ins), ptrs(outs), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
+            ncols, stream)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}")
-    cloudsc2_ad_fused_cuda.launches += 1
+    count_launch(cloudsc2_ad_fused_cuda, switches)
     return _assemble_fused(outs)
 
 
 cloudsc2_ad_fused_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_fused_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_fused_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(switches: Tuple[int, int, int, int], block: int, nlev: int) -> Tuple[int, int, int, int]:
+def _occupancy(switches: Tuple[int, ...], block: int, nlev: int) -> Tuple[int, int, int, int]:
     out = (ctypes.c_int * 4)()
-    err = load_fused_cuda().cloudsc2_ad_fused_occupancy(*switches, block, nlev, out)
+    err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_occupancy(*switches, block, nlev, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused occupancy query failed: cudaError_t {err}")
     return tuple(out)
@@ -467,7 +492,8 @@ def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int)
     fit.  Needs the card; the answers are kept per instantiation and
     shape."""
     evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident))
+    switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident),
+                div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
     block, nbytes, _ = fused_plan(nlev, dtype, evap, resident)
     per_thread = nbytes // block
     best = None
@@ -487,7 +513,7 @@ def cloudsc2_ad_fused_host(
     (tests only), one column's stack at a time."""
     ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cpu")
     nlev, ncols = state["ap"].shape
-    err = _load("host", "ad_fused").cloudsc2_ad_fused_host(
+    err = _form_lib("host", "ad_fused", switches).cloudsc2_ad_fused_host(
         *switches, ptrs(ins), ptrs(outs), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev, ncols)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused host body failed: {err}")

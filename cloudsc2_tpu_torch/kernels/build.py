@@ -8,6 +8,12 @@ library for the CPU tests.  Libraries go to ``.kernels_build/`` at the root
 of the checkout, named by a hash of the sources and the flags, so a change
 to either rebuilds.  A failed build raises with the compiler's output.
 Nothing is built when a module is imported.
+
+A source builds into one library per form (:func:`form`): the form of the
+saturation adjustment and the divide policies it holds, passed as ``-D``
+flags (``csrc/scalar_math.h``, "library forms").  Each library holds fewer
+bodies than all forms would, the libraries build in parallel, and the
+default form's library compiles the same bodies whatever the others add.
 """
 from __future__ import annotations
 
@@ -43,6 +49,34 @@ logs: Dict[str, str] = {}
 
 class BuildError(RuntimeError):
     """A kernel library failed to compile."""
+
+
+#: ``CLOUDSC2_DIVS`` masks: bit D holds ``fastmath.DIV_MODES[D]`` for float
+#: (the exact bit also double, which divides exactly)
+EXACT_DIVS, FAST_DIVS, ALL_DIVS = 1, 6, 7
+
+
+def form(compact: bool, fast: bool, nl: bool = False) -> Tuple[str, Tuple[str, ...]]:
+    """``(name suffix, -D flags)`` of the library form that holds a launch.
+    ``compact`` is ``CUADJ_COMPACT``, ``fast`` a float32 launch under a
+    non-exact divide.  The NL kernel's two libraries hold every divide
+    policy, one saturation-adjustment form each.  The TL's and AD's hold
+    the compact form with the exact divide (the default, suffix ``""``),
+    with the faithful and approx divides (``"_fastdiv"``), and the
+    reference-shaped form with every divide (``"_ref"``)."""
+    if not compact:
+        suffix, divs = "_ref", ALL_DIVS
+    elif nl:
+        suffix, divs = "", ALL_DIVS
+    else:
+        suffix, divs = ("_fastdiv", FAST_DIVS) if fast else ("", EXACT_DIVS)
+    return suffix, (f"-DCLOUDSC2_COMPACT={int(compact)}", f"-DCLOUDSC2_DIVS={divs}")
+
+
+#: ``(compact, fast)`` of each form of a TL or AD library, the default first
+FORMS = ((True, False), (True, True), (False, False))
+#: the same for the NL kernel's libraries
+NL_FORMS = ((True, False), (False, False))
 
 
 def find_nvcc() -> str:
@@ -87,19 +121,20 @@ def _compile(compiler: str, sources: Sequence[str], flags: Sequence[str], name: 
     return out
 
 
-def load(kind: str, name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load(kind: str, name: str, sources: Sequence[str], defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (once per process and per source hash) and load a library.
-    ``kind`` is "cuda" (nvcc, sm_90a) or "host" (g++).  Calls for different
-    libraries from different threads compile in parallel."""
-    key = (kind, name, *sources)
+    ``kind`` is "cuda" (nvcc, sm_90a) or "host" (g++); ``defines`` are
+    ``-D`` flags (a :func:`form`).  Calls for different libraries from
+    different threads compile in parallel."""
+    key = (kind, name, *sources, *defines)
     with _lock:
         lock = _locks.setdefault(key, threading.Lock())
     with lock:
         if key not in _loaded:
             if kind == "cuda":
-                path = _compile(find_nvcc(), sources, NVCC_FLAGS, name)
+                path = _compile(find_nvcc(), sources, (*NVCC_FLAGS, *defines), name)
             elif kind == "host":
-                path = _compile(shutil.which("g++") or "g++", sources, HOST_FLAGS, name)
+                path = _compile(shutil.which("g++") or "g++", sources, (*HOST_FLAGS, *defines), name)
             else:
                 raise ValueError(f"unknown build kind {kind!r}")
             _loaded[key] = ctypes.CDLL(str(path))

@@ -43,6 +43,9 @@
 // stack is indexed [slot][level][thread], so at a level a warp touches
 // consecutive words.
 //
+// A library holds one form of the saturation adjustment and a set of
+// divide policies (scalar_math.h "library forms"), as adjoint.cu.
+//
 // Built with --fmad=false, as the other kernels; never with fast math.
 #include <cuda_runtime.h>
 
@@ -59,9 +62,9 @@ constexpr int kMaxThreads = 128;
 // Dynamic shared memory a block may opt in to on sm_90.
 constexpr size_t kMaxSharedBytes = 232448;
 
-template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
 struct Kernel {
-  using B = cloudsc2::ADFused<T, EVAP, LREGCL, RESIDENT>;
+  using B = cloudsc2::ADFused<T, EVAP, LREGCL, RESIDENT, D>;
   using Fwd = decltype(B::fwd);
   using Rev = decltype(B::rev);
   using Fn = void (*)(const Fwd, const Rev);
@@ -95,14 +98,14 @@ struct Launcher {
   int nlev, ncols, block;
   cudaStream_t stream;
 
-  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
-    using K = Kernel<T, EVAP, LREGCL, RESIDENT>;
+    using K = Kernel<T, EVAP, LREGCL, RESIDENT, D>;
     size_t bytes = 0;
     const cudaError_t err = K::prepare(nlev, block, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const auto b =
-        cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT>(in, out, nl_consts, tl_consts, nlev, ncols);
+    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(in, out, nl_consts, tl_consts,
+                                                                         nlev, ncols);
     const int blocks = (ncols + block - 1) / block;
     cloudsc2::level_scan_fwdrev_kernel<typename K::Fwd, typename K::Rev, T, kMaxThreads>
         <<<blocks, block, bytes, stream>>>(b.fwd, b.rev);
@@ -116,9 +119,9 @@ struct Query {
   int nlev, block;
   int* out;
 
-  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
-    using K = Kernel<T, EVAP, LREGCL, RESIDENT>;
+    using K = Kernel<T, EVAP, LREGCL, RESIDENT, D>;
     size_t bytes = 0;
     cudaError_t err = K::prepare(nlev, block, &bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -142,28 +145,32 @@ extern "C" {
 
 const char* cloudsc2_ad_fused_signature() { return cloudsc2::ad_fused_signature(); }
 
-// Launch one fused AD step on `stream` with `block` threads a block.
-// in/out: device pointers in the order of CLOUDSC2_AD_FUSED_INPUTS/OUTPUTS
+// Launch one fused AD step on `stream` with `block` threads a block.  div
+// (a DivMode) and compact (CUADJ_COMPACT): a form the library holds
+// (scalar_math.h "library forms").  in/out: device pointers in the order of CLOUDSC2_AD_FUSED_INPUTS/OUTPUTS
 // (covptot_i may be null without evap); nl_consts, tl_consts: host pointers
 // to NLConst<T> and TLConst<T>.  Returns the cudaError_t of the launch (0 on
 // success; cudaErrorInvalidValue when the stack does not fit the block).
-int cloudsc2_ad_fused_launch(int is_double, int evap, int lregcl, int resident, int block,
-                             const void* const* in, void* const* out, const void* nl_consts,
-                             const void* tl_consts, int nlev, int ncols, void* stream) {
-  if (nlev < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
+int cloudsc2_ad_fused_launch(int is_double, int evap, int lregcl, int resident, int div, int compact,
+                             int block, const void* const* in, void* const* out,
+                             const void* nl_consts, const void* tl_consts, int nlev, int ncols,
+                             void* stream) {
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Launcher l{in, out, nl_consts, tl_consts, nlev, ncols, block,
                    static_cast<cudaStream_t>(stream)};
-  return cloudsc2::ad_fused_dispatch(l, is_double, evap, lregcl, resident);
+  return cloudsc2::ad_fused_dispatch(l, is_double, evap, lregcl, resident, div);
 }
 
 // Fill out[0..3] for the instantiation and block size: blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread, local
 // bytes a thread, dynamic shared bytes a block.  Returns a cudaError_t.
-int cloudsc2_ad_fused_occupancy(int is_double, int evap, int lregcl, int resident, int block,
-                                int nlev, int* out) {
-  if (nlev < 1) return static_cast<int>(cudaErrorInvalidValue);
+int cloudsc2_ad_fused_occupancy(int is_double, int evap, int lregcl, int resident, int div,
+                                int compact, int block, int nlev, int* out) {
+  if (nlev < 1 || !cloudsc2::forms_valid(is_double, div, compact))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Query q{nlev, block, out};
-  return cloudsc2::ad_fused_dispatch(q, is_double, evap, lregcl, resident);
+  return cloudsc2::ad_fused_dispatch(q, is_double, evap, lregcl, resident, div);
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@
 // The bodies of cloudsc2_ad_pallas_fused (cloudsc2_tpu/pallas/adjoint.py:432):
 // its forward body nl_level (:487-495), its reverse body _make_rev_body
 // (:320, shared with the two-kernel AD), its folds _reverse_problem (:260)
-// and its assembly _assemble (:362) with the flux rows (:526-536).
+// and its assembly _assemble (:362) with the flux rows (:526-536).  Both
+// sweeps divide under the one policy D (scalar_math.h) and, as the
+// library's form says, with one form of the saturation adjustment.
 //
 // Each sweep is the two-kernel AD's own code: NLBody's load / nl_level /
 // store forward, ADBody's load / step / end in reverse, so both forms give
@@ -20,7 +22,8 @@
 // (FWD_INPUTS, pallas/adjoint.py:98), and the reverse sweep reads them back
 // instead of the 16 raw fields (the resident option of
 // pallas/levelscan.py:223-225,236-237).  The forward sweep is the NL under
-// linearized physics (THERMO); the wrapper enforces LPHYLIN.
+// linearized physics (THERMO) whatever LPHYLIN the constants hold: that is
+// the TL's own forward, and the TL and AD do not read LPHYLIN.
 #pragma once
 
 #include <string.h>
@@ -75,9 +78,9 @@ struct ADFusedSlots {
 // ------------------------------------------------------------ forward body ----
 // The NL step of the two-kernel AD's forward kernel (NLBody), with the
 // carry entering each level pushed onto the stack instead of written out.
-template <typename T, bool EVAP, bool RESIDENT>
+template <typename T, bool EVAP, bool RESIDENT, int D>
 struct ADFusedFwd {
-  using NL = NLBody<T, true, EVAP, false>;
+  using NL = NLBody<T, true, EVAP, false, false, false, D>;
   using Column = typename NL::Column;
   static constexpr int SLOTS = ADFusedSlots<EVAP, RESIDENT>::ALL;
   NL nl;
@@ -97,7 +100,7 @@ struct ADFusedFwd {
       CLOUDSC2_AD_FUSED_RESIDENT(CLOUDSC2_PUSH)
 #undef CLOUDSC2_PUSH
     }
-    const NLLevelOut<T> o = nl_level<T, true, EVAP>(s.carry, x, s.col, nl.c);
+    const NLLevelOut<T> o = nl_level<T, true, EVAP, D>(s.carry, x, s.col, nl.c);
     nl.store(s, o, col, k);
   }
 };
@@ -105,9 +108,9 @@ struct ADFusedFwd {
 // ------------------------------------------------------------ reverse body ----
 // The two-kernel AD's reverse body (ADBody), reading the trajectory, and
 // with RESIDENT the folded inputs, from the stack.
-template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
 struct ADFusedRev {
-  using AD = ADBody<T, EVAP, LREGCL>;
+  using AD = ADBody<T, EVAP, LREGCL, D>;
   using Column = typename AD::Column;
   AD ad;
 
@@ -137,20 +140,20 @@ struct ADFusedRev {
   CLOUDSC2_HD void end(Column& s, int col) const { ad.end(s, col); }
 };
 
-template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D = DIV_EXACT>
 struct ADFused {
-  ADFusedFwd<T, EVAP, RESIDENT> fwd;
-  ADFusedRev<T, EVAP, LREGCL, RESIDENT> rev;
+  ADFusedFwd<T, EVAP, RESIDENT, D> fwd;
+  ADFusedRev<T, EVAP, LREGCL, RESIDENT, D> rev;
 };
 
 // Fill both bodies from the wrapper's pointer lists (orders as in the
 // X-lists); the trajectory pointers of the two-kernel bodies stay null.
-template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
-inline ADFused<T, EVAP, LREGCL, RESIDENT> make_ad_fused(const void* const* in, void* const* out,
-                                                        const void* nl_consts,
-                                                        const void* tl_consts, int nlev,
-                                                        int ncols) {
-  ADFused<T, EVAP, LREGCL, RESIDENT> b;
+template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D = DIV_EXACT>
+inline ADFused<T, EVAP, LREGCL, RESIDENT, D> make_ad_fused(const void* const* in, void* const* out,
+                                                           const void* nl_consts,
+                                                           const void* tl_consts, int nlev,
+                                                           int ncols) {
+  ADFused<T, EVAP, LREGCL, RESIDENT, D> b;
   NLFields<T>& nf = b.fwd.nl.f;
   ADFields<T>& af = b.rev.ad.f;
   memset(&nf, 0, sizeof(nf));
@@ -178,25 +181,27 @@ inline ADFused<T, EVAP, LREGCL, RESIDENT> make_ad_fused(const void* const* in, v
   return b;
 }
 
-// Call L.template run<T, EVAP, LREGCL, RESIDENT>() for the runtime
-// switches; this instantiates all 8 switch triples x 2 dtypes.
-template <class L, typename T, bool EVAP>
+// Call L.template run<T, EVAP, LREGCL, RESIDENT, D>() for the runtime
+// switches: the 8 switch triples for each type and divide policy the
+// library holds (scalar_math.h "library forms"; check forms_valid first).
+template <class L, typename T, int D, bool EVAP>
 inline int ad_fused_dispatch_lregcl(const L& launcher, int lregcl, int resident) {
   if (lregcl)
-    return resident ? launcher.template run<T, EVAP, true, true>()
-                    : launcher.template run<T, EVAP, true, false>();
-  return resident ? launcher.template run<T, EVAP, false, true>()
-                  : launcher.template run<T, EVAP, false, false>();
+    return resident ? launcher.template run<T, EVAP, true, true, D>()
+                    : launcher.template run<T, EVAP, true, false, D>();
+  return resident ? launcher.template run<T, EVAP, false, true, D>()
+                  : launcher.template run<T, EVAP, false, false, D>();
 }
 
 template <class L>
-inline int ad_fused_dispatch(const L& launcher, int is_double, int evap, int lregcl,
-                             int resident) {
-  if (is_double)
-    return evap ? ad_fused_dispatch_lregcl<L, double, true>(launcher, lregcl, resident)
-                : ad_fused_dispatch_lregcl<L, double, false>(launcher, lregcl, resident);
-  return evap ? ad_fused_dispatch_lregcl<L, float, true>(launcher, lregcl, resident)
-              : ad_fused_dispatch_lregcl<L, float, false>(launcher, lregcl, resident);
+inline int ad_fused_dispatch(const L& launcher, int is_double, int evap, int lregcl, int resident,
+                             int div) {
+  return dispatch_type_div(is_double, div, -1, [&](auto t, auto d) {
+    using T = decltype(t);
+    constexpr int D = decltype(d)::value;
+    return evap ? ad_fused_dispatch_lregcl<L, T, D, true>(launcher, lregcl, resident)
+                : ad_fused_dispatch_lregcl<L, T, D, false>(launcher, lregcl, resident);
+  });
 }
 
 }  // namespace cloudsc2

@@ -18,10 +18,10 @@ struct HostRunner {
   const void* tl_consts;
   int nlev, ncols;
 
-  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT>
+  template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
-    const auto b =
-        cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT>(in, out, nl_consts, tl_consts, nlev, ncols);
+    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(in, out, nl_consts, tl_consts,
+                                                                         nlev, ncols);
     cloudsc2::level_scan_fwdrev_host<decltype(b.fwd), decltype(b.rev), T>(b.fwd, b.rev);
     return 0;
   }
@@ -35,12 +35,12 @@ const char* cloudsc2_ad_fused_signature() { return cloudsc2::ad_fused_signature(
 
 // Same arguments as cloudsc2_ad_fused_launch (ad_fused.cu) with host
 // pointers, no block size and no stream.
-int cloudsc2_ad_fused_host(int is_double, int evap, int lregcl, int resident,
+int cloudsc2_ad_fused_host(int is_double, int evap, int lregcl, int resident, int div, int compact,
                            const void* const* in, void* const* out, const void* nl_consts,
                            const void* tl_consts, int nlev, int ncols) {
-  if (nlev < 1 || ncols < 1) return 1;
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
   const HostRunner r{in, out, nl_consts, tl_consts, nlev, ncols};
-  return cloudsc2::ad_fused_dispatch(r, is_double, evap, lregcl, resident);
+  return cloudsc2::ad_fused_dispatch(r, is_double, evap, lregcl, resident, div);
 }
 
 }  // extern "C"

@@ -36,9 +36,14 @@
 // 159-164 and 255 with evaporation, where f64 spills 192-200 bytes (ptxas,
 // sm_90a).
 //
-// Static switches are template bools: EVAP = LEVAPLS2 || LDRAIN1D, LREGCL.
-// The AD requires LPHYLIN (the NL trajectory is the TL's forward only under
-// linearized physics); the wrapper enforces it.
+// Static switches are template parameters: EVAP = LEVAPLS2 || LDRAIN1D,
+// LREGCL, and D, the divide policy (scalar_math.h): the primal pass divides
+// as tl_level does, and the adjoint pass divides each cotangent by the same
+// forward value under the same policy.  The library's form picks the
+// saturation adjustment (kCompact), whose two forms transpose apart
+// (adj_iter_ad).  The TL, and so the AD, does not read LPHYLIN: the
+// trajectory is the NL step's under linearized physics (THERMO), which is
+// the TL's own forward, whatever LPHYLIN the caller's constants hold.
 #pragma once
 
 #include <string.h>
@@ -133,31 +138,39 @@ struct ADWeights {
 
 // ---------------------------------------------------- saturation adjustment ----
 // One iteration of cuadjtqs_tl (tl_level.h) without its perturbations: the
-// forward values its transpose reads.  The caller advances t += zaldcp *
-// cond, q -= cond, as the TL does.
+// forward values its transpose reads (u, w in the compact form; cor and
+// qs = s * cor in the reference-shaped one).  The caller advances t +=
+// zaldcp * cond, q -= cond, as the TL does.
 template <typename T>
 struct AdjIter {
-  T q, rt4, foeew, s, z2s, u, w, rden, cond;
+  T q, rt4, foeew, s, z2s, u, w, cor, qs, rden, cond;
   bool noclip;
 };
 
-template <typename T>
+template <int D, typename T>
 CLOUDSC2_HD AdjIter<T> adj_iter(T qp, T t, T q, T z3es, T z4es, T z5alcp, const TLConst<T>& c) {
   const T one = T(1);
   AdjIter<T> r;
   r.q = q;
-  r.rt4 = one / (t - z4es);
+  r.rt4 = rcp<D>(t - z4es);
   r.foeew = c.r2es * m_exp(z3es * (t - c.rtt) * r.rt4);
   const T qsat = qp * r.foeew;
   r.noclip = qsat <= c.zqmax;
   r.s = m_min(qsat, c.zqmax);
   r.z2s = z5alcp * r.rt4 * r.rt4;
-  r.u = one - c.retv * r.s;
-  r.w = q * r.u - r.s;
-  const T num = r.w * r.u;
-  const T den = r.u * r.u + r.s * r.z2s;
-  r.rden = one / den;
-  r.cond = num * r.rden;
+  if constexpr (kCompact) {
+    r.u = one - c.retv * r.s;
+    r.w = q * r.u - r.s;
+    const T num = r.w * r.u;
+    const T den = r.u * r.u + r.s * r.z2s;
+    r.rden = rcp<D>(den);
+    r.cond = num * r.rden;
+  } else {
+    r.cor = rcp<D>(one - c.retv * r.s);
+    r.qs = r.s * r.cor;
+    r.rden = rcp<D>(one + r.qs * r.cor * r.z2s);
+    r.cond = (q - r.qs) * r.rden;
+  }
   return r;
 }
 
@@ -167,20 +180,39 @@ CLOUDSC2_HD AdjIter<T> adj_iter(T qp, T t, T q, T z3es, T z4es, T z5alcp, const 
 template <typename T>
 CLOUDSC2_HD void adj_iter_ad(const AdjIter<T>& r, T qp, T z3es, T z4es, T zaldcp, T& t_b, T& q_b,
                              T& qp_b, const TLConst<T>& c) {
-  // t_i += zaldcp * cond_i; q_i -= cond_i; cond_i = (num_i - cond * den_i) * rden
-  const T num_b = (zaldcp * t_b - q_b) * r.rden;
-  const T den_b = -(num_b * r.cond);
-  // num_i = (q_i * u + q * u_i - s_i) * u + w * u_i
-  const T in_b = num_b * r.u;
-  q_b = q_b + in_b * r.u;
-  T u_b = in_b * r.q + num_b * r.w;
-  T s_b = -in_b;
-  // den_i = 2 * u * u_i + s_i * z2s + s * z2s_i
-  u_b = u_b + den_b * (T(2) * r.u);
-  s_b = s_b + den_b * r.z2s;
-  const T z2s_b = den_b * r.s;
-  // u_i = -retv * s_i
-  s_b = s_b - u_b * c.retv;
+  T s_b, z2s_b;
+  if constexpr (kCompact) {
+    // t_i += zaldcp * cond_i; q_i -= cond_i; cond_i = (num_i - cond * den_i) * rden
+    const T num_b = (zaldcp * t_b - q_b) * r.rden;
+    const T den_b = -(num_b * r.cond);
+    // num_i = (q_i * u + q * u_i - s_i) * u + w * u_i
+    const T in_b = num_b * r.u;
+    q_b = q_b + in_b * r.u;
+    T u_b = in_b * r.q + num_b * r.w;
+    s_b = -in_b;
+    // den_i = 2 * u * u_i + s_i * z2s + s * z2s_i
+    u_b = u_b + den_b * (T(2) * r.u);
+    s_b = s_b + den_b * r.z2s;
+    z2s_b = den_b * r.s;
+    // u_i = -retv * s_i
+    s_b = s_b - u_b * c.retv;
+  } else {
+    // t_i += zaldcp * cond_i; q_i -= cond_i;
+    // cond_i = (q_i - qs_i) * rden - (q - qs) * X * rden * rden,
+    // X = qs_i * cor * z2s + qs * cor_i * z2s + qs * cor * z2s_i
+    const T cond_b = zaldcp * t_b - q_b;
+    const T a_b = cond_b * r.rden;
+    const T x_b = (-cond_b * r.rden * r.rden) * (r.q - r.qs);
+    q_b = q_b + a_b;
+    const T xz = x_b * r.z2s;
+    const T qs_b = xz * r.cor - a_b;
+    T cor_b = xz * r.qs;
+    z2s_b = x_b * (r.qs * r.cor);
+    // qs_i = s_i * cor + s * cor_i; cor_i = retv * s_i * cor * cor
+    s_b = qs_b * r.cor;
+    cor_b = cor_b + qs_b * r.s;
+    s_b = s_b + ((cor_b * r.cor) * r.cor) * c.retv;
+  }
   // z2s_i = -2 * z2s * t_i * rt4
   t_b = t_b + z2s_b * r.rt4 * (T(-2) * r.z2s);
   // s_i = noclip ? qsat_i : 0;  qsat_i = qp_i * foeew + qp * foeew_i
@@ -197,7 +229,7 @@ CLOUDSC2_HD void adj_iter_ad(const AdjIter<T>& r, T qp, T z3es, T z4es, T zaldcp
 // cotangent of every input direction.  With EVAP off the covptot carry
 // feeds nothing but itself and aph_s is not read: g.cov and g.aph_s are 0.
 // `branches`, where not null, receives the mask of CLOUDSC2_AD_BRANCHES.
-template <typename T, bool EVAP, bool LREGCL>
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
 CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
                                      const NLCarry<T>& traj, const ADWeights<T>& w,
                                      const TLConst<T>& c, unsigned* branches) {
@@ -208,17 +240,17 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   const T ap = x.ap, qsat_in = x.qsat, t = x.t_fg, q = x.q2, ql = x.ql_fg, qi = x.qi_fg;
   const T dp = x.dp, scalm = x.scalm;
   const T zd = c.rcpd + c.rcpd_rvtmp2 * q;
-  const T zz = one / zd;
+  const T zz = rcp<D>(zd);
   const T lfdcp = c.rlmlt * zz, lsdcp = c.rlstt * zz, lvdcp = c.rlvtt * zz;
   const bool cold = t < c.rtt;
   const T th = m_tanh(T(0.17) * (t - c.rlptrc));
   const T fwat = cold ? T(0.545) * (th + one) : one;
   const T z3es = cold ? c.r3ies : c.r3les;
   const T z4es = cold ? c.r4ies : c.r4les;
-  const T rl = one / (t - c.r4les);
-  const T ri = one / (t - c.r4ies);
+  const T rl = rcp<D>(t - c.r4les);
+  const T ri = rcp<D>(t - c.r4ies);
   const T rz4es = cold ? ri : rl;
-  const T rap = one / ap;
+  const T rap = rcp<D>(ap);
   const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rz4es);
   const T esdp0 = foeew * rap;
   const bool noclip = esdp0 <= c.zqmax;
@@ -226,7 +258,7 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   const T facw = c.r5les * (rl * rl);
   const T faci = c.r5ies * (ri * ri);
   const T fac = fwat * facw + (one - fwat) * faci;
-  const T cor = one / (one - c.retv * esdp);
+  const T cor = rcp<D>(one - c.retv * esdp);
   const T dqsdtemp = fac * cor * qsat_in;
   const T corqs = one + c.cons3 * dqsdtemp;
   const T qlim = m_min(q, qsat_in);
@@ -243,34 +275,34 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   const T qpd = qsat - qt;
   const T qcd = qsat - qcrit;
   const T denom = qcd - scalm * (qt - qcrit);
-  const T rdenom = one / (mid ? denom : one);
+  const T rdenom = rcp<D>(mid ? denom : one);
   const T ratio = mid ? qpd * rdenom : zero;
   const T clc_mid = one - m_sqrt(ratio);
   const T rtmp1 = one / m_sqrt(mid ? ratio : one);
   T yyy = one;
   if (LREGCL) {
-    const T rat = qpd / (mid ? qcd : one);
+    const T rat = fdiv<D>(qpd, mid ? qcd : one);
     const T u = one - scalm * (one - rat);
-    yyy = m_min(T(3.5) * m_sqrt(m_max(rat * (u * u * u), zero)) / (one - scalm), T(0.3));
+    yyy = m_min(fdiv_scalar<D>(T(3.5) * m_sqrt(m_max(rat * (u * u * u), zero)), one - scalm), T(0.3));
   }
   const T qc_mid = (scalm * qpd + (one - scalm) * qcd) * (clc_mid * clc_mid);
   const T qc_high = (one - scalm) * (qsat - qcrit);
   const T clc0 = low ? zero : (high ? one : clc_mid);
   const T qc0 = low ? zero : (high ? qc_high : qc_mid);
-  const T rdp = one / dp;
+  const T rdp = rcp<D>(dp);
   const T gdp = c.rg * rdp;
   const T lude = c.dt * x.lude * gdp;
   const bool lo1 = (lude >= c.rlmin) && (x.lu_next >= c.zeps2);
-  const T rlu1 = one / (lo1 ? x.lu_next : one);
+  const T rlu1 = rcp<D>(lo1 ? x.lu_next : one);
   const T tmp2 = m_exp(-lude * rlu1);
   const T clc = clc0 + (lo1 ? (one - clc0) * (one - tmp2) : zero);
   const T qc1 = qc0 + (lo1 ? lude : zero);
-  const T fac1 = one / (c.rd * t);
+  const T fac1 = rcp<D>(c.rd * t);
   const T rho = ap * fac1;
-  const T fac2 = one / (ap - c.retv * foeew);
+  const T fac2 = rcp<D>(ap - c.retv * foeew);
   const T rodqsdp = -rho * qsat_in * fac2;
   const T ldcp = fwat * lvdcp + (one - fwat) * lsdcp;
-  const T fac3 = one / (one + ldcp * dqsdtemp);
+  const T fac3 = rcp<D>(one + ldcp * dqsdtemp);
   const T dtdzmo = c.rg * (c.rcpd_inv - ldcp * rodqsdp) * fac3;
   const T dqsdz = dqsdtemp * dtdzmo - c.rg * rodqsdp;
   const T fac4 = c.rd * t * rap;
@@ -287,7 +319,7 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   const bool warm = t > c.meltp2;
   const T z2s = cons * m_max(t - c.meltp2, zero);
   const bool act = clc > c.zeps2;
-  const T rclc = one / (act ? clc : one);
+  const T rclc = rcp<D>(act ? clc : one);
   const T cldl = qlwc * rclc;
   const T ltmp4 = m_exp(-(cldl * cldl * c.lcrit_k));
   const T dl = c.ckcodtl * (one - ltmp4);
@@ -334,22 +366,22 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
     covptot_safe = eact ? covptot : one;
     covpclr_safe = eact ? covpclr : one;
     prtot_safe = eact ? prtot : one;
-    const T preclr = prtot * covpclr / covptot_safe;
+    const T preclr = fdiv<D>(prtot * covpclr, covptot_safe);
     clcc = eact ? one - clc : one;
-    qe = qsat_in - (qsat_in - qlim) * covpclr / (clcc * clcc);
-    tmp6 = m_sqrt(ap / col.aph_s);
+    qe = qsat_in - fdiv<D>((qsat_in - qlim) * covpclr, clcc * clcc);
+    tmp6 = m_sqrt(fdiv<D>(ap, col.aph_s));
     preclr_safe = (eact && preclr > zero) ? preclr : one;
-    beta = c.rg_rpecons * m_pow(tmp6 * preclr_safe / (T(0.00509) * covpclr_safe), T(0.5777));
-    pw = m_pow(T(0.00509) * covpclr_safe / (tmp6 * preclr_safe), T(0.4223));
+    beta = c.rg_rpecons * m_pow(fdiv<D>(tmp6 * preclr_safe, T(0.00509) * covpclr_safe), T(0.5777));
+    pw = m_pow(fdiv<D>(T(0.00509) * covpclr_safe, tmp6 * preclr_safe), T(0.4223));
     vb = one + c.dt * beta * corqs;
-    bq = c.dt * beta * (qsat_in - qe) / vb;
-    dtgdp = c.dt_rg / dp;
-    const T dpr0 = covpclr * bq / dtgdp;
+    bq = fdiv<D>(c.dt * beta * (qsat_in - qe), vb);
+    dtgdp = fdiv<D>(c.dt_rg, dp);
+    const T dpr0 = fdiv<D>(covpclr * bq, dtgdp);
     big = dpr0 > preclr;
     dpr = eact ? (big ? preclr : dpr0) : zero;
     drained = eact && preclr - dpr <= zero;
-    evapr = eact ? dpr * rfln / prtot_safe : zero;
-    evaps = eact ? dpr * sfln / prtot_safe : zero;
+    evapr = eact ? fdiv<D>(dpr * rfln, prtot_safe) : zero;
+    evaps = eact ? fdiv<D>(dpr * sfln, prtot_safe) : zero;
   }
 
   // ---- tendencies and final clipping (:439-503)
@@ -367,11 +399,11 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   const T az4es = adj_warm ? c.r4les : c.r4ies;
   const T az5alcp = adj_warm ? c.r5alvcp : c.r5alscp;
   const T azaldcp = adj_warm ? c.ralvdcp : c.ralsdcp;
-  const T qp = one / ap;
-  const AdjIter<T> it1 = adj_iter(qp, ta, qold, az3es, az4es, az5alcp, c);
+  const T qp = rcp<D>(ap);
+  const AdjIter<T> it1 = adj_iter<D>(qp, ta, qold, az3es, az4es, az5alcp, c);
   const T ta1 = ta + azaldcp * it1.cond;
   const T qa1 = qold - it1.cond;
-  const AdjIter<T> it2 = adj_iter(qp, ta1, qa1, az3es, az4es, az5alcp, c);
+  const AdjIter<T> it2 = adj_iter<D>(qp, ta1, qa1, az3es, az4es, az5alcp, c);
   const T ta2 = ta1 + azaldcp * it2.cond;
   const T qa = qa1 - it2.cond;
   const bool adj_noclip1 = it1.noclip, adj_noclip2 = it2.noclip;
@@ -494,15 +526,15 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
       b_evapr = b_evapr - b_rfln;
       b_evaps = b_evaps - b_sfln;
       // evaps_i = (dpr_i * sfln + dpr * sfln_i) / prtot_safe - dpr * sfln * prtot_i / prtot_safe^2
-      T a = b_evaps / prtot_safe;
+      T a = fdiv<D>(b_evaps, prtot_safe);
       T b_dpr = a * sfle;
       b_sfln = b_sfln + a * dpr;
-      T b_prtot = -(b_evaps / (prtot_safe * prtot_safe)) * (dpr * sfle);
+      T b_prtot = -fdiv<D>(b_evaps, prtot_safe * prtot_safe) * (dpr * sfle);
       // evapr_i likewise with rfln
-      a = b_evapr / prtot_safe;
+      a = fdiv<D>(b_evapr, prtot_safe);
       b_dpr = b_dpr + a * rfle;
       b_rfln = b_rfln + a * dpr;
-      b_prtot = b_prtot - (b_evapr / (prtot_safe * prtot_safe)) * (dpr * rfle);
+      b_prtot = b_prtot - fdiv<D>(b_evapr, prtot_safe * prtot_safe) * (dpr * rfle);
       // covptot_out_i = covptot_i; covptot_i = drained ? clc_i : covptot_i
       b_cov = b_cov + w.covptot;
       if (drained) {
@@ -513,44 +545,44 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
       T b_preclr = big ? b_dpr : zero;
       const T b_dpr0 = big ? zero : b_dpr;
       // dpr_i = (covpclr_i * b + covpclr * b_i) / dtgdp - covpclr * b * dtgdp_i / dtgdp^2
-      a = b_dpr0 / dtgdp;
+      a = fdiv<D>(b_dpr0, dtgdp);
       b_covpclr = b_covpclr + a * bq;
       const T b_b = a * covpclr;
       // dtgdp_i = mdt_rg * dp_i / (dp * dp)
-      g_dp = g_dp + ((-(b_dpr0 / (dtgdp * dtgdp)) * (covpclr * bq)) / (dp * dp)) * c.mdt_rg;
+      g_dp = g_dp + fdiv<D>(-fdiv<D>(b_dpr0, dtgdp * dtgdp) * (covpclr * bq), dp * dp) * c.mdt_rg;
       // b_i = dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)) / vb
       //       - dt * b * (beta_i * corqs + beta * corqs_i) / vb
-      a = (b_b / vb) * c.dt;
+      a = fdiv<D>(b_b, vb) * c.dt;
       T b_beta = a * (qsat_in - qe);
       const T e = a * beta;
       g_qs = g_qs + e;
       T b_qe = -e;
-      a = -(b_b / vb) * (c.dt * bq);
+      a = -fdiv<D>(b_b, vb) * (c.dt * bq);
       b_beta = b_beta + a * corqs;
       b_corqs = b_corqs + a * beta;
       // beta_i = beta_i_k * pw * (W / covpclr_safe - tmp6 * preclr_safe * covpclr_i / covpclr_safe^2),
       // W = tmp6 * preclr_i + 0.5 * preclr_safe * ap_i / (tmp6 * aph_s)
       //     - 0.5 * preclr_safe * tmp6 * aph_s_i / aph_s
       const T z = b_beta * (c.beta_i_k * pw);
-      a = z * (one / covpclr_safe);
+      a = z * rcp<D>(covpclr_safe);
       b_preclr = b_preclr + a * tmp6;
-      g_ap = g_ap + (a / (tmp6 * col.aph_s)) * (T(0.5) * preclr_safe);
-      g_aphs = g_aphs - (a / col.aph_s) * (T(0.5) * preclr_safe * tmp6);
-      b_covpclr = b_covpclr - (z / (covpclr_safe * covpclr_safe)) * (tmp6 * preclr_safe);
+      g_ap = g_ap + fdiv<D>(a, tmp6 * col.aph_s) * (T(0.5) * preclr_safe);
+      g_aphs = g_aphs - fdiv<D>(a, col.aph_s) * (T(0.5) * preclr_safe * tmp6);
+      b_covpclr = b_covpclr - fdiv<D>(z, covpclr_safe * covpclr_safe) * (tmp6 * preclr_safe);
       // qe_i = qsat_in_i - (qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i)
       //        / clcc^2 - 2 * (qsat_in - qlim) * covpclr * clc_i / clcc^3
       g_qs = g_qs + b_qe;
-      a = -(b_qe / (clcc * clcc));
+      a = -fdiv<D>(b_qe, clcc * clcc);
       g_qs = g_qs + a * covpclr;
       b_qlim = b_qlim - a * covpclr;
       b_covpclr = b_covpclr + a * (qsat_in - qlim);
-      b_clc = b_clc - (b_qe / (clcc * clcc * clcc)) * (T(2) * (qsat_in - qlim) * covpclr);
+      b_clc = b_clc - fdiv<D>(b_qe, clcc * clcc * clcc) * (T(2) * (qsat_in - qlim) * covpclr);
       // preclr_i = (prtot_i * covpclr + prtot * covpclr_i) / covptot_safe
       //            - prtot * covpclr * covptot_i / covptot_safe^2
-      a = b_preclr / covptot_safe;
+      a = fdiv<D>(b_preclr, covptot_safe);
       b_prtot = b_prtot + a * covpclr;
       b_covpclr = b_covpclr + a * prtot;
-      b_cov = b_cov - (b_preclr / (covptot_safe * covptot_safe)) * (prtot * covpclr);
+      b_cov = b_cov - fdiv<D>(b_preclr, covptot_safe * covptot_safe) * (prtot * covpclr);
       // prtot_i = rfln_i + sfln_i
       b_rfln = b_rfln + b_prtot;
       b_sfln = b_sfln + b_prtot;
@@ -819,16 +851,16 @@ CLOUDSC2_HD ADCot<T> ad_level_traced(const TLLevelIn<T>& x, const TLCol<T>& col,
   return g;
 }
 
-template <typename T, bool EVAP, bool LREGCL>
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
 CLOUDSC2_HD ADCot<T> ad_level(const TLLevelIn<T>& x, const TLCol<T>& col, const NLCarry<T>& traj,
                               const ADWeights<T>& w, const TLConst<T>& c) {
-  return ad_level_traced<T, EVAP, LREGCL>(x, col, traj, w, c, nullptr);
+  return ad_level_traced<T, EVAP, LREGCL, D>(x, col, traj, w, c, nullptr);
 }
 
 // ------------------------------------------------------------ column body ----
 // The Body of level_scan_column<Body, true>: the reverse sweep of
 // cloudsc2_ad_pallas and its XLA folds and assembly, for one column.
-template <typename T, bool EVAP, bool LREGCL>
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
 struct ADBody {
   ADFields<T> f;
   TLConst<T> c;
@@ -913,7 +945,7 @@ struct ADBody {
     w.tnd_qi = f.tnd_qi_i[i];
     w.clc = f.clc_i[i];
     w.covptot = EVAP ? f.covptot_i[i] : T(0);
-    const ADCot<T> g = ad_level<T, EVAP, LREGCL>(x, s.col, traj, w, c);
+    const ADCot<T> g = ad_level<T, EVAP, LREGCL, D>(x, s.col, traj, w, c);
     s.rfl = g.rfl;
     s.sfl = g.sfl;
     s.cov = g.cov;
@@ -956,10 +988,10 @@ struct ADBody {
 };
 
 // Fill a body from the wrapper's pointer lists (orders as in the X-lists).
-template <typename T, bool EVAP, bool LREGCL>
-inline ADBody<T, EVAP, LREGCL> make_ad_body(const void* const* in, void* const* out,
-                                            const void* consts, int nlev, int ncols) {
-  ADBody<T, EVAP, LREGCL> b;
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
+inline ADBody<T, EVAP, LREGCL, D> make_ad_body(const void* const* in, void* const* out,
+                                               const void* consts, int nlev, int ncols) {
+  ADBody<T, EVAP, LREGCL, D> b;
   int i = 0;
 #define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
   CLOUDSC2_AD_INPUTS(CLOUDSC2_FIELD)
@@ -974,19 +1006,21 @@ inline ADBody<T, EVAP, LREGCL> make_ad_body(const void* const* in, void* const* 
   return b;
 }
 
-// Call L.template run<T, EVAP, LREGCL>() for the runtime switches; this
-// instantiates all 4 switch pairs x 2 dtypes.
-template <class L, typename T>
+// Call L.template run<T, EVAP, LREGCL, D>() for the runtime switches: the 4
+// switch pairs for each type and divide policy the library holds
+// (scalar_math.h "library forms"; check forms_valid first).
+template <class L, typename T, int D>
 inline int ad_dispatch_t(const L& launcher, int evap, int lregcl) {
   if (evap)
-    return lregcl ? launcher.template run<T, true, true>() : launcher.template run<T, true, false>();
-  return lregcl ? launcher.template run<T, false, true>() : launcher.template run<T, false, false>();
+    return lregcl ? launcher.template run<T, true, true, D>() : launcher.template run<T, true, false, D>();
+  return lregcl ? launcher.template run<T, false, true, D>() : launcher.template run<T, false, false, D>();
 }
 
 template <class L>
-inline int ad_dispatch(const L& launcher, int is_double, int evap, int lregcl) {
-  return is_double ? ad_dispatch_t<L, double>(launcher, evap, lregcl)
-                   : ad_dispatch_t<L, float>(launcher, evap, lregcl);
+inline int ad_dispatch(const L& launcher, int is_double, int evap, int lregcl, int div) {
+  return dispatch_type_div(is_double, div, -1, [&](auto t, auto d) {
+    return ad_dispatch_t<L, decltype(t), decltype(d)::value>(launcher, evap, lregcl);
+  });
 }
 
 }  // namespace cloudsc2

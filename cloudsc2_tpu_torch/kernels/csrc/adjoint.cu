@@ -40,6 +40,11 @@
 // (PERF.md); fewer registers, or the next level's loads issued before this
 // level's arithmetic, are what is left.
 //
+// A library holds one form of the saturation adjustment and a set of
+// divide policies (scalar_math.h "library forms"): the default library the
+// compact form and the exact divide; the others are built apart, so that
+// the default instantiations keep their registers.
+//
 // Built with --fmad=false, as the NL and TL kernels; never with fast math.
 #include <cuda_runtime.h>
 
@@ -54,10 +59,10 @@ struct Launcher {
   int nlev, ncols;
   cudaStream_t stream;
 
-  template <typename T, bool EVAP, bool LREGCL>
+  template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
-    using Body = cloudsc2::ADBody<T, EVAP, LREGCL>;
-    const Body body = cloudsc2::make_ad_body<T, EVAP, LREGCL>(in, out, consts, nlev, ncols);
+    using Body = cloudsc2::ADBody<T, EVAP, LREGCL, D>;
+    const Body body = cloudsc2::make_ad_body<T, EVAP, LREGCL, D>(in, out, consts, nlev, ncols);
     const int threads = 128;
     const int blocks = (ncols + threads - 1) / threads;
     cloudsc2::level_scan_kernel<Body, true><<<blocks, threads, 0, stream>>>(body);
@@ -70,9 +75,9 @@ struct Launcher {
 struct Attributes {
   int* out;
 
-  template <typename T, bool EVAP, bool LREGCL>
+  template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
-    const auto fn = &cloudsc2::level_scan_kernel<cloudsc2::ADBody<T, EVAP, LREGCL>, true>;
+    const auto fn = &cloudsc2::level_scan_kernel<cloudsc2::ADBody<T, EVAP, LREGCL, D>, true>;
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -88,23 +93,27 @@ extern "C" {
 
 const char* cloudsc2_ad_signature() { return cloudsc2::ad_signature(); }
 
-// Launch the reverse sweep of one AD step on `stream`.  in/out: device
-// pointers in the order of CLOUDSC2_AD_INPUTS/OUTPUTS (c_cov and covptot_i
-// may be null without evap); consts: host pointer to TLConst<T>.  Returns
-// the cudaError_t of the launch (0 on success).
-int cloudsc2_ad_launch(int is_double, int evap, int lregcl, const void* const* in,
-                       void* const* out, const void* consts, int nlev, int ncols,
-                       void* stream) {
-  if (nlev < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Launch the reverse sweep of one AD step on `stream`.  div (a DivMode)
+// and compact (CUADJ_COMPACT): a form the library holds (scalar_math.h
+// "library forms").  in/out: device pointers in the order of
+// CLOUDSC2_AD_INPUTS/OUTPUTS (c_cov and covptot_i may be null without
+// evap); consts: host pointer to TLConst<T>.  Returns the cudaError_t of
+// the launch (0 on success).
+int cloudsc2_ad_launch(int is_double, int evap, int lregcl, int div, int compact,
+                       const void* const* in, void* const* out, const void* consts, int nlev,
+                       int ncols, void* stream) {
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Launcher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
-  return cloudsc2::ad_dispatch(l, is_double, evap, lregcl);
+  return cloudsc2::ad_dispatch(l, is_double, evap, lregcl, div);
 }
 
 // Fill out[0..1] for the instantiation: registers a thread and local bytes
 // a thread (cudaFuncGetAttributes).  Returns a cudaError_t.
-int cloudsc2_ad_attributes(int is_double, int evap, int lregcl, int* out) {
+int cloudsc2_ad_attributes(int is_double, int evap, int lregcl, int div, int compact, int* out) {
+  if (!cloudsc2::forms_valid(is_double, div, compact)) return static_cast<int>(cudaErrorInvalidValue);
   const Attributes a{out};
-  return cloudsc2::ad_dispatch(a, is_double, evap, lregcl);
+  return cloudsc2::ad_dispatch(a, is_double, evap, lregcl, div);
 }
 
 }  // extern "C"

@@ -11,13 +11,47 @@
 // the main path.
 #include <math.h>
 
+#include "scalar_math.h"
+
 // long double math for the reference evaluation, declared before the level
-// bodies so that their templates find it
+// bodies so that their templates find it.  Under a non-exact divide policy
+// (float points only) the reference takes the approximate reciprocal of the
+// same float operand, and carries out the Newton step and the products in
+// long double.
 namespace cloudsc2 {
 inline long double m_exp(long double x) { return expl(x); }
 inline long double m_tanh(long double x) { return tanhl(x); }
 inline long double m_sqrt(long double x) { return sqrtl(x); }
 inline long double m_pow(long double x, long double y) { return powl(x, y); }
+
+template <int D>
+inline long double rcp(long double x) {
+  if constexpr (D == DIV_EXACT) {
+    return 1.0L / x;
+  } else {
+    const long double r = rcp_approx(static_cast<float>(x));
+    if constexpr (D == DIV_FAITHFUL) return r * (2.0L - x * r);
+    return r;
+  }
+}
+
+template <int D>
+inline long double fdiv(long double a, long double b) {
+  if constexpr (D == DIV_EXACT) {
+    return a / b;
+  } else {
+    return a * rcp<D>(b);
+  }
+}
+
+template <int D>
+inline long double fdiv_scalar(long double a, long double b) {
+  if constexpr (D == DIV_EXACT) {
+    return a / b;
+  } else {
+    return a * (1.0L / b);
+  }
+}
 }  // namespace cloudsc2
 
 #include "ad_level.h"
@@ -41,11 +75,11 @@ struct HostRunner {
   const void* consts;
   int nlev, ncols;
 
-  template <typename T, bool EVAP, bool LREGCL>
+  template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
-    using Body = cloudsc2::ADBody<T, EVAP, LREGCL>;
+    using Body = cloudsc2::ADBody<T, EVAP, LREGCL, D>;
     cloudsc2::level_scan_host<Body, true>(
-        cloudsc2::make_ad_body<T, EVAP, LREGCL>(in, out, consts, nlev, ncols));
+        cloudsc2::make_ad_body<T, EVAP, LREGCL, D>(in, out, consts, nlev, ncols));
     return 0;
   }
 };
@@ -60,7 +94,7 @@ struct LevelRunner {
   const void* consts;
   int npoints;
 
-  template <typename T, bool EVAP, bool LREGCL>
+  template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
     cloudsc2::TLConst<T> c;
     int k = 0;
@@ -105,13 +139,13 @@ struct LevelRunner {
       xd.t_fg_i = d.t_fg;
       cloudsc2::TLCol<T> cold = col;
       cold.aph_s_i = d.aph_s;
-      const cloudsc2::TLLevelOut<T> o = cloudsc2::tl_level<T, EVAP, LREGCL>(carry, xd, cold, c);
+      const cloudsc2::TLLevelOut<T> o = cloudsc2::tl_level<T, EVAP, LREGCL, D>(carry, xd, cold, c);
       const cloudsc2::ADWeights<T> tl{carry.rfl_i, carry.sfl_i, carry.covptot_i, o.tnd_t_i,
                                       o.tnd_q_i,   o.tnd_ql_i,  o.tnd_qi_i,      o.clc_i,
                                       o.covptot_i};
       // the AD level at the weights w
       const cloudsc2::ADCot<T> g =
-          cloudsc2::ad_level_traced<T, EVAP, LREGCL>(x, col, traj, w, c, branches + p);
+          cloudsc2::ad_level_traced<T, EVAP, LREGCL, D>(x, col, traj, w, c, branches + p);
       int j = 0;
 #define CLOUDSC2_WRITE(n) static_cast<S*>(out[j++])[p] = static_cast<S>(tl.n);
       CLOUDSC2_AD_WEIGHTS(CLOUDSC2_WRITE)
@@ -132,11 +166,11 @@ const char* cloudsc2_ad_signature() { return cloudsc2::ad_signature(); }
 
 // Same arguments as cloudsc2_ad_launch (adjoint.cu) with host pointers and
 // no stream.
-int cloudsc2_ad_host(int is_double, int evap, int lregcl, const void* const* in,
+int cloudsc2_ad_host(int is_double, int evap, int lregcl, int div, int compact, const void* const* in,
                      void* const* out, const void* consts, int nlev, int ncols) {
-  if (nlev < 1 || ncols < 1) return 1;
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
   const HostRunner r{in, out, consts, nlev, ncols};
-  return cloudsc2::ad_dispatch(r, is_double, evap, lregcl);
+  return cloudsc2::ad_dispatch(r, is_double, evap, lregcl, div);
 }
 
 #define CLOUDSC2_STR(n) #n ","
@@ -153,23 +187,30 @@ const char* cloudsc2_ad_level_signature() {
 
 // At each of npoints points, tl_level at the given perturbations and
 // ad_level at the given weights.  precision: 0 float, 1 double, 2 long
-// double arithmetic on double arrays and constants.  in: host arrays of
+// double arithmetic on double arrays and constants (the reference of either
+// type: with a non-exact div, of float); div, compact: a form the library
+// holds, as for cloudsc2_ad_host (div exact in double).  in: host arrays of
 // npoints values in the order x, col, traj, dirs (the perturbation of each
 // direction), weights (the cotangent of each output); consts: TLConst's
 // values; out: the TL level's outputs in the order of weights, then the AD
 // level's cotangents in the order of dirs; branches: npoints masks of the
 // branches ad_level took (bit i: the i-th name of ";branches:").
-int cloudsc2_ad_level_host(int precision, int evap, int lregcl, const void* const* in,
-                           void* const* out, unsigned* branches, const void* consts,
-                           int npoints) {
-  if (npoints < 1 || precision < 0 || precision > 2) return 1;
-  if (precision == 0) {
-    return cloudsc2::ad_dispatch_t<LevelRunner<float>, float>(
-        LevelRunner<float>{in, out, branches, consts, npoints}, evap, lregcl);
-  }
-  const LevelRunner<double> r{in, out, branches, consts, npoints};
-  return precision == 1 ? cloudsc2::ad_dispatch_t<LevelRunner<double>, double>(r, evap, lregcl)
-                        : cloudsc2::ad_dispatch_t<LevelRunner<double>, long double>(r, evap, lregcl);
+int cloudsc2_ad_level_host(int precision, int evap, int lregcl, int div, int compact,
+                           const void* const* in, void* const* out, unsigned* branches,
+                           const void* consts, int npoints) {
+  if (npoints < 1 || precision < 0 || precision > 2 ||
+      !cloudsc2::forms_valid(precision == 1, div, compact))
+    return 1;
+  return cloudsc2::dispatch_type_div(precision == 1, div, 1, [&](auto, auto d) {
+    constexpr int D = decltype(d)::value;
+    if (precision == 0) {
+      return cloudsc2::ad_dispatch_t<LevelRunner<float>, float, D>(
+          LevelRunner<float>{in, out, branches, consts, npoints}, evap, lregcl);
+    }
+    const LevelRunner<double> r{in, out, branches, consts, npoints};
+    return precision == 1 ? cloudsc2::ad_dispatch_t<LevelRunner<double>, double, D>(r, evap, lregcl)
+                          : cloudsc2::ad_dispatch_t<LevelRunner<double>, long double, D>(r, evap, lregcl);
+  });
 }
 
 }  // extern "C"

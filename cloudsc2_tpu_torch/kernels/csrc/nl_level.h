@@ -59,8 +59,9 @@ namespace cloudsc2 {
   X(fhpsl) X(fhpsn) X(c_rfl) X(c_sfl) X(c_cov) X(qsat_out)
 
 // the int switches of the launch entry points, in their order (traj: 0 none,
-// 1 the trajectory too, 2 the trajectory only; div: a DivMode)
-#define CLOUDSC2_NL_SWITCHES(X) X(is_double) X(thermo) X(evap) X(traj) X(fuse) X(div)
+// 1 the trajectory too, 2 the trajectory only; div: a DivMode; compact:
+// CUADJ_COMPACT, which the library's form fixes, scalar_math.h)
+#define CLOUDSC2_NL_SWITCHES(X) X(is_double) X(thermo) X(evap) X(traj) X(fuse) X(div) X(compact)
 
 #define CLOUDSC2_STR(n) #n ","
 inline const char* nl_signature() {
@@ -191,9 +192,12 @@ CLOUDSC2_HD void critical_rh_coeffs(NLCol<T>& col) {
   col.rsq = T(1) / m_sqrt(col.deta1);
 }
 
-// cuadjtqs_nl (physics/cuadjtqs.py:85), compact form, rap = 1/ap
+// cuadjtqs_nl (physics/cuadjtqs.py:85), rap = rcp<D>(ap): the compact form,
+// or with kCompact off the reference-shaped one (:75-81), whose quotient
+// fdiv<D>(foeew, ap) is foeew * rap under a non-exact policy, as the JAX
+// form computes it in float
 template <int D, typename T>
-CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
+CLOUDSC2_HD void cuadjtqs_nl(T ap, T rap, T& t, T& q, const NLConst<T>& c) {
   const bool warm = t > c.rtt;
   const T z3es = warm ? c.r3les : c.r3ies;
   const T z4es = warm ? c.r4les : c.r4ies;
@@ -202,10 +206,19 @@ CLOUDSC2_HD void cuadjtqs_nl(T rap, T& t, T& q, const NLConst<T>& c) {
   for (int it = 0; it < 2; ++it) {
     const T rt4 = rcp<D>(t - z4es);
     const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rt4);
-    const T s = m_min(foeew * rap, c.zqmax);
-    const T u = T(1) - c.retv * s;
-    const T z2s = z5alcp * rt4 * rt4;
-    const T cond = fdiv<D>((q * u - s) * u, u * u + s * z2s);
+    T cond;
+    if constexpr (kCompact) {
+      const T s = m_min(foeew * rap, c.zqmax);
+      const T u = T(1) - c.retv * s;
+      const T z2s = z5alcp * rt4 * rt4;
+      cond = fdiv<D>((q * u - s) * u, u * u + s * z2s);
+    } else {
+      const T qs = m_min(fdiv<D>(foeew, ap), c.zqmax);
+      const T cor = rcp<D>(T(1) - c.retv * qs);
+      const T qsat = qs * cor;
+      const T z2s = z5alcp * rt4 * rt4;
+      cond = fdiv<D>(q - qsat, T(1) + qsat * cor * z2s);
+    }
     t = t + zaldcp * cond;
     q = q - cond;
   }
@@ -387,7 +400,7 @@ CLOUDSC2_HD NLLevelOut<T> nl_level(NLCarry<T>& carry, const NLLevelIn<T>& x,
   const T qold1 = qa;
 
   // saturation-adjustment clipping
-  cuadjtqs_nl<D>(rap, ta, qa, c);
+  cuadjtqs_nl<D>(ap, rap, ta, qa, c);
 
   // post-clipping rain fraction and freezing, on the adjusted temperature
   const T dq = m_max(qold1 - qa, zero);
@@ -531,9 +544,9 @@ inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> make_nl_body(const void
 
 // Call L.template run<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>() for the
 // runtime switches (traj: 0 none, 1 the trajectory too, 2 the trajectory
-// only): 96 bodies, the exact divide in float and double and the faithful
-// and approx policies in float, the only type the JAX kernel takes them in
-// (f64 divides exactly).  Every body combines FUSE with every TRAJ form, as
+// only): 96 bodies in a library of either saturation-adjustment form, the
+// exact divide in float and double and the faithful and approx policies in
+// float, the only type the JAX kernel takes them in (f64 divides exactly).  Every body combines FUSE with every TRAJ form, as
 // the JAX kernel accepts them.
 template <class L, typename T, int D, bool THERMO, bool EVAP, bool FUSE>
 inline int nl_dispatch_traj(const L& launcher, int traj) {
@@ -557,19 +570,17 @@ inline int nl_dispatch_t(const L& launcher, int thermo, int evap, int traj, int 
               : nl_dispatch_fuse<L, T, D, false, false>(launcher, traj, fuse);
 }
 
-// The switches' range, checked by both entries before nl_dispatch; returns
-// true when valid.
-inline bool nl_switches_valid(int nlev, int ncols, int is_double, int traj, int div) {
-  return nlev >= 1 && ncols >= 1 && traj >= 0 && traj <= 2 && div >= DIV_EXACT && div <= DIV_APPROX &&
-         !(is_double && div != DIV_EXACT);
+// The switches' range and the library's form, checked by both entries
+// before nl_dispatch; returns true when valid.
+inline bool nl_switches_valid(int nlev, int ncols, int is_double, int traj, int div, int compact) {
+  return nlev >= 1 && ncols >= 1 && traj >= 0 && traj <= 2 && forms_valid(is_double, div, compact);
 }
 
 template <class L>
 inline int nl_dispatch(const L& launcher, int is_double, int thermo, int evap, int traj, int fuse, int div) {
-  if (is_double) return nl_dispatch_t<L, double, DIV_EXACT>(launcher, thermo, evap, traj, fuse);
-  if (div == DIV_FAITHFUL) return nl_dispatch_t<L, float, DIV_FAITHFUL>(launcher, thermo, evap, traj, fuse);
-  if (div == DIV_APPROX) return nl_dispatch_t<L, float, DIV_APPROX>(launcher, thermo, evap, traj, fuse);
-  return nl_dispatch_t<L, float, DIV_EXACT>(launcher, thermo, evap, traj, fuse);
+  return dispatch_type_div(is_double, div, -1, [&](auto t, auto d) {
+    return nl_dispatch_t<L, decltype(t), decltype(d)::value>(launcher, thermo, evap, traj, fuse);
+  });
 }
 
 #ifdef __CUDACC__

@@ -4,8 +4,10 @@
 // CLOUDSC2 nonlinear step on Hopper (sm_90a): the port of the Pallas kernel
 // cloudsc2_nl_pallas (cloudsc2_tpu/pallas/nonlinear.py:76) and of its
 // level-scan harness level_scan_pallas (cloudsc2_tpu/pallas/levelscan.py:402).
-// It holds the exact divide in float and double, and the FAST_DIV faithful
-// and approx policies (cloudsc2_tpu/physics/fastmath.py:34-78) in float:
+// A library holds one form of the saturation adjustment (CUADJ_COMPACT,
+// scalar_math.h "library forms"), and in it the exact divide in float and
+// double and the FAST_DIV faithful and approx policies
+// (cloudsc2_tpu/physics/fastmath.py:34-78) in float:
 // every divide the JAX body routes through fastmath.rcp / div becomes the
 // hardware approximate reciprocal, PTX rcp.approx.ftz.f32, with one Newton
 // step in faithful (scalar_math.h says how and why).  The JAX kernel divides
@@ -58,14 +60,15 @@ const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
 // Launch one NL step on `stream`.  Switches in the order of
 // CLOUDSC2_NL_SWITCHES (nl_level.h); div is 0 (exact), 1 (faithful) or 2
-// (approx), and 0 when is_double.  in/out: device pointers in the order of
+// (approx), and 0 when is_double; compact must be the library's form
+// (CLOUDSC2_COMPACT, scalar_math.h).  in/out: device pointers in the order of
 // CLOUDSC2_NL_INPUTS/OUTPUTS (those not read or written may be null);
 // consts: host pointer to NLConst<T>.  Returns the cudaError_t of the launch
 // (0 on success).
-int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, int div,
+int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
                        const void* const* in, void* const* out, const void* consts, int nlev,
                        int ncols, void* stream) {
-  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div))
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div, compact))
     return static_cast<int>(cudaErrorInvalidValue);
   const cloudsc2::NLLauncher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
   return cloudsc2::nl_dispatch(l, is_double, thermo, evap, traj, fuse, div);

@@ -16,9 +16,9 @@ const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
 // Same arguments as cloudsc2_nl_launch (nonlinear.cu) with host pointers
 // and no stream; returns 0 on success.
-int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, int fuse, int div,
+int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
                      const void* const* in, void* const* out, const void* consts, int nlev, int ncols) {
-  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div)) return 1;
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div, compact)) return 1;
   const cloudsc2::NLHostRunner r{in, out, consts, nlev, ncols};
   return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj, fuse, div);
 }

@@ -22,7 +22,8 @@
 //     divide the same numbers.
 //   * Every divide that the JAX body routes through fastmath.rcp / div
 //     (cloudsc2_tpu/physics/fastmath.py:51-78) is rcp<D> / fdiv<D> below,
-//     D the divide policy of Constants.FAST_DIV; the others stay '/'.
+//     D the divide policy of Constants.FAST_DIV, or fdiv_scalar<D> where
+//     the divisor is a per-level scalar; the others stay '/'.
 #pragma once
 
 #include <math.h>
@@ -69,7 +70,10 @@ template <typename T> CLOUDSC2_HD T m_max(T a, T b) { return b > a ? b : a; }
 // Under a non-exact policy fdiv(a, b) is a * rcp(b): two roundings, as in
 // JAX.  Only float takes a non-exact policy: double always divides exactly
 // (fastmath: non-f32 operands fall back to exact division), and the
-// kernels instantiate the non-exact policies for float only.
+// kernels instantiate the non-exact policies for float only.  The
+// adjoint's reverse level divides its cotangents by the same forward
+// values under the same policy: a TL term x_i * rcp(b) transposes to
+// x_b * rcp(b).
 enum DivMode { DIV_EXACT = 0, DIV_FAITHFUL = 1, DIV_APPROX = 2 };
 
 // float rounded to bfloat16 (to nearest, ties to even) and back, as
@@ -114,6 +118,75 @@ CLOUDSC2_HD float fdiv(float a, float b) {
   } else {
     return a * rcp<D>(b);
   }
+}
+
+// A divide by a per-level scalar (1 - scalm in the TL): fastmath.rcp keeps
+// 1/x exact for an operand of fewer than two dimensions, which inside the
+// Pallas kernels are the level's scalars, so under a non-exact policy the
+// quotient is a * (1/b), an exact reciprocal and a product.
+template <int D> CLOUDSC2_HD double fdiv_scalar(double a, double b) { return a / b; }
+
+template <int D>
+CLOUDSC2_HD float fdiv_scalar(float a, float b) {
+  if constexpr (D == DIV_EXACT) {
+    return a / b;
+  } else {
+    return a * (1.0f / b);
+  }
+}
+
+// ------------------------------------------------------------ library forms
+// The forms one build of a kernel source holds.  kernels/build.py passes
+// them as -D flags, one library per form, so that a library of the default
+// form compiles the same bodies whatever the others add:
+//   CLOUDSC2_COMPACT  1: the compact saturation adjustment (CUADJ_COMPACT,
+//                     the default); 0: the reference-shaped form;
+//   CLOUDSC2_DIVS     the divide policies held for float, bit D for policy
+//                     D; the exact bit also holds double, which divides
+//                     exactly under every policy.
+#ifndef CLOUDSC2_COMPACT
+#define CLOUDSC2_COMPACT 1
+#endif
+#ifndef CLOUDSC2_DIVS
+#define CLOUDSC2_DIVS 1
+#endif
+constexpr bool kCompact = CLOUDSC2_COMPACT != 0;
+
+template <int D>
+constexpr bool has_div() {
+  return ((CLOUDSC2_DIVS) >> D) & 1;
+}
+
+// Whether the library holds the form of the switches (div: a DivMode;
+// compact: CUADJ_COMPACT).
+inline bool forms_valid(int is_double, int div, int compact) {
+  if ((compact != 0) != kCompact || div < DIV_EXACT || div > DIV_APPROX) return false;
+  if (is_double) return div == DIV_EXACT && has_div<DIV_EXACT>();
+  return ((CLOUDSC2_DIVS) >> div) & 1;
+}
+
+// A divide policy as a type, for dispatch_type_div's callers.
+template <int D>
+struct DivTag {
+  static constexpr int value = D;
+};
+
+// f(T(), DivTag<D>()) for the type and divide policy of the switches, over
+// those the library holds (check forms_valid first; `refused` is returned
+// for any other).
+template <class F>
+inline int dispatch_type_div(int is_double, int div, int refused, const F& f) {
+  if (is_double) {
+    if constexpr (has_div<DIV_EXACT>()) return f(double(), DivTag<DIV_EXACT>());
+    return refused;
+  }
+  if constexpr (has_div<DIV_FAITHFUL>())
+    if (div == DIV_FAITHFUL) return f(float(), DivTag<DIV_FAITHFUL>());
+  if constexpr (has_div<DIV_APPROX>())
+    if (div == DIV_APPROX) return f(float(), DivTag<DIV_APPROX>());
+  if constexpr (has_div<DIV_EXACT>())
+    if (div == DIV_EXACT) return f(float(), DivTag<DIV_EXACT>());
+  return refused;
 }
 
 }  // namespace cloudsc2

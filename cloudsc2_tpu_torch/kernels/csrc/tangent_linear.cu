@@ -37,6 +37,11 @@
 // the second tropopause read is the only redundant traffic.  Making it
 // fast (fewer live values, occupancy) is later work.
 //
+// A library holds one form of the saturation adjustment and a set of
+// divide policies (scalar_math.h "library forms"): the default library the
+// compact form and the exact divide, built apart from the FAST_DIV and the
+// CUADJ_COMPACT=False forms so that its bodies do not change.
+//
 // Built with --fmad=false so that the result matches the plain torch
 // version (which never fuses a*b+c); never with fast math.
 #include <cuda_runtime.h>
@@ -52,10 +57,10 @@ struct Launcher {
   int nlev, ncols;
   cudaStream_t stream;
 
-  template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY>
+  template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY, int D>
   int run() const {
     const auto body =
-        cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY>(in, out, consts, nlev, ncols);
+        cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY, D>(in, out, consts, nlev, ncols);
     const int threads = 128;
     const int blocks = (ncols + threads - 1) / threads;
     cloudsc2::level_scan_kernel<<<blocks, threads, 0, stream>>>(body);
@@ -69,16 +74,19 @@ extern "C" {
 
 const char* cloudsc2_tl_signature() { return cloudsc2::tl_signature(); }
 
-// Launch one TL step on `stream`.  in/out: device pointers in the order of
+// Launch one TL step on `stream`.  div is 0 (exact), 1 (faithful) or 2
+// (approx), and compact CUADJ_COMPACT: a form the library holds
+// (scalar_math.h "library forms").  in/out: device pointers in the order of
 // CLOUDSC2_TL_INPUTS/OUTPUTS (the first ten outputs may be null with
 // tangent_only); consts: host pointer to TLConst<T>.  Returns the
 // cudaError_t of the launch (0 on success).
-int cloudsc2_tl_launch(int is_double, int evap, int lregcl, int tangent_only,
+int cloudsc2_tl_launch(int is_double, int evap, int lregcl, int tangent_only, int div, int compact,
                        const void* const* in, void* const* out, const void* consts, int nlev,
                        int ncols, void* stream) {
-  if (nlev < 1 || ncols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Launcher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
-  return cloudsc2::tl_dispatch(l, is_double, evap, lregcl, tangent_only);
+  return cloudsc2::tl_dispatch(l, is_double, evap, lregcl, tangent_only, div);
 }
 
 }  // extern "C"

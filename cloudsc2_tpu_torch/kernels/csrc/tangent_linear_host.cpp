@@ -15,10 +15,10 @@ struct HostRunner {
   const void* consts;
   int nlev, ncols;
 
-  template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY>
+  template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY, int D>
   int run() const {
     cloudsc2::level_scan_host(
-        cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY>(in, out, consts, nlev, ncols));
+        cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY, D>(in, out, consts, nlev, ncols));
     return 0;
   }
 };
@@ -31,12 +31,12 @@ const char* cloudsc2_tl_signature() { return cloudsc2::tl_signature(); }
 
 // Same arguments as cloudsc2_tl_launch (tangent_linear.cu) with host
 // pointers and no stream.
-int cloudsc2_tl_host(int is_double, int evap, int lregcl, int tangent_only,
+int cloudsc2_tl_host(int is_double, int evap, int lregcl, int tangent_only, int div, int compact,
                      const void* const* in, void* const* out, const void* consts, int nlev,
                      int ncols) {
-  if (nlev < 1 || ncols < 1) return 1;
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
   const HostRunner r{in, out, consts, nlev, ncols};
-  return cloudsc2::tl_dispatch(r, is_double, evap, lregcl, tangent_only);
+  return cloudsc2::tl_dispatch(r, is_double, evap, lregcl, tangent_only, div);
 }
 
 }  // extern "C"

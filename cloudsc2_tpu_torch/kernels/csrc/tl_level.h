@@ -10,10 +10,12 @@
 // x_i, and every expression is the JAX expression with the same operand
 // order (rules in scalar_math.h).  The critical RH and the tropopause are
 // the NL body's (nl_level.h), as the JAX TL imports them from the NL.
-// Static switches are template bools:
+// Static switches are template parameters:
 //   EVAP = LEVAPLS2 || LDRAIN1D;  LREGCL (the three in-level damping sites;
 //   the autoconversion one is folded into dl_k/di_k);  TANGENT_ONLY (write
-//   only the *_i outputs).
+//   only the *_i outputs);  D, the divide policy of Constants.FAST_DIV
+//   (scalar_math.h) at every divide the JAX body routes through fastmath.
+// The library's form picks the saturation adjustment (kCompact).
 // The TL always uses the tanh water fraction, so it has no THERMO switch.
 #pragma once
 
@@ -103,9 +105,10 @@ struct TLLevelOut {
   T tnd_t_i, tnd_q_i, tnd_ql_i, tnd_qi_i, clc_i, covptot_i;
 };
 
-// cuadjtqs_tl (physics/cuadjtqs.py:147), compact form: two iterations with
-// the phase chosen once from the input temperature and qp = 1/ap shared.
-template <typename T>
+// cuadjtqs_tl (physics/cuadjtqs.py:147): two iterations with the phase
+// chosen once from the input temperature and qp = 1/ap shared; the compact
+// form, or with kCompact off the reference-shaped one (:134-143).
+template <int D, typename T>
 CLOUDSC2_HD void cuadjtqs_tl(T ap, T ap_i, T& t, T& t_i, T& q, T& q_i, const TLConst<T>& c) {
   const T one = T(1), zero = T(0);
   const bool warm = t > c.rtt;
@@ -113,10 +116,10 @@ CLOUDSC2_HD void cuadjtqs_tl(T ap, T ap_i, T& t, T& t_i, T& q, T& q_i, const TLC
   const T z4es = warm ? c.r4les : c.r4ies;
   const T z5alcp = warm ? c.r5alvcp : c.r5alscp;
   const T zaldcp = warm ? c.ralvdcp : c.ralsdcp;
-  const T qp = one / ap;
+  const T qp = rcp<D>(ap);
   for (int it = 0; it < 2; ++it) {
     const T qp_i = -ap_i * qp * qp;
-    const T rt4 = one / (t - z4es);
+    const T rt4 = rcp<D>(t - z4es);
     const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rt4);
     const T foeew_i = foeew * z3es * t_i * (c.rtt - z4es) * rt4 * rt4;
     const T qsat = qp * foeew;
@@ -126,16 +129,28 @@ CLOUDSC2_HD void cuadjtqs_tl(T ap, T ap_i, T& t, T& t_i, T& q, T& q_i, const TLC
     const T s_i = noclip ? qsat_i : zero;
     const T z2s = z5alcp * rt4 * rt4;
     const T z2s_i = T(-2) * z2s * t_i * rt4;
-    const T u = one - c.retv * s;
-    const T u_i = -c.retv * s_i;
-    const T w = q * u - s;
-    const T num = w * u;
-    const T den = u * u + s * z2s;
-    const T num_i = (q_i * u + q * u_i - s_i) * u + w * u_i;
-    const T den_i = T(2) * u * u_i + s_i * z2s + s * z2s_i;
-    const T rden = one / den;
-    const T cond = num * rden;
-    const T cond_i = (num_i - cond * den_i) * rden;
+    T cond, cond_i;
+    if constexpr (kCompact) {
+      const T u = one - c.retv * s;
+      const T u_i = -c.retv * s_i;
+      const T w = q * u - s;
+      const T num = w * u;
+      const T den = u * u + s * z2s;
+      const T num_i = (q_i * u + q * u_i - s_i) * u + w * u_i;
+      const T den_i = T(2) * u * u_i + s_i * z2s + s * z2s_i;
+      const T rden = rcp<D>(den);
+      cond = num * rden;
+      cond_i = (num_i - cond * den_i) * rden;
+    } else {
+      const T cor = rcp<D>(one - c.retv * s);
+      const T cor_i = c.retv * s_i * cor * cor;
+      const T qs_i = s_i * cor + s * cor_i;
+      const T qs = s * cor;
+      const T rdenom = rcp<D>(one + qs * cor * z2s);
+      cond = (q - qs) * rdenom;
+      cond_i = (q_i - qs_i) * rdenom -
+               (q - qs) * (qs_i * cor * z2s + qs * cor_i * z2s + qs * cor * z2s_i) * rdenom * rdenom;
+    }
     t = t + zaldcp * cond;
     t_i = t_i + zaldcp * cond_i;
     q = q - cond;
@@ -145,7 +160,7 @@ CLOUDSC2_HD void cuadjtqs_tl(T ap, T ap_i, T& t, T& t_i, T& q, T& q_i, const TLC
 
 // ---------------------------------------------------------------- tl_level ----
 // tl_level_pre (tangent_linear.py:54) + tl_level_post (:403) on one point.
-template <typename T, bool EVAP, bool LREGCL>
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
 CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
                                    const TLCol<T>& col, const TLConst<T>& c) {
   const T one = T(1), zero = T(0);
@@ -160,7 +175,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   // thermodynamic coefficients, one shared reciprocal of D
   const T zd = c.rcpd + c.rcpd_rvtmp2 * q;
   const T zd_i = c.rcpd_rvtmp2 * q_i;
-  const T zz = one / zd;
+  const T zz = rcp<D>(zd);
   const T zz_i = -zd_i * (zz * zz);
   const T lfdcp = c.rlmlt * zz, lfdcp_i = c.rlmlt * zz_i;
   const T lsdcp = c.rlstt * zz, lsdcp_i = c.rlstt * zz_i;
@@ -173,10 +188,10 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   const T fwat_i = cold ? T(0.545 * 0.17) * t_i * (one - th * th) : zero;
   const T z3es = cold ? c.r3ies : c.r3les;
   const T z4es = cold ? c.r4ies : c.r4les;
-  const T rl = one / (t - c.r4les);
-  const T ri = one / (t - c.r4ies);
+  const T rl = rcp<D>(t - c.r4les);
+  const T ri = rcp<D>(t - c.r4ies);
   const T rz4es = cold ? ri : rl;
-  const T rap = one / ap;
+  const T rap = rcp<D>(ap);
   const T foeew = c.r2es * m_exp(z3es * (t - c.rtt) * rz4es);
   const T foeew_i = z3es * (c.rtt - z4es) * t_i * foeew * (rz4es * rz4es);
   const T esdp0 = foeew * rap;
@@ -191,7 +206,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   const T faci_i = c.m2_r5ies * t_i * (ri * ri * ri);
   const T fac = fwat * facw + (one - fwat) * faci;
   const T fac_i = fwat_i * (facw - faci) + fwat * facw_i + (one - fwat) * faci_i;
-  const T cor = one / (one - c.retv * esdp);
+  const T cor = rcp<D>(one - c.retv * esdp);
   const T cor_i = c.retv * esdp_i * (cor * cor);
   const T dqsdtemp = fac * cor * qsat_in;
   const T dqsdtemp_i = fac_i * cor * qsat_in + fac * cor_i * qsat_in + fac * cor * qsat_in_i;
@@ -221,7 +236,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   const T qpd = qsat - qt, qpd_i = qsat_i - qt_i;
   const T qcd = qsat - qcrit, qcd_i = qsat_i - qcrit_i;
   const T denom = qcd - scalm * (qt - qcrit);
-  const T rdenom = one / (mid ? denom : one);
+  const T rdenom = rcp<D>(mid ? denom : one);
   const T ratio = mid ? qpd * rdenom : zero;
   const T clc_mid = one - m_sqrt(ratio);
   const T rtmp1 = one / m_sqrt(mid ? ratio : one);
@@ -229,9 +244,9 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
                 (rdenom * rdenom);
   if (LREGCL) {
     // regularization of the cloud-fraction perturbation
-    const T rat = qpd / (mid ? qcd : one);
+    const T rat = fdiv<D>(qpd, mid ? qcd : one);
     const T u = one - scalm * (one - rat);
-    const T yyy = m_min(T(3.5) * m_sqrt(m_max(rat * (u * u * u), zero)) / (one - scalm), T(0.3));
+    const T yyy = m_min(fdiv_scalar<D>(T(3.5) * m_sqrt(m_max(rat * (u * u * u), zero)), one - scalm), T(0.3));
     clc_mid_i = clc_mid_i * yyy;
   }
   const T qc_mid = (scalm * qpd + (one - scalm) * qcd) * (clc_mid * clc_mid);
@@ -245,13 +260,13 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   T qc_i = low ? zero : (high ? qc_high_i : qc_mid_i);
 
   // convective detrainment; one reciprocal each of dp and lu1_safe
-  const T rdp = one / dp;
+  const T rdp = rcp<D>(dp);
   const T gdp = c.rg * rdp;
   const T gdp_i = -c.rg * dp_i * (rdp * rdp);
   const T lude = c.dt * x.lude * gdp;
   const T lude_i = c.dt * (x.lude_i * gdp + x.lude * gdp_i);
   const bool lo1 = (lude >= c.rlmin) && (x.lu_next >= c.zeps2);
-  const T rlu1 = one / (lo1 ? x.lu_next : one);
+  const T rlu1 = rcp<D>(lo1 ? x.lu_next : one);
   const T tmp2 = m_exp(-lude * rlu1);
   const T clc_i_conv = -clc_i * (one - tmp2) +
                        (one - clc) * tmp2 * ((lude_i - lude * x.lu_next_i * rlu1) * rlu1);
@@ -261,17 +276,17 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   qc_i = qc_i + (lo1 ? lude_i : zero);
 
   // compensating subsidence
-  const T fac1 = one / (c.rd * t);
+  const T fac1 = rcp<D>(c.rd * t);
   const T rho = ap * fac1;
   const T rho_i = (ap_i - ap * t_i * (c.rd * fac1)) * fac1;
-  const T fac2 = one / (ap - c.retv * foeew);
+  const T fac2 = rcp<D>(ap - c.retv * foeew);
   const T rodqsdp = -rho * qsat_in * fac2;
   const T rodqsdp_i =
       (-rho_i * qsat_in - rho * qsat_in_i + rho * qsat_in * (ap_i - c.retv * foeew_i) * fac2) *
       fac2;
   const T ldcp = fwat * lvdcp + (one - fwat) * lsdcp;
   const T ldcp_i = fwat_i * (lvdcp - lsdcp) + fwat * lvdcp_i + (one - fwat) * lsdcp_i;
-  const T fac3 = one / (one + ldcp * dqsdtemp);
+  const T fac3 = rcp<D>(one + ldcp * dqsdtemp);
   const T dtdzmo = c.rg * (c.rcpd_inv - ldcp * rodqsdp) * fac3;
   const T dtdzmo_i = -(c.rg * (ldcp_i * rodqsdp + ldcp * rodqsdp_i) +
                        dtdzmo * (ldcp_i * dqsdtemp + ldcp * dqsdtemp_i)) *
@@ -306,7 +321,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
 
   // autoconversion of cloud water, and the carry-free half for ice
   const bool act = clc > c.zeps2;
-  const T rclc = one / (act ? clc : one);
+  const T rclc = rcp<D>(act ? clc : one);
   const T cldl = qlwc * rclc;
   const T cldl_i = (qlwc_i - cldl * clc_i) * rclc;
   const T ltmp4 = m_exp(-(cldl * cldl * c.lcrit_k));
@@ -382,36 +397,36 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
     const T covptot_safe = eact ? covptot : one;
     const T covpclr_safe = eact ? covpclr : one;
     const T prtot_safe = eact ? prtot : one;
-    T preclr = prtot * covpclr / covptot_safe;
-    T preclr_i = (prtot_i * covpclr + prtot * covpclr_i) / covptot_safe -
-                 prtot * covpclr * covptot_i / (covptot_safe * covptot_safe);
+    T preclr = fdiv<D>(prtot * covpclr, covptot_safe);
+    T preclr_i = fdiv<D>(prtot_i * covpclr + prtot * covpclr_i, covptot_safe) -
+                 fdiv<D>(prtot * covpclr * covptot_i, covptot_safe * covptot_safe);
     const T clcc = eact ? one - clc : one;
     // the qlim, corqs and tmp6, dtgdp factors of tl_level_pre
-    const T qe = qsat_in - (qsat_in - qlim) * covpclr / (clcc * clcc);
+    const T qe = qsat_in - fdiv<D>((qsat_in - qlim) * covpclr, clcc * clcc);
     const T qe_i =
         qsat_in_i -
-        (qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i) / (clcc * clcc) -
-        T(2) * (qsat_in - qlim) * covpclr * clc_i / (clcc * clcc * clcc);
-    const T tmp6 = m_sqrt(ap / col.aph_s);
+        fdiv<D>(qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i, clcc * clcc) -
+        fdiv<D>(T(2) * (qsat_in - qlim) * covpclr * clc_i, clcc * clcc * clcc);
+    const T tmp6 = m_sqrt(fdiv<D>(ap, col.aph_s));
     const T preclr_safe = (eact && preclr > zero) ? preclr : one;
     const T beta = c.rg_rpecons *
-                   m_pow(tmp6 * preclr_safe / (T(0.00509) * covpclr_safe), T(0.5777));
+                   m_pow(fdiv<D>(tmp6 * preclr_safe, T(0.00509) * covpclr_safe), T(0.5777));
     // exact derivatives of tmp6 = sqrt(ap/aph_s) and of the b quotient,
     // where the JAX package departs from GT4Py
     const T beta_i =
-        c.beta_i_k * m_pow(T(0.00509) * covpclr_safe / (tmp6 * preclr_safe), T(0.4223)) *
-        ((tmp6 * preclr_i + T(0.5) * preclr_safe * ap_i / (tmp6 * col.aph_s) -
-          T(0.5) * preclr_safe * tmp6 * col.aph_s_i / col.aph_s) *
-             (one / covpclr_safe) -
-         tmp6 * preclr_safe * covpclr_i / (covpclr_safe * covpclr_safe));
+        c.beta_i_k * m_pow(fdiv<D>(T(0.00509) * covpclr_safe, tmp6 * preclr_safe), T(0.4223)) *
+        ((tmp6 * preclr_i + fdiv<D>(T(0.5) * preclr_safe * ap_i, tmp6 * col.aph_s) -
+          fdiv<D>(T(0.5) * preclr_safe * tmp6 * col.aph_s_i, col.aph_s)) *
+             rcp<D>(covpclr_safe) -
+         fdiv<D>(tmp6 * preclr_safe * covpclr_i, covpclr_safe * covpclr_safe));
     const T vb = one + c.dt * beta * corqs;
-    const T b = c.dt * beta * (qsat_in - qe) / vb;
-    const T b_i = c.dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)) / vb -
-                  c.dt * b * (beta_i * corqs + beta * corqs_i) / vb;
-    const T dtgdp = c.dt_rg / dp;
-    const T dtgdp_i = c.mdt_rg * dp_i / (dp * dp);
-    T dpr = covpclr * b / dtgdp;
-    T dpr_i = (covpclr_i * b + covpclr * b_i) / dtgdp - covpclr * b * dtgdp_i / (dtgdp * dtgdp);
+    const T b = fdiv<D>(c.dt * beta * (qsat_in - qe), vb);
+    const T b_i = fdiv<D>(c.dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)), vb) -
+                  fdiv<D>(c.dt * b * (beta_i * corqs + beta * corqs_i), vb);
+    const T dtgdp = fdiv<D>(c.dt_rg, dp);
+    const T dtgdp_i = fdiv<D>(c.mdt_rg * dp_i, dp * dp);
+    T dpr = fdiv<D>(covpclr * b, dtgdp);
+    T dpr_i = fdiv<D>(covpclr_i * b + covpclr * b_i, dtgdp) - fdiv<D>(covpclr * b * dtgdp_i, dtgdp * dtgdp);
     const bool big = dpr > preclr;
     dpr = eact ? (big ? preclr : dpr) : zero;
     dpr_i = eact ? (big ? preclr_i : dpr_i) : zero;
@@ -422,15 +437,15 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
     covptot_i = drained ? clc_i : covptot_i;
     covptot_out = eact ? covptot : zero;
     covptot_out_i = eact ? covptot_i : zero;
-    evapr = eact ? dpr * rfln / prtot_safe : zero;
-    evapr_i = eact ? (dpr_i * rfln + dpr * rfln_i) / prtot_safe -
-                         dpr * rfln * prtot_i / (prtot_safe * prtot_safe)
+    evapr = eact ? fdiv<D>(dpr * rfln, prtot_safe) : zero;
+    evapr_i = eact ? fdiv<D>(dpr_i * rfln + dpr * rfln_i, prtot_safe) -
+                         fdiv<D>(dpr * rfln * prtot_i, prtot_safe * prtot_safe)
                    : zero;
     rfln = rfln - evapr;
     rfln_i = rfln_i - evapr_i;
-    evaps = eact ? dpr * sfln / prtot_safe : zero;
-    evaps_i = eact ? (dpr_i * sfln + dpr * sfln_i) / prtot_safe -
-                         dpr * sfln * prtot_i / (prtot_safe * prtot_safe)
+    evaps = eact ? fdiv<D>(dpr * sfln, prtot_safe) : zero;
+    evaps_i = eact ? fdiv<D>(dpr_i * sfln + dpr * sfln_i, prtot_safe) -
+                         fdiv<D>(dpr * sfln * prtot_i, prtot_safe * prtot_safe)
                    : zero;
     sfln = sfln - evaps;
     sfln_i = sfln_i - evaps_i;
@@ -462,7 +477,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
   T qa = qold, qa_i = qold_i;
 
   // final clipping
-  cuadjtqs_tl(ap, ap_i, ta, ta_i, qa, qa_i, c);
+  cuadjtqs_tl<D>(ap, ap_i, ta, ta_i, qa, qa_i, c);
   const bool clipped = qold >= qa;
   const T dq = m_max(qold - qa, zero);
   T dq_i = clipped ? qold_i - qa_i : zero;
@@ -508,7 +523,7 @@ CLOUDSC2_HD TLLevelOut<T> tl_level(TLCarry<T>& carry, const TLLevelIn<T>& x,
 // The Body of level_scan_column: what cloudsc2_tl_pallas
 // (cloudsc2_tpu/pallas/tangent_linear.py:69) and its XLA wrapper compute,
 // for one column.
-template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY>
+template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY, int D = DIV_EXACT>
 struct TLBody {
   TLFields<T> f;
   TLConst<T> c;
@@ -578,7 +593,7 @@ struct TLBody {
     x.t_fg_i = f.t_i[i] + c.dt * f.tnd_cml_t_i[i];
     x.eta = f.eta[k];
     x.scalm = f.scalm[k];
-    const TLLevelOut<T> o = tl_level<T, EVAP, LREGCL>(s.carry, x, s.col, c);
+    const TLLevelOut<T> o = tl_level<T, EVAP, LREGCL, D>(s.carry, x, s.col, c);
     if (!TANGENT_ONLY) {
       f.tnd_t[i] = o.tnd_t;
       f.tnd_q[i] = o.tnd_q;
@@ -598,12 +613,12 @@ struct TLBody {
 };
 
 // Fill a body from the wrapper's pointer lists (orders as in the X-lists).
-template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY>
-inline TLBody<T, EVAP, LREGCL, TANGENT_ONLY> make_tl_body(const void* const* in,
-                                                         void* const* out,
-                                                         const void* consts, int nlev,
-                                                         int ncols) {
-  TLBody<T, EVAP, LREGCL, TANGENT_ONLY> b;
+template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY, int D = DIV_EXACT>
+inline TLBody<T, EVAP, LREGCL, TANGENT_ONLY, D> make_tl_body(const void* const* in,
+                                                            void* const* out,
+                                                            const void* consts, int nlev,
+                                                            int ncols) {
+  TLBody<T, EVAP, LREGCL, TANGENT_ONLY, D> b;
   int i = 0;
 #define CLOUDSC2_FIELD(n) b.f.n = static_cast<const T*>(in[i++]);
   CLOUDSC2_TL_INPUTS(CLOUDSC2_FIELD)
@@ -618,27 +633,30 @@ inline TLBody<T, EVAP, LREGCL, TANGENT_ONLY> make_tl_body(const void* const* in,
   return b;
 }
 
-// Call L.template run<T, EVAP, LREGCL, TANGENT_ONLY>() for the runtime
-// switches; this instantiates all 8 switch triples x 2 dtypes.
-template <class L, typename T, bool EVAP, bool LREGCL>
+// Call L.template run<T, EVAP, LREGCL, TANGENT_ONLY, D>() for the runtime
+// switches: the 8 switch triples for each type and divide policy the
+// library holds (scalar_math.h "library forms"; check forms_valid first).
+template <class L, typename T, int D, bool EVAP, bool LREGCL>
 inline int tl_dispatch_only(const L& launcher, int tangent_only) {
-  return tangent_only ? launcher.template run<T, EVAP, LREGCL, true>()
-                      : launcher.template run<T, EVAP, LREGCL, false>();
+  return tangent_only ? launcher.template run<T, EVAP, LREGCL, true, D>()
+                      : launcher.template run<T, EVAP, LREGCL, false, D>();
 }
 
-template <class L, typename T>
+template <class L, typename T, int D>
 inline int tl_dispatch_t(const L& launcher, int evap, int lregcl, int tangent_only) {
   if (evap)
-    return lregcl ? tl_dispatch_only<L, T, true, true>(launcher, tangent_only)
-                  : tl_dispatch_only<L, T, true, false>(launcher, tangent_only);
-  return lregcl ? tl_dispatch_only<L, T, false, true>(launcher, tangent_only)
-                : tl_dispatch_only<L, T, false, false>(launcher, tangent_only);
+    return lregcl ? tl_dispatch_only<L, T, D, true, true>(launcher, tangent_only)
+                  : tl_dispatch_only<L, T, D, true, false>(launcher, tangent_only);
+  return lregcl ? tl_dispatch_only<L, T, D, false, true>(launcher, tangent_only)
+                : tl_dispatch_only<L, T, D, false, false>(launcher, tangent_only);
 }
 
 template <class L>
-inline int tl_dispatch(const L& launcher, int is_double, int evap, int lregcl, int tangent_only) {
-  return is_double ? tl_dispatch_t<L, double>(launcher, evap, lregcl, tangent_only)
-                   : tl_dispatch_t<L, float>(launcher, evap, lregcl, tangent_only);
+inline int tl_dispatch(const L& launcher, int is_double, int evap, int lregcl, int tangent_only,
+                       int div) {
+  return dispatch_type_div(is_double, div, -1, [&](auto t, auto d) {
+    return tl_dispatch_t<L, decltype(t), decltype(d)::value>(launcher, evap, lregcl, tangent_only);
+  });
 }
 
 }  // namespace cloudsc2

@@ -7,8 +7,9 @@ cloudsc2_nl_pallas` (``pallas/nonlinear.py:76``), its ``with_trajectory``
 form (``:214-226``, the adjoint's forward sweep), its ``traj_only`` form
 (``:367-392,458``, the forward sweep of a gradient-only adjoint), its
 ``fuse_saturation`` form (``:105-110,186-212``, ``qsat`` diagnosed inside
-the kernel and returned) and its ``FAST_DIV`` divide modes
-(``physics/fastmath.py:34-78``) included, and, for it, the level-scan
+the kernel and returned), its ``FAST_DIV`` divide modes
+(``physics/fastmath.py:34-78``) and its ``CUADJ_COMPACT=False`` saturation
+adjustment (``physics/cuadjtqs.py:75-81``) included, and, for it, the level-scan
 harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
 CUDA C++ (``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and
 ``csrc/levelscan.cuh``, the exact divide in float and double and the
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +39,6 @@ from cloudsc2_tpu_torch.physics.fastmath import DIV_MODES
 from cloudsc2_tpu_torch.physics.nonlinear import (
     TRAJ_OUTPUTS,
     check_constants,
-    check_nl_constants,
     scalm_profile,
     trajectory_names,
 )
@@ -59,7 +59,7 @@ STEP_OUTPUTS = (
 )
 NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS + ("qsat_out",)
 #: the int switches of the launch, in the order of ``CLOUDSC2_NL_SWITCHES``
-NL_SWITCHES = ("is_double", "thermo", "evap", "traj", "fuse", "div")
+NL_SWITCHES = ("is_double", "thermo", "evap", "traj", "fuse", "div", "compact")
 _IFACE = ("aph", "fplsl", "fplsn", "fhpsl", "fhpsn")
 _VERT = ("eta", "scalm")
 _DTYPES = (torch.float32, torch.float64)
@@ -80,14 +80,15 @@ def signature() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _load(kind: str) -> ctypes.CDLL:
+def _load(kind: str, compact: bool = True) -> ctypes.CDLL:
+    suffix, defines = build.form(compact, False, nl=True)
     if kind == "cuda":
-        lib = build.load(kind, "cloudsc2_nl", ["nonlinear.cu"])
+        lib = build.load(kind, "cloudsc2_nl" + suffix, ["nonlinear.cu"], defines)
         fn, probe = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe
         fn.argtypes = _ARGS + [_P]
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
     else:
-        lib = build.load(kind, "cloudsc2_nl_host", ["nonlinear_host.cpp"])
+        lib = build.load(kind, "cloudsc2_nl_host" + suffix, ["nonlinear_host.cpp"], defines)
         fn, probe = lib.cloudsc2_nl_host, lib.cloudsc2_rcp_probe_host
         fn.argtypes = _ARGS
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int]
@@ -99,23 +100,23 @@ def _load(kind: str) -> ctypes.CDLL:
     return lib
 
 
-def load_cuda() -> ctypes.CDLL:
-    """Build (first use) and load the CUDA library."""
-    return _load("cuda")
+def load_cuda(compact: bool = True) -> ctypes.CDLL:
+    """Build (first use) and load the CUDA library of one saturation-
+    adjustment form (``CUADJ_COMPACT``)."""
+    return _load("cuda", compact)
 
 
 def check_inputs(
     state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[str],
-    iface: Sequence[str], check: Callable[[Constants], None] = check_constants,
+    iface: Sequence[str],
 ) -> Tuple[List[Tensor], torch.dtype]:
-    """Check the constants with ``check`` (by default the TL's and AD's:
-    exact divide only) and the state for a kernel, and return its
-    ``inputs`` in order: ``eta`` in the state's dtype and ``scalm``
+    """Check the constants (:func:`check_constants`) and the state for a
+    kernel, and return its ``inputs`` in order: ``eta`` in the state's dtype and ``scalm``
     computed from it, the other fields as they are.  Fields named in
     ``iface`` are ``(nlev + 1, ncols)``, ``eta``/``scalm`` ``(nlev,)``, the
     rest ``(nlev, ncols)``; all of one float dtype, contiguous, on one
     device of ``device_type``."""
-    check(c)
+    check_constants(c)
     ap = state["ap"]
     if ap.dim() != 2:
         raise ValueError(f"ap must be (nlev, ncols), got shape {tuple(ap.shape)}")
@@ -156,7 +157,7 @@ def _marshal(
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
     names = tuple(n for n in NL_INPUTS if not (fuse_saturation and n == "qsat"))
-    ins, dtype = check_inputs(state, c, device_type, names, _IFACE, check_nl_constants)
+    ins, dtype = check_inputs(state, c, device_type, names, _IFACE)
     if fuse_saturation:
         ins.insert(NL_INPUTS.index("qsat"), None)
     nlev, ncols = state["ap"].shape
@@ -176,10 +177,26 @@ def _marshal(
         int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
         2 if traj_only else int(with_trajectory),
         int(fuse_saturation),
-        # fastmath: a non-f32 operand always divides exactly
-        DIV_MODES.index(c.FAST_DIV) if dtype == torch.float32 else 0,
+        div_switch(c, dtype),
+        int(bool(c.CUADJ_COMPACT)),
     )
     return ins, outs, consts, switches
+
+
+def div_switch(c: Constants, dtype: torch.dtype) -> int:
+    """The kernels' ``div`` switch: ``c.FAST_DIV``'s index in float32, 0
+    (exact) in float64, which always divides exactly (fastmath: a non-f32
+    operand divides exactly)."""
+    return DIV_MODES.index(c.FAST_DIV) if dtype == torch.float32 else 0
+
+
+def count_launch(entry, switches: Sequence[int]) -> None:
+    """Add one launch to ``entry.launches``, and by its form (the switches'
+    last two: ``div``, ``compact``) to ``.fast_div_launches`` (a non-exact
+    divide) and ``.ref_launches`` (``CUADJ_COMPACT=False``)."""
+    entry.launches += 1
+    entry.fast_div_launches += int(switches[-2] != 0)
+    entry.ref_launches += int(not switches[-1])
 
 
 def ptrs(tensors) -> ctypes.Array:
@@ -216,14 +233,16 @@ def cloudsc2_nl_cuda(
     branch, as for the ``Saturation`` component) instead of reading the
     state's, which may then be absent, and returns it as the diagnostic
     ``qsat`` (not with ``traj_only``).  ``c.FAST_DIV`` picks the divide
-    mode (float32; float64 divides exactly).  Raises on anything else, on a
+    mode (float32; float64 divides exactly), ``c.CUADJ_COMPACT`` the form
+    of the saturation adjustment (one library each).  Raises on anything else, on a
     failed build and on a refused launch; never falls back to the plain
-    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, and a
-    launch under a non-exact divide also to ``.fast_div_launches``.
+    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, a
+    launch under a non-exact divide also to ``.fast_div_launches``, and one
+    with ``CUADJ_COMPACT=False`` to ``.ref_launches``.
     """
     ins, outs, consts, switches = _marshal(
         state, dt, c, "cuda", with_trajectory, traj_only, fuse_saturation, kflag)
-    lib = load_cuda()
+    lib = load_cuda(c.CUADJ_COMPACT)
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -232,13 +251,13 @@ def cloudsc2_nl_cuda(
         )
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
-    cloudsc2_nl_cuda.launches += 1
-    cloudsc2_nl_cuda.fast_div_launches += int(switches[-1] != 0)
+    count_launch(cloudsc2_nl_cuda, switches)
     return _assemble(outs, with_trajectory, traj_only)
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
+cloudsc2_nl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 def cloudsc2_nl_host(
@@ -248,7 +267,7 @@ def cloudsc2_nl_host(
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
     ins, outs, consts, switches = _marshal(
         state, dt, c, "cpu", with_trajectory, traj_only, fuse_saturation, kflag)
-    lib = _load("host")
+    lib = _load("host", c.CUADJ_COMPACT)
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_nl_host(
         *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,

@@ -8,7 +8,11 @@ harness ``csrc/levelscan.cuh``.  The kernel is CUDA C++
 (``csrc/tangent_linear.cu`` over ``csrc/tl_level.h``): one thread per
 column, the carry and its perturbation in registers, the levels in a loop.
 It is bound by device-memory bytes, with registers the risk; the note at
-the top of ``tangent_linear.cu`` gives the count.
+the top of ``tangent_linear.cu`` gives the count.  It takes the
+``FAST_DIV`` divide modes (float32; float64 divides exactly) and both
+``CUADJ_COMPACT`` forms of the saturation adjustment, as the Pallas kernel
+does through its level body; each form is a library of its own
+(:func:`cloudsc2_tpu_torch.kernels.build.form`).
 
 :func:`cloudsc2_tl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
@@ -26,7 +30,7 @@ import torch
 
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
-from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, STEP_OUTPUTS, check_inputs, ptrs
+from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, STEP_OUTPUTS, check_inputs, count_launch, div_switch, ptrs
 from cloudsc2_tpu_torch.state import TL_CONST_NAMES, tl_kernel_constants
 
 Tensor = torch.Tensor
@@ -40,7 +44,7 @@ _IFACE = ("aph", "aph_i") + tuple(
 )
 
 _P = ctypes.c_void_p
-_ARGS = [ctypes.c_int] * 4 + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
+_ARGS = [ctypes.c_int] * 6 + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
 
 
 def signature() -> str:
@@ -54,13 +58,14 @@ def signature() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _load(kind: str) -> ctypes.CDLL:
+def _load(kind: str, compact: bool = True, fast: bool = False) -> ctypes.CDLL:
+    suffix, defines = build.form(compact, fast)
     if kind == "cuda":
-        lib = build.load("cuda", "cloudsc2_tl", ["tangent_linear.cu"])
+        lib = build.load("cuda", "cloudsc2_tl" + suffix, ["tangent_linear.cu"], defines)
         fn = lib.cloudsc2_tl_launch
         fn.argtypes = _ARGS + [_P]
     else:
-        lib = build.load("host", "cloudsc2_tl_host", ["tangent_linear_host.cpp"])
+        lib = build.load("host", "cloudsc2_tl_host" + suffix, ["tangent_linear_host.cpp"], defines)
         fn = lib.cloudsc2_tl_host
         fn.argtypes = _ARGS
     fn.restype = ctypes.c_int
@@ -71,14 +76,19 @@ def _load(kind: str) -> ctypes.CDLL:
     return lib
 
 
-def load_cuda() -> ctypes.CDLL:
-    """Build (first use) and load the CUDA library."""
-    return _load("cuda")
+def load_cuda(compact: bool = True, fast: bool = False) -> ctypes.CDLL:
+    """Build (first use) and load the CUDA library of one form
+    (:func:`cloudsc2_tpu_torch.kernels.build.form`)."""
+    return _load("cuda", compact, fast)
+
+
+def _lib(kind: str, c: Constants, switches: Tuple[int, ...]) -> ctypes.CDLL:
+    return _load(kind, bool(c.CUADJ_COMPACT), switches[4] != 0)
 
 
 def _marshal(
     state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, tangent_only: bool
-) -> Tuple[List[Tensor], List, Tensor, Tuple[int, int, int, int]]:
+) -> Tuple[List[Tensor], List, Tensor, Tuple[int, ...]]:
     """Check the state, and return the kernel's inputs in order, the output
     list (fresh tensors; ``None`` for the forward outputs with
     ``tangent_only``), the constant struct and the switches."""
@@ -96,6 +106,8 @@ def _marshal(
         int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
         int(bool(c.LREGCL)),
         int(tangent_only),
+        div_switch(c, dtype),
+        int(bool(c.CUADJ_COMPACT)),
     )
     return ins, outs, consts, switches
 
@@ -117,12 +129,14 @@ def cloudsc2_tl_cuda(
     Same contract as :func:`cloudsc2_tpu_torch.physics.tangent_linear.
     cloudsc2_tl`: contiguous CUDA tensors of one float dtype, any
     ``ncols``; with ``tangent_only`` only the ``*_i`` outputs are written
-    and returned.  Raises on anything else, on a failed build and on a
+    and returned.  ``c.FAST_DIV`` and ``c.CUADJ_COMPACT`` pick the form.
+    Raises on anything else, on a failed build and on a
     refused launch; never falls back to the plain version.  Each launch
-    adds one to ``cloudsc2_tl_cuda.launches``.
+    adds one to ``cloudsc2_tl_cuda.launches`` (and by its form, see
+    :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`).
     """
     ins, outs, consts, switches = _marshal(state, dt, c, "cuda", tangent_only)
-    lib = load_cuda()
+    lib = _lib("cuda", c, switches)
     nlev, ncols = state["ap"].shape
     with torch.cuda.device(state["ap"].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -131,11 +145,13 @@ def cloudsc2_tl_cuda(
         )
     if err != 0:
         raise RuntimeError(f"cloudsc2_tl kernel launch failed: cudaError_t {err}")
-    cloudsc2_tl_cuda.launches += 1
+    count_launch(cloudsc2_tl_cuda, switches)
     return _assemble(outs)
 
 
 cloudsc2_tl_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_tl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
+cloudsc2_tl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 def cloudsc2_tl_host(
@@ -143,7 +159,7 @@ def cloudsc2_tl_host(
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
     ins, outs, consts, switches = _marshal(state, dt, c, "cpu", tangent_only)
-    lib = _load("host")
+    lib = _lib("host", c, switches)
     nlev, ncols = state["ap"].shape
     err = lib.cloudsc2_tl_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
     if err != 0:

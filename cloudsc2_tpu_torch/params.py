@@ -315,17 +315,17 @@ class Constants:
     ZEPS2: float = 1e-10
     ZQMAX: float = 0.5
     ZSCAL: float = 0.9
-    #: divide strategy ("exact" | "faithful" | "approx").  The port
-    #: implements "exact" only and raises for the others
-    #: (``physics.nonlinear.check_constants``).
+    #: divide strategy ("exact" | "faithful" | "approx"), in the plain
+    #: versions and every kernel; float64 always divides exactly, and an
+    #: unknown mode raises (``physics.nonlinear.check_constants``).
     FAST_DIV: str = "exact"
     #: predicate-select strategy of the JAX level bodies; the select and
     #: the mask form give bit-identical NL/TL outputs, and the port has
     #: only the select form, so it ignores this switch.
     MASK_SELECT: bool = False
     #: saturation-adjustment form.  ``True`` (default): the compact
-    #: cor-free condensation quotient, the only form the port implements;
-    #: ``False`` raises (``physics.nonlinear.check_constants``).
+    #: cor-free condensation quotient; ``False``: the reference-shaped
+    #: ``cor``-based form (``physics/cuadjtqs.py``).
     CUADJ_COMPACT: bool = True
 
     def replace(self, **kw: Any) -> "Constants":

@@ -50,8 +50,8 @@ def scalar(x: Number, ref: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=ref.dtype, device=ref.device)
 
 
-def _fast(x: torch.Tensor, mode: str) -> bool:
-    """Whether ``mode`` replaces the division by a float32 ``x``."""
+def is_fast(x: torch.Tensor, mode: str) -> bool:
+    """Whether ``mode`` replaces the division by ``x`` (a float32 tensor)."""
     if mode not in DIV_MODES:
         raise ValueError(f"unknown divide mode {mode!r}; one of {DIV_MODES}")
     return mode != "exact" and x.dtype == torch.float32
@@ -59,7 +59,7 @@ def _fast(x: torch.Tensor, mode: str) -> bool:
 
 def rcp(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
     """1/x under the divide mode (see the module docstring)."""
-    if not _fast(x, mode) or x.dim() == 0:
+    if not is_fast(x, mode) or x.dim() == 0:
         return torch.reciprocal(x)
     r = torch.reciprocal(x.to(torch.bfloat16).to(torch.float32))
     if mode == "faithful":
@@ -75,7 +75,7 @@ def div(
         a = scalar(a, b)
     elif not isinstance(b, torch.Tensor):
         b = scalar(b, a)
-    if _fast(b, mode):
+    if is_fast(b, mode):
         return a * rcp(b, mode)
     return torch.div(a, b)
 

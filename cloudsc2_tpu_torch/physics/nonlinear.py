@@ -15,9 +15,9 @@ denominators), because both sides of a ``torch.where`` are evaluated.
 Every divide that the JAX body routes through ``fastmath`` divides under
 ``c.FAST_DIV`` here too (:mod:`cloudsc2_tpu_torch.physics.fastmath`: exact,
 or the approximate reciprocal as Pallas interpret mode models it, with or
-without a Newton step).  Only the compact saturation adjustment
-(``CUADJ_COMPACT=True``) is ported.  ``MASK_SELECT`` is bit-identical to
-the select form and is ignored.
+without a Newton step).  Both forms of the saturation adjustment
+(``CUADJ_COMPACT``) are ported.  ``MASK_SELECT`` is bit-identical to the
+select form and is ignored.
 
 With ``fuse_saturation`` :func:`cloudsc2_nl` diagnoses ``qsat`` itself
 (:func:`cloudsc2_tpu_torch.physics.saturation.saturation`) and returns it
@@ -60,21 +60,12 @@ def trajectory_names(c: Constants) -> Tuple[str, ...]:
     return TRAJ_OUTPUTS if (c.LEVAPLS2 or c.LDRAIN1D) else TRAJ_OUTPUTS[:2]
 
 
-def check_nl_constants(c: Constants) -> None:
-    """Raise for the JAX options the port's NL does not implement: it takes
-    every divide mode, and the compact saturation adjustment only."""
+def check_constants(c: Constants) -> None:
+    """Raise ``ValueError`` for a ``FAST_DIV`` that is none of the divide
+    modes; the NL, TL and AD take every mode and both ``CUADJ_COMPACT``
+    forms."""
     if c.FAST_DIV not in DIV_MODES:
         raise ValueError(f"FAST_DIV={c.FAST_DIV!r} is none of {DIV_MODES}")
-    if not c.CUADJ_COMPACT:
-        raise NotImplementedError("CUADJ_COMPACT=False is not ported (compact form only)")
-
-
-def check_constants(c: Constants) -> None:
-    """Raise for the JAX options the port's TL and AD do not implement:
-    those of :func:`check_nl_constants`, and every divide mode but exact."""
-    check_nl_constants(c)
-    if c.FAST_DIV != "exact":
-        raise NotImplementedError(f"FAST_DIV={c.FAST_DIV!r} is not ported to the TL and AD (exact only)")
 
 
 def tropopause_eta(eta: Tensor, t_fg: Tensor) -> Tensor:
@@ -440,7 +431,7 @@ def cloudsc2_nl(
     from ``ap`` and ``t`` (the ``Saturation`` component's ``kflag``, and
     ``c.LPHYLIN``) and returned as the diagnostic ``qsat``.
     """
-    check_nl_constants(c)
+    check_constants(c)
     qsat = None
     if fuse_saturation:
         qsat = saturation(state["ap"], state["t"], kflag=kflag, lphylin=c.LPHYLIN, c=c)

@@ -19,9 +19,12 @@ runs the level body through the plain level scan.  Each expression mirrors
 its JAX counterpart operand for operand (``x**2.0``/``x**3.0`` written as
 products, ``lax.rsqrt`` as ``1/sqrt``); every ``where`` keeps the guarded
 operands of the JAX body.  Nothing is written in place, so that
-``torch.func`` transforms apply.  Only the JAX defaults are ported
-(``FAST_DIV="exact"``, ``CUADJ_COMPACT=True``; ``MASK_SELECT`` is
-bit-identical to the select form and is ignored).
+``torch.func`` transforms apply.  Every divide that the JAX body routes
+through ``fastmath`` divides under ``c.FAST_DIV`` here too (the per-level
+scalar ``1 - scalm`` is a 0-d operand, which divides exactly, as in the
+Pallas kernel); both ``CUADJ_COMPACT`` forms of the saturation adjustment
+are ported.  ``MASK_SELECT`` is bit-identical to the select form and is
+ignored.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ def tl_level_pre(
     detrainment, subsidence, condensation rates, melt constants, the liquid
     autoconversion and the melt-free half of the ice autoconversion, each
     with its perturbation.  The three in-loop LREGCL switches live here."""
+    fd = c.FAST_DIV
     ap, ap_i = x["ap"], x["ap_i"]
     qsat_in, qsat_in_i = x["qsat"], x["qsat_i"]
 
@@ -93,7 +97,7 @@ def tl_level_pre(
     dp_i = x["aph1_i"] - x["aph0_i"]
     zd = c.RCPD + c.RCPD * c.RVTMP2 * q
     zd_i = c.RCPD * c.RVTMP2 * q_i
-    zz = rcp(zd)
+    zz = rcp(zd, fd)
     zz_i = -zd_i * (zz * zz)
     lfdcp = c.RLMLT * zz
     lfdcp_i = c.RLMLT * zz_i
@@ -109,10 +113,10 @@ def tl_level_pre(
     fwat_i = sel0(cold, 0.545 * 0.17 * t_i * (1.0 - th * th))
     z3es = select(cold, c.R3IES, c.R3LES, t)
     z4es = select(cold, c.R4IES, c.R4LES, t)
-    rl = rcp(t - c.R4LES)
-    ri = rcp(t - c.R4IES)
+    rl = rcp(t - c.R4LES, fd)
+    ri = rcp(t - c.R4IES, fd)
     rz4es = torch.where(cold, ri, rl)
-    rap = rcp(ap)
+    rap = rcp(ap, fd)
     foeew = c.R2ES * torch.exp(z3es * (t - c.RTT) * rz4es)
     foeew_i = z3es * (c.RTT - z4es) * t_i * foeew * (rz4es * rz4es)
     esdp = foeew * rap
@@ -127,7 +131,7 @@ def tl_level_pre(
     faci_i = -2.0 * c.R5IES * t_i * (ri * ri * ri)
     fac = fwat * facw + (1.0 - fwat) * faci
     fac_i = fwat_i * (facw - faci) + fwat * facw_i + (1.0 - fwat) * faci_i
-    cor = rcp(1.0 - c.RETV * esdp)
+    cor = rcp(1.0 - c.RETV * esdp, fd)
     cor_i = c.RETV * esdp_i * (cor * cor)
     dqsdtemp = fac * cor * qsat_in
     dqsdtemp_i = fac_i * cor * qsat_in + fac * cor_i * qsat_in + fac * cor * qsat_in_i
@@ -161,11 +165,11 @@ def tl_level_pre(
     qcd_i = qsat_i - qcrit_i
     denom = qcd - scalm * (qt - qcrit)
     denom_safe = torch.where(mid, denom, 1.0)
-    rdenom = rcp(denom_safe)
+    rdenom = rcp(denom_safe, fd)
     ratio = sel0(mid, qpd * rdenom)
     tmp1 = torch.sqrt(ratio)
     clc_mid = 1.0 - tmp1
-    rtmp1 = rcp(torch.sqrt(torch.where(mid, ratio, 1.0)))
+    rtmp1 = rcp(torch.sqrt(torch.where(mid, ratio, 1.0)))  # lax.rsqrt: exact
     clc_mid_i = (
         -0.5
         * rtmp1
@@ -175,10 +179,10 @@ def tl_level_pre(
     if c.LREGCL:
         # regularization of the cloud-fraction perturbation
         qcd_safe = torch.where(mid, qcd, 1.0)
-        rat = div(qpd, qcd_safe)
+        rat = div(qpd, qcd_safe, fd)
         u = 1.0 - scalm * (1.0 - rat)
         yyy = torch.clamp(
-            div(3.5 * torch.sqrt(torch.clamp(rat * (u * u * u), min=0.0)), 1.0 - scalm),
+            div(3.5 * torch.sqrt(torch.clamp(rat * (u * u * u), min=0.0)), 1.0 - scalm, fd),
             max=0.3,
         )
         clc_mid_i = clc_mid_i * yyy
@@ -194,7 +198,7 @@ def tl_level_pre(
     qc_i = torch.where(low, 0.0, torch.where(high, qc_high_i, qc_mid_i))
 
     # convective detrainment; one reciprocal each of dp and lu1_safe
-    rdp = rcp(dp)
+    rdp = rcp(dp, fd)
     gdp = c.RG * rdp
     gdp_i = -c.RG * dp_i * (rdp * rdp)
     lude = dt * x["lude"] * gdp
@@ -203,7 +207,7 @@ def tl_level_pre(
     lu1_i = x["lu_next_i"]
     lo1 = (lude >= c.RLMIN) & (lu1 >= c.ZEPS2)
     lu1_safe = torch.where(lo1, lu1, 1.0)
-    rlu1 = rcp(lu1_safe)
+    rlu1 = rcp(lu1_safe, fd)
     tmp2 = torch.exp(-lude * rlu1)
     clc_i_conv = -clc_i * (1.0 - tmp2) + (1.0 - clc) * tmp2 * (
         (lude_i - lude * lu1_i * rlu1) * rlu1
@@ -214,10 +218,10 @@ def tl_level_pre(
     qc_i = qc_i + sel0(lo1, lude_i)
 
     # compensating subsidence
-    fac1 = rcp(c.RD * t)
+    fac1 = rcp(c.RD * t, fd)
     rho = ap * fac1
     rho_i = (ap_i - ap * t_i * (c.RD * fac1)) * fac1
-    fac2 = rcp(ap - c.RETV * foeew)
+    fac2 = rcp(ap - c.RETV * foeew, fd)
     rodqsdp = -rho * qsat_in * fac2
     rodqsdp_i = (
         -rho_i * qsat_in
@@ -226,7 +230,7 @@ def tl_level_pre(
     ) * fac2
     ldcp = fwat * lvdcp + (1.0 - fwat) * lsdcp
     ldcp_i = fwat_i * (lvdcp - lsdcp) + fwat * lvdcp_i + (1.0 - fwat) * lsdcp_i
-    fac3 = rcp(1.0 + ldcp * dqsdtemp)
+    fac3 = rcp(1.0 + ldcp * dqsdtemp, fd)
     dtdzmo = c.RG * (1.0 / c.RCPD - ldcp * rodqsdp) * fac3
     dtdzmo_i = (
         -(
@@ -276,7 +280,7 @@ def tl_level_pre(
     lcrit, icrit = lcrit_icrit(c)
     ckcodtl = 2.0 * c.RKCONV * dt
     clc_safe = torch.where(act, clc, 1.0)
-    rclc = rcp(clc_safe)
+    rclc = rcp(clc_safe, fd)
     cldl = qlwc * rclc
     cldl_i = (qlwc_i - cldl * clc_i) * rclc
     ltmp4 = torch.exp(-(cldl * cldl * (1.0 / (lcrit * lcrit))))
@@ -308,9 +312,9 @@ def tl_level_pre(
         # carry-free factors of the precipitation evaporation
         pre.update(
             qlim=qlim, qlim_i=qlim_i, corqs=corqs, corqs_i=corqs_i,
-            tmp6=torch.sqrt(div(ap, aph_s)),
-            dtgdp=div(dt * c.RG, dp),
-            dtgdp_i=div(-dt * c.RG * dp_i, dp * dp),
+            tmp6=torch.sqrt(div(ap, aph_s, fd)),
+            dtgdp=div(dt * c.RG, dp, fd),
+            dtgdp_i=div(-dt * c.RG * dp_i, dp * dp, fd),
         )
     return pre
 
@@ -325,6 +329,7 @@ def tl_level_post(
     the final clipping.  ``xp`` is the level's raw inputs merged with
     :func:`tl_level_pre`."""
     rfl, sfl, covptot, rfl_i, sfl_i, covptot_i = carry
+    fd = c.FAST_DIV
     ckcodti = 5.0 * c.RKCONV * dt
     cons2 = 1.0 / (c.RG * dt)
     rdt = 1.0 / dt
@@ -408,48 +413,49 @@ def tl_level_post(
         covptot_safe = torch.where(eact, covptot, 1.0)
         covpclr_safe = torch.where(eact, covpclr, 1.0)
         prtot_safe = torch.where(eact, prtot, 1.0)
-        preclr = div(prtot * covpclr, covptot_safe)
-        preclr_i = div(prtot_i * covpclr + prtot * covpclr_i, covptot_safe) - div(
-            prtot * covpclr * covptot_i, covptot_safe * covptot_safe
+        preclr = div(prtot * covpclr, covptot_safe, fd)
+        preclr_i = div(prtot_i * covpclr + prtot * covpclr_i, covptot_safe, fd) - div(
+            prtot * covpclr * covptot_i, covptot_safe * covptot_safe, fd
         )
         clcc = torch.where(eact, 1.0 - clc, 1.0)
         qlim, qlim_i = xp["qlim"], xp["qlim_i"]
         corqs, corqs_i = xp["corqs"], xp["corqs_i"]
-        qe = qsat_in - div((qsat_in - qlim) * covpclr, clcc * clcc)
+        qe = qsat_in - div((qsat_in - qlim) * covpclr, clcc * clcc, fd)
         qe_i = (
             qsat_in_i
             - div(
                 qsat_in_i * covpclr - qlim_i * covpclr + (qsat_in - qlim) * covpclr_i,
                 clcc * clcc,
+                fd,
             )
-            - div(2.0 * (qsat_in - qlim) * covpclr * clc_i, clcc * clcc * clcc)
+            - div(2.0 * (qsat_in - qlim) * covpclr * clc_i, clcc * clcc * clcc, fd)
         )
         tmp6 = xp["tmp6"]
         preclr_safe = torch.where(eact & (preclr > 0.0), preclr, 1.0)
-        beta = c.RG * c.RPECONS * div(tmp6 * preclr_safe, 0.00509 * covpclr_safe) ** 0.5777
+        beta = c.RG * c.RPECONS * div(tmp6 * preclr_safe, 0.00509 * covpclr_safe, fd) ** 0.5777
         # the exact derivatives of tmp6 = sqrt(ap/aph_s) and of the b
         # quotient, where the JAX package departs from GT4Py
         beta_i = (
             0.5777 * c.RG * c.RPECONS / 0.00509
-            * div(0.00509 * covpclr_safe, tmp6 * preclr_safe) ** 0.4223
+            * div(0.00509 * covpclr_safe, tmp6 * preclr_safe, fd) ** 0.4223
             * (
                 (
                     tmp6 * preclr_i
-                    + div(0.5 * preclr_safe * ap_i, tmp6 * aph_s)
-                    - div(0.5 * preclr_safe * tmp6 * aph_s_i, aph_s)
+                    + div(0.5 * preclr_safe * ap_i, tmp6 * aph_s, fd)
+                    - div(0.5 * preclr_safe * tmp6 * aph_s_i, aph_s, fd)
                 )
-                * rcp(covpclr_safe)
-                - div(tmp6 * preclr_safe * covpclr_i, covpclr_safe * covpclr_safe)
+                * rcp(covpclr_safe, fd)
+                - div(tmp6 * preclr_safe * covpclr_i, covpclr_safe * covpclr_safe, fd)
             )
         )
         vb = 1.0 + dt * beta * corqs
-        b = div(dt * beta * (qsat_in - qe), vb)
-        b_i = div(dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)), vb) - div(
-            dt * b * (beta_i * corqs + beta * corqs_i), vb
+        b = div(dt * beta * (qsat_in - qe), vb, fd)
+        b_i = div(dt * (beta_i * (qsat_in - qe) + beta * (qsat_in_i - qe_i)), vb, fd) - div(
+            dt * b * (beta_i * corqs + beta * corqs_i), vb, fd
         )
         dtgdp, dtgdp_i = xp["dtgdp"], xp["dtgdp_i"]
-        dpr = div(covpclr * b, dtgdp)
-        dpr_i = div(covpclr_i * b + covpclr * b_i, dtgdp) - div(covpclr * b * dtgdp_i, dtgdp * dtgdp)
+        dpr = div(covpclr * b, dtgdp, fd)
+        dpr_i = div(covpclr_i * b + covpclr * b_i, dtgdp, fd) - div(covpclr * b * dtgdp_i, dtgdp * dtgdp, fd)
         big = dpr > preclr
         dpr = sel0(eact, torch.where(big, preclr, dpr))
         dpr_i = sel0(eact, torch.where(big, preclr_i, dpr_i))
@@ -460,19 +466,19 @@ def tl_level_post(
         covptot_i = torch.where(drained, clc_i, covptot_i)
         covptot_out = sel0(eact, covptot)
         covptot_out_i = sel0(eact, covptot_i)
-        evapr = sel0(eact, div(dpr * rfln, prtot_safe))
+        evapr = sel0(eact, div(dpr * rfln, prtot_safe, fd))
         evapr_i = sel0(
             eact,
-            div(dpr_i * rfln + dpr * rfln_i, prtot_safe)
-            - div(dpr * rfln * prtot_i, prtot_safe * prtot_safe),
+            div(dpr_i * rfln + dpr * rfln_i, prtot_safe, fd)
+            - div(dpr * rfln * prtot_i, prtot_safe * prtot_safe, fd),
         )
         rfln = rfln - evapr
         rfln_i = rfln_i - evapr_i
-        evaps = sel0(eact, div(dpr * sfln, prtot_safe))
+        evaps = sel0(eact, div(dpr * sfln, prtot_safe, fd))
         evaps_i = sel0(
             eact,
-            div(dpr_i * sfln + dpr * sfln_i, prtot_safe)
-            - div(dpr * sfln * prtot_i, prtot_safe * prtot_safe),
+            div(dpr_i * sfln + dpr * sfln_i, prtot_safe, fd)
+            - div(dpr * sfln * prtot_i, prtot_safe * prtot_safe, fd),
         )
         sfln = sfln - evaps
         sfln_i = sfln_i - evaps_i

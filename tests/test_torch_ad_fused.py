@@ -20,8 +20,10 @@ their host builds (g++ -ffp-contract=off) and the plain AD.
   of the JAX ``cloudsc2_ad_pallas(cotangent_only=True)``, its values within
   ``PALLAS_F32_WIDE``, and bitwise the full form's ``*_i`` outputs;
   ``traj_only`` bitwise the trajectory of ``with_trajectory``;
-* refusals: ``traj_only`` without ``with_trajectory``, ``LPHYLIN=False``,
-  CPU tensors on the CUDA entry, a stack that does not fit; and the plan's
+* ``LPHYLIN=False`` taken by the fused entries, bitwise the ``LPHYLIN=True``
+  launch (the AD does not read it); refusals: ``traj_only`` without
+  ``with_trajectory``, CPU tensors on the CUDA entry, a stack that does not
+  fit; and the plan's
   block sizes and blocks per SM (the block that keeps the most threads on
   an SM).
 """
@@ -176,19 +178,27 @@ def test_traj_only_requires_with_trajectory():
 
 
 def test_fused_entries_refuse_without_lphylin_and_on_cpu_tensors():
-    """LPHYLIN=False is refused by every fused entry, on any device; the
-    CUDA entry refuses CPU tensors; no launch is counted."""
+    """LPHYLIN=False is taken by every fused entry: the host body, rolled
+    and resident, is bitwise its LPHYLIN=True launch, and the CPU dispatch
+    is the plain AD's outputs; the CUDA entries refuse CPU tensors under
+    either setting; no launch is counted."""
     s, dt, c = _cpu_ad_state()
     off = c.replace(LPHYLIN=False)
     before = adk.cloudsc2_ad_fused_cuda.launches
-    for fn in (adk.cloudsc2_ad_fused_host, adk.cloudsc2_ad_fused_cuda, dispatch.cloudsc2_ad_fused):
-        for resident in (False, True):
-            with pytest.raises(ValueError, match="LPHYLIN"):
-                fn(s, dt, off, resident=resident)
-    with pytest.raises(ValueError, match="cuda"):
-        adk.cloudsc2_ad_fused_cuda(s, dt, c)
-    with pytest.raises(ValueError, match="LPHYLIN"):
-        adk.cloudsc2_ad_cuda(s, dt, off, cotangent_only=True)
+    for resident in (False, True):
+        want = flat(adk.cloudsc2_ad_fused_host(s, dt, c, resident=resident))
+        got = flat(adk.cloudsc2_ad_fused_host(s, dt, off, resident=resident))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"resident={resident} {k}")
+    want = flat(cloudsc2_ad(s, dt, off))
+    got = flat(dispatch.cloudsc2_ad_fused(s, dt, off))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for cc in (c, off):
+        with pytest.raises(ValueError, match="cuda"):
+            adk.cloudsc2_ad_fused_cuda(s, dt, cc)
+        with pytest.raises(ValueError, match="cuda"):
+            adk.cloudsc2_ad_cuda(s, dt, cc, cotangent_only=True)
     assert adk.cloudsc2_ad_fused_cuda.launches == before
 
 

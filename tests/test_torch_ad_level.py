@@ -22,6 +22,14 @@ epsilon.  A transposition fault moves both evaluations alike and cannot
 hide there.  Limits: f64 1e-12, f32 1e-6 (measured: 3.9e-16 and 1.2e-7).
 The long double reference itself meets 1e-12 of the terms (measured:
 1.8e-14).
+
+The same check holds the level's other forms (``test_ad_level_duality_forms``):
+the reference-shaped saturation adjustment (``CUADJ_COMPACT=False``, f64
+and f32) and the faithful and approx divides (f32; float64 divides
+exactly), at the same limits.  Under a non-exact divide the reference takes
+the approximate reciprocal of the same float operands and carries the rest
+in long double, so the reciprocals are one function on both sides and the
+duality is exact in long double there too.
 """
 import numpy as np
 import pytest
@@ -82,11 +90,32 @@ def _inner(tl, ad, w, dirs):
     return lt.sum(0), rt.sum(0), np.abs(lt).sum(0) + np.abs(rt).sum(0)
 
 
+#: the level's other forms: (dtype, FAST_DIV, CUADJ_COMPACT)
+FORMS = {
+    "ref-f64": (torch.float64, "exact", False),
+    "ref-f32": (torch.float32, "exact", False),
+    "faithful-f32": (torch.float32, "faithful", True),
+    "approx-f32": (torch.float32, "approx", True),
+    "ref-approx-f32": (torch.float32, "approx", False),
+}
+
+
 @pytest.mark.parametrize("lregcl", [True, False], ids=["lregcl", "nolregcl"])
 @pytest.mark.parametrize("evap", [False, True], ids=["noevap", "evap"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_ad_level_duality(dtype, evap, lregcl):
-    c = _config(evap, lregcl)
+    _check_duality(dtype, _config(evap, lregcl), evap)
+
+
+@pytest.mark.parametrize("lregcl", [True, False], ids=["lregcl", "nolregcl"])
+@pytest.mark.parametrize("evap", [False, True], ids=["noevap", "evap"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_ad_level_duality_forms(form, evap, lregcl):
+    dtype, mode, compact = FORMS[form]
+    _check_duality(dtype, _config(evap, lregcl).replace(FAST_DIV=mode, CUADJ_COMPACT=compact), evap)
+
+
+def _check_duality(dtype, c, evap):
     x, col, traj, dirs, r = _points(dtype)
     zero = {k: torch.zeros(NPOINTS, dtype=dtype) for k in adk.AD_WEIGHTS}
     tl0 = adk.cloudsc2_ad_level_host(x, col, traj, dirs, zero, DT, c)[0]

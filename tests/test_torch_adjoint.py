@@ -213,7 +213,8 @@ def test_component_runs_the_plain_ad(synth, ad64):
 def test_ad_component_without_lphylin_on_cpu_tensors_does_not_warn():
     """Cloudsc2AD with LPHYLIN=False on CPU tensors runs the plain AD, as
     with LPHYLIN=True, bitwise and without a warning (on CUDA tensors it
-    raises: no kernel takes it, tests/test_torch_cuda.py)."""
+    runs the kernels, bitwise their LPHYLIN=True launch,
+    tests/test_torch_cuda.py)."""
     import warnings
 
     from cloudsc2_tpu_torch.grid import Grid

@@ -27,8 +27,13 @@ fused NL kernel bitwise ``Saturation`` + the unfused kernel; the faithful
 and approx f32 kernels within ``div_gate`` of the plain exact version and
 not bitwise the exact kernel (f64 with FAST_DIV set bitwise exact), the
 reciprocal alone (``rcp_cuda``): approx within an ulp, faithful one Newton
-step of approx; ``Cloudsc2AD`` with LPHYLIN=False
-raises, launching no kernel.
+step of approx.  ``Cloudsc2AD`` and both AD kernels with LPHYLIN=False run
+the kernels, bitwise their LPHYLIN=True launch.  The TL and AD kernels under
+faithful and approx (f32) within ``div_gate`` ("tl", "ad") of the plain exact
+versions and not bitwise the exact kernels, the fused AD bitwise the
+two-kernel AD in the same mode, f64 with FAST_DIV set bitwise exact; the NL,
+TL and AD kernels with CUADJ_COMPACT=False against their plain versions in
+that form at the gates above.
 """
 import numpy as np
 import pytest
@@ -221,7 +226,7 @@ def test_divide_modes_on_card(cuda, cfg, mode, fused):
     for k, w in want.items():
         w = w.astype(np.float64)
         scaled = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
-        assert scaled <= div_gate(k, fused), (k, scaled)
+        assert scaled <= div_gate(k, "fused" if fused else "unfused"), (k, scaled)
     exact32 = _host(nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=fused))
     assert any(not np.array_equal(got[k], exact32[k]) for k in exact32)
     s64, dt = _state(100, torch.float64, c, cuda)
@@ -256,10 +261,9 @@ def test_rcp_on_card(cuda):
 
 
 def test_ad_component_without_lphylin_refuses_on_card(cuda):
-    """Cloudsc2AD with LPHYLIN=False on CUDA tensors raises ValueError that
-    names the plain AD (physics.adjoint.cloudsc2_ad), before any launch of
-    an AD kernel or of the NL kernel, their forward sweep; the plain AD
-    itself runs on those tensors."""
+    """Cloudsc2AD with LPHYLIN=False on CUDA tensors runs the kernels (one
+    NL and one reverse launch), bitwise the LPHYLIN=True launch on the same
+    state, and within ``ad_limit`` of the plain AD under LPHYLIN=False."""
     from cloudsc2_tpu_torch.components import Cloudsc2AD
     from cloudsc2_tpu_torch.grid import Grid
 
@@ -267,14 +271,15 @@ def test_ad_component_without_lphylin_refuses_on_card(cuda):
     s, dt = _ad_state(100, torch.float32, c, cuda)
     for n in ("t", "q", "ql", "qi"):
         s["tnd_" + n] = torch.zeros_like(s["ap"])
-    counts = lambda: (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches,  # noqa: E731
-                      adk.cloudsc2_ad_fused_cuda.launches)
+    counts = lambda: (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)  # noqa: E731
     before = counts()
-    with pytest.raises(ValueError, match="LPHYLIN=True.*physics.adjoint.cloudsc2_ad"):
-        Cloudsc2AD(Grid(ncols=100, nlev=137), c)(s, dt)
-    assert counts() == before
-    want = _host(cloudsc2_ad(s, dt, c))
-    assert len(want) == 26 and all(np.isfinite(v).all() for v in want.values())
+    got = _host(Cloudsc2AD(Grid(ncols=100, nlev=137), c)(s, dt))
+    assert counts() == (before[0] + 1, before[1] + 1)
+    want = _host(adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=True)))
+    assert got.keys() == want.keys() and len(want) == 26
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert_ad(got, _host(cloudsc2_ad(s, dt, c)), torch.float32, "LPHYLIN=False")
 
 
 def _ad_state(ncols, dtype, c, device):
@@ -307,8 +312,8 @@ def test_ad_kernel_refuses_bad_inputs(cuda):
     c = CONFIGS["default"]()
     s, dt = _ad_state(64, torch.float32, c, cuda)
     before = adk.cloudsc2_ad_cuda.launches
-    with pytest.raises(ValueError, match="LPHYLIN"):
-        adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=False))
+    with pytest.raises(ValueError, match="FAST_DIV"):
+        adk.cloudsc2_ad_cuda(s, dt, c.replace(FAST_DIV="fast"))
     with pytest.raises(ValueError, match="is on"):
         adk.cloudsc2_ad_cuda({**s, "clc_i": s["clc_i"].cpu()}, dt, c)
     with pytest.raises(ValueError, match="shape"):
@@ -373,8 +378,8 @@ def test_ad_fused_kernel_refuses_bad_inputs(cuda):
     c = CONFIGS["default"]()
     s, dt = _ad_state(64, torch.float32, c, cuda)
     before = adk.cloudsc2_ad_fused_cuda.launches
-    with pytest.raises(ValueError, match="LPHYLIN"):
-        adk.cloudsc2_ad_fused_cuda(s, dt, c.replace(LPHYLIN=False))
+    with pytest.raises(ValueError, match="FAST_DIV"):
+        adk.cloudsc2_ad_fused_cuda(s, dt, c.replace(FAST_DIV="fast"))
     with pytest.raises(ValueError, match="is on"):
         adk.cloudsc2_ad_fused_cuda({**s, "clc_i": s["clc_i"].cpu()}, dt, c)
     with pytest.raises(ValueError, match="shape"):
@@ -401,3 +406,103 @@ def test_ad_fused_occupancy_on_card(cuda):
             assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ
             assert occ["threads_per_sm"] == (192 if dtype == torch.float32 else 96) or resident, occ
             assert 0 < occ["registers"] <= 255, occ
+
+
+# ---- the forms of the TL and AD kernels: divide modes, CUADJ_COMPACT=False, LPHYLIN=False
+
+
+def _scaled(got, want):
+    return {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-300)
+            for k in want}
+
+
+@pytest.mark.parametrize("mode", ["faithful", "approx"])
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_tl_and_ad_fast_div_kernels_on_card(cuda, cfg, mode):
+    """f32: the TL kernel and the two-kernel AD under ``mode`` within
+    ``div_gate`` of the plain exact versions and not bitwise the exact
+    kernels; ``tangent_only`` bitwise the full launch; the fused AD, rolled
+    and resident, bitwise the two-kernel AD in the mode; f64 with the mode
+    set bitwise the exact kernels."""
+    c = CONFIGS[cfg]()
+    cm = c.replace(FAST_DIV=mode)
+    s, dt = _state(1000, torch.float32, c, cuda, increment=True)
+    got = _host(tlk.cloudsc2_tl_cuda(s, dt, cm))
+    exact = _host(tlk.cloudsc2_tl_cuda(s, dt, c))
+    for k, v in _scaled(got, _host(cloudsc2_tl(s, dt, c))).items():
+        assert v <= div_gate(k, "tl"), (k, v)
+    assert any(not np.array_equal(got[k], exact[k]) for k in got)
+    only = _host(tlk.cloudsc2_tl_cuda(s, dt, cm, tangent_only=True))
+    for k in only:
+        np.testing.assert_array_equal(only[k], got[k], err_msg=k)
+    s, dt = _ad_state(1000, torch.float32, c, cuda)
+    got = _host(adk.cloudsc2_ad_cuda(s, dt, cm))
+    exact = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    for k, v in _scaled(got, _host(cloudsc2_ad(s, dt, c))).items():
+        assert v <= div_gate(k, "ad"), (k, v)
+    assert any(not np.array_equal(got[k], exact[k]) for k in got)
+    for resident in (False, True):
+        fused = _host(adk.cloudsc2_ad_fused_cuda(s, dt, cm, resident=resident))
+        for k in got:
+            np.testing.assert_array_equal(fused[k], got[k], err_msg=f"resident={resident} {k}")
+    s, dt = _ad_state(100, torch.float64, c, cuda)
+    want = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    for fn in (adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda):
+        fast = _host(fn(s, dt, cm))
+        for k in want:
+            np.testing.assert_array_equal(fast[k], want[k], err_msg=f"{fn.__name__} {k}")
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_compact_false_kernels_on_card(cuda, dtype, cfg):
+    """CUADJ_COMPACT=False: the NL, TL and AD kernels against their plain
+    versions in that form at the gates of their compact form; the fused AD
+    bitwise the two-kernel AD."""
+    c = CONFIGS[cfg]().replace(CUADJ_COMPACT=False)
+    s, dt = _state(1000, dtype, c, cuda, increment=True)
+    tend, diag = TOL[dtype]
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    assert_fields(_host(nlk.cloudsc2_nl_cuda(s, dt, c)), _host(cloudsc2_nl(s, dt, c)),
+                  nl_tolerances(tend, diag, c, np_dtype), f"NL {cfg} {dtype}")
+    assert_fields(_host(tlk.cloudsc2_tl_cuda(s, dt, c)), _host(cloudsc2_tl(s, dt, c)),
+                  nl_tolerances(*TL_TOL[dtype], c, np_dtype, perturbations=True), f"TL {cfg} {dtype}")
+    s, dt = _ad_state(1000, dtype, c, cuda)
+    got = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    assert_ad(got, _host(cloudsc2_ad(s, dt, c)), dtype, f"AD {cfg} {dtype}")
+    fused = _host(adk.cloudsc2_ad_fused_cuda(s, dt, c))
+    for k in got:
+        np.testing.assert_array_equal(fused[k], got[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ad_kernels_without_lphylin_on_card(cuda, dtype):
+    """LPHYLIN=False: the two-kernel AD, ``cotangent_only`` and the fused AD
+    (rolled and resident) bitwise their LPHYLIN=True launch."""
+    c = CONFIGS["ldrain1d"]()
+    off = c.replace(LPHYLIN=False)
+    s, dt = _ad_state(1000, dtype, off, cuda)
+    want = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+    runs = [adk.cloudsc2_ad_cuda(s, dt, off), adk.cloudsc2_ad_fused_cuda(s, dt, off),
+            adk.cloudsc2_ad_fused_cuda(s, dt, off, resident=True), adk.cloudsc2_ad_cuda(s, dt, off, cotangent_only=True)]
+    for i, out in enumerate(runs):
+        got = _host(out)
+        for k in got:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"run {i} {k}")
+
+
+def test_form_attributes_on_card(cuda):
+    """In every form the reverse kernel fits the register file (no more
+    than 255 registers a thread) and the card's pick of the fused block is
+    the plan's."""
+    for dtype in (torch.float32, torch.float64):
+        forms = [("exact", False)] + ([("faithful", True), ("approx", True)] if dtype == torch.float32 else [])
+        for mode, _ in forms:
+            for compact in (True, False):
+                c = CONFIGS["default"]().replace(FAST_DIV=mode, CUADJ_COMPACT=compact)
+                div = ("exact", "faithful", "approx").index(mode)
+                att = adk.reverse_attributes(dtype, False, True, div, compact)
+                assert 0 < att["registers"] <= 255, (mode, compact, att)
+                occ = adk.fused_occupancy(dtype, c, False, 137)
+                block, nbytes, per_sm = adk.fused_plan(137, dtype, False, False)
+                assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ

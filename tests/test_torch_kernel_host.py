@@ -79,18 +79,21 @@ def test_fastdiv_host_library_argument_lists():
     """The faithful / approx bodies are in the same library, selected by the
     ``div`` switch of the reported lists; a double step takes the exact
     divide only, and the library refuses another (the JAX kernel divides
-    non-f32 operands exactly, so no body exists for it)."""
+    non-f32 operands exactly, so no body exists for it).  The library holds
+    one saturation-adjustment form, its ``compact`` switch, and refuses the
+    other."""
     lib = nlk._load("host")
-    assert nlk.signature().startswith("switches:is_double,thermo,evap,traj,fuse,div,;")
+    assert nlk.signature().startswith("switches:is_double,thermo,evap,traj,fuse,div,compact,;")
     c = CONFIGS["default"]()
     _, state, dt = iox.synthesize_input(ncols=4, nlev=8, seed=0, dtype=np.float64)
     ins, outs, consts, switches = nlk._marshal(port_state(state, np.float64, c), dt, c, "cpu",
                                                False, False, False, 1)
     run = lambda sw: lib.cloudsc2_nl_host(  # noqa: E731
         *sw, nlk.ptrs(ins), nlk.ptrs(list(outs.values())), consts.data_ptr(), 8, 4)
-    assert switches[0] == 1 and switches[-1] == 0 and run(switches) == 0
+    assert switches[0] == 1 and switches[-2:] == (0, 1) and run(switches) == 0
     for div in (1, 2, 3):
-        assert run(switches[:-1] + (div,)) == 1
+        assert run(switches[:-2] + (div, 1)) == 1
+    assert run(switches[:-1] + (0,)) == 1
 
 
 @pytest.mark.parametrize("cfg", list(CONFIGS))

@@ -38,7 +38,7 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "cloudsc2_tpu_torch"
 #: the port's drivers, which import the port only
-DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch")
+DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch", "kernel_ab_torch")
 #: what the port may not import: jax, and the JAX package with any module of it
 FORBIDDEN = ("jax", "jaxlib", "cloudsc2_tpu")
 
@@ -220,20 +220,22 @@ def test_wrapper_checks_shapes_dtypes_and_options():
         nlk.cloudsc2_nl_host({**s, "aph": s["aph"][:-1]}, dt, c)
     with pytest.raises(ValueError, match="contiguous"):
         nlk.cloudsc2_nl_host({**s, "t": s["t"].t().contiguous().t()}, dt, c)
-    # the NL takes every divide mode (f64 divides exactly: the same numbers);
-    # the TL (test_tl_wrapper_checks_shapes_dtypes_and_options) and the AD
-    # still refuse the non-exact ones
+    # the NL and TL take every divide mode (f64 divides exactly: the same
+    # numbers) and both CUADJ_COMPACT forms; an unknown mode is refused
     exact = nlk.cloudsc2_nl_host(s, dt, c)
+    st = {**s, **state_increment(s, 0.01)}
+    tl_exact = tlk.cloudsc2_tl_host(st, dt, c)
     for mode in ("faithful", "approx"):
-        got = nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV=mode))
-        for want, have in zip(exact, got):
-            assert all(torch.equal(have[k], want[k]) for k in want)
-        with pytest.raises(NotImplementedError, match="FAST_DIV"):
-            tlk.cloudsc2_tl_host({**s, **state_increment(s, 0.01)}, dt, c.replace(FAST_DIV=mode))
+        for fn, x, want_all in ((nlk.cloudsc2_nl_host, s, exact), (tlk.cloudsc2_tl_host, st, tl_exact)):
+            got = fn(x, dt, c.replace(FAST_DIV=mode))
+            for want, have in zip(want_all, got):
+                assert all(torch.equal(have[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="FAST_DIV"):
         nlk.cloudsc2_nl_host(s, dt, c.replace(FAST_DIV="fast"))
-    with pytest.raises(NotImplementedError, match="CUADJ_COMPACT"):
-        nlk.cloudsc2_nl_host(s, dt, c.replace(CUADJ_COMPACT=False))
+    for fn, x, want_all in ((nlk.cloudsc2_nl_host, s, exact), (tlk.cloudsc2_tl_host, st, tl_exact)):
+        got = fn(x, dt, c.replace(CUADJ_COMPACT=False))
+        for want, have in zip(want_all, got):
+            assert sorted(have) == sorted(want) and all(bool(v.isfinite().all()) for v in have.values())
 
 
 def test_tl_kernel_constants_fold_in_double_and_round_once():
@@ -290,8 +292,8 @@ def test_tl_wrapper_checks_shapes_dtypes_and_options():
         tlk.cloudsc2_tl_host({**s, "t_i": s["t_i"].t().contiguous().t()}, dt, c)
     with pytest.raises(KeyError):
         tlk.cloudsc2_tl_host({k: v for k, v in s.items() if k != "lu_i"}, dt, c)
-    with pytest.raises(NotImplementedError, match="FAST_DIV"):
-        tlk.cloudsc2_tl_host(s, dt, c.replace(FAST_DIV="approx"))
+    with pytest.raises(ValueError, match="FAST_DIV"):
+        tlk.cloudsc2_tl_host(s, dt, c.replace(FAST_DIV="fast"))
 
 
 def test_dispatch_refuses_other_devices():
@@ -309,29 +311,39 @@ def test_dispatch_refuses_other_devices():
 
 def test_ad_cuda_wrapper_raises_on_cpu_tensors_and_without_lphylin():
     """The AD CUDA wrapper launches or raises: CPU tensors are refused
-    before anything is built, LPHYLIN=False is refused on any device, and
-    neither launch count moves."""
+    before anything is built, under LPHYLIN=False as under True (the
+    kernels take both), and neither launch count moves."""
     s, dt, c = _tl_cpu_state()
     before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
-    with pytest.raises(ValueError, match="cuda"):
-        adk.cloudsc2_ad_cuda(s, dt, c)
-    with pytest.raises(ValueError, match="LPHYLIN"):
-        adk.cloudsc2_ad_cuda(s, dt, c.replace(LPHYLIN=False))
+    for cc in (c, c.replace(LPHYLIN=False)):
+        with pytest.raises(ValueError, match="cuda"):
+            adk.cloudsc2_ad_cuda(s, dt, cc)
     assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
+    assert adk.forward_constants(c.replace(LPHYLIN=False)) == c
 
 
 @pytest.mark.parametrize("mode", ["faithful", "approx"])
 def test_ad_refuses_fast_div_before_its_forward_launch(mode):
-    """The AD takes the exact divide only, and refuses the others before
-    its forward sweep (the NL kernel, which takes them) runs: on the CUDA
-    entry no count moves, on the host entry nothing runs."""
+    """The AD takes every divide mode: in float64, which divides exactly,
+    the host bodies and the CPU dispatch (the plain AD) under it are
+    bitwise their exact forms; the CUDA entry refuses CPU tensors before
+    its forward launch, and no count moves; an unknown mode is refused
+    before anything runs."""
+    from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl
+
     s, dt, c = _tl_cpu_state()
+    tends, diags = cloudsc2_tl(s, dt, c)
+    s.update({"tnd_" + k: v for k, v in tends.items() if k.endswith("_i")})
+    s.update({k: v for k, v in diags.items() if k.endswith("_i")})
     cm = c.replace(FAST_DIV=mode)
     before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
-    with pytest.raises(NotImplementedError, match="FAST_DIV"):
-        adk.cloudsc2_ad_host(s, dt, cm)
-    with pytest.raises(NotImplementedError, match="FAST_DIV"):
-        dispatch.cloudsc2_ad(s, dt, cm)
+    for fn in (adk.cloudsc2_ad_host, dispatch.cloudsc2_ad):
+        for want, got in zip(fn(s, dt, c), fn(s, dt, cm)):
+            assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="cuda"):
+        adk.cloudsc2_ad_cuda(s, dt, cm)
+    with pytest.raises(ValueError, match="FAST_DIV"):
+        adk.cloudsc2_ad_host(s, dt, c.replace(FAST_DIV="fast"))
     assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
 
 
