@@ -11,9 +11,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
    (``cloudsc2_tpu_torch.kernels.build.form``: the NL's two, one per
    saturation-adjustment form, each with every divide mode; the TL's and
    AD's three, compact with the exact divide, compact with faithful and
-   approx, and CUADJ_COMPACT=False with every divide), eleven nvcc
-   processes at once; prints each library's build time, and ptxas's
-   registers and spills for every instantiation.
+   approx, and CUADJ_COMPACT=False with every divide), and the probes'
+   library (``microbench.cu``), twelve nvcc processes at once; prints each
+   library's build time, and ptxas's registers and spills for every
+   instantiation.
 3. NL kernel vs plain: the CUDA kernel against its plain PyTorch version on
    the same CUDA tensors, f64 and f32, for the three switch configurations
    (default, LEVAPLS2, LDRAIN1D) at 4096 x 137 and the default at
@@ -143,6 +144,21 @@ Phases, each timed; any failure raises and the script exits non-zero:
    with saturation fused in) and two-stage (Saturation + Cloudsc2NL), f32,
    65,536 x 137: wall time, device time of the NL kernel and of the rest,
    and the device's busy share.
+12. probes (``cloudsc2_tpu_torch.kernels.microbench``): the reader kernel
+   bitwise its plain version at every instantiation and shape its path
+   runs (S = 1-32 in both layouts at a ragged 4000 columns, S = 3 and 10 at
+   4096, at 65,536 S = 10 in both layouts and each port kernel's input
+   stream count; 137 levels); every chain variant bitwise its plain version
+   given the card's approximate reciprocal, at 137 x 65,536 on the wide
+   operand range, one step of each within its ulp bound of the float64
+   map, ``rcpx1`` and ``rcpx2`` apart from ``rcpx``; then each probe
+   through its driver, with its launch count at 0 before and read after
+   (both must grow): ``drivers/microbench_hbm_torch.py`` at the JAX
+   script's defaults and at 65,536 x 137 at each port kernel's input stream
+   count (GB/s, share of 3.35 TB/s, ``torch.sum`` beside it),
+   ``drivers/microbench_div_torch.py`` at the JAX script's shape, every
+   variant within 1e-6 of the float64 chain, the latency reading's SM
+   placement printed; the plain versions timed once each.
 
 The line before the last is a JSON summary of the kernels, each with its
 forms of this slice under ``forms``; the last line is
@@ -155,7 +171,6 @@ from __future__ import annotations
 import functools
 import json
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -170,14 +185,6 @@ RAGGED = 4000
 #: allocation, launch; phase 10 measures it) overlaps the previous call's
 #: kernel, so the batch times the device
 KERNEL_BATCH = 10
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    return out.splitlines()[0].strip()
 
 
 def tolerances(torch, dtype, c):
@@ -259,16 +266,13 @@ def flat(out):
 
 def time_ms(torch, fn, calls):
     """Milliseconds between CUDA events around ``calls`` back-to-back calls
-    of ``fn`` (device time once the queue stays full)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    of ``fn`` (device time once the queue stays full): ``utils/card.run_ms``
+    without its hold, the yardstick of phases 3-11 since the port began, so
+    that their times stay comparable from run to run and a plain version's
+    host time between its launches counts.  Phase 12 times with the hold."""
+    from cloudsc2_tpu_torch.utils.card import run_ms
+
+    return run_ms(fn, calls, torch.device("cuda", torch.cuda.current_device()), hold=False)
 
 
 def host_ms(torch, fn, calls):
@@ -1417,6 +1421,191 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
     return out
 
 
+def kernel_stream_counts(nlk, tlk, adk, c):
+    """The input fields each port kernel reads at the default switches,
+    counted from its wrapper's argument list (the ``(nlev,)`` vectors
+    ``eta`` and ``scalm`` left out): the reader's stream count for it."""
+    from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, trajectory_names
+
+    skip = {"eta", "scalm"} | (set(TRAJ_OUTPUTS) - set(trajectory_names(c)))
+    return {
+        "cloudsc2_nl fused": len([n for n in nlk.NL_INPUTS if n not in skip | {"qsat"}]),
+        "cloudsc2_tl": len([n for n in tlk.TL_INPUTS if n not in skip]),
+        "cloudsc2_ad reverse": len([n for n in adk.AD_INPUTS if n not in skip]),
+        "cloudsc2_ad_fused": len([n for n in adk.AD_FUSED_INPUTS if n not in skip]),
+    }
+
+
+def probe_checks(torch, mbk, nlk, counts, card):
+    """Phase 12, the probes against their plain versions on the card (these
+    launches are not the probes' paths'), every instantiation that the
+    paths run and at the paths' shapes.  The reader bitwise its plain
+    version: every stream count 1-32 (S is a template value) in both
+    layouts at a ragged 4000 x 137; S = 3 and 10 at 4096; at 65,536 x 137,
+    S = 10 in both layouts and each port kernel's input stream count
+    (``counts``) in the global layout.  The chain on the wide operand range
+    at 137 x 65,536: every variant bitwise its plain version given the
+    card's approximate reciprocal (``rcp_cuda`` in ``approx`` mode; ``div``
+    and ``rcp`` are IEEE operations under ``--fmad=false``) at 1, 5 and 16
+    steps (the unrolled loop, its remainder); one step of each within
+    ``STEP_ULP_BOUND`` ulps of the float64 map; ``rcpx1`` and ``rcpx2``
+    apart from ``rcpx`` at some points.  Returns the largest abs
+    difference of each kernel (0 where bitwise) and each variant's one-step
+    error in ulps."""
+    from drivers.microbench_div_torch import STEP_ULP_BOUND, step_ulps, wide_operands
+
+    gen = torch.Generator(device="cuda:0").manual_seed(12)
+    before = (mbk.reader_cuda.launches, mbk.chain_cuda.launches)
+    err = {"reader": 0.0, "chain": 0.0}
+    cases = ([(layout, s, RAGGED) for layout in mbk.LAYOUTS for s in range(1, mbk.MAX_STREAMS + 1)]
+             + [(layout, s, SMALL) for layout in mbk.LAYOUTS for s in (3, 10)]
+             + [(layout, 10, BIG) for layout in mbk.LAYOUTS]
+             + [("global", s, BIG) for s in sorted(set(counts.values()))])
+    for layout, streams, ncols in cases:
+        big = torch.rand((streams, *mbk.reader_shape(layout, NLEV, ncols)), generator=gen, device="cuda:0")
+        parts = list(big.unbind(0))
+        got = mbk.reader_cuda(parts, 7.0, layout, ncols)
+        want = mbk.plain_reader(parts, 7.0, layout, ncols)
+        torch.cuda.synchronize()
+        err["reader"] = max(err["reader"], float((got - want).abs().max()))
+        assert_bitwise(torch, {"sum": got}, {"sum": want}, f"[reader {layout} S={streams} {ncols}x{NLEV}]")
+        del big, parts
+    print(f"  [reader] kernel bitwise its plain version in {len(cases)} cases: S = 1-{mbk.MAX_STREAMS} in both "
+          f"layouts at {RAGGED} columns, S = 3 and 10 at {SMALL}, S = 10 in both layouts and S = "
+          f"{sorted(set(counts.values()))} (global) at {BIG}; {NLEV} levels; {card}")
+    x = torch.from_numpy(wide_operands(NLEV, BIG, seed=12)).to("cuda:0")
+
+    def approx(b):
+        return nlk.rcp_cuda(b, "approx")
+
+    one, ulps = {}, {}
+    for variant in mbk.VARIANTS:
+        for n in (1, 5, 16):
+            got, want = mbk.chain_cuda(x, variant, n), mbk.plain_chain(x, variant, n, approx)
+            torch.cuda.synchronize()
+            err["chain"] = max(err["chain"], float((got - want).abs().max()))
+            assert_bitwise(torch, {"x": got}, {"x": want}, f"[chain {variant} n={n} {NLEV}x{BIG}]")
+            if n == 1:
+                one[variant] = got
+        ulps[variant] = step_ulps(x, one[variant])
+        if not ulps[variant] <= STEP_ULP_BOUND[variant]:
+            raise AssertionError(f"[chain] {variant}: one step {ulps[variant]:.4f} ulps from the float64 map, "
+                                 f"above its bound {STEP_ULP_BOUND[variant]}")
+    apart = {v: float((one[v] != one["rcpx"]).double().mean()) for v in ("rcpx1", "rcpx2")}
+    if not all(apart.values()):
+        raise AssertionError(f"[chain] a Newton variant is rcpx at every point: share apart {apart}")
+    print(f"  [chain] every variant bitwise its plain version (the card's rcp.approx given) at {NLEV}x{BIG}, "
+          f"1, 5 and 16 steps; one step in ulps of the float64 map {{{', '.join(f'{v}: {u:.4f}' for v, u in ulps.items())}}} "
+          f"(bounds {STEP_ULP_BOUND}); share of points apart from rcpx {apart}; {card}")
+    del x, one
+    grown = (mbk.reader_cuda.launches - before[0], mbk.chain_cuda.launches - before[1])
+    if not all(grown):
+        raise AssertionError(f"[probes] the kernels' launch counts did not grow: {grown}")
+    return err, ulps
+
+
+def probe_paths(torch, mbk, counts, card):
+    """Phase 12, the probes through their drivers, each with its kernel's
+    count at 0 just before and read just after: ``microbench_hbm_torch`` at
+    the JAX script's defaults (4096 and 65,536 columns, 10 streams, both
+    layouts), then at 65,536 x 137 in the global layout at each port
+    kernel's input stream count; ``microbench_div_torch`` at the JAX
+    script's shape, every variant's ``chain_rel_err`` within 1e-6 of the
+    float64 chain (a few float32 ulps: the hardware reciprocal is within an
+    ulp and the map contracts errors by 0.445 a step).  Returns the lines
+    and the launches of each path."""
+    from drivers import microbench_div_torch, microbench_hbm_torch
+
+    mbk.reader_cuda.launches = 0
+    hbm = microbench_hbm_torch.main([])
+    by_kernel = {name: microbench_hbm_torch.main(["16", "--streams", str(s), "--layout", "global"])[0]
+                 for name, s in counts.items()}
+    reader_launches = mbk.reader_cuda.launches
+    mbk.chain_cuda.launches = 0
+    div = microbench_div_torch.main([])
+    chain_launches = mbk.chain_cuda.launches
+    print(f"[probes] launches on the probes' paths: reader {reader_launches}, chain {chain_launches}")
+    if reader_launches == 0 or chain_launches == 0:
+        raise AssertionError("a probe's driver never launched its kernel")
+    for name, line in by_kernel.items():
+        print(f"  [reader at {name}'s {line['streams']} streams, {BIG}x{NLEV} global] "
+              f"{line['read_gb_per_s']:.1f} GB/s, {line['peak_share']:.4f} of 3.35 TB/s, kernel "
+              f"{line['per_step_ms']:.4f} ms, bound {line['bound_ms']:.4f} ms, torch.sum {line['library_ms']:.4f} ms "
+              f"({line['library_gb_per_s']:.1f} GB/s); {card}")
+    errs = {line["variant"]: line["chain_rel_err"] for line in div if "chain_rel_err" in line}
+    over = {v: e for v, e in errs.items() if not e <= 1e-6}
+    if over or len(errs) != len(mbk.VARIANTS):
+        raise AssertionError(f"[chain] variants beyond 1e-6 of the float64 chain: {over} (read {errs})")
+    print(f"  [chain] every variant within 1e-6 of the float64 chain: {errs}; {card}")
+    placed = {line["variant"]: (line["fewest_sms"], line["most_blocks_per_sm"]) for line in div if "ns_per_step" in line}
+    print(f"  [chain latency] (fewest SMs a launch ran on, most blocks on one SM) by variant: {placed}; one warp "
+          f"per SM in every launch: {all(line['one_warp_per_sm'] for line in div if 'ns_per_step' in line)}")
+    return hbm, by_kernel, div, reader_launches, chain_launches
+
+
+def probe_phase(torch, mbk, nlk, tlk, adk, c, card):
+    """Phase 12: :func:`probe_checks`, then :func:`probe_paths` at each port
+    kernel's input stream count, then the plain versions timed once each at
+    the paths' main shapes (65,536 x 137, 10 streams; 137 x 65,536, the
+    chain's LONG steps).  Returns the kernels line's rows of the two probes."""
+    from cloudsc2_tpu_torch.utils.card import run_ms
+
+    counts = kernel_stream_counts(nlk, tlk, adk, c)
+    probe_err, step_ulp = probe_checks(torch, mbk, nlk, counts, card)
+    hbm_lines, by_kernel, div_lines, reader_launches, chain_launches = probe_paths(torch, mbk, counts, card)
+    hbm_big = next(line for line in hbm_lines if line["ncols"] == BIG and not line["tile"])
+    div_timed = {line["variant"]: line for line in div_lines if "ns_per_elem" in line}
+    gen = torch.Generator(device="cuda:0").manual_seed(12)
+    big = torch.rand((hbm_big["streams"], NLEV, BIG), generator=gen, device="cuda:0")
+    reader_plain_ms = run_ms(lambda: mbk.plain_reader(list(big.unbind(0)), 1.0), 1, big.device)
+    del big
+    x = torch.full((NLEV, BIG), 1.2345, device="cuda:0")
+    chain_plain_ms = run_ms(lambda: mbk.plain_chain(x, "div", div_timed["div"]["steps"]), 1, x.device)
+    del x
+    print(f"[probes] plain versions: reader {reader_plain_ms:.4f} ms ({hbm_big['streams']} streams, {BIG}x{NLEV}), "
+          f"chain div {chain_plain_ms:.4f} ms ({div_timed['div']['steps']} steps, {NLEV}x{BIG}), one call each "
+          f"(CUDA events behind a sleep, as the drivers time the kernels); {card}")
+    return [{
+        "name": "make_reader",
+        "route": "cuda",
+        "source": "cloudsc2_tpu_torch/kernels/csrc/microbench.cu",
+        "replaces": "benchmarks/microbench_hbm.py:45",
+        "launches": reader_launches,
+        "max_abs_err": probe_err["reader"],
+        "ms": hbm_big["per_step_ms"],
+        "plain_ms": reader_plain_ms,
+        "bound_ms": hbm_big["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": hbm_big["library_ms"],
+        "streams": hbm_big["streams"],
+        "read_gb_per_s": hbm_big["read_gb_per_s"],
+        "by_kernel": {name: {k: line[k] for k in ("streams", "per_step_ms", "read_gb_per_s", "peak_share",
+                                                  "bound_ms", "library_ms", "library_gb_per_s")}
+                      for name, line in by_kernel.items()},
+        "shape": [NLEV, BIG],
+    }, {
+        "name": "make_chain",
+        "route": "cuda",
+        "source": "cloudsc2_tpu_torch/kernels/csrc/microbench.cu",
+        "replaces": "benchmarks/microbench_div.py:56",
+        "launches": chain_launches,
+        "max_abs_err": probe_err["chain"],
+        "ms": div_timed["div"]["launch_ms"],
+        "plain_ms": chain_plain_ms,
+        "bound_ms": div_timed["div"]["bound_ms"],
+        "bound_by": div_timed["div"]["bound_by"],
+        "library_ms": None,
+        "steps": div_timed["div"]["steps"],
+        "variants": {v: {k: line[k] for k in ("ns_per_elem", "vs_div", "launch_ms", "bound_ms", "bound_by")}
+                     for v, line in div_timed.items()},
+        "chain_rel_err": {line["variant"]: line["chain_rel_err"] for line in div_lines if "chain_rel_err" in line},
+        "step_ulp_err": step_ulp,
+        "latency_ns_per_step": {line["variant"]: line["ns_per_step"] for line in div_lines if "ns_per_step" in line},
+        "latency_one_warp_per_sm": all(line["one_warp_per_sm"] for line in div_lines if "ns_per_step" in line),
+        "shape": [NLEV, BIG],
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -1426,18 +1615,20 @@ def main() -> int:
     from cloudsc2_tpu_torch.config import Config, TorchConfig
     from cloudsc2_tpu_torch.kernels import adjoint as adk
     from cloudsc2_tpu_torch.kernels import build
+    from cloudsc2_tpu_torch.kernels import microbench as mbk
     from cloudsc2_tpu_torch.kernels import nonlinear as nlk
     from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
     from cloudsc2_tpu_torch.params import make_constants
     from cloudsc2_tpu_torch.physics.adjoint import cloudsc2_ad as plain_ad
     from cloudsc2_tpu_torch.physics.nonlinear import cloudsc2_nl as plain_nl
     from cloudsc2_tpu_torch.physics.tangent_linear import cloudsc2_tl as plain_tl
+    from cloudsc2_tpu_torch.utils.card import card_label
     from cloudsc2_tpu_torch.utils.timing import Timer
     from drivers.run_nonlinear_torch import core, synthetic_golden, synthetic_input
 
     t_start = time.perf_counter()
     # ---- 1. card
-    card = card_label()
+    card = card_label(torch.device("cuda:0"))
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{kind}, {torch.cuda.device_count()} visible")
@@ -1453,6 +1644,7 @@ def main() -> int:
         for compact, fast in build.FORMS:
             loaders[name + build.form(compact, fast)[0]] = (
                 lambda load=load, compact=compact, fast=fast: load(compact, fast))
+    loaders["cloudsc2_microbench"] = mbk.load_cuda
     build_kernels(build, loaders, card)
     phase_t = time.perf_counter()
 
@@ -1641,6 +1833,10 @@ def main() -> int:
     # ---- 11. where the NL main paths' time goes (torch.profiler, f32, 65,536 columns)
     profiles = {fused: profile_main_path(torch, c0, card, fused) for fused in (True, False)}
     phase_done("11 profile")
+
+    # ---- 12. the probes: each kernel against its plain version, then through its driver
+    probe_rows = probe_phase(torch, mbk, nlk, tlk, adk, c0, card)
+    phase_done("12 probes")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
     print(card)
@@ -1858,7 +2054,7 @@ def main() -> int:
         "registers": {f"{form}_{tag}": ad_time[tag][f"fused {form} registers"] for tag, form in occ},
         "forms": fused_forms_json,
         "shape": [NLEV, BIG],
-    }]}))
+    }, *probe_rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

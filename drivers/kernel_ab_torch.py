@@ -20,11 +20,22 @@ Needs an NVIDIA GPU and nvcc; prints the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+
+def _card_module():
+    """``cloudsc2_tpu_torch/utils/card.py`` of this script's own checkout,
+    loaded from its file, so that the package under test still comes from
+    ``--tree`` (which may predate the module)."""
+    path = Path(__file__).resolve().parents[1] / "cloudsc2_tpu_torch" / "utils" / "card.py"
+    spec = importlib.util.spec_from_file_location("_kernel_ab_card", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main(argv=None) -> int:
@@ -49,8 +60,9 @@ def main(argv=None) -> int:
     from cloudsc2_tpu_torch.physics.saturation import saturation
     from cloudsc2_tpu_torch.state import synthesize_state
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    cardmod = _card_module()
+    device = torch.device("cuda:0")
+    card = cardmod.card_label(device)
     label = f"[kernel-ab {args.tree}]"
     c = make_constants(lphylin=True, ldrain1d=False)
     t0 = time.perf_counter()
@@ -62,20 +74,11 @@ def main(argv=None) -> int:
     def ms(fn):
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-        runs = []
-        for _ in range(args.runs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(args.batch):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            runs.append(start.elapsed_time(end) / args.batch)
+        runs = [cardmod.run_ms(fn, args.batch, device, hold=False) / args.batch for _ in range(args.runs)]
         return statistics.median(runs), runs
 
     for dtype in (torch.float32, torch.float64):
-        _, s, dt = synthesize_state(args.num_cols, 137, 2, torch.device("cuda:0"), dtype)
+        _, s, dt = synthesize_state(args.num_cols, 137, 2, device, dtype)
         s["eta"] = eta_levels(s["ap"], s["aph"])
         s["qsat"] = saturation(s["ap"], s["t"], c=c)
         s.update(state_increment(s, 0.01, ignore_supsat=True))

@@ -33,7 +33,11 @@ faithful and approx (f32) within ``div_gate`` ("tl", "ad") of the plain exact
 versions and not bitwise the exact kernels, the fused AD bitwise the
 two-kernel AD in the same mode, f64 with FAST_DIV set bitwise exact; the NL,
 TL and AD kernels with CUADJ_COMPACT=False against their plain versions in
-that form at the gates above.
+that form at the gates above.  The probes (``kernels/microbench.py``): the
+reader bitwise its plain version at every stream count; every chain
+variant bitwise its plain version given the card's approximate reciprocal,
+one step within its ulp bound, every variant within 1e-6 of the float64
+chain; the chain kernel's record of its blocks' SMs.
 """
 import numpy as np
 import pytest
@@ -506,3 +510,78 @@ def test_form_attributes_on_card(cuda):
                 occ = adk.fused_occupancy(dtype, c, False, 137)
                 block, nbytes, per_sm = adk.fused_plan(137, dtype, False, False)
                 assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ
+
+
+@pytest.mark.parametrize("layout", ["global", "tile"])
+def test_reader_kernel_bitwise_plain_on_card(cuda, layout):
+    """The reader probe (``kernels/microbench.py``) bitwise its plain version:
+    every stream count 1-32 (each a kernel of its own: S is a template
+    value) at a ragged 4000 columns, 3 and 32 streams at 4096, 137 levels;
+    its launch count grows."""
+    from cloudsc2_tpu_torch.kernels import microbench as mb
+
+    before = mb.reader_cuda.launches
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    cases = [(s, 4000) for s in range(1, mb.MAX_STREAMS + 1)] + [(3, 4096), (32, 4096)]
+    for nstreams, ncols in cases:
+        big = torch.rand((nstreams, *mb.reader_shape(layout, 137, ncols)), generator=gen, device=cuda)
+        parts = list(big.unbind(0))
+        got, want = mb.reader_cuda(parts, 3.0, layout, ncols), mb.plain_reader(parts, 3.0, layout, ncols)
+        assert torch.equal(got, want), (nstreams, ncols)
+    assert mb.reader_cuda.launches == before + len(cases)
+
+
+def test_chain_kernel_on_card(cuda):
+    """The chain probe on the wide operand range: every variant bitwise its
+    plain version given the card's approximate reciprocal (``rcp_cuda`` in
+    ``approx`` mode; ``div`` and ``rcp`` are IEEE operations under
+    ``--fmad=false``) at 0, 1, 5 and 37 steps, and at one warp a block; one
+    step of each within its ulp bound of the float64 map
+    (``drivers/microbench_div_torch.STEP_ULP_BOUND``), ``rcpx1`` and
+    ``rcpx2`` apart from ``rcpx`` at some points; every variant after 64
+    one-step launches within 1e-6 of the float64 chain (the map contracts
+    errors by 0.445 a step)."""
+    from cloudsc2_tpu_torch.kernels import microbench as mb
+    from drivers.microbench_div_torch import STEP_ULP_BOUND, step_ulps, wide_operands
+
+    def approx(b):
+        return nlk.rcp_cuda(b, "approx")
+
+    row = wide_operands(1, 4096, seed=8)[0]
+    x = torch.from_numpy(row.reshape(8, 512)).to(cuda)
+    one = {}
+    for variant in mb.VARIANTS:
+        for n in (0, 1, 5, 37):
+            assert torch.equal(mb.chain_cuda(x, variant, n), mb.plain_chain(x, variant, n, approx)), (variant, n)
+        assert torch.equal(mb.chain_cuda(x, variant, 5, block=32), mb.plain_chain(x, variant, 5, approx))
+        one[variant] = mb.chain_cuda(x, variant, 1)
+        assert step_ulps(x, one[variant]) <= STEP_ULP_BOUND[variant], variant
+    for variant in ("rcpx1", "rcpx2"):
+        assert not torch.equal(one[variant], one["rcpx"]), variant
+    ref = row.astype(np.float64)
+    for _ in range(64):
+        ref = 1.25 / (ref + 1.0)
+    for variant in mb.VARIANTS:
+        v = x
+        for _ in range(64):
+            v = mb.chain_cuda(v, variant, 1)
+        got = v.cpu().numpy().reshape(-1).astype(np.float64)
+        assert float((np.abs(got - ref) / ref).max()) <= 1e-6, variant
+
+
+def test_chain_records_sm_on_card(cuda):
+    """The chain kernel writes the SM of each block where asked, and the
+    same values without it: 132 blocks of one warp, each SM index below the
+    card's count."""
+    from cloudsc2_tpu_torch.kernels import microbench as mb
+
+    x = torch.full((132, 32), 1.2345, device=cuda)
+    sm = torch.full((132,), -1, dtype=torch.int32, device=cuda)
+    got = mb.chain_cuda(x, "rcpx1", 16, block=32, sm=sm)
+    assert torch.equal(got, mb.chain_cuda(x, "rcpx1", 16, block=32))
+    count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert int(sm.min()) >= 0 and int(sm.max()) < count, sm
+    with pytest.raises(ValueError):
+        mb.chain_cuda(x, "div", 1, block=32, sm=sm[:100])
+
+

@@ -38,7 +38,8 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "cloudsc2_tpu_torch"
 #: the port's drivers, which import the port only
-DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch", "kernel_ab_torch")
+DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch", "kernel_ab_torch",
+           "microbench_hbm_torch", "microbench_div_torch")
 #: what the port may not import: jax, and the JAX package with any module of it
 FORBIDDEN = ("jax", "jaxlib", "cloudsc2_tpu")
 
