@@ -134,7 +134,13 @@ Phases, each timed; any failure raises and the script exits non-zero:
    time per call (host clock around KERNEL_BATCH asynchronous calls, before
    the synchronize); the fused NL kernel against its bound, beside the
    two-stage Saturation + unfused kernel, and in f32 the faithful and
-   approx fused kernels beside the exact one.  This slice's forms: the NL
+   approx fused kernels beside the exact one; for each NL instantiation
+   timed (unfused, fused, fused faithful / approx, with trajectory,
+   ``traj_only``, the unfused forms below), the card's reading of it
+   (``kernels.nonlinear.occupancy``: registers and local bytes a thread,
+   blocks of 128 per SM, which must be at least 4 so that 65,536 columns run
+   in one wave, the pipelined scan's ring depth and shared bytes a block).
+   This slice's forms: the NL
    kernel, the TL kernel, the two-kernel AD (the reverse kernel also alone)
    and the fused AD rolled under faithful and approx (f32) and
    CUADJ_COMPACT=False (f32 and f64), beside the exact compact form's times
@@ -367,7 +373,7 @@ def profile_main_path(torch, c, card, fused, steps=20):
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-        if "level_scan_kernel" in e.key:
+        if "level_scan_pipelined_kernel" in e.key:
             kernel_us += us
         else:
             other_us += us
@@ -1316,6 +1322,34 @@ def kernel_ms(torch, fn, runs):
     return statistics.median(k_ms), statistics.median(h_ms), k_ms
 
 
+def nl_occupancy(torch, nlk, c0, card):
+    """Phase 10, what the card makes of each NL instantiation the phase
+    times (``kernels.nonlinear.occupancy``: registers and local bytes a
+    thread, blocks of 128 per SM, the ring's depth and shared bytes a
+    block), printed; raises where fewer than 4 blocks fit an SM, which
+    65,536 columns need to run in one wave (512 blocks on 132 SMs).
+    Returns ``{"<f32|f64> <form>": reading}``."""
+    fused, traj = {"fuse_saturation": True}, {"with_trajectory": True}
+    forms = [("unfused", c0, {}), ("fused", c0, fused), ("with trajectory", c0, traj),
+             ("traj_only", c0, dict(traj, traj_only=True))]
+    forms += [(f"unfused {f}", c0.replace(**change), {}) for f, change in DIV_FORMS + (REF_FORM,)]
+    forms += [(f"fused {f}", c0.replace(**change), fused) for f, change in DIV_FORMS]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for form, c, opts in forms:
+            if dtype == torch.float64 and c.FAST_DIV != "exact":
+                continue
+            o = out[f"{tag} {form}"] = nlk.occupancy(dtype, c, **opts)
+            print(f"  [nl-occupancy {tag} {form}] {o['registers']} registers and {o['local_bytes']} B local memory "
+                  f"a thread, {o['blocks_per_sm']} blocks of 128 per SM, ring depth {o['depth']} levels, "
+                  f"{o['shared_bytes']} B shared memory a block; {card}")
+            if o["blocks_per_sm"] < 4:
+                raise AssertionError(f"[nl-occupancy {tag} {form}] {o['blocks_per_sm']} blocks of 128 per SM: "
+                                     f"65,536 columns no longer run in one wave")
+    return out
+
+
 def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
     """Phase 10, the AD at 65,536 x 137, f32 and f64: the two-kernel AD,
     the fused kernel (rolled and resident) and the trajectory held against
@@ -1827,6 +1861,7 @@ def main() -> int:
         del s
     ad_time = ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c0, card)
     form_time = form_timing(torch, nlk, tlk, adk, build, c0, card)
+    nl_occ = nl_occupancy(torch, nlk, c0, card)
     print(f"[timing] {time.perf_counter() - t0:.1f} s; {card}")
     phase_done("10 timing")
 
@@ -1958,6 +1993,14 @@ def main() -> int:
         "max_abs_err_approx": div_err[("approx", "default", BIG, "fused")][1],
         "fast_div_err_against": "the plain exact version (fused form, f32)",
         "rcp_ulps": {m: v[0] for m, v in rcp_err.items()},
+        "registers": nl_occ["f32 fused"]["registers"],
+        "registers_f64": nl_occ["f64 fused"]["registers"],
+        "blocks_per_sm": nl_occ["f32 fused"]["blocks_per_sm"],
+        "blocks_per_sm_f64": nl_occ["f64 fused"]["blocks_per_sm"],
+        "ring_depth": nl_occ["f32 fused"]["depth"],
+        "ring_depth_f64": nl_occ["f64 fused"]["depth"],
+        "occupancy": nl_occ,
+        "card": card,
         "profile_fused": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[True])),
         "profile_two_stage": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[False])),
         "forms": nl_forms_json,

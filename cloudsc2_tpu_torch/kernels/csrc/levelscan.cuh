@@ -24,6 +24,8 @@
 // The same template runs on the host (g++) for the CPU tests.
 #pragma once
 
+#include <math.h>
+
 #include <vector>
 
 #ifdef __CUDACC__
@@ -58,6 +60,196 @@ __global__ void __launch_bounds__(128) level_scan_kernel(const Body body) {
 template <class Body, bool REVERSE = false>
 inline void level_scan_host(const Body& body) {
   for (int col = 0; col < body.ncols; ++col) level_scan_column<Body, REVERSE>(body, col);
+}
+
+// ------------------------------------------------------------- pipelined ----
+// The pipelined form of the top-down scan: each level's inputs are copied
+// ahead into a per-thread ring of DEPTH slots, so that while a thread
+// computes level k the copies of levels k+1 .. k+DEPTH-1 are in flight.
+// In the direct form above a level's loads wait for the arithmetic of the
+// level before and nothing is in flight while it runs; here the copies
+// overlap it.  A slot holds a level's raw input values; the body folds
+// them as it would have folded its loads.
+//
+// A PipeBody provides
+//   typename PipeBody::Column                   per-column state, carry included
+//   static constexpr int FIELDS;                raw values a level, a slot's fields
+//   Column begin(int col) const                 prologue; the carry starts at 0
+//   template <class Ring>
+//   void prefetch(Ring&, int slot, int col, int k) const
+//       issues level k's copies into the slot: ring.copy(slot, field, src)
+//   template <class Slot>
+//   void level(Column&, const Slot&, int col, int k) const
+//       level k, its inputs read back as slot(field)
+//   int nlev, ncols;
+// A Ring provides copy(slot, field, const T* src), commit() (closes the
+// copies issued since the last commit into a group), wait<N>() (returns
+// when at most the N most recent groups are still pending), advance()
+// (called as each level's step begins) and slot(s).
+//
+// Level k's copies are group k; past the last level each step commits an
+// empty group, so group k is always the DEPTH-th most recent when level k
+// waits for it.  A level's slot is refilled (with level k+DEPTH) only in
+// the step after it was read, by the thread that read it.  The first
+// DEPTH-1 levels are issued before the prologue, which then runs under
+// them.  The body's loads are issued ahead of the stores of the levels
+// before them: the caller guarantees that no output overlaps an input.
+template <int DEPTH, class Body, class Ring>
+CLOUDSC2_HD void level_scan_pipelined_column(const Body& body, Ring& ring, int col) {
+  static_assert(DEPTH >= 1, "a ring needs a slot");
+  for (int k = 0; k < DEPTH - 1; ++k) {
+    if (k < body.nlev) body.prefetch(ring, k, col, k);
+    ring.commit();
+  }
+  typename Body::Column s = body.begin(col);
+  int slot = 0;  // k % DEPTH
+  for (int k = 0; k < body.nlev; ++k) {
+    ring.advance();
+    // level k+DEPTH-1 into the slot that level k-1 read
+    if (k + DEPTH - 1 < body.nlev) body.prefetch(ring, slot == 0 ? DEPTH - 1 : slot - 1, col, k + DEPTH - 1);
+    ring.commit();
+    ring.template wait<DEPTH - 1>();
+    body.level(s, ring.slot(slot), col, k);
+    slot = slot + 1 == DEPTH ? 0 : slot + 1;
+  }
+}
+
+// A ring of two slots in registers: a plain load of each value of the
+// level ahead into `next` while the level in `cur` runs, and the hardware's
+// scoreboard waits for a value at its first use, so commit and wait are
+// empty; advance moves the level ahead into `cur` (the slot indices of a
+// two-slot ring are implied).
+template <typename T, int FIELDS>
+struct RegisterPair {
+  struct Slot {
+    T v[FIELDS];
+    CLOUDSC2_HD T operator()(int field) const { return v[field]; }
+  };
+  Slot cur, next;
+
+  CLOUDSC2_HD void copy(int, int field, const T* src) { next.v[field] = *src; }
+  CLOUDSC2_HD void commit() const {}
+  template <int N>
+  CLOUDSC2_HD void wait() const {}
+  CLOUDSC2_HD void advance() { cur = next; }
+  CLOUDSC2_HD const Slot& slot(int) const { return cur; }
+};
+
+#ifdef __CUDACC__
+// The ring in dynamic shared memory, DEPTH * FIELDS * blockDim.x values
+// indexed [slot][field][thread]: at one field the threads of a warp touch
+// consecutive words, so no bank conflicts.  copy is cp.async (4 B in
+// float, 8 B in double, through L1: .ca), one commit group a level.  A
+// thread waits only for its own copies and reads only what it copied, so
+// the ring needs no __syncthreads and no mbarrier, and the threads of a
+// ragged last block may return early.
+template <typename T, int FIELDS>
+struct SharedRing {
+  T* base;  // this thread's word of slot 0, field 0
+  int stride;  // blockDim.x
+
+  struct Slot {
+    const T* p;
+    int stride;
+    __device__ __forceinline__ T operator()(int field) const { return p[field * stride]; }
+  };
+
+  __device__ __forceinline__ void copy(int slot, int field, const T* src) const {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(base + (slot * FIELDS + field) * stride));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(sizeof(T))
+                 : "memory");
+  }
+  __device__ __forceinline__ void commit() const { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+  __device__ __forceinline__ void advance() const {}
+  template <int N>
+  __device__ __forceinline__ void wait() const {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  }
+  __device__ __forceinline__ Slot slot(int s) const { return {base + s * FIELDS * stride, stride}; }
+};
+
+// SHARED: the ring in shared memory (SharedRing), else two slots in
+// registers (RegisterPair).  At most 128 registers a thread, so that four
+// blocks of 128 fit an SM.
+template <class Body, typename T, int DEPTH, bool SHARED>
+__global__ void __launch_bounds__(128, 4) level_scan_pipelined_kernel(const Body body) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= body.ncols) return;  // ragged last block
+  if constexpr (SHARED) {
+    extern __shared__ __align__(16) unsigned char cloudsc2_ring[];
+    SharedRing<T, Body::FIELDS> ring{reinterpret_cast<T*>(cloudsc2_ring) + threadIdx.x,
+                                     static_cast<int>(blockDim.x)};
+    level_scan_pipelined_column<DEPTH>(body, ring, col);
+  } else {
+    static_assert(DEPTH == 2, "a ring in registers has two slots");
+    RegisterPair<T, Body::FIELDS> ring;
+    level_scan_pipelined_column<DEPTH>(body, ring, col);
+  }
+}
+#endif
+
+// Host model of SharedRing: one column's ring, stride 1, with the card's
+// asynchrony modelled: a copy reads its source when issued and lands in
+// the ring only when a wait retires its group, so a slot read before its
+// wait, or refilled before it was read, gives the wrong values (the ring
+// starts as NaN).
+template <typename T, int FIELDS>
+struct HostRing {
+  struct Pending {
+    int at, group;
+    T value;
+  };
+  T* base;
+  std::vector<Pending>* pending;
+  int* open;  // the group the next copy joins
+
+  struct Slot {
+    const T* p;
+    T operator()(int field) const { return p[field]; }
+  };
+
+  void copy(int slot, int field, const T* src) const {
+    pending->push_back({slot * FIELDS + field, *open, *src});
+  }
+  void commit() const { ++*open; }
+  void advance() const {}
+  template <int N>
+  void wait() const {
+    std::vector<Pending> keep;
+    for (const Pending& p : *pending) {
+      if (p.group < *open - N)
+        base[p.at] = p.value;
+      else
+        keep.push_back(p);
+    }
+    pending->swap(keep);
+  }
+  Slot slot(int s) const { return {base + s * FIELDS}; }
+};
+
+// The host scan, a column at a time: with SHARED the shared-memory ring as
+// HostRing models it, else the card's RegisterPair itself.
+template <int DEPTH, bool SHARED, class Body, typename T>
+inline void level_scan_pipelined_host(const Body& body) {
+  if constexpr (SHARED) {
+    std::vector<T> buf(static_cast<size_t>(DEPTH) * Body::FIELDS);
+    std::vector<typename HostRing<T, Body::FIELDS>::Pending> pending;
+    for (int col = 0; col < body.ncols; ++col) {
+      for (T& v : buf) v = T(NAN);
+      pending.clear();
+      int open = 0;
+      HostRing<T, Body::FIELDS> ring{buf.data(), &pending, &open};
+      level_scan_pipelined_column<DEPTH>(body, ring, col);
+    }
+  } else {
+    static_assert(DEPTH == 2, "a ring in registers has two slots");
+    for (int col = 0; col < body.ncols; ++col) {
+      RegisterPair<T, Body::FIELDS> ring;
+      for (int f = 0; f < Body::FIELDS; ++f) ring.cur.v[f] = ring.next.v[f] = T(NAN);
+      level_scan_pipelined_column<DEPTH>(body, ring, col);
+    }
+  }
 }
 
 // ----------------------------------------------------- forward + reverse ----

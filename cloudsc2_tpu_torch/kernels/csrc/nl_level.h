@@ -508,8 +508,11 @@ struct NLBody {
     f.fhpsn[ib] = -s.carry.sfl * c.rlstt;
   }
 
-  CLOUDSC2_HD void level(Column& s, int col, int k) const {
-    const NLLevelIn<T> x = load(col, k);
+  CLOUDSC2_HD void level(Column& s, int col, int k) const { step(s, load(col, k), col, k); }
+
+  // Level k from its folded inputs: the trajectory entering it, the
+  // diagnosed qsat, the level, its outputs.
+  CLOUDSC2_HD void step(Column& s, const NLLevelIn<T>& x, int col, int k) const {
     const size_t i = at(k, col);
     if (TRAJ) {
       f.c_rfl[i] = s.carry.rfl;
@@ -519,6 +522,146 @@ struct NLBody {
     if (FUSE && !TRAJ_ONLY) f.qsat_out[i] = x.qsat;
     const NLLevelOut<T> o = nl_level<T, THERMO, EVAP, D>(s.carry, x, s.col, c);
     if (!TRAJ_ONLY) store(s, o, col, k);
+  }
+};
+
+// ------------------------------------------------------- pipelined body ----
+// The raw inputs of one level in a slot of the pipelined scan's ring, in
+// this order; qsat last, and absent with FUSE.  aph and lu are rows k+1
+// (lu_next, and the interface below the level; the one above is carried
+// from the level before).
+enum NLRingField {
+  NR_AP, NR_APH, NR_LU, NR_LUDE, NR_MFD, NR_MFU, NR_Q, NR_QI, NR_QL, NR_SUPSAT, NR_T, NR_TND_Q,
+  NR_TND_QI, NR_TND_QL, NR_TND_T, NR_QSAT
+};
+
+// The ring of a dtype: its slots (DEPTH - 1 levels in flight while one
+// runs) and where it lives, chosen by measurement on an H100 (an A/B of
+// depths 2-7 in shared memory and of two slots in registers, with
+// drivers/kernel_ab_torch.py; PERF.md section 6): in float three slots in
+// shared memory (a slot is 16 fields x 128 values, 8 KB a block; 24 KB in
+// all, so four blocks of 128 fit an SM and 65,536 columns run in one
+// wave; four slots and more ran slower); in double two slots in registers
+// (RegisterPair), where a ring in shared memory ran the unfused and
+// trajectory forms 7-11% slower than the direct scan.
+template <typename T>
+struct NLRing {
+  static constexpr int DEPTH = sizeof(T) == 4 ? 3 : 2;
+  static constexpr bool SHARED = sizeof(T) == 4;
+};
+
+// tropopause_eta with the loads of U levels issued together, so that the
+// pre-pass over the column has them in flight at once: the same values,
+// compared in the same order (the last level in the window wins).
+template <int U, typename T>
+CLOUDSC2_HD T tropopause_eta_ahead(const T* t, const T* tnd_cml_t, const T* eta, T dt, int nlev,
+                                   int ncols, int col) {
+  T trpaus = T(0.1);
+  const size_t n = static_cast<size_t>(ncols);
+  T tfg_above = t[col] + dt * tnd_cml_t[col];
+  for (int k0 = 1; k0 < nlev; k0 += U) {
+    T tv[U], dv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const size_t i = static_cast<size_t>(k0 + u) * n + static_cast<size_t>(col);
+      tv[u] = k0 + u < nlev ? t[i] : T(0);
+      dv[u] = k0 + u < nlev ? tnd_cml_t[i] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < nlev) {
+        const T tfg = tv[u] + dt * dv[u];
+        const T e = eta[k0 + u - 1];
+        if (e > T(0.1) && e < T(0.4) && tfg_above > tfg) trpaus = e;
+        tfg_above = tfg;
+      }
+    }
+  }
+  return trpaus;
+}
+
+// The Body of level_scan_pipelined_column: NLBody's step, its inputs copied
+// into the ring ahead of the level and folded from the slot as NLBody::load
+// folds them from memory (the same operations in the same order).
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY = false, bool FUSE = false,
+          int D = DIV_EXACT>
+struct NLPipeBody : NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> {
+  using Base = NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
+  static constexpr int FIELDS = FUSE ? NR_QSAT : NR_QSAT + 1;
+
+  struct Column : Base::Column {
+    T aph_top;  // aph at the interface above the level
+  };
+
+  // Prologue: NLBody::begin with the tropopause pass's loads issued eight
+  // levels at a time.
+  CLOUDSC2_HD Column begin(int col) const {
+    Column s;
+    const NLFields<T>& f = this->f;
+    s.col.trpaus = tropopause_eta_ahead<8>(f.t, f.tnd_cml_t, f.eta, this->c.dt, this->nlev, this->ncols, col);
+    critical_rh_coeffs(s.col);
+    s.col.aph_s = f.aph[this->at(this->nlev, col)];
+    s.aph_top = f.aph[this->at(0, col)];
+    s.carry.rfl = T(0);
+    s.carry.sfl = T(0);
+    s.carry.covptot = T(0);
+    if (!TRAJ_ONLY) {
+      f.fplsl[this->at(0, col)] = T(0);
+      f.fplsn[this->at(0, col)] = T(0);
+      f.fhpsl[this->at(0, col)] = -T(0) * this->c.rlvtt;
+      f.fhpsn[this->at(0, col)] = -T(0) * this->c.rlstt;
+    }
+    return s;
+  }
+
+  template <class Ring>
+  CLOUDSC2_HD void prefetch(Ring& r, int slot, int col, int k) const {
+    const NLFields<T>& f = this->f;
+    const size_t i = this->at(k, col);
+    const size_t ib = this->at(k + 1, col);
+    r.copy(slot, NR_AP, f.ap + i);
+    r.copy(slot, NR_APH, f.aph + ib);
+    if (k + 1 < this->nlev) r.copy(slot, NR_LU, f.lu + ib);
+    r.copy(slot, NR_LUDE, f.lude + i);
+    r.copy(slot, NR_MFD, f.mfd + i);
+    r.copy(slot, NR_MFU, f.mfu + i);
+    r.copy(slot, NR_Q, f.q + i);
+    r.copy(slot, NR_QI, f.qi + i);
+    r.copy(slot, NR_QL, f.ql + i);
+    r.copy(slot, NR_SUPSAT, f.supsat + i);
+    r.copy(slot, NR_T, f.t + i);
+    r.copy(slot, NR_TND_Q, f.tnd_cml_q + i);
+    r.copy(slot, NR_TND_QI, f.tnd_cml_qi + i);
+    r.copy(slot, NR_TND_QL, f.tnd_cml_ql + i);
+    r.copy(slot, NR_TND_T, f.tnd_cml_t + i);
+    if constexpr (!FUSE) r.copy(slot, NR_QSAT, f.qsat + i);
+  }
+
+  template <class Slot>
+  CLOUDSC2_HD void level(Column& s, const Slot& r, int col, int k) const {
+    const NLConst<T>& c = this->c;
+    NLLevelIn<T> x;
+    const T aph_below = r(NR_APH);
+    x.ap = r(NR_AP);
+    x.dp = aph_below - s.aph_top;
+    x.lu_next = k + 1 < this->nlev ? r(NR_LU) : T(0);
+    x.lude = r(NR_LUDE);
+    x.mf = r(NR_MFU) + r(NR_MFD);
+    x.q2 = r(NR_Q) + c.dt * r(NR_TND_Q) + r(NR_SUPSAT);
+    x.ql_fg = r(NR_QL) + c.dt * r(NR_TND_QL);
+    x.qi_fg = r(NR_QI) + c.dt * r(NR_TND_QI);
+    if constexpr (FUSE) {
+      x.qsat = saturation<D>(x.ap, r(NR_T), c);
+    } else {
+      x.qsat = r(NR_QSAT);
+    }
+    x.t_fg = r(NR_T) + c.dt * r(NR_TND_T);
+    const T* __restrict__ eta = this->f.eta;
+    const T* __restrict__ scalm = this->f.scalm;
+    x.eta = eta[k];
+    x.scalm = scalm[k];
+    s.aph_top = aph_below;
+    this->step(s, x, col, k);
   }
 };
 
@@ -593,9 +736,40 @@ __global__ void rcp_probe_kernel(const float* x, float* r, int n) {
 #endif
 
 #ifdef __CUDACC__
-// The device launcher (nonlinear.cu): one thread per
-// column, 128 a block, on the caller's stream; returns the launch's
-// cudaError_t.
+constexpr int kNLThreads = 128;  // threads a block
+
+// The device kernel of one body: its entry point, and what its launch
+// needs (dynamic shared bytes a block of `threads`).
+template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
+struct NLKernel {
+  using Body = NLPipeBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
+  static constexpr int DEPTH = NLRing<T>::DEPTH;
+  static constexpr bool SHARED = NLRing<T>::SHARED;
+  static auto fn() { return &level_scan_pipelined_kernel<Body, T, DEPTH, SHARED>; }
+  static size_t shared_bytes(int threads) {
+    return SHARED ? static_cast<size_t>(DEPTH) * Body::FIELDS * static_cast<size_t>(threads) * sizeof(T) : 0;
+  }
+  static_assert(!SHARED || DEPTH * (NR_QSAT + 1) * kNLThreads * sizeof(T) <= 48 * 1024,
+                "a ring above 48 KB a block needs cudaFuncAttributeMaxDynamicSharedMemorySize");
+  // Ask for the shared-memory carveout that four blocks' rings need (an SM
+  // has 228 KB; each block costs 1 KB more).
+  static cudaError_t prepare(int threads) {
+    if (!SHARED) return cudaSuccess;
+    const size_t bytes = shared_bytes(threads);
+    const size_t sm_bytes = 233472;
+    const int percent = static_cast<int>((4 * (bytes + 1024) * 100 + sm_bytes - 1) / sm_bytes);
+    return cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout,
+                                percent > 100 ? 100 : percent);
+  }
+  static void launch(int blocks, int threads, cudaStream_t stream,
+                     const NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>& body) {
+    level_scan_pipelined_kernel<Body, T, DEPTH, SHARED><<<blocks, threads, shared_bytes(threads), stream>>>(
+        Body{body});
+  }
+};
+
+// The device launcher (nonlinear.cu): one thread per column, 128 a block,
+// on the caller's stream; returns the launch's cudaError_t.
 struct NLLauncher {
   const void* const* in;
   void* const* out;
@@ -605,17 +779,51 @@ struct NLLauncher {
 
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
+    using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
+    const cudaError_t err = K::prepare(kNLThreads);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const auto body = make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols);
-    const int threads = 128;
-    const int blocks = (ncols + threads - 1) / threads;
-    level_scan_kernel<<<blocks, threads, 0, stream>>>(body);
+    const int blocks = (ncols + kNLThreads - 1) / kNLThreads;
+    K::launch(blocks, kNLThreads, stream, body);
     return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// What the card makes of one body's kernel at 128 threads a block
+// (cloudsc2_nl_occupancy, nonlinear.cu): out[0..4] = blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+// (spill) bytes a thread (cudaFuncGetAttributes), dynamic shared bytes a
+// block, ring depth.  Returns a cudaError_t.
+struct NLQuery {
+  int* out;
+
+  template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
+  int run() const {
+    using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
+    cudaError_t err = K::prepare(kNLThreads);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kNLThreads,
+                                                        K::shared_bytes(kNLThreads));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, K::fn());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = per_sm;
+    out[1] = attr.numRegs;
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = static_cast<int>(K::shared_bytes(kNLThreads));
+    out[4] = K::DEPTH;
+    return 0;
   }
 };
 #endif
 
-// The host build's runner (nonlinear_host.cpp):
-// the columns in a loop.
+// The host build's runners (nonlinear_host.cpp): the columns in a loop,
+// through the pipelined scan the card runs (the card's ring, the shared
+// one as HostRing models it), or with DIRECT through the direct scan of
+// NLBody.
+template <bool DIRECT>
 struct NLHostRunner {
   const void* const* in;
   void* const* out;
@@ -624,7 +832,13 @@ struct NLHostRunner {
 
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
-    level_scan_host(make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols));
+    const auto body = make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols);
+    if constexpr (DIRECT) {
+      level_scan_host(body);
+    } else {
+      using Pipe = NLPipeBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
+      level_scan_pipelined_host<NLRing<T>::DEPTH, NLRing<T>::SHARED, Pipe, T>(Pipe{body});
+    }
     return 0;
   }
 };

@@ -27,26 +27,51 @@
 // (traj_only, the forward sweep of a gradient-only adjoint) it writes that
 // trajectory and nothing else.
 //
-// What bounds it: bytes.  Per column-level it reads the 16 input fields once
-// plus t and tnd_cml_t a second time for the tropopause pass (18 reads), and
-// writes 10 fields (12-13 with traj): 28 values, 112 B in f32 (224 B in f64;
-// the function needs 26, each input read once), against
-// roughly 300 flops (about a dozen exp, eight divides), under 3 flop/B.  An
-// H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores) balances at
-// about 20 flop/B, so the memory stream is the limit.  Fused, it reads qsat
-// no more and writes it: the same 26 values, and the Saturation
-// component's own passes over memory (about 20 elementwise launches) are
-// gone.  The divide policy changes the cost of about 25 divides a
-// column-level, not a byte.
+// What bounds it.  Per column-level the function moves 26 values (its 16
+// inputs read once, 10 outputs written; fused, qsat is written, not read);
+// the kernel reads t and tnd_cml_t a second time for the tropopause pass:
+// 28 values, 112 B in f32, 1.006 GB at 65,536 x 137, against roughly 300
+// flops, a dozen exp and about 25 divides.  On an H100 80GB HBM3 (700 W)
+// those bytes take 0.33 ms at the 3085 GB/s the reader probe draws at the
+// kernel's 15 input streams, and torch.add (2 reads to 1 write) draws
+// 2970-3046 GB/s; the divides alone take 0.117 ms at the exact divide's
+// throughput.
+// The direct scan (levelscan.cuh level_scan_kernel: a level's loads, then
+// its arithmetic, then its stores) kept nothing in flight while a level
+// computed, and took about the sum of the two: 0.55-0.57 ms f32 fused,
+// 0.98-1.00 ms f64, with the faithful divide saving 0.11-0.13 ms, about
+// what the divides cost.  More warps could not hide it: 65,536 columns make 512
+// blocks of 128, 3.88 an SM, however few registers (47) the kernel takes.
 //
-// What the design does about it: one thread per column keeps the carry
-// (rfl, sfl, covptot) and every intermediate in registers, so nothing but
-// the inputs and outputs touches device memory; fields are (nlev, ncols)
-// with columns contiguous, so each warp's loads and stores at a level are
-// coalesced 128 B lines; the second tropopause read of t/tnd_cml_t is the
-// only redundant traffic.  The recurrence serializes levels within a
-// thread, so occupancy comes from columns: 65,536 columns give 512 blocks
-// of 128 threads, about four per SM.
+// What the design does about it: the pipelined scan (levelscan.cuh
+// level_scan_pipelined_column, nl_level.h NLPipeBody).  One thread per
+// column keeps the carry (rfl, sfl, covptot) and every intermediate in
+// registers, and fields are (nlev, ncols) with columns contiguous, so a
+// warp's loads and stores at a level are 128 B lines, as before; but each
+// thread now issues the raw inputs of the levels ahead into a ring of
+// slots before it computes the current level, so those loads are in
+// flight under its arithmetic.  In float the ring is three slots in
+// shared memory, [slot][field][thread] (24 KB a block of 128, no bank
+// conflicts), filled by cp.async (4 B a copy, one commit group a level,
+// cp.async.wait_group<2> before a slot is read): each thread copies only
+// its own column's values and reads only what it copied, so the ring needs
+// no __syncthreads and no mbarrier, and a ragged last block's threads
+// return early.  In double the ring is two slots in registers (plain
+// loads; the scoreboard waits at first use), where a ring in shared memory
+// was slower in the unfused and trajectory forms; the kernel is held to
+// 128 registers so that four blocks of 128 fit an SM and 65,536 columns
+// run in one wave.  aph at a level's top interface is carried from the
+// level above, and the tropopause pass issues its loads eight levels at a
+// time.  The body folds a slot's values as it would have folded its loads,
+// in the same order, so the results are bitwise those of the direct scan.
+// Since the loads run ahead of the stores of the levels before them, the
+// wrapper refuses outputs that overlap an input.  Measured in turns against
+// the direct scan on that card (drivers/kernel_ab_torch.py): f32 fused
+// 0.57 -> 0.47 ms, 0.60 of its 0.2791 ms bound and 0.67 of torch.add's
+// rate with the same bytes; f64 fused 1.00 -> 0.78; the faithful divide
+// now saves 0.03 ms: the divides run mostly under the loads.  What is left
+// is neither the byte stream nor the divides: faithful and approx stop at
+// 0.41-0.45 ms.
 //
 // Built with --fmad=false so that the result matches the plain torch
 // version (which never fuses a*b+c); never with fast math.
@@ -72,6 +97,18 @@ int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, 
     return static_cast<int>(cudaErrorInvalidValue);
   const cloudsc2::NLLauncher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
   return cloudsc2::nl_dispatch(l, is_double, thermo, evap, traj, fuse, div);
+}
+
+// Fill out[0..4] for the body of these switches (as cloudsc2_nl_launch's)
+// at 128 threads a block: blocks per SM, registers a thread, local bytes a
+// thread, dynamic shared bytes a block, ring depth (nl_level.h NLQuery).
+// Returns a cudaError_t.
+int cloudsc2_nl_occupancy(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
+                          int* out) {
+  if (!cloudsc2::nl_switches_valid(1, 1, is_double, traj, div, compact))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cloudsc2::NLQuery q{out};
+  return cloudsc2::nl_dispatch(q, is_double, thermo, evap, traj, fuse, div);
 }
 
 // rcp<div>(x[i]) into r[i] for i < n, on `stream`: the divide policies'

@@ -1,7 +1,8 @@
 // Copyright 2026.
 // Licensed under the Apache License, Version 2.0.
 //
-// Host build of the NL kernel's body (nl_level.h through levelscan.cuh),
+// Host build of the NL kernel's body (nl_level.h through the pipelined scan
+// of levelscan.cuh, and through its direct scan for reference),
 // every divide policy (the approximate reciprocal as Pallas interpret mode
 // models it, scalar_math.h rcp_approx), compiled with g++
 // -ffp-contract=off.  The CPU tests run it against the plain torch version
@@ -15,12 +16,30 @@ extern "C" {
 const char* cloudsc2_nl_signature() { return cloudsc2::nl_signature(); }
 
 // Same arguments as cloudsc2_nl_launch (nonlinear.cu) with host pointers
-// and no stream; returns 0 on success.
+// and no stream, through the pipelined scan the card runs (its ring of
+// cloudsc2_nl_ring_depth slots; the shared-memory ring's copies modelled
+// as landing at their wait); returns 0 on success.
 int cloudsc2_nl_host(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
                      const void* const* in, void* const* out, const void* consts, int nlev, int ncols) {
   if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div, compact)) return 1;
-  const cloudsc2::NLHostRunner r{in, out, consts, nlev, ncols};
+  const cloudsc2::NLHostRunner<false> r{in, out, consts, nlev, ncols};
   return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj, fuse, div);
+}
+
+// The same through the direct scan (level_scan_host of NLBody: each
+// level's loads, then its arithmetic, then its stores), the reference of
+// the pipelined scan in the CPU tests.
+int cloudsc2_nl_direct_host(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
+                            const void* const* in, void* const* out, const void* consts, int nlev,
+                            int ncols) {
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div, compact)) return 1;
+  const cloudsc2::NLHostRunner<true> r{in, out, consts, nlev, ncols};
+  return cloudsc2::nl_dispatch(r, is_double, thermo, evap, traj, fuse, div);
+}
+
+// The ring's depth for float (is_double 0) or double (1), the card's.
+int cloudsc2_nl_ring_depth(int is_double) {
+  return is_double ? cloudsc2::NLRing<double>::DEPTH : cloudsc2::NLRing<float>::DEPTH;
 }
 
 // As cloudsc2_rcp_probe (nonlinear.cu) on host pointers; returns 0 on

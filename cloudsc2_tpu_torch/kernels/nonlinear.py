@@ -14,16 +14,26 @@ harness ``level_scan_pallas`` (``pallas/levelscan.py:402``).  The kernel is
 CUDA C++ (``csrc/nonlinear.cu`` over ``csrc/nl_level.h`` and
 ``csrc/levelscan.cuh``, the exact divide in float and double and the
 faithful and approx modes in float): one thread per column, the
-carry in registers, the levels in a loop.  It is bound by device-memory
-bytes; the note at the top of ``nonlinear.cu`` gives the count and what the
-design does about it.
+carry in registers, the levels in a loop, on the pipelined form of the
+harness: while a thread computes level k, the raw inputs of the levels
+ahead are in flight into a per-thread ring (float: three slots in shared
+memory, filled by ``cp.async``; double: two slots in registers), so the
+loads overlap the arithmetic where the direct scan added the two.  The
+loads run ahead of the stores of the levels before them, so the wrapper
+refuses outputs that overlap an input (:func:`check_disjoint`).  The note
+at the top of ``nonlinear.cu`` gives what bounds the kernel, before and
+after, and why the ring needs no block synchronisation.
 
 :func:`cloudsc2_nl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
 :func:`cloudsc2_tpu_torch.physics.nonlinear.cloudsc2_nl`.
-:func:`cloudsc2_nl_host` runs the same body compiled for the CPU, for the
-tests only.  :func:`rcp_cuda` / :func:`rcp_host` run the divide policies'
-reciprocal alone, for the checks.
+:func:`occupancy` reports what the card makes of a form's kernel
+(registers, blocks per SM, ring depth, shared bytes).
+:func:`cloudsc2_nl_host` runs the same body and harness compiled for the
+CPU, for the tests only, and :func:`cloudsc2_nl_direct_host` the body
+through the direct scan, the harness's reference.  :func:`rcp_cuda` /
+:func:`rcp_host` run the divide policies' reciprocal alone, for the
+checks.
 """
 from __future__ import annotations
 
@@ -86,11 +96,15 @@ def _load(kind: str, compact: bool = True) -> ctypes.CDLL:
         lib = build.load(kind, "cloudsc2_nl" + suffix, ["nonlinear.cu"], defines)
         fn, probe = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe
         fn.argtypes = _ARGS + [_P]
+        lib.cloudsc2_nl_occupancy.argtypes = [ctypes.c_int] * len(NL_SWITCHES) + [_P]
+        lib.cloudsc2_nl_occupancy.restype = ctypes.c_int
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
     else:
         lib = build.load(kind, "cloudsc2_nl_host" + suffix, ["nonlinear_host.cpp"], defines)
         fn, probe = lib.cloudsc2_nl_host, lib.cloudsc2_rcp_probe_host
-        fn.argtypes = _ARGS
+        fn.argtypes = lib.cloudsc2_nl_direct_host.argtypes = _ARGS
+        lib.cloudsc2_nl_direct_host.restype = lib.cloudsc2_nl_ring_depth.restype = ctypes.c_int
+        lib.cloudsc2_nl_ring_depth.argtypes = [ctypes.c_int]
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int]
     fn.restype = probe.restype = ctypes.c_int
     lib.cloudsc2_nl_signature.restype = ctypes.c_char_p
@@ -165,22 +179,34 @@ def _marshal(
     if not traj_only:
         written = STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
     outs = {
-        n: None if n not in written else torch.empty(
-            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
+        n: None if n not in written else _empty(
+            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device
         )
         for n in NL_OUTPUTS
     }
+    check_disjoint(ins, outs)
     consts = torch.from_numpy(kernel_constants(c, dt, dtype, kflag))
-    switches = (
-        int(dtype == torch.float64),
-        int(bool(c.LPHYLIN or c.LDRAIN1D)),
-        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
-        2 if traj_only else int(with_trajectory),
-        int(fuse_saturation),
-        div_switch(c, dtype),
-        int(bool(c.CUADJ_COMPACT)),
-    )
-    return ins, outs, consts, switches
+    return ins, outs, consts, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
+
+
+def _empty(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> Tensor:
+    """An output's storage (the kernel writes every element)."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Tensor]]) -> None:
+    """Raise ``ValueError`` where an output's bytes overlap an input's: the
+    kernel reads a level's inputs ahead of the stores of the levels before
+    it, which is the same step only when no output is an input."""
+    spans = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), n)
+             for t, n in zip(ins, NL_INPUTS) if t is not None]
+    for name, o in outs.items():
+        if o is None:
+            continue
+        lo, hi = o.data_ptr(), o.data_ptr() + o.numel() * o.element_size()
+        for a, b, n in spans:
+            if lo < b and a < hi:
+                raise ValueError(f"output {name!r} overlaps input {n!r}; the kernel needs them apart")
 
 
 def div_switch(c: Constants, dtype: torch.dtype) -> int:
@@ -260,21 +286,79 @@ cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
+def launch_switches(c: Constants, dtype: torch.dtype, with_trajectory: bool = False, traj_only: bool = False,
+             fuse_saturation: bool = False) -> Tuple[int, ...]:
+    """The launch's int switches (``NL_SWITCHES``) for constants ``c``, a
+    dtype and the options of :func:`cloudsc2_nl_cuda`."""
+    return (
+        int(dtype == torch.float64),
+        int(bool(c.LPHYLIN or c.LDRAIN1D)),
+        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
+        2 if traj_only else int(with_trajectory),
+        int(fuse_saturation),
+        div_switch(c, dtype),
+        int(bool(c.CUADJ_COMPACT)),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(sw: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = (ctypes.c_int * 5)()
+    err = load_cuda(bool(sw[-1])).cloudsc2_nl_occupancy(*sw, out)
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_nl occupancy query failed: cudaError_t {err}")
+    return tuple(out)
+
+
+def occupancy(dtype: torch.dtype, c: Constants, with_trajectory: bool = False, traj_only: bool = False,
+              fuse_saturation: bool = False) -> Dict[str, int]:
+    """What the card makes of the kernel that :func:`cloudsc2_nl_cuda`
+    launches for these options, at its 128 threads a block:
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
+    ``shared_bytes`` a block and the ring ``depth``.  Needs the card; the
+    answers are kept per instantiation."""
+    sw = launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth"), _occupancy(sw)))
+
+
+def _host(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):
+    ins, outs, consts, switches = _marshal(
+        state, dt, c, "cpu", with_trajectory, traj_only, fuse_saturation, kflag)
+    nlev, ncols = state["ap"].shape
+    err = getattr(_load("host", c.CUADJ_COMPACT), entry)(
+        *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,
+    )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: {err}")
+    return _assemble(outs, with_trajectory, traj_only)
+
+
 def cloudsc2_nl_host(
     state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
     traj_only: bool = False, fuse_saturation: bool = False, kflag: int = 1,
 ):
-    """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    ins, outs, consts, switches = _marshal(
-        state, dt, c, "cpu", with_trajectory, traj_only, fuse_saturation, kflag)
-    lib = _load("host", c.CUADJ_COMPACT)
-    nlev, ncols = state["ap"].shape
-    err = lib.cloudsc2_nl_host(
-        *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,
-    )
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_nl host body failed: {err}")
-    return _assemble(outs, with_trajectory, traj_only)
+    """The kernel compiled for the host, on CPU tensors (tests only): its
+    body through the pipelined scan the card runs, at the card's ring
+    depth."""
+    return _host("cloudsc2_nl_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
+
+
+def cloudsc2_nl_direct_host(
+    state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool = False,
+    traj_only: bool = False, fuse_saturation: bool = False, kflag: int = 1,
+):
+    """:func:`cloudsc2_nl_host` through the direct scan (each level's loads,
+    arithmetic and stores in turn): the pipelined scan's reference in the
+    tests."""
+    return _host("cloudsc2_nl_direct_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
+
+
+def ring_depth(dtype: torch.dtype) -> int:
+    """The slots of the kernel's ring (``nl_level.h`` ``NLRing``): the level
+    running and the levels ahead in flight, as the host build reports
+    them."""
+    return _load("host").cloudsc2_nl_ring_depth(int(dtype == torch.float64))
 
 
 def _rcp(x: Tensor, mode: str, device_type: str) -> Tensor:

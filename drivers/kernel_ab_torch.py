@@ -4,11 +4,19 @@
 """Time the default forms of the port's kernels in one checkout, for an A/B
 of two checkouts on one card.
 
-Times, with CUDA events over batches of back-to-back calls, the NL kernel
-(unfused), the TL kernel and the AD's forward (the NL kernel with its
-trajectory) and reverse kernels at 65,536 x 137 (by default), f32 and f64,
-default switches and the exact divide, on the seeded synthetic state, the
-AD's seeds from the TL kernel.  It imports ``cloudsc2_tpu_torch`` from
+Times, with CUDA events over batches of back-to-back calls, at 65,536 x 137
+(by default), f32 and f64, default switches, on the seeded synthetic state
+(the AD's seeds from the TL kernel): the NL kernel in its forms -- unfused,
+fused (saturation diagnosed in the kernel: the main path's form), with its
+trajectory (the AD's forward), ``traj_only`` (the gradient-only AD's
+forward), fused under ``CUADJ_COMPACT=False``, and in f32 fused under the
+faithful and approx divides -- the TL kernel and the AD's reverse kernel,
+the exact divide unless named.  Where the checkout has
+``kernels.nonlinear.occupancy``, each NL form's registers, blocks per SM and
+ring depth are printed beside its time, and, as a yardstick of a rate with
+writes, ``torch.add(a, b, out=o)`` over the fused NL kernel's f32 bytes.
+``--kernels nl`` times the NL kernel alone (and builds only its
+libraries).  It imports ``cloudsc2_tpu_torch`` from
 ``--tree`` (by default this checkout), so one copy of the script times any
 checkout whose kernels have these entry points.  Compare two checkouts only
 inside one call on one card, in turns::
@@ -21,9 +29,11 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import json
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 
@@ -45,6 +55,7 @@ def main(argv=None) -> int:
     ap.add_argument("--num-cols", type=int, default=65536)
     ap.add_argument("--runs", type=int, default=10, help="batches per kernel (the median is reported)")
     ap.add_argument("--batch", type=int, default=10, help="back-to-back calls per batch")
+    ap.add_argument("--kernels", default="nl,tl,ad", help="comma-separated: nl, tl, ad")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -65,11 +76,24 @@ def main(argv=None) -> int:
     card = cardmod.card_label(device)
     label = f"[kernel-ab {args.tree}]"
     c = make_constants(lphylin=True, ldrain1d=False)
+    kernels = set(args.kernels.split(","))
+    loads = [nlk.load_cuda, lambda: nlk.load_cuda(False)]
+    loads += [tlk.load_cuda] * ("tl" in kernels or "ad" in kernels) + [adk.load_cuda] * ("ad" in kernels)
     t0 = time.perf_counter()
-    nlk.load_cuda()
-    tlk.load_cuda()
-    adk.load_cuda()
+    with ThreadPoolExecutor(len(loads)) as pool:
+        for f in [pool.submit(load) for load in loads]:
+            f.result()
     print(f"{label} built and loaded in {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    #: the NL forms: (constants, options of cloudsc2_nl_cuda), f64 without the divide modes
+    nl_forms = {
+        "nl": (c, {}),
+        "nl fused": (c, {"fuse_saturation": True}),
+        "ad forward": (c, {"with_trajectory": True}),
+        "traj_only": (c, {"with_trajectory": True, "traj_only": True}),
+        "nl fused ref": (c.replace(CUADJ_COMPACT=False), {"fuse_saturation": True}),
+        "nl fused faithful": (c.replace(FAST_DIV="faithful"), {"fuse_saturation": True}),
+        "nl fused approx": (c.replace(FAST_DIV="approx"), {"fuse_saturation": True}),
+    }
 
     def ms(fn):
         for _ in range(3):
@@ -82,23 +106,49 @@ def main(argv=None) -> int:
         s["eta"] = eta_levels(s["ap"], s["aph"])
         s["qsat"] = saturation(s["ap"], s["t"], c=c)
         s.update(state_increment(s, 0.01, ignore_supsat=True))
-        tends, diags = tlk.cloudsc2_tl_cuda(s, dt, c)
-        for n in ("t", "q", "ql", "qi"):
-            s["tnd_" + n] = tends[n]
-            s["tnd_" + n + "_i"] = tends[n + "_i"]
-        for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-            s[n + "_i"] = diags[n + "_i"]
-        traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
-        res = {
-            "nl": ms(lambda: nlk.cloudsc2_nl_cuda(s, dt, c)),
-            "tl": ms(lambda: tlk.cloudsc2_tl_cuda(s, dt, c)),
-            "ad forward": ms(lambda: nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)),
-            "ad reverse": ms(lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)),
-        }
-        print(f"{label} {str(dtype)[6:]} {args.num_cols}x137: "
+        res, occ = {}, {}
+        if "nl" in kernels:
+            for name, (cf, opts) in nl_forms.items():
+                if dtype == torch.float64 and cf.FAST_DIV != "exact":
+                    continue
+                res[name] = ms(lambda cf=cf, opts=opts: nlk.cloudsc2_nl_cuda(s, dt, cf, **opts))
+                if hasattr(nlk, "occupancy"):
+                    occ[name] = nlk.occupancy(dtype, cf, **opts)
+        if "nl" in kernels and dtype == torch.float32:
+            # a yardstick with writes: torch.add(a, b, out=o), 2 reads to 1
+            # write, over the bytes the fused NL kernel's function moves
+            # (26 values a column-level, 4 a column more) at this shape
+            n = args.num_cols * (137 * 26 + 5) // 3
+            a, b, o = (torch.rand(n, device=device) for _ in range(3))
+            res["add yardstick"] = ms(lambda: torch.add(a, b, out=o))
+            rate = 3 * n * 4 / res["add yardstick"][0] / 1e6
+            print(f"{label} yardstick torch.add, 2 reads : 1 write, {3 * n * 4 / 1e9:.4f} GB: "
+                  f"{res['add yardstick'][0]:.4f} ms, {rate:.1f} GB/s; {card}", flush=True)
+            del a, b, o
+        if kernels & {"tl", "ad"}:
+            tends, diags = tlk.cloudsc2_tl_cuda(s, dt, c)
+            for n in ("t", "q", "ql", "qi"):
+                s["tnd_" + n] = tends[n]
+                s["tnd_" + n + "_i"] = tends[n + "_i"]
+            for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+                s[n + "_i"] = diags[n + "_i"]
+            if "tl" in kernels:
+                res["tl"] = ms(lambda: tlk.cloudsc2_tl_cuda(s, dt, c))
+            if "ad" in kernels:
+                traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
+                res["ad reverse"] = ms(lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c))
+                del traj
+        tag = str(dtype)[6:]
+        print(f"{label} {tag} {args.num_cols}x137: "
               + "; ".join(f"{k} {v[0]:.4f} ms (runs {[round(x, 4) for x in v[1]]})" for k, v in res.items())
               + f"; {card}", flush=True)
-        del s, traj
+        for name, o in occ.items():
+            print(f"{label} {tag} {name}: {o['registers']} registers, {o['local_bytes']} B local, "
+                  f"{o['blocks_per_sm']} blocks of 128 per SM, {o['shared_bytes']} B shared a block, "
+                  f"ring depth {o['depth']}", flush=True)
+        print(json.dumps({"tree": args.tree, "dtype": tag, "ncols": args.num_cols, "card": card,
+                          "ms": {k: v[0] for k, v in res.items()}, "occupancy": occ}), flush=True)
+        del s
     return 0
 
 

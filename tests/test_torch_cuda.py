@@ -37,7 +37,10 @@ that form at the gates above.  The probes (``kernels/microbench.py``): the
 reader bitwise its plain version at every stream count; every chain
 variant bitwise its plain version given the card's approximate reciprocal,
 one step within its ulp bound, every variant within 1e-6 of the float64
-chain; the chain kernel's record of its blocks' SMs.
+chain; the chain kernel's record of its blocks' SMs.  The NL kernel's
+pipelined scan bitwise its plain version where its ring of D slots wraps or
+is never full (nlev 2, D, D + 1), and its occupancy entry: the ring's depth
+and shared bytes, at least 4 blocks of 128 an SM.
 """
 import numpy as np
 import pytest
@@ -84,6 +87,56 @@ def _state(ncols, dtype, c, device, seed=3, increment=False):
 
 def _host(out):
     return flat({k: v.cpu() for k, v in d.items()} for d in out)
+
+
+#: the NL kernel's forms, as options of cloudsc2_nl_cuda
+NL_FORMS = {
+    "unfused": {},
+    "fused": {"fuse_saturation": True},
+    "trajectory": {"with_trajectory": True},
+    "traj_only": {"with_trajectory": True, "traj_only": True},
+}
+
+
+@pytest.mark.parametrize("form", list(NL_FORMS))
+@pytest.mark.parametrize("at", ["2", "D", "D+1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pipelined_kernel_is_plain_at_the_rings_edges_on_card(cuda, form, at, dtype):
+    """The kernel's ring (D levels in flight, the card's depth) at the
+    depths where it wraps or is never full: nlev 2, D and D + 1, at a
+    ragged 1000 columns, bitwise its plain version in each form."""
+    c = CONFIGS["default"]()
+    opts = NL_FORMS[form]
+    depth = nlk.occupancy(dtype, c, **opts)["depth"]
+    nlev = {"2": 2, "D": max(depth, 2), "D+1": depth + 1}[at]
+    _, st, dt = iox.synthesize_input(ncols=1000, nlev=nlev, seed=5)
+    s = state_from_numpy(st, cuda, dtype)
+    s["eta"] = eta_levels(s["ap"], s["aph"])
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
+    got = nlk.cloudsc2_nl_cuda(s, dt, c, **opts)
+    plain = cloudsc2_nl(s, dt, c, **{k: v for k, v in opts.items() if k != "traj_only"})
+    want = ({}, {}, plain[2]) if opts.get("traj_only") else plain
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), f"{form} {dtype} {nlev}x1000 {k}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nl_occupancy_keeps_the_grid_in_one_wave_on_card(cuda, dtype):
+    """The occupancy entry: in every form the kernel takes the ring depth
+    the host build reports, in shared memory in float32 ([slot][field]
+    [thread], 16 fields, 15 fused) and in registers in float64, and at
+    least 4 blocks of 128 fit an SM, so 65,536 columns (512 blocks on 132
+    SMs) run in one wave."""
+    c = CONFIGS["default"]()
+    depth = nlk.ring_depth(dtype)
+    for form, opts in NL_FORMS.items():
+        o = nlk.occupancy(dtype, c, **opts)
+        fields = 15 if opts.get("fuse_saturation") else 16
+        shared = depth * fields * 128 * 4 if dtype == torch.float32 else 0
+        assert (o["depth"], o["shared_bytes"]) == (depth, shared), (form, o)
+        assert o["blocks_per_sm"] >= 4, (form, o)
 
 
 @pytest.mark.parametrize("ncols", [1, 100, 1000])
