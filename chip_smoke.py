@@ -67,7 +67,9 @@ Phases, each timed; any failure raises and the script exits non-zero:
    4000 columns also against the f64 plain AD on the same inputs (a
    reading); at each of these the
    fused kernel, rolled and resident, bitwise against the two-kernel AD
-   and within those limits of the plain AD, and ``cotangent_only`` bitwise
+   and within those limits of the plain AD, its plan printed (block, blocks
+   and threads per SM, levels in shared memory, scratch bytes) and held by
+   the card, and ``cotangent_only`` bitwise
    the full AD's cotangents; f32 at 1000 x 137 with the seed of
    tests/test_torch_cuda.py (LEVAPLS2 and LDRAIN1D, LREGCL on), held the
    same way and, kernel and plain f32 AD, against the f64 plain AD (a
@@ -106,7 +108,8 @@ Phases, each timed; any failure raises and the script exits non-zero:
    must print HOORAY; single at 65,536 columns is a reading.  The launch
    counts of all three must grow.  Then the same protocol (the TL kernel,
    ``SymmetryTest.get_norm1`` / ``get_norm2`` / ``validate``) through the
-   fused AD kernel, rolled and resident, and through the ``cotangent_only``
+   fused AD kernel, rolled and resident (its plan printed and held by the
+   card), and through the ``cotangent_only``
    AD, double at 65,536 columns and single at 4096: HOORAY, and the fused
    kernel's launch count must grow.  Then this slice's forms, at 65,536
    columns through the drivers, each with the launch counts at 0 before it
@@ -125,8 +128,9 @@ Phases, each timed; any failure raises and the script exits non-zero:
    forward and reverse kernels apart (after holding the AD, the fused AD
    and the trajectory against their plain versions at this shape), the
    ``cotangent_only`` step and its ``traj_only`` forward, the fused kernel
-   rolled and resident with the card's block (block, blocks and threads per
-   SM, held against the plan) and shared memory, each AD kernel's registers
+   rolled and resident with its plan (block, blocks and threads per SM,
+   levels of the stack in shared memory, scratch bytes), the card's
+   occupancy held to the plan at the card's registers, each AD kernel's registers
    and local memory (the card's) and spills (ptxas), each beside its bound
    by bytes and by operations (the bytes each input read once and each
    output written once) and, as a reading, the operations of the
@@ -714,6 +718,26 @@ def fused_checks(torch, adk, s, dt, c, two, label):
     print(f"  {label} fused rolled and resident: all {len(two)} fields bitwise equal to the two-kernel AD "
           f"(so their errors against the plain AD are those above); cotangent_only: all {len(only)} "
           f"cotangents bitwise equal to the full AD's")
+    for resident in (False, True):
+        occ = fused_plan_reading(adk, s["ap"].dtype, c, resident, s["ap"].shape[1])
+        print(f"    {label} fused {'resident' if resident else 'rolled'}: {fused_plan_text(occ)}")
+
+
+def fused_plan_reading(adk, dtype, c, resident, ncols):
+    """The fused kernel's occupancy on the card (``fused_occupancy``, which
+    raises where it is not the plan's at the card's registers) with the
+    plan's scratch bytes at ``ncols`` x NLEV."""
+    occ = dict(adk.fused_occupancy(dtype, c, resident, NLEV))
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+    occ["scratch_bytes"] = adk.fused_plan(NLEV, ncols, dtype, evap, resident, occ["registers"])["scratch_bytes"]
+    return occ
+
+
+def fused_plan_text(occ):
+    return (f"plan held by the card: {occ['block']} threads a block, {occ['blocks_per_sm']} blocks and "
+            f"{occ['threads_per_sm']} threads per SM at {occ['registers']} registers ({occ['local_bytes']} B local), "
+            f"{occ['shared_bytes']} B shared, {occ['levels_in_shared']} levels of the stack in shared memory, "
+            f"{occ['scratch_bytes']} B of scratch in device memory")
 
 
 def ad_checks(torch, adk, nlk, plain_ad, plain_nl, configs, card):
@@ -854,6 +878,10 @@ def fused_symmetry_gates(torch, adk, card, cases=(("double", BIG, "", {}), ("sin
         for n in DIAG_NAMES:
             s[n + "_i"] = diags[n + "_i"]
         del tends, diags
+        for resident in (False, True):
+            occ = fused_plan_reading(adk, s["ap"].dtype, c, resident, ncols)
+            print(f"  [symmetry fused {'resident' if resident else 'rolled'} {form_label + ' ' if form_label else ''}"
+                  f"{precision} {ncols} columns] {fused_plan_text(occ)}")
         for form, ad in (
             ("fused rolled", lambda: dispatch.cloudsc2_ad_fused(s, dt, c)),
             ("fused resident", lambda: dispatch.cloudsc2_ad_fused(s, dt, c, resident=True)),
@@ -1205,26 +1233,23 @@ def form_timing(torch, nlk, tlk, adk, build, c0, card):
             res["ad"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_cuda(s, dt, c), 10)[0]
             res["reverse"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c), 10)[0]
             res["fused rolled"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_fused_cuda(s, dt, c), 3)[0]
-            suffix, _ = build.form(bool(c.CUADJ_COMPACT), div_switch(c, dtype) != 0)
-            d = f"Li{div_switch(c, dtype)}E"
+            div = div_switch(c, dtype)
+            suffix, _ = build.form(bool(c.CUADJ_COMPACT), div != 0)
             rev = kernel_usage(build, adk, c, dtype, "cloudsc2_ad" + suffix, "reverse",
-                               ("ADBodyIfLb0ELb1E" if tag == "f32" else "ADBodyIdLb0ELb1E") + d)
+                               ("ADBodyIfLb0ELb1E" if tag == "f32" else "ADBodyIdLb0ELb1E") + f"Li{div}E")
+            # fused_occupancy raises where the card's blocks per SM are not
+            # the plan's at its registers
             fus = kernel_usage(build, adk, c, dtype, "cloudsc2_ad_fused" + suffix, "fused rolled",
-                               ("ADFusedRevIfLb0ELb1ELb0E" if tag == "f32" else "ADFusedRevIdLb0ELb1ELb0E") + d)
-            plan = adk.fused_plan(NLEV, dtype, False, False)
-            if (fus["block"], fus["blocks_per_sm"], fus["shared_bytes"]) != (plan[0], plan[2], plan[1]):
-                raise AssertionError(f"[form-timing {tag} {form}] the card's block {fus} is not the plan's {plan}")
-            occ, res_plan = adk.fused_occupancy(dtype, c, True, NLEV), adk.fused_plan(NLEV, dtype, False, True)
-            if (occ["block"], occ["blocks_per_sm"], occ["shared_bytes"]) != (res_plan[0], res_plan[2], res_plan[1]):
-                raise AssertionError(f"[form-timing {tag} {form}] resident: the card's block {occ} is not the "
-                                     f"plan's {res_plan}")
+                               fused_entry(tag, False, div))
+            occ = adk.fused_occupancy(dtype, c, True, NLEV)
             res["reverse registers"], res["fused registers"] = rev, fus
             print(f"[form-timing {tag} {BIG}x{NLEV} {form}] NL kernel {res['nl']:.4f} ms, TL kernel "
                   f"{res['tl']:.4f} ms, two-kernel AD {res['ad']:.4f} ms (reverse alone {res['reverse']:.4f}), "
                   f"fused AD rolled {res['fused rolled']:.4f} ms (CUDA events); reverse kernel {rev['registers']} "
                   f"registers, {rev['local_bytes']} B local, ptxas spills {rev['spill_stores']}/{rev['spill_loads']} B; "
-                  f"fused {fus['registers']} registers, block {fus['block']} x {fus['blocks_per_sm']} per SM "
-                  f"(plan {plan[0]} x {plan[2]}); {card}")
+                  f"fused {fus['registers']} registers, {fus['block']} x {fus['blocks_per_sm']} = "
+                  f"{fus['threads_per_sm']} threads per SM, resident {occ['registers']} registers, "
+                  f"{occ['threads_per_sm']} threads per SM (each the plan's at its registers); {card}")
             if form != "default":
                 base = out[(tag, "default")]
                 print(f"  [form-timing {tag} {form}] against the default form: "
@@ -1260,12 +1285,25 @@ AD_FLOPS = NL_FLOPS + NL_FLOPS + TL_FLOPS
 #: with evaporation: the hand count in the note at the top of ad_level.h,
 #: not measured; printed beside the measured times as a reading only
 AD_LEVEL_FLOPS = (700, 860)
+def fused_entry(tag, resident, div=0):
+    """The mangled-name key in ptxas's log of the fused kernel's
+    instantiation without evaporation, with LREGCL: its reverse body's
+    switches and divide, its type, the forward sweep's ring (f32 3 slots
+    in shared memory, f64 2 in registers), its block of 128 and the blocks
+    an SM its launch bounds ask for (``ad_fused.cu`` ``min_blocks``: f64
+    2, f32 4 under the exact divide, else 3)."""
+    t = "f" if tag == "f32" else "d"
+    ring = "Li3ELb1E" if tag == "f32" else "Li2ELb0E"
+    blocks = 2 if tag == "f64" else 4 if div == 0 else 3
+    return f"ADFusedRevI{t}Lb0ELb1ELb{int(resident)}ELi{div}EEE{t}{ring}Li128ELi{blocks}E"
+
+
 #: the mangled-name keys of each AD kernel's default instantiation (f32 /
 #: f64, no evaporation, LREGCL) in ptxas's log, by library and form
 AD_ENTRIES = {
     ("cloudsc2_ad", "reverse"): ("ADBodyIfLb0ELb1E", "ADBodyIdLb0ELb1E"),
-    ("cloudsc2_ad_fused", "fused rolled"): ("ADFusedRevIfLb0ELb1ELb0E", "ADFusedRevIdLb0ELb1ELb0E"),
-    ("cloudsc2_ad_fused", "fused resident"): ("ADFusedRevIfLb0ELb1ELb1E", "ADFusedRevIdLb0ELb1ELb1E"),
+    ("cloudsc2_ad_fused", "fused rolled"): (fused_entry("f32", False), fused_entry("f64", False)),
+    ("cloudsc2_ad_fused", "fused resident"): (fused_entry("f32", True), fused_entry("f64", True)),
 }
 
 
@@ -1273,7 +1311,8 @@ def ptxas_usage(build, lib, key):
     """``(registers, spill store bytes, spill load bytes)`` that ptxas
     reported for the entry of library ``lib`` whose mangled name holds
     ``key``, from this process's build log (None where this process did not
-    build the library)."""
+    build the library); raises where the log has no such entry (a renamed
+    or re-bounded instantiation)."""
     import re
 
     entry, regs, spills = "", None, (None, None)
@@ -1287,6 +1326,8 @@ def ptxas_usage(build, lib, key):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 regs = int(m[1])
+    if lib in build.logs and regs is None:
+        raise AssertionError(f"{lib}: no entry whose name holds {key} in ptxas's log")
     return (regs, *spills)
 
 
@@ -1366,9 +1407,11 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
     operations (one NL level forward; one NL and one transposed TL level in
     reverse).  The bytes this code moves (the tropopause pass's second read,
     the trajectory's round trip, the rolled fused kernel's second read of
-    the raw fields) give the design's GB/s, and the operations of the
-    hand-transposed reverse level by its hand count (``AD_LEVEL_FLOPS``,
-    not measured) are printed beside them as a reading."""
+    the raw fields, the fused kernel's stack: a write and a read of each
+    of its values, 2-3 a level rolled, 12-13 resident) give the design's
+    GB/s, and the operations of the hand-transposed reverse level by its
+    hand count (``AD_LEVEL_FLOPS``, not measured) are printed beside them
+    as a reading."""
     from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
 
     out = {}
@@ -1412,9 +1455,9 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
             ("cotangent_only step", lambda: adk.cloudsc2_ad_cuda(s, dt, c, cotangent_only=True),
              (41 + evap, 6), (61 + evap + 2 * ntraj, 7), AD_FLOPS, 10, None),
             ("fused rolled", lambda: adk.cloudsc2_ad_fused_cuda(s, dt, c),
-             (51 + evap, 10), (69 + evap, 11), AD_FLOPS, 3, False),
+             (51 + evap, 10), (69 + evap + 2 * ntraj, 11), AD_FLOPS, 3, False),
             ("fused resident", lambda: adk.cloudsc2_ad_fused_cuda(s, dt, c, resident=True),
-             (51 + evap, 10), (53 + evap, 10), AD_FLOPS, 3, True),
+             (51 + evap, 10), (53 + evap + 2 * (ntraj + 10), 10), AD_FLOPS, 3, True),
         ]
         for label, fn, (fvals, frows), (dvals, drows), flops, runs, resident in cases:
             k, h, k_ms = kernel_ms(torch, fn, runs)
@@ -1435,14 +1478,8 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
                              f"{u['registers']} registers and {u['local_bytes']} B local memory a thread "
                              f"(cudaFuncGetAttributes), {spills}")
             if resident is not None:
-                occ = adk.fused_occupancy(dtype, c, resident, NLEV)
-                plan = adk.fused_plan(NLEV, dtype, bool(evap), resident)
-                res[label + " occupancy"] = occ
-                extra += (f"; block picked by the card: {occ['block']} threads, {occ['blocks_per_sm']} "
-                          f"block(s) and {occ['threads_per_sm']} threads per SM, {occ['shared_bytes']} B shared "
-                          f"memory per block (plan: {plan[0]} threads, {plan[2]} block(s), {plan[1]} B)")
-                if (occ["block"], occ["blocks_per_sm"], occ["shared_bytes"]) != (plan[0], plan[2], plan[1]):
-                    raise AssertionError(f"[ad-timing {tag} {label}] the card's block {occ} is not the plan's {plan}")
+                res[label + " occupancy"] = occ = fused_plan_reading(adk, dtype, c, resident, BIG)
+                extra += "; " + fused_plan_text(occ)
             res[label] = (k, h, b_ms, b_by)
             print(f"[ad-timing {tag} {BIG}x{NLEV} {label}] kernel {k:.4f} ms ({BIG / k * 1e3:.4e} cols/s, "
                   f"{design_bytes / k / 1e6:.1f} GB/s of the bytes this code moves); bound {b_ms:.4f} ms by "
@@ -2075,6 +2112,9 @@ def main() -> int:
         "source": "cloudsc2_tpu_torch/kernels/csrc/ad_fused.cu",
         "replaces": "cloudsc2_tpu/pallas/adjoint.py:432",
         "harness": "level_scan_fwdrev_kernel of levelscan.cuh replaces cloudsc2_tpu/pallas/levelscan.py:87",
+        "design": "the stack in a scratch of device memory ([slot][level][column], a write and a read a value), "
+                  "blocks of 128, registers set the blocks per SM (fused_plan)",
+        "threads_per_sm": {f"{form}_{tag}": occ[tag, form]["threads_per_sm"] for tag, form in occ},
         "launches": fused_launches,
         "max_abs_err": ad_time["f32"]["err"][1],
         "max_abs_err_f64": ad_time["f64"]["err"][1],

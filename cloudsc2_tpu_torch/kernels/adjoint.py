@@ -33,11 +33,12 @@ It also replaces :func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas_fused`
 (``pallas/adjoint.py:432``) and its harness ``level_scan_fwdrev_pallas``
 (``pallas/levelscan.py:87``) with one kernel (``csrc/ad_fused.cu`` over
 ``csrc/ad_fused.h`` and the fused form of ``csrc/levelscan.cuh``): the same
-two sweeps in one launch, the trajectory (and with ``resident`` the folded
-level inputs) on a stack in shared memory.  Its block size is the one
-that keeps the most threads on an SM: :func:`fused_plan` counts what the
-stacks allow, and :func:`fused_occupancy` asks the card, registers
-included, and picks the block a launch uses.
+two sweeps in one launch, the forward sweep on the NL kernel's pipelined
+scan, the trajectory (and with ``resident`` the folded level inputs) on a
+stack in a scratch of device memory that the wrapper allocates for each
+call.  Its blocks are of 128 threads, and the registers set how many an SM
+holds: :func:`fused_plan` counts them at a register count, and
+:func:`fused_occupancy` asks the card and holds it to the plan.
 
 :func:`cloudsc2_ad_cuda` and :func:`cloudsc2_ad_fused_cuda` launch on CUDA
 tensors and raise for anything else; the plain version of both is
@@ -91,17 +92,26 @@ AD_FUSED_RESIDENT = ("ap", "dp", "lu_next", "lude", "mf", "q2", "ql_fg", "qi_fg"
 _IFACE = ("aph", "aph_i", "fplsl_i", "fplsn_i", "fhpsl_i", "fhpsn_i", "fplsl", "fplsn", "fhpsl", "fhpsn")
 #: read only with the evaporation branch (may be absent otherwise)
 _EVAP_ONLY = ("c_cov", "covptot_i")
-#: dynamic shared memory one block may opt in to on sm_90 (227 KB)
-MAX_SHARED_BYTES = 232_448
+#: the limits of one SM on sm_90 the plan counts: blocks, threads, and
+#: registers, which the card hands out per warp in units of 256 within each
+#: of the SM's four sub-partitions (as ``cuda_occupancy.h`` counts them)
+MAX_BLOCKS_PER_SM = 32
+MAX_THREADS_PER_SM = 2_048
+SM_REGISTERS = 65_536
+REGISTER_UNIT = 256
+SM_PARTITIONS = 4
 #: shared memory of one SM on sm_90 (228 KB), and what the card reserves of
 #: it for each resident block
 SM_SHARED_BYTES = 233_472
 BLOCK_RESERVED_BYTES = 1_024
-#: the other limits of one SM on sm_90 the plan counts: blocks and threads
-MAX_BLOCKS_PER_SM = 32
-MAX_THREADS_PER_SM = 2_048
-#: the fused kernel's block sizes, largest first (``kMaxThreads`` in ``ad_fused.cu``)
-FUSED_BLOCKS = (128, 64, 32, 16)
+#: the fused kernel's threads a block (``kBlock`` in ``ad_fused.cu``)
+FUSED_BLOCK = 128
+#: the fused kernel's forward sweep runs the NL kernel's pipelined scan: its
+#: ring's slots in shared memory by dtype (``nl_level.h`` ``NLRing``: f32
+#: three, f64 two in registers), each of the unfused NL level's 16 raw
+#: input fields
+FUSED_RING_SLOTS = {torch.float32: 3, torch.float64: 0}
+FUSED_RING_FIELDS = 16
 
 #: argument lists of the host build's pointwise level entry
 #: (``cloudsc2_ad_level_signature`` in ``adjoint_host.cpp``; tests only): a
@@ -124,7 +134,7 @@ AD_BRANCHES = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_I] * 5 + [_P, _P, _P, _I, _I]
-_FUSED_ARGS = [_I] * 6 + [_P] * 4 + [_I, _I]
+_FUSED_ARGS = [_I] * 6 + [_P] * 5 + [_I, _I]
 
 
 def _names(*groups) -> str:
@@ -155,8 +165,7 @@ def fused_signature() -> str:
 _LIBRARIES = {
     ("cuda", "ad"): ("cloudsc2_ad", "adjoint.cu", "cloudsc2_ad_launch", _ARGS + [_P]),
     ("host", "ad"): ("cloudsc2_ad_host", "adjoint_host.cpp", "cloudsc2_ad_host", _ARGS),
-    ("cuda", "ad_fused"): ("cloudsc2_ad_fused", "ad_fused.cu", "cloudsc2_ad_fused_launch",
-                           [_I] + _FUSED_ARGS + [_P]),
+    ("cuda", "ad_fused"): ("cloudsc2_ad_fused", "ad_fused.cu", "cloudsc2_ad_fused_launch", _FUSED_ARGS + [_P]),
     ("host", "ad_fused"): ("cloudsc2_ad_fused_host", "ad_fused_host.cpp", "cloudsc2_ad_fused_host",
                            _FUSED_ARGS),
 }
@@ -174,7 +183,7 @@ def _load(kind: str, form: str = "ad", compact: bool = True, fast: bool = False)
         lib.cloudsc2_ad_attributes.argtypes = [_I] * 5 + [_P]
         lib.cloudsc2_ad_attributes.restype = ctypes.c_int
     if kind == "cuda" and form == "ad_fused":
-        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 8 + [_P]
+        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 6 + [_P]
         lib.cloudsc2_ad_fused_occupancy.restype = ctypes.c_int
     if kind == "host" and form == "ad":
         lib.cloudsc2_ad_level_host.argtypes = [_I] * 5 + [_P] * 4 + [_I]
@@ -386,36 +395,36 @@ def fused_stack_slots(evap: bool, resident: bool) -> int:
     return (3 if evap else 2) + (len(AD_FUSED_RESIDENT) if resident else 0)
 
 
-def fused_plan(nlev: int, dtype: torch.dtype, evap: bool, resident: bool) -> Tuple[int, int, int]:
-    """``(threads a block, shared bytes a block, blocks per SM)`` that the
-    fused kernel's stacks allow: of ``FUSED_BLOCKS``, the block that keeps
-    the most threads resident on one SM, ties to the larger.  A block's
-    stacks must fit in ``MAX_SHARED_BYTES``; an SM holds ``SM_SHARED_BYTES //
-    (stacks + BLOCK_RESERVED_BYTES)`` blocks, at most 32 and 2,048 threads.
-    At 137 levels with the default switches that is 64 x 3 = 192 threads in
-    f32 and 32 x 3 = 96 in f64; with evaporation 128 and 64, resident 32 and
-    16, one block each.  Registers are not counted: :func:`fused_occupancy`
-    asks the card, which counts them.  Raises ``ValueError``, naming the
-    bytes, where not even 16 threads fit."""
+def register_blocks(registers: int, block: int) -> int:
+    """Blocks of ``block`` threads that one SM holds at ``registers`` a
+    thread, with nothing else bounding them: the register file's count
+    (``SM_REGISTERS``, handed out as ``cuda_occupancy.h`` counts: a warp's
+    registers rounded up to ``REGISTER_UNIT``, whole warps in each of
+    ``SM_PARTITIONS``), at most ``MAX_BLOCKS_PER_SM`` and
+    ``MAX_THREADS_PER_SM`` threads."""
+    per_warp = -(-registers * 32 // REGISTER_UNIT) * REGISTER_UNIT
+    warps = SM_REGISTERS // SM_PARTITIONS // per_warp * SM_PARTITIONS
+    return min(warps // -(-block // 32), MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // block)
+
+
+def fused_plan(nlev: int, ncols: int, dtype: torch.dtype, evap: bool, resident: bool,
+               registers: int) -> Dict[str, int]:
+    """The fused kernel's launch at a register count: blocks of
+    ``FUSED_BLOCK`` threads, as many an SM as the registers allow
+    (:func:`register_blocks`: 4 at the 128 registers of the f32 default
+    switches, 512 threads; 2 at f64's 238-255, 256 threads), which the
+    forward sweep's ring in shared memory (``shared_bytes``: 24 KB a block
+    in f32, none in f64) leaves them; no level of the stack in shared
+    memory (``levels_in_shared``); the stack's scratch in device memory,
+    ``scratch_bytes``: :func:`fused_stack_slots` x ``nlev`` x ``ncols``
+    values (71.8 MB in f32 at 65,536 x 137 rolled, 431 MB resident).  Any
+    depth: the stack no longer bounds the columns."""
     item = torch.empty((), dtype=dtype).element_size()
-    slots = fused_stack_slots(evap, resident)
-    per_thread = slots * nlev * item
-    best = None
-    for block in FUSED_BLOCKS:
-        nbytes = block * per_thread
-        if nbytes > MAX_SHARED_BYTES:
-            continue
-        per_sm = min(SM_SHARED_BYTES // (nbytes + BLOCK_RESERVED_BYTES), MAX_BLOCKS_PER_SM,
-                     MAX_THREADS_PER_SM // block)
-        if best is None or block * per_sm > best[0] * best[2]:
-            best = (block, nbytes, per_sm)
-    if best is None:
-        raise ValueError(
-            f"the fused AD kernel's stack does not fit: {slots} values x {nlev} levels x {item} B = "
-            f"{per_thread} B a thread, {FUSED_BLOCKS[-1] * per_thread} B for {FUSED_BLOCKS[-1]} threads, "
-            f"above the {MAX_SHARED_BYTES} B of shared memory a block may hold"
-        )
-    return best
+    shared = FUSED_RING_SLOTS[dtype] * FUSED_RING_FIELDS * FUSED_BLOCK * item
+    per_sm = min(register_blocks(registers, FUSED_BLOCK), SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES))
+    return {"block": FUSED_BLOCK, "blocks_per_sm": per_sm, "threads_per_sm": FUSED_BLOCK * per_sm,
+            "shared_bytes": shared, "levels_in_shared": 0,
+            "scratch_bytes": fused_stack_slots(evap, resident) * nlev * ncols * item}
 
 
 def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
@@ -431,6 +440,17 @@ def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
     return ins, outs, nl_consts, tl_consts, switches
 
 
+def _scratch(state: Dict[str, Tensor], switches: Tuple[int, ...], fill: float | None = None) -> Tensor:
+    """The stack's scratch of one call: ``(slots, nlev, ncols)`` of the
+    state's dtype on its device, a fresh one for each call (filled with
+    ``fill`` where given)."""
+    ap = state["ap"]
+    shape = (fused_stack_slots(bool(switches[1]), bool(switches[3])), *ap.shape)
+    if fill is None:
+        return torch.empty(shape, dtype=ap.dtype, device=ap.device)
+    return torch.full(shape, fill, dtype=ap.dtype, device=ap.device)
+
+
 def _assemble_fused(outs: list) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     named = dict(zip(AD_FUSED_OUTPUTS, outs))
     tends = {n: named["tnd_" + n] for n in AD_TENDENCIES}
@@ -441,26 +461,25 @@ def cloudsc2_ad_fused_cuda(
     state: Dict[str, Tensor], dt: float, c: Constants, resident: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One AD step through the fused CUDA kernel, on PyTorch's current
-    stream: both sweeps in one launch, with the block size that
-    :func:`fused_occupancy` takes from the card.
+    stream: both sweeps in one launch, the stack in a scratch of device
+    memory allocated for the call (:func:`fused_plan`).
     Each launch adds one to ``cloudsc2_ad_fused_cuda.launches`` (and by
     its form, as the reverse kernel's).
 
     Same contract and outputs as :func:`cloudsc2_ad_cuda`, every form
     included.  ``resident`` keeps the folded level inputs on the kernel's
-    stack too.  Raises ``ValueError`` where the stack does not fit (before
-    anything is launched), and raises on anything else the kernel does not
-    take, on a failed build and on a refused launch; never falls back to
-    the plain version or to the two-kernel AD.
+    stack too.  Raises on anything the kernel does not take, on a failed
+    build and on a refused launch; never falls back to the plain version
+    or to the two-kernel AD.
     """
     ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cuda")
     nlev, ncols = state["ap"].shape
+    scratch = _scratch(state, switches)
     with torch.cuda.device(state["ap"].device):
-        block = fused_occupancy(outs[0].dtype, c, resident, nlev)["block"]
         stream = torch.cuda.current_stream().cuda_stream
         err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_launch(
-            *switches, block, ptrs(ins), ptrs(outs), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
-            ncols, stream)
+            *switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(),
+            nlev, ncols, stream)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}")
     count_launch(cloudsc2_ad_fused_cuda, switches)
@@ -473,48 +492,49 @@ cloudsc2_ad_fused_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(switches: Tuple[int, ...], block: int, nlev: int) -> Tuple[int, int, int, int]:
+def _occupancy(switches: Tuple[int, ...]) -> Tuple[int, int, int, int]:
     out = (ctypes.c_int * 4)()
-    err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_occupancy(*switches, block, nlev, out)
+    err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_occupancy(*switches, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused occupancy query failed: cudaError_t {err}")
     return tuple(out)
 
 
 def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int) -> Dict[str, int]:
-    """The fused kernel's block on the card: of ``FUSED_BLOCKS`` whose
-    stacks fit a block, the one for which
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stacks and registers)
-    keeps the most threads on an SM, ties to the larger.  Returns ``block``,
-    ``blocks_per_sm``, ``threads_per_sm``, ``registers`` and ``local_bytes``
-    a thread (``cudaFuncGetAttributes``) and ``shared_bytes`` a block.
-    Raises ``ValueError`` as :func:`fused_plan` where not even 16 threads
-    fit.  Needs the card; the answers are kept per instantiation and
-    shape."""
+    """What the card makes of the fused kernel's instantiation: ``block``,
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``threads_per_sm``, ``registers`` and ``local_bytes`` a thread
+    (``cudaFuncGetAttributes``), ``shared_bytes`` a block and
+    ``levels_in_shared``.  Raises ``RuntimeError`` where the card's blocks
+    per SM or shared bytes are not :func:`fused_plan`'s at ``nlev`` levels
+    and the card's registers (which the depth does not change: the stack is
+    in device memory).  Needs the card; the answers are kept per
+    instantiation."""
     evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
     switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident),
                 div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
-    block, nbytes, _ = fused_plan(nlev, dtype, evap, resident)
-    per_thread = nbytes // block
-    best = None
-    for block in FUSED_BLOCKS:
-        if block * per_thread <= MAX_SHARED_BYTES:
-            per_sm, registers, local, shared = _occupancy(switches, block, nlev)
-            if best is None or block * per_sm > best["threads_per_sm"]:
-                best = {"block": block, "blocks_per_sm": per_sm, "threads_per_sm": block * per_sm,
-                        "registers": registers, "local_bytes": local, "shared_bytes": shared}
-    return best
+    per_sm, registers, local, shared = _occupancy(switches)
+    plan = fused_plan(nlev, 1, dtype, evap, resident, registers)
+    got = {"block": FUSED_BLOCK, "blocks_per_sm": per_sm, "threads_per_sm": FUSED_BLOCK * per_sm,
+           "registers": registers, "local_bytes": local, "shared_bytes": shared, "levels_in_shared": 0}
+    if (per_sm, shared) != (plan["blocks_per_sm"], plan["shared_bytes"]):
+        raise RuntimeError(f"the card holds the fused AD kernel otherwise than its plan: {got} against {plan}")
+    return got
 
 
 def cloudsc2_ad_fused_host(
     state: Dict[str, Tensor], dt: float, c: Constants, resident: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The fused kernel's bodies compiled for the host, on CPU tensors
-    (tests only), one column's stack at a time."""
+    (tests only): the kernel's scratch layout and index function, the
+    scratch NaN before the call, every column's forward sweep before any
+    reverse sweep."""
     ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cpu")
     nlev, ncols = state["ap"].shape
+    scratch = _scratch(state, switches, float("nan"))
     err = _form_lib("host", "ad_fused", switches).cloudsc2_ad_fused_host(
-        *switches, ptrs(ins), ptrs(outs), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev, ncols)
+        *switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
+        ncols)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused host body failed: {err}")
     return _assemble_fused(outs)

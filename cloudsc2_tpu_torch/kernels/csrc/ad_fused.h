@@ -12,10 +12,11 @@
 // sweeps divide under the one policy D (scalar_math.h) and, as the
 // library's form says, with one form of the saturation adjustment.
 //
-// Each sweep is the two-kernel AD's own code: NLBody's load / nl_level /
-// store forward, ADBody's load / step / end in reverse, so both forms give
-// the same numbers.  The per-column prologue (tropopause, critical-RH
-// coefficients, surface pressure) runs once, for both sweeps.
+// Each sweep is the two-kernel AD's own code: the NL kernel's pipelined
+// body forward (NLPipeBody's prefetch / fold, nl_level, store), ADBody's
+// load / step / end in reverse, so both forms give the same numbers.  The
+// per-column prologue (tropopause, critical-RH coefficients, surface
+// pressure) runs once, for both sweeps.
 //
 // Static switches are template bools: EVAP = LEVAPLS2 || LDRAIN1D, LREGCL,
 // and RESIDENT: the forward sweep also pushes the level's ten folded inputs
@@ -76,21 +77,28 @@ struct ADFusedSlots {
 };
 
 // ------------------------------------------------------------ forward body ----
-// The NL step of the two-kernel AD's forward kernel (NLBody), with the
+// The NL step of the two-kernel AD's forward kernel on the pipelined scan
+// (NLPipeBody: its level inputs copied ahead into the ring), with the
 // carry entering each level pushed onto the stack instead of written out.
 template <typename T, bool EVAP, bool RESIDENT, int D>
 struct ADFusedFwd {
-  using NL = NLBody<T, true, EVAP, false, false, false, D>;
+  using NL = NLPipeBody<T, true, EVAP, false, false, false, D>;
   using Column = typename NL::Column;
   static constexpr int SLOTS = ADFusedSlots<EVAP, RESIDENT>::ALL;
+  static constexpr int FIELDS = NL::FIELDS;
   NL nl;
   int nlev, ncols;
 
   CLOUDSC2_HD Column begin(int col) const { return nl.begin(col); }
 
-  template <class Stack>
-  CLOUDSC2_HD void level(Column& s, const Stack& stack, int col, int k) const {
-    const NLLevelIn<T> x = nl.load(col, k);
+  template <class Ring>
+  CLOUDSC2_HD void prefetch(Ring& r, int slot, int col, int k) const {
+    nl.prefetch(r, slot, col, k);
+  }
+
+  template <class Slot, class Stack>
+  CLOUDSC2_HD void level(Column& s, const Slot& r, const Stack& stack, int col, int k) const {
+    const NLLevelIn<T> x = nl.fold(s, r, k);
     stack(0, k) = s.carry.rfl;
     stack(1, k) = s.carry.sfl;
     if constexpr (EVAP) stack(2, k) = s.carry.covptot;

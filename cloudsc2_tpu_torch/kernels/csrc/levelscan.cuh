@@ -95,7 +95,7 @@ inline void level_scan_host(const Body& body) {
 // them.  The body's loads are issued ahead of the stores of the levels
 // before them: the caller guarantees that no output overlaps an input.
 template <int DEPTH, class Body, class Ring>
-CLOUDSC2_HD void level_scan_pipelined_column(const Body& body, Ring& ring, int col) {
+CLOUDSC2_HD typename Body::Column level_scan_pipelined_column(const Body& body, Ring& ring, int col) {
   static_assert(DEPTH >= 1, "a ring needs a slot");
   for (int k = 0; k < DEPTH - 1; ++k) {
     if (k < body.nlev) body.prefetch(ring, k, col, k);
@@ -112,6 +112,7 @@ CLOUDSC2_HD void level_scan_pipelined_column(const Body& body, Ring& ring, int c
     body.level(s, ring.slot(slot), col, k);
     slot = slot + 1 == DEPTH ? 0 : slot + 1;
   }
+  return s;
 }
 
 // A ring of two slots in registers: a plain load of each value of the
@@ -228,28 +229,29 @@ struct HostRing {
   Slot slot(int s) const { return {base + s * FIELDS}; }
 };
 
-// The host scan, a column at a time: with SHARED the shared-memory ring as
-// HostRing models it, else the card's RegisterPair itself.
-template <int DEPTH, bool SHARED, class Body, typename T>
-inline void level_scan_pipelined_host(const Body& body) {
+// One column of the host scan: with SHARED the shared-memory ring as
+// HostRing models it, else the card's RegisterPair itself; either starts
+// as NaN.
+template <int DEPTH, bool SHARED, typename T, class Body>
+inline typename Body::Column level_scan_pipelined_host_column(const Body& body, int col) {
   if constexpr (SHARED) {
-    std::vector<T> buf(static_cast<size_t>(DEPTH) * Body::FIELDS);
+    std::vector<T> buf(static_cast<size_t>(DEPTH) * Body::FIELDS, T(NAN));
     std::vector<typename HostRing<T, Body::FIELDS>::Pending> pending;
-    for (int col = 0; col < body.ncols; ++col) {
-      for (T& v : buf) v = T(NAN);
-      pending.clear();
-      int open = 0;
-      HostRing<T, Body::FIELDS> ring{buf.data(), &pending, &open};
-      level_scan_pipelined_column<DEPTH>(body, ring, col);
-    }
+    int open = 0;
+    HostRing<T, Body::FIELDS> ring{buf.data(), &pending, &open};
+    return level_scan_pipelined_column<DEPTH>(body, ring, col);
   } else {
     static_assert(DEPTH == 2, "a ring in registers has two slots");
-    for (int col = 0; col < body.ncols; ++col) {
-      RegisterPair<T, Body::FIELDS> ring;
-      for (int f = 0; f < Body::FIELDS; ++f) ring.cur.v[f] = ring.next.v[f] = T(NAN);
-      level_scan_pipelined_column<DEPTH>(body, ring, col);
-    }
+    RegisterPair<T, Body::FIELDS> ring;
+    for (int f = 0; f < Body::FIELDS; ++f) ring.cur.v[f] = ring.next.v[f] = T(NAN);
+    return level_scan_pipelined_column<DEPTH>(body, ring, col);
   }
+}
+
+// The host scan, a column at a time.
+template <int DEPTH, bool SHARED, class Body, typename T>
+inline void level_scan_pipelined_host(const Body& body) {
+  for (int col = 0; col < body.ncols; ++col) level_scan_pipelined_host_column<DEPTH, SHARED, T>(body, col);
 }
 
 // ----------------------------------------------------- forward + reverse ----
@@ -257,16 +259,24 @@ inline void level_scan_pipelined_host(const Body& body) {
 // (cloudsc2_tpu/pallas/levelscan.py:87), both sweeps of an adjoint in one
 // launch.  On the TPU the grid's level axis runs its blocks up and then
 // down, and the carry entering each level waits in a VMEM stack between
-// the two (:217-251).  Here one thread runs both sweeps over its column,
-// and the stack is a per-thread array of `slots` values per level.
+// the two (:217-251).  Here one thread runs both sweeps over its column:
+// the forward sweep on the pipelined scan above (its level inputs in
+// flight into the ring while a level runs), the reverse sweep level by
+// level.  The stack is a scratch in device memory that the wrapper
+// allocates, SLOTS values per level and column (ScratchStack).  In shared
+// memory, where VMEM would have it, a column's stack of 137 levels took
+// 1-7 KB and held an SM to 16-192 threads; in device memory each value
+// costs a write and a read, and the registers set the threads an SM holds.
 //
-// A FwdBody provides
+// A FwdBody is a PipeBody (above) whose level also takes the stack:
 //   typename FwdBody::Column                    per-column state, carry included
+//   static constexpr int FIELDS, SLOTS;         a ring slot's fields; values pushed per level
 //   Column begin(int col) const                 prologue of both sweeps
-//   void level(Column&, Stack&, int col, int k) const
-//       one level, top down; it pushes onto stack(slot, k) the carry
-//       entering the level (and what else the reverse level k reads back)
-//   static constexpr int SLOTS;                 values pushed per level
+//   void prefetch(Ring&, int slot, int col, int k) const
+//   void level(Column&, const Slot&, const Stack&, int col, int k) const
+//       one level, top down, its inputs from the slot; it pushes onto
+//       stack(slot, k) the carry entering the level (and what else the
+//       reverse level k reads back)
 //   int nlev, ncols;
 // A RevBody provides
 //   typename RevBody::Column                    per-column state, cotangent carry included
@@ -275,55 +285,101 @@ inline void level_scan_pipelined_host(const Body& body) {
 //       one level, bottom up; it pops what the forward level k pushed
 //   void end(Column&, int col) const            epilogue
 // A Stack provides T& operator()(int slot, int k) const.
-template <class FwdBody, class RevBody, class Stack>
-CLOUDSC2_HD void level_scan_fwdrev_column(const FwdBody& fwd, const RevBody& rev,
-                                          const Stack& stack, int col) {
-  typename FwdBody::Column s = fwd.begin(col);
-  for (int k = 0; k < fwd.nlev; ++k) fwd.level(s, stack, col, k);
+
+// One column's stack in the scratch of SLOTS x nlev x ncols values, indexed
+// [slot][k][col]: at one level the threads of a warp touch consecutive
+// words.  The reverse sweep pops the bottom levels first, the ones the
+// forward sweep pushed last, so its first reads find the freshest writes.
+template <typename T>
+struct ScratchStack {
+  T* base;  // the column's word of slot 0, level 0
+  int nlev;
+  int ncols;
+  CLOUDSC2_HD T& operator()(int slot, int k) const {
+    return base[(static_cast<size_t>(slot) * static_cast<size_t>(nlev) + static_cast<size_t>(k)) *
+                static_cast<size_t>(ncols)];
+  }
+};
+
+// A FwdBody with its column's stack: the PipeBody that the pipelined scan
+// runs.
+template <class FwdBody, class Stack>
+struct StackedFwd {
+  using Column = typename FwdBody::Column;
+  static constexpr int FIELDS = FwdBody::FIELDS;
+  const FwdBody& fwd;
+  Stack stack;
+  int nlev, ncols;
+
+  CLOUDSC2_HD Column begin(int col) const { return fwd.begin(col); }
+  template <class Ring>
+  CLOUDSC2_HD void prefetch(Ring& r, int slot, int col, int k) const {
+    fwd.prefetch(r, slot, col, k);
+  }
+  template <class Slot>
+  CLOUDSC2_HD void level(Column& s, const Slot& r, int col, int k) const {
+    fwd.level(s, r, stack, col, k);
+  }
+};
+
+template <class FwdBody, class Stack>
+CLOUDSC2_HD StackedFwd<FwdBody, Stack> stacked(const FwdBody& fwd, const Stack& stack) {
+  return {fwd, stack, fwd.nlev, fwd.ncols};
+}
+
+template <class RevBody, class FwdColumn, class Stack>
+CLOUDSC2_HD void level_scan_rev_sweep(const RevBody& rev, const FwdColumn& s, const Stack& stack, int col,
+                                      int nlev) {
   typename RevBody::Column r = rev.begin(s);
-  for (int k = fwd.nlev - 1; k >= 0; --k) rev.level(r, stack, col, k);
+  for (int k = nlev - 1; k >= 0; --k) rev.level(r, stack, col, k);
   rev.end(r, col);
 }
 
 #ifdef __CUDACC__
-// The stack in dynamic shared memory, FwdBody::SLOTS * nlev * blockDim.x
-// values, indexed [slot][k][thread]: at one level the threads of a warp
-// touch consecutive words.
-template <typename T>
-struct SharedStack {
-  T* base;
-  int nlev;
-  __device__ __forceinline__ T& operator()(int slot, int k) const {
-    return base[(static_cast<unsigned>(slot) * nlev + k) * blockDim.x + threadIdx.x];
-  }
-};
-
-// MAX_THREADS bounds the block for the compiler only: the launch picks any
-// block size up to it, and the stack's stride is blockDim.x.
-template <class FwdBody, class RevBody, typename T, int MAX_THREADS>
-__global__ void __launch_bounds__(MAX_THREADS) level_scan_fwdrev_kernel(const FwdBody fwd,
-                                                                        const RevBody rev) {
-  extern __shared__ __align__(16) unsigned char cloudsc2_stack[];
+// The forward sweep's ring as level_scan_pipelined_kernel keeps it (DEPTH
+// slots, SHARED: in dynamic shared memory, else two in registers);
+// BLOCK threads a block, MIN_BLOCKS of them an SM, which caps the
+// registers a thread at what that many blocks leave (the wrapper's plan,
+// kernels/adjoint.py fused_plan, counts the blocks the card then holds).
+// The forward sweep's loads run ahead of its stores: the caller
+// guarantees that no output overlaps an input.
+template <class FwdBody, class RevBody, typename T, int DEPTH, bool SHARED, int BLOCK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) level_scan_fwdrev_kernel(const FwdBody fwd,
+                                                                              const RevBody rev, T* scratch) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= fwd.ncols) return;  // ragged last block; no thread reads another's stack
-  const SharedStack<T> stack{reinterpret_cast<T*>(cloudsc2_stack), fwd.nlev};
-  level_scan_fwdrev_column(fwd, rev, stack, col);
+  if (col >= fwd.ncols) return;  // ragged last block; no thread reads another's stack or ring
+  const ScratchStack<T> stack{scratch + col, fwd.nlev, fwd.ncols};
+  typename FwdBody::Column s;
+  if constexpr (SHARED) {
+    extern __shared__ __align__(16) unsigned char cloudsc2_ring[];
+    SharedRing<T, FwdBody::FIELDS> ring{reinterpret_cast<T*>(cloudsc2_ring) + threadIdx.x,
+                                        static_cast<int>(blockDim.x)};
+    s = level_scan_pipelined_column<DEPTH>(stacked(fwd, stack), ring, col);
+  } else {
+    static_assert(DEPTH == 2, "a ring in registers has two slots");
+    RegisterPair<T, FwdBody::FIELDS> ring;
+    s = level_scan_pipelined_column<DEPTH>(stacked(fwd, stack), ring, col);
+  }
+  level_scan_rev_sweep(rev, s, stack, col, fwd.nlev);
 }
 #endif
 
-// Host counterpart: one column's stack, stride 1, reused column by column.
-template <typename T>
-struct ColumnStack {
-  T* base;
-  int nlev;
-  T& operator()(int slot, int k) const { return base[static_cast<size_t>(slot) * nlev + k]; }
-};
-
-template <class FwdBody, class RevBody, typename T>
-inline void level_scan_fwdrev_host(const FwdBody& fwd, const RevBody& rev) {
-  std::vector<T> buf(static_cast<size_t>(FwdBody::SLOTS) * fwd.nlev);
-  const ColumnStack<T> stack{buf.data(), fwd.nlev};
-  for (int col = 0; col < fwd.ncols; ++col) level_scan_fwdrev_column(fwd, rev, stack, col);
+// Host counterpart, on the same scratch and the same index function, the
+// ring modelled as level_scan_pipelined_host does: every column's forward
+// sweep before any column's reverse sweep, as a grid in one wave runs
+// them, so that a stack that aliased two columns would give the wrong
+// numbers here too.
+template <int DEPTH, bool SHARED, class FwdBody, class RevBody, typename T>
+inline void level_scan_fwdrev_host(const FwdBody& fwd, const RevBody& rev, T* scratch) {
+  std::vector<typename FwdBody::Column> cols;
+  cols.reserve(static_cast<size_t>(fwd.ncols));
+  for (int col = 0; col < fwd.ncols; ++col) {
+    const ScratchStack<T> stack{scratch + col, fwd.nlev, fwd.ncols};
+    cols.push_back(level_scan_pipelined_host_column<DEPTH, SHARED, T>(stacked(fwd, stack), col));
+  }
+  for (int col = 0; col < fwd.ncols; ++col)
+    level_scan_rev_sweep(rev, cols[static_cast<size_t>(col)], ScratchStack<T>{scratch + col, fwd.nlev, fwd.ncols},
+                         col, fwd.nlev);
 }
 
 }  // namespace cloudsc2

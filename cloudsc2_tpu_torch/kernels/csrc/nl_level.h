@@ -639,6 +639,15 @@ struct NLPipeBody : NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> {
 
   template <class Slot>
   CLOUDSC2_HD void level(Column& s, const Slot& r, int col, int k) const {
+    const NLLevelIn<T> x = fold(s, r, k);
+    this->step(s, x, col, k);
+  }
+
+  // Level k's inputs folded from its slot (and the interface above it,
+  // which then moves down a level): what NLBody::load folds from memory.
+  // The fused AD's forward sweep (ad_fused.h) calls it alone.
+  template <class Slot>
+  CLOUDSC2_HD NLLevelIn<T> fold(Column& s, const Slot& r, int k) const {
     const NLConst<T>& c = this->c;
     NLLevelIn<T> x;
     const T aph_below = r(NR_APH);
@@ -661,7 +670,7 @@ struct NLPipeBody : NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> {
     x.eta = eta[k];
     x.scalm = scalm[k];
     s.aph_top = aph_below;
-    this->step(s, x, col, k);
+    return x;
   }
 };
 

@@ -16,7 +16,12 @@ the exact divide unless named.  Where the checkout has
 ring depth are printed beside its time, and, as a yardstick of a rate with
 writes, ``torch.add(a, b, out=o)`` over the fused NL kernel's f32 bytes.
 ``--kernels nl`` times the NL kernel alone (and builds only its
-libraries).  It imports ``cloudsc2_tpu_torch`` from
+libraries).  ``--kernels ad_fused`` times the fused AD kernel, rolled and
+resident, in the default switches and with ``LEVAPLS2``, beside the
+two-kernel AD on the same state, and prints next to each time what
+``kernels.adjoint.fused_occupancy`` reads from the card (block, blocks and
+threads per SM, registers, local and shared bytes) and, where the checkout
+has them, the scratch bytes of the kernel's stack.  It imports ``cloudsc2_tpu_torch`` from
 ``--tree`` (by default this checkout), so one copy of the script times any
 checkout whose kernels have these entry points.  Compare two checkouts only
 inside one call on one card, in turns::
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--num-cols", type=int, default=65536)
     ap.add_argument("--runs", type=int, default=10, help="batches per kernel (the median is reported)")
     ap.add_argument("--batch", type=int, default=10, help="back-to-back calls per batch")
-    ap.add_argument("--kernels", default="nl,tl,ad", help="comma-separated: nl, tl, ad")
+    ap.add_argument("--kernels", default="nl,tl,ad", help="comma-separated: nl, tl, ad, ad_fused")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -78,7 +83,9 @@ def main(argv=None) -> int:
     c = make_constants(lphylin=True, ldrain1d=False)
     kernels = set(args.kernels.split(","))
     loads = [nlk.load_cuda, lambda: nlk.load_cuda(False)]
-    loads += [tlk.load_cuda] * ("tl" in kernels or "ad" in kernels) + [adk.load_cuda] * ("ad" in kernels)
+    ad = bool(kernels & {"ad", "ad_fused"})
+    loads += [tlk.load_cuda] * ("tl" in kernels or ad) + [adk.load_cuda] * ad
+    loads += [adk.load_fused_cuda] * ("ad_fused" in kernels)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loads)) as pool:
         for f in [pool.submit(load) for load in loads]:
@@ -100,6 +107,28 @@ def main(argv=None) -> int:
             fn()
         runs = [cardmod.run_ms(fn, args.batch, device, hold=False) / args.batch for _ in range(args.runs)]
         return statistics.median(runs), runs
+
+    def seed_ad(s, dt, cf):
+        """The state with the AD's output cotangent seeds: the TL kernel's
+        outputs under the constants ``cf``."""
+        s = dict(s)
+        tends, diags = tlk.cloudsc2_tl_cuda(s, dt, cf)
+        for n in ("t", "q", "ql", "qi"):
+            s["tnd_" + n] = tends[n]
+            s["tnd_" + n + "_i"] = tends[n + "_i"]
+        for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+            s[n + "_i"] = diags[n + "_i"]
+        return s
+
+    def fused_reading(dtype, cf, resident):
+        """What the card makes of the fused kernel's instantiation, and its
+        stack's scratch bytes where the checkout's plan has them."""
+        occ = dict(adk.fused_occupancy(dtype, cf, resident, 137))
+        if "levels_in_shared" in occ:  # a stack in device memory
+            evap = bool(cf.LEVAPLS2 or cf.LDRAIN1D)
+            plan = adk.fused_plan(137, args.num_cols, dtype, evap, resident, occ["registers"])
+            occ["scratch_bytes"] = plan["scratch_bytes"]
+        return occ
 
     for dtype in (torch.float32, torch.float64):
         _, s, dt = synthesize_state(args.num_cols, 137, 2, device, dtype)
@@ -125,13 +154,18 @@ def main(argv=None) -> int:
             print(f"{label} yardstick torch.add, 2 reads : 1 write, {3 * n * 4 / 1e9:.4f} GB: "
                   f"{res['add yardstick'][0]:.4f} ms, {rate:.1f} GB/s; {card}", flush=True)
             del a, b, o
+        if "ad_fused" in kernels:
+            for cname, cf in (("default", c), ("levapls2", c.replace(LEVAPLS2=True))):
+                sa = seed_ad(s, dt, cf)
+                res[f"two-kernel ad {cname}"] = ms(lambda: adk.cloudsc2_ad_cuda(sa, dt, cf))
+                for form, resident in (("rolled", False), ("resident", True)):
+                    name = f"fused {form} {cname}"
+                    res[name] = ms(lambda: adk.cloudsc2_ad_fused_cuda(sa, dt, cf, resident=resident))
+                    occ[name] = fused_reading(dtype, cf, resident)
+                del sa
+                torch.cuda.empty_cache()
         if kernels & {"tl", "ad"}:
-            tends, diags = tlk.cloudsc2_tl_cuda(s, dt, c)
-            for n in ("t", "q", "ql", "qi"):
-                s["tnd_" + n] = tends[n]
-                s["tnd_" + n + "_i"] = tends[n + "_i"]
-            for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-                s[n + "_i"] = diags[n + "_i"]
+            s = seed_ad(s, dt, c)
             if "tl" in kernels:
                 res["tl"] = ms(lambda: tlk.cloudsc2_tl_cuda(s, dt, c))
             if "ad" in kernels:
@@ -143,6 +177,12 @@ def main(argv=None) -> int:
               + "; ".join(f"{k} {v[0]:.4f} ms (runs {[round(x, 4) for x in v[1]]})" for k, v in res.items())
               + f"; {card}", flush=True)
         for name, o in occ.items():
+            if name.startswith("fused "):
+                scratch = f", {o['scratch_bytes']} B scratch" if "scratch_bytes" in o else ""
+                print(f"{label} {tag} {name}: {res[name][0]:.4f} ms; block {o['block']}, {o['blocks_per_sm']} "
+                      f"blocks and {o['threads_per_sm']} threads per SM, {o['registers']} registers, "
+                      f"{o['local_bytes']} B local, {o['shared_bytes']} B shared a block{scratch}", flush=True)
+                continue
             print(f"{label} {tag} {name}: {o['registers']} registers, {o['local_bytes']} B local, "
                   f"{o['blocks_per_sm']} blocks of 128 per SM, {o['shared_bytes']} B shared a block, "
                   f"ring depth {o['depth']}", flush=True)

@@ -22,10 +22,15 @@ their host builds (g++ -ffp-contract=off) and the plain AD.
   ``traj_only`` bitwise the trajectory of ``with_trajectory``;
 * ``LPHYLIN=False`` taken by the fused entries, bitwise the ``LPHYLIN=True``
   launch (the AD does not read it); refusals: ``traj_only`` without
-  ``with_trajectory``, CPU tensors on the CUDA entry, a stack that does not
-  fit; and the plan's
-  block sizes and blocks per SM (the block that keeps the most threads on
-  an SM).
+  ``with_trajectory``, CPU tensors on the CUDA entry, a column of one level;
+* the stack in its scratch: the host build runs the kernel's index function
+  on the kernel's layout, every column's forward sweep before any reverse
+  sweep, so a stack that aliased two columns, or a slot off by one, would
+  break its bitwise equality with the two-kernel host AD (at a ragged 37
+  columns, nlev 2, 3 and 137, and deep f64 resident columns of 152 and 200
+  levels, which the stack in shared memory could not hold); and the plan's
+  blocks per SM at a register count, as the card's occupancy calculator
+  counts them.
 """
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from cloudsc2_tpu_torch import dispatch, iox
 from cloudsc2_tpu_torch.kernels import adjoint as adk
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
 from cloudsc2_tpu_torch.physics.adjoint import cloudsc2_ad
+from cloudsc2_tpu_torch.physics.increment import state_increment
 from tests.torch_helpers import (
     CONFIGS,
     PALLAS_F32_WIDE,
@@ -215,62 +221,121 @@ def test_dispatch_sends_cpu_tensors_to_the_plain_ad():
         dispatch.cloudsc2_ad_fused({k: v.to("meta") for k, v in s.items()}, dt, c)
 
 
-@pytest.mark.parametrize("tag,evap,resident,block,per_sm", [
-    ("f32", False, False, 64, 3), ("f32", True, False, 128, 1), ("f64", False, False, 32, 3),
-    ("f64", True, False, 64, 1), ("f32", False, True, 32, 1), ("f32", True, True, 32, 1),
-    ("f64", False, True, 16, 1), ("f64", True, True, 16, 1),
+#: the stack's scratch at 65,536 x 137: slots x 137 x 65,536 values
+_SCRATCH = {n: n * 137 * 65_536 for n in (2, 3, 12, 13)}
+
+
+@pytest.mark.parametrize("tag,evap,resident,registers,per_sm,values", [
+    ("f32", False, False, 128, 4, _SCRATCH[2]), ("f32", False, True, 127, 4, _SCRATCH[12]),
+    ("f32", True, False, 160, 3, _SCRATCH[3]), ("f32", True, True, 163, 3, _SCRATCH[13]),
+    ("f32", False, False, 153, 3, _SCRATCH[2]), ("f64", False, False, 240, 2, _SCRATCH[2]),
+    ("f64", False, True, 238, 2, _SCRATCH[12]), ("f64", True, False, 255, 2, _SCRATCH[3]),
+    ("f64", True, True, 255, 2, _SCRATCH[13]), ("f32", False, False, 129, 3, _SCRATCH[2]),
+    ("f32", False, False, 32, 9, _SCRATCH[2]),
 ])
-def test_fused_plan_block_sizes_at_137_levels(tag, evap, resident, block, per_sm):
+def test_fused_plan_block_sizes_at_137_levels(tag, evap, resident, registers, per_sm, values):
+    """Blocks of 128 threads, as many an SM as the registers allow (f32
+    default switches 4 at 128 registers, 512 threads; one register more
+    and an SM holds 3; f64 2), the forward sweep's ring in shared memory
+    (f32 3 slots x 16 fields x 128 threads, 24 KB a block, which would
+    bound an SM at 9 blocks, at 32 registers; f64's ring is in registers),
+    no level of the stack in shared memory, and the stack's scratch in
+    device memory: 71.8 MB rolled and 431 MB resident in f32 at 65,536 x
+    137, twice that in f64."""
     dtype = torch.float64 if tag == "f64" else torch.float32
-    got, nbytes, got_per_sm = adk.fused_plan(137, dtype, evap, resident)
     item = 8 if tag == "f64" else 4
-    assert (got, nbytes, got_per_sm) == (block, block * adk.fused_stack_slots(evap, resident) * 137 * item, per_sm)
-    # the plan fills the SM: no other block keeps more threads resident on it
-    # (a block of b threads: 233,472 // (b x stack + 1,024) blocks per SM)
-    assert nbytes <= adk.MAX_SHARED_BYTES
-    for other in adk.FUSED_BLOCKS:
-        b = other * nbytes // block
-        if b <= adk.MAX_SHARED_BYTES:
-            assert other * (adk.SM_SHARED_BYTES // (b + adk.BLOCK_RESERVED_BYTES)) <= block * per_sm, other
+    plan = adk.fused_plan(137, 65_536, dtype, evap, resident, registers)
+    assert plan == {"block": 128, "blocks_per_sm": per_sm, "threads_per_sm": 128 * per_sm,
+                    "shared_bytes": 24_576 if tag == "f32" else 0, "levels_in_shared": 0,
+                    "scratch_bytes": values * item}
+    assert plan["scratch_bytes"] == adk.fused_stack_slots(evap, resident) * 137 * 65_536 * item
 
 
-def test_fused_plan_counts_threads():
-    """At few levels the SM's 2,048 threads bound the blocks, not the
-    stacks; ties go to the larger block."""
-    # 2 values x 11 levels x 4 B: every block fits 16 or more times
-    assert adk.fused_plan(11, torch.float32, False, False) == (128, 128 * 88, 16)
+def test_fused_ring_is_the_nl_kernels():
+    """The plan's ring is the NL kernel's (``NLRing``, read from its host
+    build): f32 three slots in shared memory, f64 two in registers."""
+    assert nlk.ring_depth(torch.float32) == adk.FUSED_RING_SLOTS[torch.float32] == 3
+    assert nlk.ring_depth(torch.float64) == 2 and adk.FUSED_RING_SLOTS[torch.float64] == 0
+
+
+@pytest.mark.parametrize("registers,block,per_sm", [
+    (32, 128, 16), (24, 128, 16), (24, 32, 32), (64, 128, 8), (72, 128, 7), (255, 128, 2), (255, 32, 8),
+])
+def test_fused_plan_counts_threads(registers, block, per_sm):
+    """A warp's registers rounded up to 256, whole warps in each of the
+    SM's four sub-partitions of 16,384 (72 registers: 2,304 a warp, 7 in a
+    partition, 28 warps, 7 blocks of 4 warps); and at few registers the
+    SM's 2,048 threads and 32 blocks bound it instead."""
+    assert adk.register_blocks(registers, block) == per_sm
 
 
 def test_fused_occupancy_takes_the_cards_best_block(monkeypatch):
-    """The launch's block is the card's (here a stand-in for its occupancy
-    query): of the blocks whose stacks fit, the most threads per SM, ties
-    to the larger; a block whose stacks do not fit is never asked about."""
+    """The card's reading (here a stand-in for its occupancy query) is
+    returned where its blocks per SM are those the registers allow, and
+    refused where anything else (shared memory, a wrong launch bound) sets
+    them."""
     c = CONFIGS["default"]()
-    block, nbytes, per_sm = adk.fused_plan(137, torch.float32, False, False)
-    # the stacks alone: the card agrees with the plan
-    card = {b: adk.SM_SHARED_BYTES // (b * nbytes // block + adk.BLOCK_RESERVED_BYTES) for b in adk.FUSED_BLOCKS}
-    monkeypatch.setattr(adk, "_occupancy", lambda switches, b, nlev: (card[b], 128, 0, b * nbytes // block))
+    monkeypatch.setattr(adk, "_occupancy", lambda switches: (4, 128, 0, 24_576))
     assert adk.fused_occupancy(torch.float32, c, False, 137) == {
-        "block": block, "blocks_per_sm": per_sm, "threads_per_sm": block * per_sm, "registers": 128,
-        "local_bytes": 0, "shared_bytes": nbytes}
-    # registers cut 64 threads to 2 blocks: 128 x 1 and 64 x 2 tie below 32 x 6 and 16 x 12
-    card = {128: 1, 64: 2, 32: 6, 16: 12}
-    assert adk.fused_occupancy(torch.float32, c, False, 137)["block"] == 32
-    # f64 resident: only 16 threads fit, and only they are asked about
-    asked = []
-    monkeypatch.setattr(adk, "_occupancy", lambda switches, b, nlev: asked.append(b) or (1, 238, 0, 0))
-    assert adk.fused_occupancy(torch.float64, c, True, 137)["block"] == 16
-    assert asked == [16]
+        "block": 128, "blocks_per_sm": 4, "threads_per_sm": 512, "registers": 128, "local_bytes": 0,
+        "shared_bytes": 24_576, "levels_in_shared": 0}
+    monkeypatch.setattr(adk, "_occupancy", lambda switches: (2, 240, 0, 0))
+    assert adk.fused_occupancy(torch.float64, c, True, 137)["threads_per_sm"] == 256
+    for reading in ((3, 128, 0, 24_576), (4, 128, 0, 49_152)):
+        monkeypatch.setattr(adk, "_occupancy", lambda switches, r=reading: r)
+        with pytest.raises(RuntimeError, match="otherwise than its plan"):
+            adk.fused_occupancy(torch.float32, c, False, 137)
 
 
-def test_fused_plan_raises_where_16_threads_do_not_fit():
-    # f64 resident without evaporation: 12 values x 8 B a level, 16 threads
-    # fit 151 levels
-    assert adk.fused_plan(151, torch.float64, False, True)[0] == 16
-    with pytest.raises(ValueError, match=r"12 values x 152 levels x 8 B = 14592 B a thread"):
-        adk.fused_plan(152, torch.float64, False, True)
-    with pytest.raises(ValueError, match="stack does not fit"):
-        adk.fused_plan(200, torch.float64, True, True)
+def _seeded_ad_state(nlev, ncols, cfg, dtype, seed=5):
+    """The state with its increments and seeded cotangent seeds from
+    numpy (the AD is linear in them), at any depth the wrappers take."""
+    c = CONFIGS[cfg]()
+    _, state, dt = iox.synthesize_input(ncols=ncols, nlev=nlev, seed=0, dtype=dtype)
+    s = port_state(state, dtype, c)
+    s.update(state_increment(s, 0.01, ignore_supsat=True))
+    rng = np.random.default_rng(seed)
+    for n in adk.AD_SEEDS:
+        rows = nlev + 1 if n[:4] in ("fpls", "fhps") else nlev
+        s[n] = torch.from_numpy(rng.standard_normal((rows, ncols)).astype(dtype))
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n] = torch.zeros_like(s["t"])
+    return s, dt, c
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("cfg", ["default", "levapls2"])
+@pytest.mark.parametrize("nlev", [2, 3, 137])
+def test_host_stack_order_is_bitwise_the_two_kernel_ad(nlev, cfg, form):
+    """Every column's forward sweep before any reverse sweep, on the
+    kernel's scratch layout, at a ragged 37 columns: bitwise the two-kernel
+    host AD, f32, at the shallowest depths the wrappers take and at 137."""
+    s, dt, c = _seeded_ad_state(nlev, 37, cfg, np.float32)
+    want = flat(adk.cloudsc2_ad_host(s, dt, c))
+    got = flat(adk.cloudsc2_ad_fused_host(s, dt, c, resident=FORMS[form]))
+    _assert_bitwise(got, want, f"{nlev} {cfg} {form}")
+
+
+def test_fused_entries_refuse_a_column_of_one_level():
+    s, dt, c = _seeded_ad_state(2, 8, "default", np.float64)
+    s = {k: v[:1] if v.shape[0] == 2 else v[:2] for k, v in s.items()}
+    for fn in (adk.cloudsc2_ad_fused_host, adk.cloudsc2_ad_fused_cuda):
+        with pytest.raises(ValueError, match="nlev >= 2"):
+            fn(s, dt, c)
+
+
+@pytest.mark.parametrize("evap", [False, True])
+@pytest.mark.parametrize("nlev", [152, 200])
+def test_deep_f64_resident_columns_are_planned_and_bitwise(nlev, evap):
+    """f64 resident past 151 levels, where the stack in shared memory did
+    not fit 16 threads: planned (2 blocks of 128 at 240 registers, the
+    scratch 12-13 values a level), and the host build bitwise the
+    two-kernel host AD."""
+    plan = adk.fused_plan(nlev, 65_536, torch.float64, evap, True, 240)
+    assert (plan["threads_per_sm"], plan["scratch_bytes"]) == (256, (13 if evap else 12) * nlev * 65_536 * 8)
+    s, dt, c = _seeded_ad_state(nlev, 5, "levapls2" if evap else "default", np.float64)
+    _assert_bitwise(flat(adk.cloudsc2_ad_fused_host(s, dt, c, resident=True)), flat(adk.cloudsc2_ad_host(s, dt, c)),
+                    f"{nlev} evap={evap}")
 
 
 def test_fused_host_library_argument_lists():

@@ -75,8 +75,8 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _state(ncols, dtype, c, device, seed=3, increment=False):
-    _, st, dt = iox.synthesize_input(ncols=ncols, nlev=137, seed=seed)
+def _state(ncols, dtype, c, device, seed=3, increment=False, nlev=137):
+    _, st, dt = iox.synthesize_input(ncols=ncols, nlev=nlev, seed=seed)
     s = state_from_numpy(st, device, dtype)
     s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=c.LPHYLIN, c=c)
@@ -339,8 +339,8 @@ def test_ad_component_without_lphylin_refuses_on_card(cuda):
     assert_ad(got, _host(cloudsc2_ad(s, dt, c)), torch.float32, "LPHYLIN=False")
 
 
-def _ad_state(ncols, dtype, c, device):
-    s, dt = _state(ncols, dtype, c, device)
+def _ad_state(ncols, dtype, c, device, nlev=137):
+    s, dt = _state(ncols, dtype, c, device, nlev=nlev)
     s.update(state_increment(s, 0.01, ignore_supsat=True))
     tends, diags = cloudsc2_tl(s, dt, c)
     for n in ("t", "q", "ql", "qi"):
@@ -391,21 +391,23 @@ def test_symmetry_driver_on_card(cuda, precision, capsys):
     assert adk.cloudsc2_ad_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("ncols", [1000, 333])
+@pytest.mark.parametrize("ncols,nlev", [(1000, 137), (333, 137), (333, 2), (333, 3), (333, 200)])
 @pytest.mark.parametrize("cfg", list(CONFIGS))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_ad_fused_kernel_on_card(cuda, ncols, cfg, dtype):
+def test_ad_fused_kernel_on_card(cuda, ncols, nlev, cfg, dtype):
     """The fused kernel, rolled and resident, is bitwise the two-kernel AD
-    and within ``ad_limit`` of the plain AD; one launch each."""
+    and within ``ad_limit`` of the plain AD; one launch each; at 137
+    levels, the shallowest columns the wrappers take, and 200 levels,
+    deeper than the stack in shared memory held (f64 resident)."""
     c = CONFIGS[cfg]()
-    s, dt = _ad_state(ncols, dtype, c, cuda)
+    s, dt = _ad_state(ncols, dtype, c, cuda, nlev)
     two = _host(adk.cloudsc2_ad_cuda(s, dt, c))
     want = _host(cloudsc2_ad(s, dt, c))
     for resident in (False, True):
         before = adk.cloudsc2_ad_fused_cuda.launches
         got = _host(adk.cloudsc2_ad_fused_cuda(s, dt, c, resident=resident))
         assert adk.cloudsc2_ad_fused_cuda.launches == before + 1
-        label = f"{cfg} {dtype} {ncols} resident={resident}"
+        label = f"{cfg} {dtype} {ncols}x{nlev} resident={resident}"
         assert got.keys() == two.keys(), label
         for k in two:
             np.testing.assert_array_equal(got[k], two[k], err_msg=f"{label} {k}")
@@ -453,16 +455,26 @@ def test_ad_reverse_attributes_on_card(cuda):
 
 
 def test_ad_fused_occupancy_on_card(cuda):
-    """The card's pick of the fused kernel's block is the plan's at 137
-    levels: its blocks per SM (192 / 96 threads in f32 / f64 rolled, one
-    block resident) and its shared memory."""
+    """The card holds the fused kernel as the plan counts at its registers
+    (``fused_occupancy`` raises otherwise), rolled and resident, every
+    switch triple: registers, not shared memory (the forward sweep's ring,
+    24 KB a block in f32), set its blocks per SM; in the default switches
+    512 threads an SM in f32 (128 registers) and 256 in f64, without local
+    memory."""
     for dtype in (torch.float32, torch.float64):
-        for resident in (False, True):
-            occ = adk.fused_occupancy(dtype, CONFIGS["default"](), resident, 137)
-            block, nbytes, per_sm = adk.fused_plan(137, dtype, False, resident)
-            assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ
-            assert occ["threads_per_sm"] == (192 if dtype == torch.float32 else 96) or resident, occ
-            assert 0 < occ["registers"] <= 255, occ
+        for cfg in CONFIGS:
+            for lregcl in (True, False):
+                for resident in (False, True):
+                    c = CONFIGS[cfg]().replace(LREGCL=lregcl)
+                    occ = adk.fused_occupancy(dtype, c, resident, 137)
+                    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+                    plan = adk.fused_plan(137, 1, dtype, evap, resident, occ["registers"])
+                    assert (occ["blocks_per_sm"], occ["shared_bytes"]) == (plan["blocks_per_sm"], plan["shared_bytes"])
+                    assert occ["blocks_per_sm"] == adk.register_blocks(occ["registers"], 128), occ
+                    assert 0 < occ["registers"] <= 255, occ
+                    if not evap:
+                        want = 512 if dtype == torch.float32 else 256
+                        assert occ["threads_per_sm"] == want and occ["local_bytes"] == 0, (cfg, lregcl, occ)
 
 
 # ---- the forms of the TL and AD kernels: divide modes, CUADJ_COMPACT=False, LPHYLIN=False
@@ -550,8 +562,8 @@ def test_ad_kernels_without_lphylin_on_card(cuda, dtype):
 
 def test_form_attributes_on_card(cuda):
     """In every form the reverse kernel fits the register file (no more
-    than 255 registers a thread) and the card's pick of the fused block is
-    the plan's."""
+    than 255 registers a thread) and the card holds the fused kernel as
+    the plan counts at its registers."""
     for dtype in (torch.float32, torch.float64):
         forms = [("exact", False)] + ([("faithful", True), ("approx", True)] if dtype == torch.float32 else [])
         for mode, _ in forms:
@@ -561,8 +573,9 @@ def test_form_attributes_on_card(cuda):
                 att = adk.reverse_attributes(dtype, False, True, div, compact)
                 assert 0 < att["registers"] <= 255, (mode, compact, att)
                 occ = adk.fused_occupancy(dtype, c, False, 137)
-                block, nbytes, per_sm = adk.fused_plan(137, dtype, False, False)
-                assert (occ["block"], occ["shared_bytes"], occ["blocks_per_sm"]) == (block, nbytes, per_sm), occ
+                plan = adk.fused_plan(137, 1, dtype, False, False, occ["registers"])
+                assert (occ["blocks_per_sm"], occ["shared_bytes"]) == (plan["blocks_per_sm"], plan["shared_bytes"])
+                assert occ["blocks_per_sm"] == adk.register_blocks(occ["registers"], 128), occ
 
 
 @pytest.mark.parametrize("layout", ["global", "tile"])
