@@ -170,11 +170,36 @@ Phases, each timed; any failure raises and the script exits non-zero:
    variant within 1e-6 of the float64 chain, the latency reading's SM
    placement printed; the plain versions timed once each.
 
+13. stream (``cloudsc2_tpu_torch.parallel``): the column-chunked stream
+   through pinned host rings of 4 slots of 65,536 x 137, f32 over
+   10,485,760 columns (160 chunks) and f64 over 2,097,152 (32), each in half
+   and in full duplex, the NL kernel's launch count from 0 (one a chunk and
+   one warm-up); each checksum bitwise the same reduction of the one-shot
+   ``forward_step`` outputs of ring slot ``i % 4`` on device-resident
+   copies of the slots, chunk 0's sample bitwise slot 0's one-shot output
+   and HOORAY against the goldens at the driver's gates; ``torch.profiler``
+   over 8 chunks: every host-to-device copy pinned, on another stream than
+   the NL kernel's, and one at least overlapping an NL kernel, with the NL
+   kernel's and the copies' busy shares of the window; the yardsticks
+   (each ring slot's pinned copy to the device, a chunk's outputs back,
+   both at once on two streams, the NL step on a resident chunk, the
+   host's sum of a chunk; medians of 10) and the sweep's bound, a chunk per
+   the mean over the slots of max(copy, kernel), each the fastest of its
+   10 runs, the copy one way in half duplex and both ways at once in full
+   duplex, with the stream's columns/s and share of it;
+   the driver's ``--stream-chunk 65536`` path (f32 full duplex over 16
+   chunks, f64 half duplex over 8) with HOORAY and its launches; then
+   ``full_step`` at 65,536 x 137, f32 and f64, with the NL, TL and AD
+   launch counts from 0: its per-column norms bitwise the symmetry
+   protocol's on the same state, its NL tendencies bitwise the TL
+   kernel's forward tendencies.  ``--only-stream`` builds the NL, TL and
+   AD libraries and runs this phase alone.
+
 The line before the last is a JSON summary of the kernels, each with its
 forms of this slice under ``forms``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Usage:  python3 chip_smoke.py
+Usage:  python3 chip_smoke.py [--only-stream]
 """
 from __future__ import annotations
 
@@ -1677,9 +1702,313 @@ def probe_phase(torch, mbk, nlk, tlk, adk, c, card):
     }]
 
 
+#: phase 13: the stream's chunk, ring and total columns by type (the f32
+#: sweep is the 10M-column workload of BASELINE.json; f64 a fifth of it)
+STREAM_RING = 4
+STREAM_TOTAL = {"f32": 10_485_760, "f64": 2_097_152}
+#: chunks in the profiled window of phase 13, and in the driver's run
+STREAM_WINDOW = 8
+STREAM_DRIVER_CHUNKS = {"f32": 16, "f64": 8}
+
+
+def event_ms(torch, fn, runs=10, calls=1):
+    """``runs`` readings of CUDA-event milliseconds per call of ``calls``
+    back-to-back calls of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    return [time_ms(torch, fn, calls) / calls for _ in range(runs)]
+
+
+def stream_one_shot(torch, ring, dt, c):
+    """Each ring slot's one-shot ``forward_step`` on a device-resident copy
+    of the slot, eta from slot 0: the stream's reference."""
+    from cloudsc2_tpu_torch.parallel.step import forward_step
+    from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+
+    slots = [{k: v.to("cuda:0") for k, v in slot.fields.items()} for slot in ring]
+    eta = eta_levels(slots[0]["ap"], slots[0]["aph"])
+    outs = [forward_step(dict(s, eta=eta), dt, c) for s in slots]
+    torch.cuda.synchronize()
+    return outs
+
+
+def trace_overlap(path):
+    """From a ``torch.profiler`` chrome trace: the host-to-device and
+    device-to-host copies (name, stream, start, end in us) and the NL
+    kernels (stream, start, end)."""
+    trace = json.loads(Path(path).read_text())
+    copies, kernels = [], []
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        name, args = e.get("name", ""), e.get("args", {})
+        span = (args.get("stream", e.get("tid")), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if name.startswith("Memcpy") and ("HtoD" in name or "DtoH" in name):
+            copies.append((name, *span))
+        elif e.get("cat") == "kernel" and "level_scan_pipelined_kernel" in name:
+            kernels.append(span)
+    return copies, kernels
+
+
+def stream_profile(torch, stream, ring, dt, c, card, tag):
+    """Phase 13's overlap check: ``torch.profiler`` over a full-duplex sweep
+    of STREAM_WINDOW chunks.  Every host-to-device copy must be from pinned
+    memory, on a stream other than the NL kernel's, and one at least must
+    overlap an NL kernel in time.  Returns the counts read."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stream.sweep_ring(ring, dt, c, nchunks=STREAM_WINDOW, device="cuda:0", stream_outputs=True)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        copies, kernels = trace_overlap(f"{tmp}/trace.json")
+    h2d = [x for x in copies if "HtoD" in x[0]]
+    d2h = [x for x in copies if "DtoH" in x[0]]
+    kernel_streams = {k[0] for k in kernels}
+    overlapping = sum(any(a < ke and ks < b for _, ks, ke in kernels) for _, _, a, b in h2d)
+    d2h_overlapping = sum(any(a < ke and ks < b for _, ks, ke in kernels) for _, _, a, b in d2h)
+    spans = [(a, b) for _, _, a, b in copies] + [(a, b) for _, a, b in kernels]
+    window = max(b for _, b in spans) - min(a for a, _ in spans) if spans else float("nan")
+
+    def busy(items):
+        return sum(b - a for *_, a, b in items) / window
+
+    reading = {"window_ms": window / 1e3, "nl_busy_share": busy(kernels), "h2d_busy_share": busy(h2d),
+               "d2h_busy_share": busy(d2h),
+               "h2d_copies": len(h2d), "h2d_pinned": sum("Pinned" in x[0] for x in h2d),
+               "h2d_streams": sorted({x[1] for x in h2d}), "nl_kernels": len(kernels),
+               "nl_kernel_streams": sorted(kernel_streams), "h2d_overlapping_nl": overlapping,
+               "d2h_copies": len(d2h), "d2h_pinned": sum("Pinned" in x[0] for x in d2h),
+               "d2h_streams": sorted({x[1] for x in d2h}), "d2h_overlapping_nl": d2h_overlapping}
+    print(f"[stream {tag} profile] {STREAM_WINDOW} chunks, full duplex: {reading}; {card}")
+    if not h2d or not kernels:
+        raise AssertionError(f"[stream {tag} profile] the trace shows no host-to-device copy or no NL kernel")
+    if reading["h2d_pinned"] != len(h2d):
+        raise AssertionError(f"[stream {tag} profile] a host-to-device copy is not from pinned memory: {h2d}")
+    if kernel_streams & {x[1] for x in h2d}:
+        raise AssertionError(f"[stream {tag} profile] a host-to-device copy runs on the NL kernel's stream")
+    if overlapping == 0:
+        raise AssertionError(f"[stream {tag} profile] no host-to-device copy overlaps an NL kernel")
+    return reading
+
+
+def stream_yardsticks(torch, stream, ring, dt, c, card, tag):
+    """The card's rates alone (CUDA events, medians of 10): each ring slot's
+    pinned copy to the device, a chunk's outputs copied back to pinned
+    memory, each slot's copy to the device and those outputs back at once
+    (on two streams, as full duplex runs them), and the NL step on a
+    resident chunk."""
+    from cloudsc2_tpu_torch.parallel.step import forward_step
+    from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+
+    dev = stream.flat_slot({k: tuple(v.shape) for k, v in ring[0].fields.items()}, ring[0].flat.dtype,
+                           torch.device("cuda:0"))
+    h2d_runs = [event_ms(torch, lambda src=src: dev.flat.copy_(src.flat, non_blocking=True)) for src in ring]
+    s = dict(dev.fields, eta=eta_levels(dev.fields["ap"], dev.fields["aph"]))
+    kernel_runs = event_ms(torch, lambda: forward_step(s, dt, c), calls=KERNEL_BATCH)
+    tends, diags = forward_step(s, dt, c)
+    outs = {**tends, **{n: diags[n] for n in stream.OUT_DIAGS}}
+    shapes = {k: tuple(v.shape) for k, v in outs.items()}
+    dev_out = stream.flat_slot(shapes, ring[0].flat.dtype, torch.device("cuda:0"))
+    host_out = stream.flat_slot(shapes, ring[0].flat.dtype, torch.device("cpu"), pin=True)
+    d2h_ms = statistics.median(event_ms(torch, lambda: host_out.flat.copy_(dev_out.flat, non_blocking=True)))
+    up, down = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def both(src):
+        cur = torch.cuda.current_stream()
+        up.wait_stream(cur)
+        down.wait_stream(cur)
+        with torch.cuda.stream(up):
+            dev.flat.copy_(src.flat, non_blocking=True)
+        with torch.cuda.stream(down):
+            host_out.flat.copy_(dev_out.flat, non_blocking=True)
+        cur.wait_stream(up)
+        cur.wait_stream(down)
+
+    duplex_runs = [event_ms(torch, lambda src=src: both(src)) for src in ring]
+    sums = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        float(host_out.fields["t"].numpy().sum())
+        sums.append((time.perf_counter() - t0) * 1e3)
+    slot_bytes = ring[0].flat.numel() * ring[0].flat.element_size()
+    out_bytes = dev_out.flat.numel() * dev_out.flat.element_size()
+    h2d_ms = [statistics.median(r) for r in h2d_runs]
+    duplex_ms = [statistics.median(r) for r in duplex_runs]
+    kernel_ms = statistics.median(kernel_runs)
+    # the least time of each (the fastest of its 10 runs): what the sweep's bound is made of
+    out = {"h2d_ms": h2d_ms, "h2d_gbps": [slot_bytes / t / 1e6 for t in h2d_ms], "d2h_ms": d2h_ms,
+           "d2h_gbps": out_bytes / d2h_ms / 1e6, "duplex_ms": duplex_ms,
+           "duplex_gbps": [(slot_bytes + out_bytes) / t / 1e6 for t in duplex_ms], "kernel_ms": kernel_ms,
+           "host_sum_ms": statistics.median(sums), "h2d_best_ms": [min(r) for r in h2d_runs],
+           "duplex_best_ms": [min(r) for r in duplex_runs], "kernel_best_ms": min(kernel_runs)}
+    best_h2d = [round(slot_bytes / t / 1e6, 2) for t in out["h2d_best_ms"]]
+    best_duplex = [round((slot_bytes + out_bytes) / t / 1e6, 2) for t in out["duplex_best_ms"]]
+    print(f"[stream {tag} yardsticks] pinned H2D of each ring slot {[round(t, 4) for t in h2d_ms]} ms "
+          f"({[round(g, 2) for g in out['h2d_gbps']]} GB/s; fastest {best_h2d}); "
+          f"D2H of a chunk's outputs to pinned memory {d2h_ms:.4f} ms ({out['d2h_gbps']:.2f} GB/s); both at once, "
+          f"on two streams {[round(t, 4) for t in duplex_ms]} ms ({[round(g, 2) for g in out['duplex_gbps']]} GB/s "
+          f"both ways; fastest {best_duplex}); "
+          f"the NL step (fused) on a resident chunk {kernel_ms:.4f} ms (CUDA events, medians of 10); the host's "
+          f"sum of a chunk's t in full duplex {out['host_sum_ms']:.4f} ms (host clock, median of 10); {card}")
+    return out
+
+
+def stream_phase(torch, nlk, tlk, adk, c0, card):
+    """Phase 13: the column-chunked stream
+    (``cloudsc2_tpu_torch.parallel.stream``) and ``full_step`` on the card.
+    Returns the readings for the kernels line."""
+    import gc
+
+    import numpy as np
+
+    from cloudsc2_tpu_torch.parallel import stream
+    from cloudsc2_tpu_torch.parallel.step import full_step
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+    from cloudsc2_tpu_torch.physics.increment import state_increment
+    from cloudsc2_tpu_torch.utils.validation import validate
+    from cloudsc2_tpu_torch.validation.symmetry import TEND_NAMES, SymmetryTest
+    from drivers.run_nonlinear_torch import config_tolerances, core, synthetic_golden, synthetic_input
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+
+    out = {"launches": {}, "sweeps": {}, "yardsticks": {}, "profile": {}, "full_step": {}}
+    nl_launches = 0
+    for precision, dtype, tag in (("single", torch.float32, "f32"), ("double", torch.float64, "f64")):
+        _, base, dt, c = synthetic_input(100, precision)
+        t0 = time.perf_counter()
+        ring = stream.host_ring(stream.build_ring(base, BIG, STREAM_RING), pin=True)
+        print(f"[stream {tag}] pinned ring of {STREAM_RING} x {BIG} columns built in "
+              f"{time.perf_counter() - t0:.2f} s ({ring[0].flat.numel() * ring[0].flat.element_size() / 1e6:.1f} "
+              f"MB a slot); {card}")
+        one = stream_one_shot(torch, ring, dt, c)
+        golden = synthetic_golden(BIG, precision)
+        nchunks = STREAM_TOTAL[tag] // BIG
+        want_half = float(torch.sum(torch.stack([torch.sum(one[i % STREAM_RING][0]["t"]) for i in range(nchunks)])))
+        slot_sums = [float(o[0]["t"].cpu().numpy().sum()) for o in one]
+        want_full = 0.0
+        for i in range(nchunks):
+            want_full += slot_sums[i % STREAM_RING]
+        one0 = {k: v.cpu() for k, v in {**one[0][0], **one[0][1]}.items()}
+        del one
+        torch.cuda.empty_cache()
+
+        # the sweeps, with the launch count from 0: the warm-up and one a chunk
+        nlk.cloudsc2_nl_cuda.launches = 0
+        for outputs in (False, True):
+            mode = "full duplex" if outputs else "half duplex"
+            stats, (tends, diags) = stream.sweep_ring(ring, dt, c, nchunks=nchunks, device="cuda:0",
+                                                      stream_outputs=outputs)
+            want = want_full if outputs else want_half
+            if stats["checksum"] != want:
+                raise AssertionError(f"[stream {tag} {mode}] checksum {stats['checksum']!r} is not the one-shot "
+                                     f"outputs' {want!r}")
+            sample = {k: v.cpu() for k, v in {**tends, **diags}.items()}
+            differ = [k for k, v in sample.items() if not torch.equal(v, one0[k])]
+            if differ:
+                raise AssertionError(f"[stream {tag} {mode}] chunk 0's sample differs from slot 0's one-shot "
+                                     f"output in {differ}")
+            atol, rtol = config_tolerances(precision, "cuda")
+            failing = validate({k: sample[k].numpy() for k in TEND_NAMES}, golden[0], atol=atol, rtol=rtol)
+            failing += validate({k: v.numpy() for k, v in sample.items() if k not in TEND_NAMES and k != "qsat"},
+                                golden[1], atol=atol, rtol=rtol)
+            if failing:
+                raise AssertionError(f"[stream {tag} {mode}] chunk 0 fails the golden gate in {failing}")
+            print(f"[stream {tag} {mode}] {stats['total_cols']} columns in {stats['nchunks']} chunks of "
+                  f"{stats['chunk_cols']}: {stats['wall_s']:.4f} s, {stats['cols_per_sec']:.6e} cols/s, "
+                  f"effective H2D {stats['effective_h2d_gbps']:.3f} GB/s"
+                  + (f", D2H {stats['effective_d2h_gbps']:.3f} GB/s" if outputs else "")
+                  + f"; checksum {stats['checksum']!r} bitwise the one-shot outputs'; chunk 0 bitwise slot 0's "
+                  f"one-shot output, HOORAY at rtol {rtol:g}, atol {atol:g}; {card}")
+            out["sweeps"][f"{tag} {mode}"] = {k: v for k, v in stats.items() if k != "checksum"}
+            del tends, diags, sample
+        launches = nlk.cloudsc2_nl_cuda.launches
+        print(f"[stream {tag}] cloudsc2_nl_cuda launches in the two sweeps: {launches} "
+              f"(2 x ({nchunks} chunks + 1 warm-up))")
+        if launches != 2 * (nchunks + 1):
+            raise AssertionError(f"[stream {tag}] the sweeps launched the NL kernel {launches} times")
+        nl_launches += launches
+
+        out["profile"][tag] = stream_profile(torch, stream, ring, dt, c, card, tag)
+        yard = stream_yardsticks(torch, stream, ring, dt, c, card, tag)
+        out["yardsticks"][tag] = yard
+        for mode, copy_ms in (("half duplex", yard["h2d_best_ms"]), ("full duplex", yard["duplex_best_ms"])):
+            # the sweep cycles the slots evenly: a chunk takes, at best, the
+            # longer of its slot's fastest copy and the fastest kernel
+            per_chunk = statistics.fmean(max(t, yard["kernel_best_ms"]) for t in copy_ms)
+            sweep = out["sweeps"][f"{tag} {mode}"]
+            bound = BIG / per_chunk * 1e3
+            sweep.update(bound_cols_per_sec=bound, share_of_bound=sweep["cols_per_sec"] / bound)
+            what = "H2D" if mode == "half duplex" else "H2D and D2H at once"
+            print(f"[stream {tag} {mode}] bound {bound:.6e} cols/s (a chunk of {BIG} per {per_chunk:.4f} ms, the "
+                  f"mean over the slots of max(fastest {what}, fastest kernel {yard['kernel_best_ms']:.4f} ms)); "
+                  f"the stream reaches "
+                  f"{sweep['share_of_bound']:.4f} of it; {card}")
+        del ring
+        gc.collect()
+
+        # the driver's stream path (--stream-chunk), counts from 0
+        nlk.cloudsc2_nl_cuda.launches = 0
+        n = STREAM_DRIVER_CHUNKS[tag]
+        rc = core(Config(precision=precision, num_cols=n * BIG), TorchConfig(device="cuda:0", precision=precision),
+                  inputs=synthetic_input(100, precision), reference=golden, stream_chunk=BIG,
+                  stream_ring=STREAM_RING, stream_outputs=tag == "f32")
+        launches = nlk.cloudsc2_nl_cuda.launches
+        print(f"[stream {tag}] the driver's --stream-chunk {BIG} over {n * BIG} columns: exit {rc}, "
+              f"cloudsc2_nl_cuda launches {launches}; {card}")
+        if rc != 0 or launches != n + 1:
+            raise AssertionError(f"[stream {tag}] the driver's stream path failed (exit {rc}, {launches} launches)")
+        nl_launches += launches
+        gc.collect()
+
+        # full_step at 65,536 x 137, counts from 0; then its references
+        _, s, dt2 = make_state(torch, BIG, dtype, c0, seed=2)
+        for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda):
+            fn.launches = 0
+        tends, norm1, norm2 = full_step(s, dt2, c0)
+        torch.cuda.synchronize()
+        counts = {"cloudsc2_nl_cuda": nlk.cloudsc2_nl_cuda.launches, "cloudsc2_tl_cuda": tlk.cloudsc2_tl_cuda.launches,
+                  "cloudsc2_ad_cuda": adk.cloudsc2_ad_cuda.launches}
+        if min(counts.values()) == 0:
+            raise AssertionError(f"[full_step {tag}] a kernel never launched: {counts}")
+        ref1, ref2 = SymmetryTest(constants=c0).run(s, dt2)
+        n1, n2 = norm1.cpu().numpy(), norm2.cpu().numpy()
+        if not (np.array_equal(n1, ref1) and np.array_equal(n2, ref2)):
+            raise AssertionError(f"[full_step {tag}] the norms differ from the symmetry protocol's")
+        x = dict(s)
+        x["qsat"] = saturation(x["ap"], x["t"], kflag=1, lphylin=c0.LPHYLIN, c=c0)
+        x.update(state_increment(x, 0.01, ignore_supsat=True))
+        tl = tlk.cloudsc2_tl_cuda(x, dt2, c0)[0]
+        differ = [k for k in TEND_NAMES if not torch.equal(tends[k], tl[k])]
+        if differ:
+            raise AssertionError(f"[full_step {tag}] the NL tendencies differ from the TL kernel's in {differ}")
+        err = SymmetryTest(constants=c0).validate(n1, n2, verbose=False)
+        print(f"[full_step {tag} {BIG}x{NLEV}] launches {counts}; norm1 and norm2 bitwise the symmetry protocol's, "
+              f"the NL tendencies bitwise the TL kernel's forward; symmetry error {err:.4f} eps; {card}")
+        if not err < 1e4:
+            raise AssertionError(f"[full_step {tag}] symmetry error {err} eps")
+        out["full_step"][tag] = {"launches": counts, "symmetry_eps": err}
+        del s, x, tends, tl
+        torch.cuda.empty_cache()
+    out["launches"] = {
+        "cloudsc2_nl_cuda stream": nl_launches,
+        **{f"{name} full_step": sum(out["full_step"][t]["launches"][name] for t in ("f32", "f64"))
+           for name in ("cloudsc2_nl_cuda", "cloudsc2_tl_cuda", "cloudsc2_ad_cuda")},
+    }
+    return out
+
+
 def main() -> int:
     import torch
 
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument("--only-stream", action="store_true",
+                        help="build the NL, TL and AD libraries and run phase 13 alone (no final result line)")
+    only_stream = parser.parse_args().only_stream
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -1716,6 +2045,8 @@ def main() -> int:
             loaders[name + build.form(compact, fast)[0]] = (
                 lambda load=load, compact=compact, fast=fast: load(compact, fast))
     loaders["cloudsc2_microbench"] = mbk.load_cuda
+    if only_stream:
+        loaders = {name: loaders[name] for name in ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_ad")}
     build_kernels(build, loaders, card)
     phase_t = time.perf_counter()
 
@@ -1725,8 +2056,14 @@ def main() -> int:
         print(f"[phase] {name}: {now - phase_t:.1f} s")
         phase_t = now
 
-    # ---- 3. NL kernel vs plain on the same CUDA tensors
     c0 = make_constants(lphylin=True, ldrain1d=False)
+    if only_stream:
+        readings = stream_phase(torch, nlk, tlk, adk, c0, card)
+        phase_done("13 stream")
+        print(json.dumps({"stream": readings}))
+        return 0
+
+    # ---- 3. NL kernel vs plain on the same CUDA tensors
     configs = {
         "default": c0,
         "levapls2": c0.replace(LEVAPLS2=True),
@@ -1910,6 +2247,10 @@ def main() -> int:
     probe_rows = probe_phase(torch, mbk, nlk, tlk, adk, c0, card)
     phase_done("12 probes")
 
+    # ---- 13. the column-chunked stream and full_step, each path's counts from 0
+    stream_readings = stream_phase(torch, nlk, tlk, adk, c0, card)
+    phase_done("13 stream")
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
     print(card)
     fwd32, rev32 = ad_time["f32"]["forward"], ad_time["f32"]["reverse"]
@@ -2041,6 +2382,10 @@ def main() -> int:
         "profile_fused": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[True])),
         "profile_two_stage": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[False])),
         "forms": nl_forms_json,
+        "launches_stream": stream_readings["launches"]["cloudsc2_nl_cuda stream"],
+        "launches_full_step": stream_readings["launches"]["cloudsc2_nl_cuda full_step"],
+        "stream": {"sweeps": stream_readings["sweeps"], "yardsticks": stream_readings["yardsticks"],
+                   "profile": stream_readings["profile"]},
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_tl",
@@ -2063,6 +2408,7 @@ def main() -> int:
         "host_ms": tl_timing[("f32", False)][2],
         "host_ms_f64": tl_timing[("f64", False)][2],
         "forms": tl_forms_json,
+        "launches_full_step": stream_readings["launches"]["cloudsc2_tl_cuda full_step"],
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad",
@@ -2105,6 +2451,7 @@ def main() -> int:
         "bound_ms_cotangent_only": ad_time["f32"]["cotangent_only step"][2],
         "bound_ms_cotangent_only_f64": ad_time["f64"]["cotangent_only step"][2],
         "forms": ad_forms_json,
+        "launches_full_step": stream_readings["launches"]["cloudsc2_ad_cuda full_step"],
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad_fused",

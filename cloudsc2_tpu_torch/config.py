@@ -3,10 +3,12 @@
 """Configuration of the port's drivers.
 
 :class:`Config` is the driver configuration (precision, column count,
-runs, checks, validation, files) with ``with_*`` builders, restated from
-:class:`cloudsc2_tpu.config.Config` without its JAX execution settings:
+runs, threads, checks, validation, files) with ``with_*`` methods, restated
+from :class:`cloudsc2_tpu.config.Config` without its JAX execution settings:
 where and in what precision the scheme runs is :class:`TorchConfig`.
-:data:`DEFAULT_CONFIG` and the default file paths are those of
+:class:`IOConfig` (the CSV outputs and the host name written into them) is
+:class:`cloudsc2_tpu.config.IOConfig`.  :data:`DEFAULT_CONFIG`,
+:data:`DEFAULT_IO_CONFIG` and the default file paths are those of
 ``drivers/config.py``.
 """
 from __future__ import annotations
@@ -20,13 +22,31 @@ import numpy as np
 import torch
 
 __all__ = [
-    "Config", "DEFAULT_CONFIG", "DTYPES", "TorchConfig", "default_input_file",
-    "default_reference_file",
+    "Config", "DEFAULT_CONFIG", "DEFAULT_IO_CONFIG", "DTYPES", "IOConfig", "TorchConfig",
+    "default_input_file", "default_reference_file",
 ]
 
 DTYPES = {"double": torch.float64, "single": torch.float32}
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "data")
+
+
+@dataclass(frozen=True)
+class IOConfig:
+    """Driver I/O configuration (reference ``IOConfig``)."""
+
+    output_csv_file: Optional[str] = None
+    output_csv_file_stencils: Optional[str] = None
+    host_name: str = "localhost"
+
+    def with_output_csv_file(self, f: Optional[str]) -> "IOConfig":
+        return dataclasses.replace(self, output_csv_file=f)
+
+    def with_output_csv_file_stencils(self, f: Optional[str]) -> "IOConfig":
+        return dataclasses.replace(self, output_csv_file_stencils=f)
+
+    def with_host_name(self, h: str) -> "IOConfig":
+        return dataclasses.replace(self, host_name=h)
 
 
 @dataclass(frozen=True)
@@ -36,6 +56,7 @@ class Config:
     precision: str = "double"  # "double" | "single"
     num_cols: int = 100
     num_runs: int = 1
+    num_threads: int = 1
     enable_checks: bool = False
     enable_validation: bool = True
     input_file: Optional[str] = None
@@ -70,6 +91,7 @@ class Config:
 
 
 DEFAULT_CONFIG = Config()
+DEFAULT_IO_CONFIG = IOConfig()
 
 
 def default_input_file() -> Optional[str]:

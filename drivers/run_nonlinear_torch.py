@@ -22,6 +22,19 @@ exactly, as the JAX kernel does.  A ``Saturation`` component run apart
 (``--no-fuse-saturation``) divides exactly: it is no kernel, and the JAX
 package keeps the non-exact modes inside its kernels.
 
+``--output-csv-file`` and ``--output-csv-file-stencils`` append the run's
+performance row and its per-component timings (``--host-alias`` names the
+host) as ``drivers/run_nonlinear.py`` does, the variant ``nl-torch:cuda``
+or ``nl-torch:cpu``; ``--profile-dir`` writes a ``torch.profiler`` trace of
+the timed runs (CPU activity, and CUDA activity on the card).
+
+``--stream-chunk N`` sweeps ``--num-cols`` columns through the device in
+chunks of N (:func:`cloudsc2_tpu_torch.parallel.stream.stream_columns`:
+the copies to the device overlapped with the NL kernel; ``--stream-ring``
+distinct host chunks cycled; ``--stream-outputs`` returns every chunk's
+outputs to host buffers) and validates chunk 0 against the goldens.  The
+input is loaded at its own column count: the ring tiles it per chunk.
+
 Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
 ``h5py`` is not installed, the default input and goldens are built in
 process instead (:func:`synthetic_input`, :func:`synthetic_golden`; equal
@@ -43,6 +56,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from cloudsc2_tpu_torch.config import (  # noqa: E402
     DEFAULT_CONFIG,
+    DEFAULT_IO_CONFIG,
     default_input_file,
     default_reference_file,
 )
@@ -128,16 +142,23 @@ def core(
     reference: Optional[Tuple[Fields, Fields]] = None,
     fuse_saturation: bool = True,
     fast_div: str = "exact",
+    io_config=DEFAULT_IO_CONFIG,
+    profile_dir: Optional[str] = None,
+    stream_chunk: Optional[int] = None,
+    stream_ring: int = 4,
+    stream_outputs: bool = False,
 ) -> int:
     """Run the scheme and validate; returns the exit code (0 on success).
 
     ``config`` is a :class:`cloudsc2_tpu_torch.config.Config` (precision, columns,
     runs, checks, validation, files); ``torch_config`` a
-    :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
-    state, dt, constants)``) and ``reference`` (``(tendencies,
-    diagnostics)`` at ``config.num_cols``) replace the files when given.
-    ``fuse_saturation`` and ``fast_div`` are ``--fuse-saturation`` and
-    ``--fast-div``.
+    :class:`cloudsc2_tpu_torch.config.TorchConfig`; ``io_config`` a
+    :class:`cloudsc2_tpu_torch.config.IOConfig` (the CSV outputs).
+    ``inputs`` (``(grid, state, dt, constants)``) and ``reference``
+    (``(tendencies, diagnostics)`` at ``config.num_cols``, at
+    ``stream_chunk`` when streaming) replace the files when given.
+    ``fuse_saturation``, ``fast_div``, ``profile_dir``, ``stream_chunk``,
+    ``stream_ring`` and ``stream_outputs`` are the flags of the same names.
     """
     import torch
 
@@ -145,19 +166,27 @@ def core(
     from cloudsc2_tpu_torch.components import Cloudsc2NL, EtaLevels, Saturation
     from cloudsc2_tpu_torch.params import make_constants
     from cloudsc2_tpu_torch.state import state_from_numpy
-    from cloudsc2_tpu_torch.utils.output import print_performance
+    from cloudsc2_tpu_torch.utils.output import (
+        print_performance,
+        write_performance_to_csv,
+        write_stencils_performance_to_csv,
+    )
     from cloudsc2_tpu_torch.utils.timing import Timer, device_sync, timing
-    from cloudsc2_tpu_torch.utils.validation import validate
 
     device = torch_config.apply()
     dtype = _dtype(config.precision)
+    # streaming loads the input at its own column count: the ring tiles it
+    # per chunk, and materialising --num-cols host columns up front is what
+    # the mode exists to avoid
+    load_cols = SYNTH_NCOLS if stream_chunk else config.num_cols
+    ref_cols = stream_chunk or config.num_cols
 
     if inputs is None and not config.input_file and not _have_h5py():
         print("h5py is not installed: the default input and goldens are built in process "
               "(equal to data/input_synth.h5 and data/reference_synth_*.h5)")
-        inputs = synthetic_input(config.num_cols, config.precision)
+        inputs = synthetic_input(load_cols, config.precision)
         if reference is None and config.enable_validation:
-            reference = synthetic_golden(config.num_cols, config.precision)
+            reference = synthetic_golden(ref_cols, config.precision)
 
     # --- input state: the file tiled to --num-cols, else synthesis
     if inputs is not None:
@@ -165,16 +194,47 @@ def core(
     else:
         input_file = config.input_file or default_input_file()
         if input_file:
-            grid, state_np, dt, params = iox.load_input(input_file, ncols=config.num_cols, dtype=dtype)
+            grid, state_np, dt, params = iox.load_input(
+                input_file, ncols=None if stream_chunk else config.num_cols, dtype=dtype)
             c = make_constants(lphylin=True, ldrain1d=False, **params)
         else:
-            grid, state_np, dt = iox.synthesize_input(ncols=config.num_cols, nlev=137, seed=0, dtype=dtype)
+            grid, state_np, dt = iox.synthesize_input(ncols=load_cols, nlev=137, seed=0, dtype=dtype)
             c = make_constants(lphylin=True, ldrain1d=False)
-    state = state_from_numpy(state_np, device, torch_config.dtype)
-    ncols = grid.ncols
     if fast_div != "exact" and config.precision == "double":
         print(f"--fast-div {fast_div} with --precision double: float64 divides exactly, so this run is exact")
     c_nl = c.replace(FAST_DIV=fast_div)
+
+    def check(tends, diags, ncols) -> int:
+        return _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol)
+
+    if stream_chunk:
+        # --- the column-chunked streaming sweep (the out-of-memory scaled run)
+        from cloudsc2_tpu_torch.parallel.stream import stream_columns
+
+        stats, (tends, diags) = stream_columns(
+            state_np, dt, c_nl, total_cols=config.num_cols, chunk_cols=stream_chunk,
+            ring_size=stream_ring, device=device, fuse_saturation=fuse_saturation,
+            stream_outputs=stream_outputs, progress_every=16,
+        )
+        print(
+            f"Streamed {stats['total_cols']} columns in {stats['nchunks']} "
+            f"chunks of {stats['chunk_cols']}: {stats['wall_s']:.3f} s, "
+            f"{stats['cols_per_sec'] / 1e6:.3f}M columns/s "
+            f"(effective H2D {stats['effective_h2d_gbps']:.2f} GB/s at "
+            f"{stats['h2d_bytes_per_col']} B/column)"
+        )
+        if stream_outputs:
+            print(
+                f"Full duplex: outputs streamed to host ring buffers "
+                f"(effective D2H {stats['effective_d2h_gbps']:.2f} GB/s at "
+                f"{stats['d2h_bytes_per_col']} B/column; "
+                f"{stats['duplex_bytes_per_col']} B/column total link traffic)"
+            )
+        print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+        return check(tends, diags, stream_chunk)
+
+    state = state_from_numpy(state_np, device, torch_config.dtype)
+    ncols = grid.ncols
 
     # --- components
     eta_levels = EtaLevels(grid, c, enable_checks=config.enable_checks)
@@ -193,18 +253,53 @@ def core(
             s.update(saturation(s))
             return cloudsc2_nl(s, dt)
 
-    # warm-up (builds the kernel on first use), then the timed runs
+    # warm-up (builds the kernel on first use), then the timed runs; an
+    # optional profiler trace around them
     tends, diags = device_sync(run_once())
     Timer.reset()
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = profile(activities=activities)
+        prof.start()
     runtimes = []
     for _ in range(config.num_runs):
         with timing("run"):
             tends, diags = device_sync(run_once())
         runtimes.append(Timer.get_time("run", "ms") - sum(runtimes))
-    print_performance(ncols, runtimes, nlev=grid.nlev)
+    if prof is not None:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        print(f"Profiler trace written to {profile_dir}")
+    stats = print_performance(ncols, runtimes, nlev=grid.nlev)
     print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if io_config.output_csv_file:
+        write_performance_to_csv(
+            io_config.output_csv_file, host_name=io_config.host_name, precision=config.precision,
+            variant="nl-torch:" + device.type, num_cols=ncols, num_threads=config.num_threads,
+            num_runs=config.num_runs, runtime_mean=stats[0], runtime_stddev=stats[1],
+            mflops_mean=stats[2], mflops_stddev=stats[3],
+        )
+    if io_config.output_csv_file_stencils:
+        write_stencils_performance_to_csv(
+            io_config.output_csv_file_stencils, host_name=io_config.host_name,
+            precision=config.precision, backend="torch:" + device.type, num_cols=ncols,
+            num_threads=config.num_threads, num_runs=config.num_runs,
+            exec_info={k: Timer.get_time(k, "ms") for k in Timer.labels()},
+            key_patterns=("cloudsc", "saturation", "increment", "perturbed", "eta"),
+        )
+    return check(tends, diags, ncols)
 
-    # --- validation against the golden outputs
+
+def _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol) -> int:
+    """Validate outputs at ``ncols`` columns against the goldens
+    (``reference``, else ``config.reference_file``); the exit code."""
+    from cloudsc2_tpu_torch import iox
+    from cloudsc2_tpu_torch.utils.validation import validate
+
     if not config.enable_validation:
         return 0
     if reference is None:
@@ -245,6 +340,20 @@ def main(argv=None) -> int:
                    help="diagnose saturation inside the NL step (default) or as its own component before it")
     p.add_argument("--fast-div", choices=("exact", "faithful", "approx"), default="exact",
                    help="the NL kernel's divide mode (Constants.FAST_DIV); float64 divides exactly")
+    p.add_argument("--output-csv-file", default=None, help="append the performance row to this CSV")
+    p.add_argument("--output-csv-file-stencils", default=None,
+                   help="append the per-component timings to this CSV")
+    p.add_argument("--host-alias", default="localhost", help="the host name written into the CSVs")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the timed runs (trace.json) into this directory")
+    p.add_argument("--stream-chunk", type=int, default=None,
+                   help="stream --num-cols columns through the device in chunks of this many columns "
+                   "(copies overlapped with the kernel; the out-of-memory scaled run)")
+    p.add_argument("--stream-ring", type=int, default=4,
+                   help="distinct host-resident chunk buffers cycled by the stream")
+    p.add_argument("--stream-outputs", action=argparse.BooleanOptionalAction, default=False,
+                   help="full duplex: every chunk's tendencies and diagnostics back into host ring "
+                   "buffers, overlapped with compute; the validated sample then certifies that copy")
     a = p.parse_args(argv)
 
     from cloudsc2_tpu_torch.config import TorchConfig
@@ -262,8 +371,15 @@ def main(argv=None) -> int:
         ref = default_reference_file(a.precision)
         reference_file = ref if os.path.exists(ref) else None
     config = config.with_reference_file(reference_file)
+    io_config = (
+        DEFAULT_IO_CONFIG.with_output_csv_file(a.output_csv_file)
+        .with_output_csv_file_stencils(a.output_csv_file_stencils)
+        .with_host_name(a.host_alias)
+    )
     return core(config, TorchConfig(device=a.device, precision=a.precision), atol=a.atol, rtol=a.rtol,
-                fuse_saturation=a.fuse_saturation, fast_div=a.fast_div)
+                fuse_saturation=a.fuse_saturation, fast_div=a.fast_div, io_config=io_config,
+                profile_dir=a.profile_dir, stream_chunk=a.stream_chunk, stream_ring=a.stream_ring,
+                stream_outputs=a.stream_outputs)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,11 @@ run the hand-written CUDA kernels (the AD's forward sweep is the NL kernel
 with its trajectory); on ``--device cpu`` their plain PyTorch versions.  A
 CUDA device on a machine without one is an error.
 
+``--output-csv-file`` and ``--output-csv-file-stencils`` append the
+protocol's performance row and its per-stage timings (``--host-alias``
+names the host) as the JAX driver does, the variant ``ad-torch:cuda`` or
+``ad-torch:cpu``.
+
 Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
 ``h5py`` is not installed, the default input is built in process instead
 (:func:`drivers.run_nonlinear_torch.synthetic_input`, equal to the file bit
@@ -26,25 +31,33 @@ from typing import Tuple
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from cloudsc2_tpu_torch.config import DEFAULT_CONFIG, default_input_file  # noqa: E402
+from cloudsc2_tpu_torch.config import DEFAULT_CONFIG, DEFAULT_IO_CONFIG, default_input_file  # noqa: E402
 from drivers.run_nonlinear_torch import _dtype, _have_h5py, synthetic_input  # noqa: E402
 
 
-def core(config, torch_config, *, factor: float = 0.01, inputs=None) -> Tuple[int, float]:
+def core(
+    config, torch_config, *, factor: float = 0.01, inputs=None, io_config=DEFAULT_IO_CONFIG
+) -> Tuple[int, float]:
     """Run the symmetry protocol ``config.num_runs`` times and print the
     verdict; returns ``(exit code, the maximum error of the last run in
     machine epsilons)``.
 
     ``config`` is a :class:`cloudsc2_tpu_torch.config.Config` (precision,
     columns, runs, input file); ``torch_config`` a
-    :class:`cloudsc2_tpu_torch.config.TorchConfig`.  ``inputs`` (``(grid,
-    state, dt, constants)``) replaces the file when given.
+    :class:`cloudsc2_tpu_torch.config.TorchConfig`; ``io_config`` a
+    :class:`cloudsc2_tpu_torch.config.IOConfig` (the CSV outputs).
+    ``inputs`` (``(grid, state, dt, constants)``) replaces the file when
+    given.
     """
     from cloudsc2_tpu_torch import iox
     from cloudsc2_tpu_torch.components import EtaLevels
     from cloudsc2_tpu_torch.params import make_constants
     from cloudsc2_tpu_torch.state import state_from_numpy
-    from cloudsc2_tpu_torch.utils.output import print_performance
+    from cloudsc2_tpu_torch.utils.output import (
+        print_performance,
+        write_performance_to_csv,
+        write_stencils_performance_to_csv,
+    )
     from cloudsc2_tpu_torch.utils.timing import Timer, timing
     from cloudsc2_tpu_torch.validation.symmetry import SymmetryTest
 
@@ -77,7 +90,22 @@ def core(config, torch_config, *, factor: float = 0.01, inputs=None) -> Tuple[in
         with timing("run"):
             err = st(state, dt, verbose=True)
         runtimes.append(Timer.get_time("run", "ms") - sum(runtimes))
-    print_performance(grid.ncols, runtimes, nlev=grid.nlev)
+    stats = print_performance(grid.ncols, runtimes, nlev=grid.nlev)
+    if io_config.output_csv_file:
+        write_performance_to_csv(
+            io_config.output_csv_file, host_name=io_config.host_name, precision=config.precision,
+            variant="ad-torch:" + device.type, num_cols=grid.ncols, num_threads=config.num_threads,
+            num_runs=config.num_runs, runtime_mean=stats[0], runtime_stddev=stats[1],
+            mflops_mean=stats[2], mflops_stddev=stats[3],
+        )
+    if io_config.output_csv_file_stencils:
+        write_stencils_performance_to_csv(
+            io_config.output_csv_file_stencils, host_name=io_config.host_name,
+            precision=config.precision, backend="torch:" + device.type, num_cols=grid.ncols,
+            num_threads=config.num_threads, num_runs=config.num_runs,
+            exec_info={k: Timer.get_time(k, "ms") for k in Timer.labels()},
+            key_patterns=("cloudsc", "saturation", "increment"),
+        )
     return (0 if err < 1e4 else 1), err
 
 
@@ -89,6 +117,10 @@ def main(argv=None) -> int:
     p.add_argument("--precision", choices=("double", "single"), default="double")
     p.add_argument("--factor", type=float, default=0.01)
     p.add_argument("--input-file", default=None, help="input HDF5 (default: data/input_synth.h5)")
+    p.add_argument("--output-csv-file", default=None, help="append the performance row to this CSV")
+    p.add_argument("--output-csv-file-stencils", default=None,
+                   help="append the per-stage timings to this CSV")
+    p.add_argument("--host-alias", default="localhost", help="the host name written into the CSVs")
     a = p.parse_args(argv)
 
     from cloudsc2_tpu_torch.config import TorchConfig
@@ -99,7 +131,13 @@ def main(argv=None) -> int:
         .with_num_runs(a.num_runs)
         .with_input_file(a.input_file)
     )
-    rc, _ = core(config, TorchConfig(device=a.device, precision=a.precision), factor=a.factor)
+    io_config = (
+        DEFAULT_IO_CONFIG.with_output_csv_file(a.output_csv_file)
+        .with_output_csv_file_stencils(a.output_csv_file_stencils)
+        .with_host_name(a.host_alias)
+    )
+    rc, _ = core(config, TorchConfig(device=a.device, precision=a.precision), factor=a.factor,
+                 io_config=io_config)
     return rc
 
 

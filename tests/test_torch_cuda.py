@@ -651,3 +651,67 @@ def test_chain_records_sm_on_card(cuda):
         mb.chain_cuda(x, "div", 1, block=32, sm=sm[:100])
 
 
+
+
+def test_stream_refuses_pageable_ring_on_card(cuda):
+    """A ring that is not pinned is refused before any copy or launch: a copy
+    from pageable memory runs synchronously."""
+    from cloudsc2_tpu_torch.parallel import stream
+
+    _, st, dt = iox.synthesize_input(ncols=64, nlev=137, seed=3, dtype=np.float32)
+    ring = stream.host_ring(stream.build_ring(st, 4096, 2), pin=False)
+    before = nlk.cloudsc2_nl_cuda.launches
+    with pytest.raises(ValueError, match="pageable"):
+        stream.sweep_ring(ring, dt, CONFIGS["default"](), nchunks=3, device=cuda)
+    assert nlk.cloudsc2_nl_cuda.launches == before
+
+
+@pytest.mark.parametrize("outputs", [False, True], ids=["half", "full"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stream_bitwise_one_shot_on_card(cuda, dtype, outputs):
+    """Three chunks of 4096 columns over a pinned ring of 2 slots: the
+    checksum is bitwise the chunk-order sum of the one-shot outputs of slot
+    ``i % 2`` on device-resident copies (``torch.sum`` / ``torch.stack`` in
+    half duplex, numpy's sums of the host copies in full duplex), chunk 0's
+    sample bitwise slot 0's one-shot output, and the NL kernel launched once
+    a chunk and once to warm up."""
+    from cloudsc2_tpu_torch.parallel import stream
+    from cloudsc2_tpu_torch.parallel.step import forward_step
+
+    _, st, dt = iox.synthesize_input(ncols=100, nlev=137, seed=3, dtype=dtype)
+    c = CONFIGS["default"]()
+    ring = stream.host_ring(stream.build_ring(st, 4096, 2), pin=True)
+    assert all(slot.flat.is_pinned() for slot in ring)
+    slots = [{k: v.to(cuda) for k, v in slot.fields.items()} for slot in ring]
+    eta = eta_levels(slots[0]["ap"], slots[0]["aph"])
+    one = [forward_step(dict(s, eta=eta), dt, c) for s in slots]
+    before = nlk.cloudsc2_nl_cuda.launches
+    stats, (tends, diags) = stream.sweep_ring(ring, dt, c, nchunks=3, device=cuda, stream_outputs=outputs)
+    assert nlk.cloudsc2_nl_cuda.launches - before == 4
+    if outputs:
+        want = 0.0
+        for i in range(3):
+            want += float(one[i % 2][0]["t"].cpu().numpy().sum())
+    else:
+        want = float(torch.sum(torch.stack([torch.sum(one[i % 2][0]["t"]) for i in range(3)])))
+    assert stats["checksum"] == want
+    ref = {**one[0][0], **one[0][1]}
+    for k, v in {**tends, **diags}.items():
+        assert torch.equal(v.cpu(), ref[k].cpu()), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_full_step_norms_bitwise_symmetry_on_card(cuda, dtype):
+    """``full_step`` on CUDA tensors launches the TL and AD kernels, and its
+    per-column norms are bitwise the symmetry protocol's on the same state."""
+    from cloudsc2_tpu_torch.parallel.step import full_step
+    from cloudsc2_tpu_torch.validation.symmetry import SymmetryTest
+
+    c = CONFIGS["default"]()
+    s, dt = _state(1000, dtype, c, cuda)
+    before = (tlk.cloudsc2_tl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    _, norm1, norm2 = full_step(s, dt, c)
+    assert (tlk.cloudsc2_tl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == (before[0] + 1, before[1] + 1)
+    ref1, ref2 = SymmetryTest(constants=c).run(s, dt)
+    np.testing.assert_array_equal(norm1.cpu().numpy(), ref1)
+    np.testing.assert_array_equal(norm2.cpu().numpy(), ref2)
