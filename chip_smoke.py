@@ -199,7 +199,21 @@ The line before the last is a JSON summary of the kernels, each with its
 forms of this slice under ``forms``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Usage:  python3 chip_smoke.py [--only-stream]
+14. mesh (``cloudsc2_tpu_torch.parallel.mesh``, ``step``, ``dryrun``), the
+   launch counts from 0 over the phase: the sharded forward step at
+   65,536 x 137, f32 and f64, on the mesh of the one card and on a
+   hand-made mesh of 4 shards of its columns, bitwise the unsharded fused
+   NL step with one launch a shard, each timed beside the unsharded step;
+   ``dryrun_multichip(1, device="cuda")`` (golden NL at the CPU single
+   gate, ``full_step``'s symmetry gate); the three drivers with
+   ``--sharded`` (NL HOORAY at 65,536 in f32 and f64, Taylor per column at
+   4096 in f64, symmetry at 65,536 in f64 and f32); two processes of the NL
+   driver sharing the card over a gloo group (``--distributed``, 4096
+   columns, f32), each with HOORAY on its column block and its NL launches.
+   ``--only-mesh`` builds the NL, TL and AD libraries and runs this phase
+   alone.
+
+Usage:  python3 chip_smoke.py [--only-stream | --only-mesh]
 """
 from __future__ import annotations
 
@@ -2000,6 +2014,173 @@ def stream_phase(torch, nlk, tlk, adk, c0, card):
     return out
 
 
+#: phase 14: the two processes' columns and time limit (seconds)
+MESH_PROCESS_COLS = 4096
+MESH_PROCESS_TIMEOUT = 300
+#: the shards of the hand-made mesh that splits the one card's columns
+MESH_SPLIT = 4
+
+
+def free_port():
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_forward(torch, nlk, c0, card, out):
+    """Phase 14 (a): the sharded forward step on a mesh of the one card, and
+    on a hand-made mesh of MESH_SPLIT shards of its columns, against the
+    unsharded fused NL step: bitwise, its launches counted from 0, both
+    timed (CUDA events, medians of 10 batches).  Returns the NL launches of
+    the sharded steps (the unsharded reference's not counted)."""
+    from cloudsc2_tpu_torch.parallel.mesh import ColumnMesh, column_mesh, gather_columns, shard_state
+    from cloudsc2_tpu_torch.parallel.step import forward_step, make_sharded_forward_step
+
+    card_mesh = column_mesh(device="cuda")
+    split = ColumnMesh((1, MESH_SPLIT), 0, 1, (torch.device("cuda:0"),) * MESH_SPLIT)
+    path = 0
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        _, s, dt = make_state(torch, BIG, dtype, c0, seed=2)
+        s.pop("qsat")
+        want = flat(forward_step(s, dt, c0))
+        unsharded = statistics.median(event_ms(torch, lambda: forward_step(s, dt, c0), calls=KERNEL_BATCH))
+        for name, mesh in (("card", card_mesh), (f"split {MESH_SPLIT}", split)):
+            sharded = shard_state(s, mesh)
+            step = make_sharded_forward_step(mesh, dt=dt, c=c0)
+            nlk.cloudsc2_nl_cuda.launches = 0
+            got = flat(step(sharded))
+            torch.cuda.synchronize()
+            launches = nlk.cloudsc2_nl_cuda.launches
+            differ = [k for k, v in want.items() if not torch.equal(gather_columns(got[k]), v)]
+            if differ or sorted(got) != sorted(want):
+                raise AssertionError(f"[mesh {tag} {name}] the sharded step differs from the unsharded in {differ}")
+            if launches != len(mesh.devices):
+                raise AssertionError(f"[mesh {tag} {name}] {launches} NL launches, want one a shard")
+            ms = statistics.median(event_ms(torch, lambda: step(sharded), calls=KERNEL_BATCH))
+            path += nlk.cloudsc2_nl_cuda.launches
+            print(f"[mesh {tag} {name}] the sharded forward step on the mesh {mesh.shape} of "
+                  f"{[str(d) for d in mesh.devices]} at {BIG}x{NLEV}: bitwise the unsharded fused NL step, "
+                  f"cloudsc2_nl_cuda launches {launches}; {ms:.4f} ms a step beside the unsharded {unsharded:.4f} ms "
+                  f"(CUDA events, median of 10 x {KERNEL_BATCH} steps); {card}")
+            out["forward"][f"{tag} {name}"] = {"launches": launches, "ms": ms, "unsharded_ms": unsharded,
+                                                "mesh": list(mesh.shape)}
+            del sharded, got
+        del s, want
+        torch.cuda.empty_cache()
+    return {"cloudsc2_nl_cuda": path, "cloudsc2_tl_cuda": 0, "cloudsc2_ad_cuda": 0}
+
+
+def mesh_drivers(torch, card, out):
+    """Phase 14 (c): the three drivers with ``--sharded`` on the card."""
+    from cloudsc2_tpu_torch.config import Config, TorchConfig
+    from drivers import run_nonlinear_torch, run_symmetry_test_torch, run_taylor_test_torch
+    from cloudsc2_tpu_torch.iox import synthetic_input
+    from cloudsc2_tpu_torch.oracle import synthetic_golden
+
+    for precision in ("single", "double"):
+        config = Config(precision=precision, num_cols=BIG, num_runs=5, sharded=True)
+        rc = run_nonlinear_torch.core(config, TorchConfig(device="cuda", precision=precision),
+                                      inputs=synthetic_input(BIG, precision), reference=synthetic_golden(BIG, precision))
+        print(f"[mesh driver nl {precision} {BIG}] --sharded: exit {rc}; {card}")
+        if rc != 0:
+            raise AssertionError(f"[mesh driver nl {precision}] the sharded NL driver failed validation")
+        out["drivers"][f"nl {precision}"] = rc
+    config = Config(precision="double", num_cols=SMALL, num_runs=1, sharded=True)
+    rc, tt = run_taylor_test_torch.core(config, TorchConfig(device="cuda", precision="double"),
+                                        inputs=synthetic_input(SMALL, "double"), per_column=True)
+    print(f"[mesh driver taylor double {SMALL} per_column] --sharded: exit {rc}; {card}")
+    if rc != 0:
+        raise AssertionError("[mesh driver taylor] the sharded Taylor verdict is not HOORAY")
+    out["drivers"]["taylor double per_column"] = rc
+    for precision in ("double", "single"):
+        config = Config(precision=precision, num_cols=BIG, num_runs=1, sharded=True)
+        rc, err = run_symmetry_test_torch.core(config, TorchConfig(device="cuda", precision=precision),
+                                               inputs=synthetic_input(BIG, precision))
+        print(f"[mesh driver symmetry {precision} {BIG}] --sharded: exit {rc}, error {err:.6e} machine epsilons; {card}")
+        if rc != 0:
+            raise AssertionError(f"[mesh driver symmetry {precision}] the sharded symmetry verdict is not HOORAY")
+        out["drivers"][f"symmetry {precision} eps"] = err
+
+
+def mesh_processes(card, out):
+    """Phase 14 (d): two processes of the NL driver sharing the one card over
+    a gloo group: each must exit 0 with HOORAY, report its column block and
+    launch the NL kernel.  If one fails, the other is stopped."""
+    import re
+    import subprocess
+
+    repo = Path(__file__).resolve().parent
+    port = free_port()
+    cmd = [sys.executable, str(repo / "drivers" / "run_nonlinear_torch.py"), "--device", "cuda", "--precision",
+           "single", "--num-cols", str(MESH_PROCESS_COLS), "--num-runs", "3", "--distributed",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(i)], cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        outs = []
+        for i, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=max(1.0, MESH_PROCESS_TIMEOUT - (time.perf_counter() - t0)))
+            outs.append(text)
+            if proc.returncode != 0:
+                raise AssertionError(f"[mesh process {i}] exit {proc.returncode}:\n{text}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for i, text in enumerate(outs):
+        block = re.search(r"holds columns \[(\d+), (\d+)\)", text)
+        launches = re.search(r"cloudsc2_nl_cuda (\d+)", text)
+        if "HOORAY" not in text or not block or not launches or int(launches.group(1)) == 0:
+            raise AssertionError(f"[mesh process {i}] no HOORAY, column block or NL launch:\n{text}")
+        cols = [int(block.group(1)), int(block.group(2))]
+        print(f"[mesh process {i} of 2] {MESH_PROCESS_COLS} columns f32 on the one card over gloo: HOORAY on "
+              f"columns {cols}, cloudsc2_nl_cuda launches {launches.group(1)}; {card}")
+        out["processes"].append({"columns": cols, "launches": int(launches.group(1))})
+    print(f"[mesh processes] both done in {time.perf_counter() - t0:.1f} s (host clock, start-up included)")
+
+
+def mesh_phase(torch, nlk, tlk, adk, c0, card):
+    """Phase 14: the column mesh on the one card, each kernel's launches
+    counted from 0 over the phase.  Returns the readings."""
+    from cloudsc2_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = {"forward": {}, "drivers": {}, "processes": []}
+    counters = (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda)
+    launches = dict.fromkeys((fn.__name__ for fn in counters), 0)
+
+    def add(part, got):
+        print(f"[mesh {part}] launches {got}")
+        for k, n in got.items():
+            launches[k] += n
+
+    def count(part, fn):
+        for k in counters:
+            k.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        add(part, {k.__name__: k.launches for k in counters})
+        return result
+
+    add("forward (the sharded steps)", mesh_forward(torch, nlk, c0, card, out))
+    t0 = time.perf_counter()
+    dryrun = count("dryrun", lambda: dryrun_multichip(1, device="cuda"))
+    print(f"[mesh dryrun] dryrun_multichip(1, device='cuda') passed in {time.perf_counter() - t0:.1f} s; {card}")
+    out["dryrun"] = {str(k): v for k, v in dryrun.items()}
+    count("drivers", lambda: mesh_drivers(torch, card, out))
+    mesh_processes(card, out)
+    print(f"[mesh] launches in this phase (this process): {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"[mesh] a kernel of the path never launched: {launches}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2008,7 +2189,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--only-stream", action="store_true",
                         help="build the NL, TL and AD libraries and run phase 13 alone (no final result line)")
-    only_stream = parser.parse_args().only_stream
+    parser.add_argument("--only-mesh", action="store_true",
+                        help="build the NL, TL and AD libraries and run phase 14 alone (no final result line)")
+    args = parser.parse_args()
+    only_stream, only_mesh = args.only_stream, args.only_mesh
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -2045,7 +2229,7 @@ def main() -> int:
             loaders[name + build.form(compact, fast)[0]] = (
                 lambda load=load, compact=compact, fast=fast: load(compact, fast))
     loaders["cloudsc2_microbench"] = mbk.load_cuda
-    if only_stream:
+    if only_stream or only_mesh:
         loaders = {name: loaders[name] for name in ("cloudsc2_nl", "cloudsc2_tl", "cloudsc2_ad")}
     build_kernels(build, loaders, card)
     phase_t = time.perf_counter()
@@ -2061,6 +2245,11 @@ def main() -> int:
         readings = stream_phase(torch, nlk, tlk, adk, c0, card)
         phase_done("13 stream")
         print(json.dumps({"stream": readings}))
+        return 0
+    if only_mesh:
+        readings = mesh_phase(torch, nlk, tlk, adk, c0, card)
+        phase_done("14 mesh")
+        print(json.dumps({"mesh": readings}))
         return 0
 
     # ---- 3. NL kernel vs plain on the same CUDA tensors
@@ -2251,6 +2440,10 @@ def main() -> int:
     stream_readings = stream_phase(torch, nlk, tlk, adk, c0, card)
     phase_done("13 stream")
 
+    # ---- 14. the column mesh on the one card, the counts from 0 over the phase
+    mesh_readings = mesh_phase(torch, nlk, tlk, adk, c0, card)
+    phase_done("14 mesh")
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {card}")
     print(card)
     fwd32, rev32 = ad_time["f32"]["forward"], ad_time["f32"]["reverse"]
@@ -2384,6 +2577,10 @@ def main() -> int:
         "forms": nl_forms_json,
         "launches_stream": stream_readings["launches"]["cloudsc2_nl_cuda stream"],
         "launches_full_step": stream_readings["launches"]["cloudsc2_nl_cuda full_step"],
+        "launches_mesh": mesh_readings["launches"]["cloudsc2_nl_cuda"],
+        "launches_mesh_processes": [p["launches"] for p in mesh_readings["processes"]],
+        "mesh": {"forward": mesh_readings["forward"], "dryrun": mesh_readings["dryrun"],
+                 "drivers": mesh_readings["drivers"]},
         "stream": {"sweeps": stream_readings["sweeps"], "yardsticks": stream_readings["yardsticks"],
                    "profile": stream_readings["profile"]},
         "shape": [NLEV, BIG],
@@ -2409,6 +2606,7 @@ def main() -> int:
         "host_ms_f64": tl_timing[("f64", False)][2],
         "forms": tl_forms_json,
         "launches_full_step": stream_readings["launches"]["cloudsc2_tl_cuda full_step"],
+        "launches_mesh": mesh_readings["launches"]["cloudsc2_tl_cuda"],
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad",
@@ -2452,6 +2650,7 @@ def main() -> int:
         "bound_ms_cotangent_only_f64": ad_time["f64"]["cotangent_only step"][2],
         "forms": ad_forms_json,
         "launches_full_step": stream_readings["launches"]["cloudsc2_ad_cuda full_step"],
+        "launches_mesh": mesh_readings["launches"]["cloudsc2_ad_cuda"],
         "shape": [NLEV, BIG],
     }, {
         "name": "cloudsc2_ad_fused",

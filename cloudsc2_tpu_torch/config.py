@@ -3,9 +3,10 @@
 """Configuration of the port's drivers.
 
 :class:`Config` is the driver configuration (precision, column count,
-runs, threads, checks, validation, files) with ``with_*`` methods, restated
-from :class:`cloudsc2_tpu.config.Config` without its JAX execution settings:
-where and in what precision the scheme runs is :class:`TorchConfig`.
+runs, threads, checks, validation, files, sharding) with ``with_*``
+methods, restated from :class:`cloudsc2_tpu.config.Config` without its JAX
+execution settings: where and in what precision the scheme runs is
+:class:`TorchConfig` (its ``device`` answers JAX's ``with_backend``).
 :class:`IOConfig` (the CSV outputs and the host name written into them) is
 :class:`cloudsc2_tpu.config.IOConfig`.  :data:`DEFAULT_CONFIG`,
 :data:`DEFAULT_IO_CONFIG` and the default file paths are those of
@@ -61,6 +62,9 @@ class Config:
     enable_validation: bool = True
     input_file: Optional[str] = None
     reference_file: Optional[str] = None
+    sharded: bool = False
+    #: join a process group (multi-process); implies ``sharded``
+    distributed: bool = False
 
     @property
     def dtype(self) -> Any:
@@ -88,6 +92,12 @@ class Config:
 
     def with_reference_file(self, f: Optional[str]) -> "Config":
         return dataclasses.replace(self, reference_file=f)
+
+    def with_sharded(self, s: bool) -> "Config":
+        return dataclasses.replace(self, sharded=s)
+
+    def with_distributed(self, d: bool) -> "Config":
+        return dataclasses.replace(self, distributed=d, sharded=self.sharded or d)
 
 
 DEFAULT_CONFIG = Config()

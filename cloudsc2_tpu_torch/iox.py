@@ -1,7 +1,8 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""HDF5 input, golden reading and input synthesis; the port's own copy of
-the reading half of :mod:`cloudsc2_tpu.iox` (the writers stay there).
+"""HDF5 input, golden files and input synthesis; the port's own copy of
+:mod:`cloudsc2_tpu.iox` (``write_input_h5:249``, ``write_reference_h5:294``
+with its readers).
 
 Re-implements the reference I/O layer (``src/cloudsc2_gt4py/iox.py:212-244``,
 ``setup.py:28-70``, ``physics/nonlinear/reference.py:28-55``) against plain
@@ -20,11 +21,12 @@ h5py + numpy:
   reference, :func:`synthesize_input` generates a physically plausible state
   with the exact same schema, so real upstream files remain drop-in.
 
-``h5py`` is imported only where a file is opened (:func:`load_input`);
-the other readers take an open file.
+``h5py`` is imported only where a file is opened (:func:`load_input`, the
+writers); the other readers take an open file.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -37,8 +39,13 @@ from cloudsc2_tpu_torch.params import (
     YrephliParams,
     YrnclParams,
     YrphncParams,
+    make_constants,
     params_from_mapping,
 )
+
+#: the synthetic workload behind ``data/input_synth.h5`` and the goldens
+#: (``drivers/generate_reference.py``)
+SYNTH_NCOLS, SYNTH_NLEV, SYNTH_SEED = 100, 137, 0
 
 #: input field name -> (h5 dataset, species index or None, staggered?)
 INPUT_FIELDS: Dict[str, Tuple[str, int | None, bool]] = {
@@ -246,6 +253,86 @@ def synthesize_input(
     }
     state = {k: v.astype(dtype) for k, v in state.items()}
     return grid, state, dt
+
+
+def synthetic_input(ncols: int, precision: str):
+    """``(grid, state, dt, constants)`` equal to what :func:`load_input`
+    gives for ``data/input_synth.h5`` tiled to ``ncols``, without reading
+    the file (``precision``: "double" or "single")."""
+    dtype = np.float64 if precision == "double" else np.float32
+    _, state, dt = synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
+    state = {k: _tile_columns(v, ncols).astype(dtype) for k, v in state.items()}
+    return Grid(ncols=ncols, nlev=SYNTH_NLEV), state, dt, make_constants(lphylin=True, ldrain1d=False)
+
+
+def write_input_h5(
+    path: str,
+    state: Dict[str, np.ndarray],
+    dt: float,
+    params: Dict[str, Any] | None = None,
+) -> None:
+    """Write a state dict to an HDF5 file in the upstream dwarf schema."""
+    import h5py
+
+    nlev, ncols = state["ap"].shape
+    with h5py.File(path, "w") as f:
+        f.create_dataset("KLEV", data=np.array([nlev], dtype=np.int64))
+        f.create_dataset("KLON", data=np.array([ncols], dtype=np.int64))
+        f.create_dataset("PTSPHY", data=np.array([dt], dtype=np.float64))
+        for name, (h5_name, species, _stag) in INPUT_FIELDS.items():
+            if species is not None:
+                if h5_name not in f:
+                    f.create_dataset(h5_name, shape=(5, nlev, ncols), dtype=np.float64)
+                f[h5_name][species] = state[name]
+            else:
+                f.create_dataset(h5_name, data=np.asarray(state[name], dtype=np.float64))
+        # unused-but-in-schema cloud fraction field (reference setup.py:49)
+        f.create_dataset("PA", data=np.zeros((nlev, ncols)))
+        groups = params or {
+            "yoethf": YoethfParams(),
+            "yomcst": YomcstParams(),
+            "yrecldp": YrecldpParams(),
+            "yrephli": YrephliParams(),
+            "yrncl": YrnclParams(),
+            "yrphnc": YrphncParams(),
+        }
+        prefixes = {"yrecldp": "YRECLDP_", "yrephli": "YREPHLI_"}
+        for gname, group in groups.items():
+            prefix = prefixes.get(gname, "")
+            for field in dataclasses.fields(group):
+                val = getattr(group, field.name)
+                if isinstance(val, bool):
+                    data = np.array([int(val)], dtype=np.int64)
+                elif isinstance(val, int):
+                    data = np.array([val], dtype=np.int64)
+                else:
+                    data = np.array([val], dtype=np.float64)
+                f.create_dataset(prefix + field.name, data=data)
+
+
+def write_reference_h5(
+    path: str,
+    tends: Dict[str, np.ndarray],
+    diags: Dict[str, np.ndarray],
+) -> None:
+    """Write golden tendencies/diagnostics in the reference output schema
+    (datasets as in ``data/reference_double.h5``: ``TENDENCY_LOC_*``,
+    ``PCLC``, ``PCOVPTOT``, ``PFHPSL/N``, ``PFPLSL/N`` + ``KLON``/``KLEV``)."""
+    import h5py
+
+    nlev, ncols = tends["t"].shape
+    with h5py.File(path, "w") as f:
+        f.create_dataset("KLEV", data=np.array([nlev], dtype=np.int64))
+        f.create_dataset("KLON", data=np.array([ncols], dtype=np.int64))
+        for name, (h5_name, species, _s) in REFERENCE_TENDENCIES.items():
+            if species is not None:
+                if h5_name not in f:
+                    f.create_dataset(h5_name, shape=(5, nlev, ncols), dtype=np.float64)
+                f[h5_name][species] = np.asarray(tends[name], dtype=np.float64)
+            else:
+                f.create_dataset(h5_name, data=np.asarray(tends[name], dtype=np.float64))
+        for name, (h5_name, _sp, _s) in REFERENCE_DIAGNOSTICS.items():
+            f.create_dataset(h5_name, data=np.asarray(diags[name], dtype=np.float64))
 
 
 def load_input(

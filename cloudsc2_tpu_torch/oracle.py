@@ -8,14 +8,19 @@ A deliberately naive per-column, per-level transcription of the reference
 stencil semantics (NL ``physics/nonlinear/_stencils/cloudsc2.py:24-399``)
 using plain Python ``if``/``else`` — i.e. the same execution model as
 gtscript's per-point iteration.  It shares no code with the vectorized
-schemes.  The NL driver (``drivers/run_nonlinear_torch.py``) builds its
-goldens with it where no HDF5 reader is installed.
+schemes.  :func:`golden_outputs` is what the golden files hold
+(``drivers/generate_reference_torch.py`` writes them), and
+:func:`synthetic_golden` gives them in process, where no HDF5 reader is
+installed.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import numpy as np
+
+Fields = Dict[str, np.ndarray]
 
 
 def oracle_saturation(ap, t, c, kflag=1, lphylin=True):
@@ -319,3 +324,31 @@ def oracle_nonlinear(state, dt, c):
     diag["fhpsl"] = -diag["fplsl"] * c.RLVTT
     diag["fhpsn"] = -diag["fplsn"] * c.RLSTT
     return tnd, diag
+
+
+def golden_outputs(state: Fields, dt: float, c, dtype) -> Tuple[Fields, Fields]:
+    """The golden tendencies and diagnostics of ``state`` in ``dtype``: the
+    state rounded to ``dtype``, eta from column 0 and the saturation in
+    ``dtype``, then the scheme in float64 math."""
+    s = {k: v.astype(dtype) for k, v in state.items()}
+    s["eta"] = (s["ap"][:, 0] / s["aph"][-1, 0]).astype(dtype)
+    s["qsat"] = oracle_saturation(s["ap"], s["t"], c).astype(dtype)
+    return oracle_nonlinear(s, dt, c)
+
+
+def synthetic_golden(ncols: int, precision: str) -> Tuple[Fields, Fields]:
+    """The golden tendencies and diagnostics of
+    ``data/reference_synth_{precision}.h5`` tiled to ``ncols``, as
+    :func:`cloudsc2_tpu_torch.iox.read_reference` reads them, computed in
+    process."""
+    from cloudsc2_tpu_torch import iox
+    from cloudsc2_tpu_torch.params import make_constants
+
+    dtype = np.float64 if precision == "double" else np.float32
+    _, state, dt = iox.synthesize_input(ncols=iox.SYNTH_NCOLS, nlev=iox.SYNTH_NLEV, seed=iox.SYNTH_SEED)
+    tends, diags = golden_outputs(state, dt, make_constants(lphylin=True, ldrain1d=False), dtype)
+
+    def tile(d: Fields) -> Fields:
+        return {k: iox._tile_columns(np.asarray(v, np.float64), ncols).astype(dtype) for k, v in d.items()}
+
+    return tile(tends), tile(diags)

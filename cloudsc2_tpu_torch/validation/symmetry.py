@@ -2,8 +2,8 @@
 # Licensed under the Apache License, Version 2.0.
 """Symmetry test: validates the adjoint against the tangent-linear; the port
 of :mod:`cloudsc2_tpu.validation.symmetry` (``TEND_NAMES:41``,
-``DIAG_NAMES:42``, ``FIELD_PAIRS:43``, ``SymmetryTest:60``, without its
-column ``mesh``).
+``DIAG_NAMES:42``, ``FIELD_PAIRS:43``, ``SymmetryTest:60``, with its column
+``mesh``).
 
 With ``y = M x`` (TL applied to the increment ``x = f * state``) and
 ``x* = M* y`` (adjoint applied to the TL outputs), the test checks the
@@ -16,12 +16,14 @@ and passes iff ``max |norm1 - norm2| / (eps * norm2) < 1e4`` machine
 epsilons (reference ``adjoint/validation.py:155-165``).  The
 supersaturation increment is zeroed (``ignore_supsat=True``).  The schemes
 run through :mod:`cloudsc2_tpu_torch.dispatch` (the CUDA kernels for CUDA
-tensors); the per-column norms are reduced on the device, and only the two
-``(ncols,)`` norm vectors are copied to the host.
+tensors), column-sharded with a ``mesh``
+(:func:`cloudsc2_tpu_torch.parallel.step.make_sharded_physics`, the outputs
+gathered in column order); the per-column norms are reduced on the device,
+and only the two ``(ncols,)`` norm vectors are copied to the host.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import numpy as np
@@ -50,11 +52,26 @@ class SymmetryTest:
     factor: float = 0.01
     kflag: int = 1
     lphylin: bool = True
+    #: optional column mesh (:class:`cloudsc2_tpu_torch.parallel.mesh.ColumnMesh`,
+    #: single-process): the TL and AD run column-sharded (driver ``--sharded``)
+    mesh: object = None
+    _fns: tuple = field(default=None, repr=False)  # type: ignore[assignment]
+
+    def _tl_ad(self):
+        if self._fns is None:
+            fns = (dispatch.cloudsc2_tl, dispatch.cloudsc2_ad)
+            if self.mesh is not None:
+                from cloudsc2_tpu_torch.parallel.step import make_sharded_physics
+
+                fns = tuple(make_sharded_physics(f, self.mesh) for f in fns)
+            self._fns = fns
+        return self._fns
 
     def run(self, state: Dict[str, Tensor], dt: float) -> Tuple[np.ndarray, np.ndarray]:
         """The per-column norms ``(norm1, norm2)`` for ``state`` (the 16
         fields and ``eta``), as numpy arrays of the state's dtype."""
         c = self.constants
+        tl_fn, ad_fn = self._tl_ad()
         state = dict(state)
         with timing("saturation"):
             state["qsat"] = device_sync(saturation(
@@ -68,7 +85,7 @@ class SymmetryTest:
 
         # y = M x
         with timing("cloudsc2_tl"):
-            tends_tl, diags_tl = device_sync(dispatch.cloudsc2_tl(state, dt, c))
+            tends_tl, diags_tl = device_sync(tl_fn(state, dt, c))
         norm1 = self.get_norm1(tends_tl, diags_tl)
 
         # the TL outputs become the adjoint's cotangent seeds (reference
@@ -81,7 +98,7 @@ class SymmetryTest:
 
         # x* = M* y
         with timing("cloudsc2_ad"):
-            tends_ad, diags_ad = device_sync(dispatch.cloudsc2_ad(state, dt, c))
+            tends_ad, diags_ad = device_sync(ad_fn(state, dt, c))
         norm2 = self.get_norm2(incr, tends_ad, diags_ad)
         return norm1.cpu().numpy(), norm2.cpu().numpy()
 

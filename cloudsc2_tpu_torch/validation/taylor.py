@@ -4,7 +4,7 @@
 the port of :mod:`cloudsc2_tpu.validation.taylor` (``FLOORS:42``,
 ``FLOORS_PER_COLUMN:54``, ``TaylorTest:58``, ``run:127``, ``get_norm:176``,
 ``get_norm_columns:194``, ``validate:223``, ``_validate_per_column:277``,
-``column_penalties:330``).
+``column_penalties:330``), with its column ``mesh``.
 
 Perturb the state by ``factor1``, run the TL once, then for each
 ``factor2`` compare the nonlinear difference ``NL(x + λ δx) − NL(x)``
@@ -14,7 +14,9 @@ then rise again (V-shape) as rounding dominates.  Regularization is off
 :mod:`cloudsc2_tpu_torch.dispatch` (the CUDA kernels for CUDA tensors);
 each output dict is moved to the host once and the norms and verdicts are
 the JAX module's numpy code, restated here word for word because that
-module imports jax.  The column mesh (``mesh``) is not ported.
+module imports jax.  With a column ``mesh`` the NL and TL run column-sharded
+(:func:`cloudsc2_tpu_torch.parallel.step.make_sharded_physics`), their
+outputs gathered in column order, and the norms are taken as before.
 """
 from __future__ import annotations
 
@@ -75,17 +77,32 @@ class TaylorTest:
     #: :attr:`strict_fraction`
     min_strict_fraction: float = 0.5
     strict_fraction: float = field(default=None, repr=False)  # type: ignore[assignment]
+    #: optional column mesh (:class:`cloudsc2_tpu_torch.parallel.mesh.ColumnMesh`,
+    #: single-process): the NL and TL run column-sharded (driver ``--sharded``)
+    mesh: object = None
     norms: np.ndarray = field(default=None, repr=False)  # type: ignore[assignment]
     _run_dtype: np.dtype = field(default=None, repr=False)  # type: ignore[assignment]
+    _fns: tuple = field(default=None, repr=False)  # type: ignore[assignment]
 
     def __post_init__(self) -> None:
         # no regularization in the Taylor test
         self.constants = self.constants.replace(LREGCL=False)
 
+    def _nl_tl(self):
+        if self._fns is None:
+            fns = (dispatch.cloudsc2_nl, dispatch.cloudsc2_tl)
+            if self.mesh is not None:
+                from cloudsc2_tpu_torch.parallel.step import make_sharded_physics
+
+                fns = tuple(make_sharded_physics(f, self.mesh) for f in fns)
+            self._fns = fns
+        return self._fns
+
     def run(self, state: Dict[str, Tensor], dt: float) -> np.ndarray:
         """The norm sequence (``(n_factors,)``, or ``(n_factors, ncols)``
         per column) for ``state`` (the 16 fields and ``eta``)."""
         c = self.constants
+        nl_fn, tl_fn = self._nl_tl()
         state = dict(state)
         self._run_dtype = np.dtype(np.float32 if state["t"].dtype == torch.float32 else np.float64)
         with timing("saturation"):
@@ -93,12 +110,12 @@ class TaylorTest:
                 state["ap"], state["t"], kflag=self.kflag, lphylin=self.lphylin, c=c
             ))
         with timing("cloudsc2_nl"):
-            tends_nl, diags_nl = device_sync(dispatch.cloudsc2_nl(state, dt, c))
+            tends_nl, diags_nl = device_sync(nl_fn(state, dt, c))
 
         with timing("state_increment"):
             state.update(device_sync(state_increment(state, self.factor1)))
         with timing("cloudsc2_tl"):
-            tends_tl, diags_tl = device_sync(dispatch.cloudsc2_tl(state, dt, c))
+            tends_tl, diags_tl = device_sync(tl_fn(state, dt, c))
 
         # one transfer per dict; the norm loop reduces in numpy
         tends_nl, diags_nl = _host(tends_nl), _host(diags_nl)
@@ -113,7 +130,7 @@ class TaylorTest:
             with timing("perturbed_state"):
                 state_p = device_sync(perturbed_state(state, f2))
             with timing("cloudsc2_nl"):
-                tends_p, diags_p = device_sync(dispatch.cloudsc2_nl(state_p, dt, c))
+                tends_p, diags_p = device_sync(nl_fn(state_p, dt, c))
             norms[i] = get(
                 f2, tends_nl, diags_nl, _host(tends_p), _host(diags_p), tends_tl, diags_tl
             )

@@ -35,10 +35,25 @@ distinct host chunks cycled; ``--stream-outputs`` returns every chunk's
 outputs to host buffers) and validates chunk 0 against the goldens.  The
 input is loaded at its own column count: the ring tiles it per chunk.
 
+``--sharded`` runs the step column-sharded over a ``('node', 'device')``
+mesh (:mod:`cloudsc2_tpu_torch.parallel.mesh`: every visible card on
+``--device cuda``, one shard a process on ``--device cpu``), as
+``drivers/run_nonlinear.py`` does: eta from the global column 0 first,
+the columns padded to 128 times the mesh's shards by repeating column 0,
+the state sharded once before the timed loop, then the sharded forward
+step (:func:`~cloudsc2_tpu_torch.parallel.step.make_sharded_forward_step`).
+``--distributed`` (which implies ``--sharded``) first joins a process group
+over gloo (``--coordinator host:port --process-id i --num-processes n``,
+or a ``torchrun`` launch); each process then holds its own column block
+on its card, validates it against the same golden columns, and the lead
+process writes the CSVs and prints every process's exit code.  Neither
+composes with ``--stream-chunk``, as in the JAX driver.
+
 Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
 ``h5py`` is not installed, the default input and goldens are built in
-process instead (:func:`synthetic_input`, :func:`synthetic_golden`; equal
-to the files bit for bit), so the driver also runs where neither ``click``
+process instead (:func:`cloudsc2_tpu_torch.iox.synthetic_input`,
+:func:`cloudsc2_tpu_torch.oracle.synthetic_golden`; equal to the files bit
+for bit), so the driver also runs where neither ``click``
 nor ``h5py`` is installed.
 
 Usage:  python drivers/run_nonlinear_torch.py --device cuda --precision single --num-cols 65536
@@ -60,52 +75,14 @@ from cloudsc2_tpu_torch.config import (  # noqa: E402
     default_input_file,
     default_reference_file,
 )
+from cloudsc2_tpu_torch.iox import SYNTH_NCOLS, synthetic_input  # noqa: E402
+from cloudsc2_tpu_torch.oracle import synthetic_golden  # noqa: E402
 
 Fields = Dict[str, np.ndarray]
-
-#: the synthetic workload behind data/input_synth.h5 and the goldens
-#: (drivers/generate_reference.py)
-SYNTH_NCOLS, SYNTH_NLEV, SYNTH_SEED = 100, 137, 0
 
 
 def _dtype(precision: str) -> Any:
     return np.float64 if precision == "double" else np.float32
-
-
-def synthetic_input(ncols: int, precision: str):
-    """``(grid, state, dt, constants)`` equal to what
-    :func:`cloudsc2_tpu_torch.iox.load_input` gives for
-    ``data/input_synth.h5`` tiled to ``ncols``, without reading the file."""
-    from cloudsc2_tpu_torch import iox
-    from cloudsc2_tpu_torch.grid import Grid
-    from cloudsc2_tpu_torch.params import make_constants
-
-    _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
-    state = {k: iox._tile_columns(v, ncols).astype(_dtype(precision)) for k, v in state.items()}
-    return Grid(ncols=ncols, nlev=SYNTH_NLEV), state, dt, make_constants(lphylin=True, ldrain1d=False)
-
-
-def synthetic_golden(ncols: int, precision: str) -> Tuple[Fields, Fields]:
-    """The golden tendencies and diagnostics of
-    ``data/reference_synth_{precision}.h5`` tiled to ``ncols``, computed in
-    process by the scalar oracle exactly as ``drivers/generate_reference.py``
-    writes them and :func:`cloudsc2_tpu_torch.iox.read_reference` reads them."""
-    from cloudsc2_tpu_torch import iox
-    from cloudsc2_tpu_torch.oracle import oracle_nonlinear, oracle_saturation
-    from cloudsc2_tpu_torch.params import make_constants
-
-    dtype = _dtype(precision)
-    _, state, dt = iox.synthesize_input(ncols=SYNTH_NCOLS, nlev=SYNTH_NLEV, seed=SYNTH_SEED)
-    c = make_constants(lphylin=True, ldrain1d=False)
-    s = {k: v.astype(dtype) for k, v in state.items()}
-    s["eta"] = (s["ap"][:, 0] / s["aph"][-1, 0]).astype(dtype)
-    s["qsat"] = oracle_saturation(s["ap"], s["t"], c).astype(dtype)
-    tends, diags = oracle_nonlinear(s, dt, c)
-
-    def tile(d: Fields) -> Fields:
-        return {k: iox._tile_columns(np.asarray(v, np.float64), ncols).astype(dtype) for k, v in d.items()}
-
-    return tile(tends), tile(diags)
 
 
 def _have_h5py() -> bool:
@@ -147,6 +124,7 @@ def core(
     stream_chunk: Optional[int] = None,
     stream_ring: int = 4,
     stream_outputs: bool = False,
+    dist_kwargs: Optional[Dict[str, Any]] = None,
 ) -> int:
     """Run the scheme and validate; returns the exit code (0 on success).
 
@@ -158,7 +136,10 @@ def core(
     (``(tendencies, diagnostics)`` at ``config.num_cols``, at
     ``stream_chunk`` when streaming) replace the files when given.
     ``fuse_saturation``, ``fast_div``, ``profile_dir``, ``stream_chunk``,
-    ``stream_ring`` and ``stream_outputs`` are the flags of the same names.
+    ``stream_ring`` and ``stream_outputs`` are the flags of the same names;
+    ``config.sharded`` and ``config.distributed`` the flags ``--sharded``
+    and ``--distributed``, which joins the process group of ``dist_kwargs``
+    (:func:`cloudsc2_tpu_torch.parallel.mesh.initialize_distributed`).
     """
     import torch
 
@@ -173,6 +154,13 @@ def core(
     )
     from cloudsc2_tpu_torch.utils.timing import Timer, device_sync, timing
 
+    if stream_chunk and config.sharded:
+        raise ValueError("--stream-chunk is a single-device mode (the multi-device path keeps the columns "
+                         "resident: --sharded / --distributed)")
+    if config.distributed:
+        from cloudsc2_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(**(dist_kwargs or {}))
     device = torch_config.apply()
     dtype = _dtype(config.precision)
     # streaming loads the input at its own column count: the ring tiles it
@@ -204,8 +192,8 @@ def core(
         print(f"--fast-div {fast_div} with --precision double: float64 divides exactly, so this run is exact")
     c_nl = c.replace(FAST_DIV=fast_div)
 
-    def check(tends, diags, ncols) -> int:
-        return _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol)
+    def check(tends, diags, ncols, cols=None) -> int:
+        return _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol, cols)
 
     if stream_chunk:
         # --- the column-chunked streaming sweep (the out-of-memory scaled run)
@@ -233,13 +221,37 @@ def core(
         print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
         return check(tends, diags, stream_chunk)
 
-    state = state_from_numpy(state_np, device, torch_config.dtype)
     ncols = grid.ncols
+    # sharded, every process holds the whole state on the host and places
+    # its own columns on its shards
+    state = state_from_numpy(state_np, torch.device("cpu") if config.sharded else device, torch_config.dtype)
 
-    # --- components
+    # --- components; eta (global column 0, loop-invariant) before sharding
     eta_levels = EtaLevels(grid, c, enable_checks=config.enable_checks)
     state.update(eta_levels(state))
-    if fuse_saturation:
+    mesh = None
+    sync = device_sync
+    if config.sharded:
+        from cloudsc2_tpu_torch.parallel.mesh import column_mesh, pad_columns, shard_state
+        from cloudsc2_tpu_torch.parallel.step import make_sharded_forward_step
+
+        mesh = column_mesh(device=device.type)
+        state, _ = pad_columns(state, 128 * mesh.size)
+        padded = state["ap"].shape[1]
+        state = shard_state(state, mesh)
+        lo, hi = mesh.columns(padded, 0)[0], mesh.columns(padded, len(mesh.devices) - 1)[1]
+        print(f"Sharded over the ('node', 'device') mesh {mesh.shape}: process {mesh.process_index} of "
+              f"{mesh.process_count} holds columns [{lo}, {hi}) of {padded} ({ncols} real) in "
+              f"{len(mesh.devices)} shard(s) on {[str(d) for d in mesh.devices]}")
+        sharded_step = make_sharded_forward_step(mesh, dt=dt, c=c_nl, fuse_saturation=fuse_saturation)
+
+        def run_once():
+            return sharded_step(state)
+
+        def sync(out):
+            device_sync([v.shards for d in out for v in d.values()])
+            return out
+    elif fuse_saturation:
         cloudsc2_nl = Cloudsc2NL(grid, c_nl, fuse_saturation=True, kflag=1, enable_checks=config.enable_checks)
 
         def run_once():
@@ -255,7 +267,7 @@ def core(
 
     # warm-up (builds the kernel on first use), then the timed runs; an
     # optional profiler trace around them
-    tends, diags = device_sync(run_once())
+    tends, diags = sync(run_once())
     Timer.reset()
     prof = None
     if profile_dir:
@@ -267,7 +279,7 @@ def core(
     runtimes = []
     for _ in range(config.num_runs):
         with timing("run"):
-            tends, diags = device_sync(run_once())
+            tends, diags = sync(run_once())
         runtimes.append(Timer.get_time("run", "ms") - sum(runtimes))
     if prof is not None:
         prof.stop()
@@ -276,14 +288,20 @@ def core(
         print(f"Profiler trace written to {profile_dir}")
     stats = print_performance(ncols, runtimes, nlev=grid.nlev)
     print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    if io_config.output_csv_file:
+    if device.type == "cuda":
+        from cloudsc2_tpu_torch.kernels.nonlinear import cloudsc2_nl_cuda
+
+        print(f"Kernel launches in this process: cloudsc2_nl_cuda {cloudsc2_nl_cuda.launches}")
+    # the CSVs from the lead process only (processes share the filesystem)
+    is_lead = mesh is None or mesh.process_index == 0
+    if is_lead and io_config.output_csv_file:
         write_performance_to_csv(
             io_config.output_csv_file, host_name=io_config.host_name, precision=config.precision,
             variant="nl-torch:" + device.type, num_cols=ncols, num_threads=config.num_threads,
             num_runs=config.num_runs, runtime_mean=stats[0], runtime_stddev=stats[1],
             mflops_mean=stats[2], mflops_stddev=stats[3],
         )
-    if io_config.output_csv_file_stencils:
+    if is_lead and io_config.output_csv_file_stencils:
         write_stencils_performance_to_csv(
             io_config.output_csv_file_stencils, host_name=io_config.host_name,
             precision=config.precision, backend="torch:" + device.type, num_cols=ncols,
@@ -291,12 +309,47 @@ def core(
             exec_info={k: Timer.get_time(k, "ms") for k in Timer.labels()},
             key_patterns=("cloudsc", "saturation", "increment", "perturbed", "eta"),
         )
-    return check(tends, diags, ncols)
+    if mesh is None:
+        return check(tends, diags, ncols)
+    if mesh.process_count == 1:
+        from cloudsc2_tpu_torch.parallel.mesh import gather_columns, unpad_columns
+
+        return check(unpad_columns({k: gather_columns(v) for k, v in tends.items()}, ncols),
+                     unpad_columns({k: gather_columns(v) for k, v in diags.items()}, ncols), ncols)
+    return _check_process_block(mesh, tends, diags, ncols, check)
 
 
-def _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol) -> int:
-    """Validate outputs at ``ncols`` columns against the goldens
-    (``reference``, else ``config.reference_file``); the exit code."""
+def _check_process_block(mesh, tends, diags, ncols, check) -> int:
+    """A process of a group validates its own column block against the same
+    golden columns (trailing pad columns carry no data); every process then
+    gathers the exit codes of all, the lead prints them, and each returns
+    the worst."""
+    import torch.distributed as dist
+
+    from cloudsc2_tpu_torch.parallel.mesh import process_local_block
+
+    blocks = {k: process_local_block(v) for k, v in {**tends, **diags}.items()}
+    c0, c1 = blocks["t"][1]
+    c1 = min(c1, ncols)
+    if c1 <= c0:
+        print("Validation skipped: this process holds only pad columns.")
+        rc = 0
+    else:
+        print(f"Validating this process's columns [{c0}, {c1})")
+        rc = check({k: blocks[k][0][:, : c1 - c0] for k in tends},
+                   {k: blocks[k][0][:, : c1 - c0] for k in diags}, ncols, (c0, c1))
+    rcs = [None] * mesh.process_count
+    dist.all_gather_object(rcs, rc)
+    if mesh.process_index == 0:
+        print(f"Exit codes of the {mesh.process_count} processes: {rcs}")
+    dist.destroy_process_group()
+    return max(rcs)
+
+
+def _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol, cols=None) -> int:
+    """Validate outputs at ``ncols`` columns, or at the golden columns
+    ``cols = (start, stop)`` of them, against the goldens (``reference``,
+    else ``config.reference_file``); the exit code."""
     from cloudsc2_tpu_torch import iox
     from cloudsc2_tpu_torch.utils.validation import validate
 
@@ -310,6 +363,9 @@ def _validate(config, device, tends, diags, ncols, dtype, reference, atol, rtol)
         with h5py.File(config.reference_file, "r") as f:
             reference = iox.read_reference(f, ncols=ncols, dtype=dtype)
     tends_ref, diags_ref = reference
+    if cols is not None:
+        tends_ref = {k: v[:, cols[0]:cols[1]] for k, v in tends_ref.items()}
+        diags_ref = {k: v[:, cols[0]:cols[1]] for k, v in diags_ref.items()}
     tends_np = {k: v.cpu().numpy() for k, v in tends.items()}
     # the fused step's qsat is no golden field (validate walks the union of keys)
     diags_np = {k: v.cpu().numpy() for k, v in diags.items() if k != "qsat"}
@@ -351,6 +407,15 @@ def main(argv=None) -> int:
                    "(copies overlapped with the kernel; the out-of-memory scaled run)")
     p.add_argument("--stream-ring", type=int, default=4,
                    help="distinct host-resident chunk buffers cycled by the stream")
+    p.add_argument("--sharded", action="store_true", default=False,
+                   help="column-shard the step over a ('node', 'device') mesh of every visible card "
+                   "(--device cuda) or one CPU shard a process")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="join a process group over gloo first (one process a node); implies --sharded. "
+                   "Give --coordinator, --process-id and --num-processes, or launch with torchrun")
+    p.add_argument("--coordinator", default=None, help="the process group's address, host:port")
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--stream-outputs", action=argparse.BooleanOptionalAction, default=False,
                    help="full duplex: every chunk's tendencies and diagnostics back into host ring "
                    "buffers, overlapped with compute; the validated sample then certifies that copy")
@@ -365,7 +430,11 @@ def main(argv=None) -> int:
         .with_num_cols(a.num_cols)
         .with_num_runs(a.num_runs)
         .with_input_file(a.input_file)
+        .with_sharded(a.sharded)
+        .with_distributed(a.distributed)
     )
+    dist_kwargs = {k: v for k, v in (("coordinator_address", a.coordinator), ("process_id", a.process_id),
+                                      ("num_processes", a.num_processes)) if v is not None}
     reference_file = a.reference_file
     if reference_file is None and a.input_file is None and a.enable_validation:
         ref = default_reference_file(a.precision)
@@ -379,7 +448,7 @@ def main(argv=None) -> int:
     return core(config, TorchConfig(device=a.device, precision=a.precision), atol=a.atol, rtol=a.rtol,
                 fuse_saturation=a.fuse_saturation, fast_div=a.fast_div, io_config=io_config,
                 profile_dir=a.profile_dir, stream_chunk=a.stream_chunk, stream_ring=a.stream_ring,
-                stream_outputs=a.stream_outputs)
+                stream_outputs=a.stream_outputs, dist_kwargs=dist_kwargs)
 
 
 if __name__ == "__main__":

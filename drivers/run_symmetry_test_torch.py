@@ -16,6 +16,11 @@ protocol's performance row and its per-stage timings (``--host-alias``
 names the host) as the JAX driver does, the variant ``ad-torch:cuda`` or
 ``ad-torch:cpu``.
 
+``--sharded`` runs the TL and AD column-sharded over a ``('node', 'device')``
+mesh (every visible card on ``--device cuda``, one CPU shard on ``--device
+cpu``), as the JAX driver does: the columns padded to 128 times the mesh's
+shards by repeating column 0, so the pad columns enter the norms.
+
 Uses ``argparse``, and imports ``h5py`` only where a file is read.  Where
 ``h5py`` is not installed, the default input is built in process instead
 (:func:`drivers.run_nonlinear_torch.synthetic_input`, equal to the file bit
@@ -82,7 +87,20 @@ def core(
     state = state_from_numpy(state_np, device, torch_config.dtype)
     state.update(EtaLevels(grid, c)(state))
 
-    st = SymmetryTest(constants=c, factor=factor)
+    mesh = None
+    if config.sharded:
+        # as run_nonlinear_torch.py --sharded: eta first (global column 0),
+        # then the columns padded to 128 times the mesh's shards by
+        # repeating column 0 (valid physics: the pad columns enter the
+        # norms as the JAX driver's do); the protocol shards each scheme
+        from cloudsc2_tpu_torch.parallel.mesh import column_mesh, pad_columns
+
+        mesh = column_mesh(device=device.type)
+        state, _ = pad_columns(state, 128 * mesh.size)
+        print(f"Sharded over the ('node', 'device') mesh {mesh.shape}: {state['ap'].shape[1]} columns "
+              f"({grid.ncols} real) on {[str(d) for d in mesh.devices]}")
+
+    st = SymmetryTest(constants=c, factor=factor, mesh=mesh)
     Timer.reset()
     err = float("inf")
     runtimes = []
@@ -116,6 +134,9 @@ def main(argv=None) -> int:
     p.add_argument("--num-runs", type=int, default=1)
     p.add_argument("--precision", choices=("double", "single"), default="double")
     p.add_argument("--factor", type=float, default=0.01)
+    p.add_argument("--sharded", action="store_true", default=False,
+                   help="column-shard the schemes over a ('node', 'device') mesh of every visible card "
+                   "(--device cuda) or one CPU shard")
     p.add_argument("--input-file", default=None, help="input HDF5 (default: data/input_synth.h5)")
     p.add_argument("--output-csv-file", default=None, help="append the performance row to this CSV")
     p.add_argument("--output-csv-file-stencils", default=None,
@@ -130,6 +151,7 @@ def main(argv=None) -> int:
         .with_num_cols(a.num_cols)
         .with_num_runs(a.num_runs)
         .with_input_file(a.input_file)
+        .with_sharded(a.sharded)
     )
     io_config = (
         DEFAULT_IO_CONFIG.with_output_csv_file(a.output_csv_file)

@@ -40,7 +40,9 @@ one step within its ulp bound, every variant within 1e-6 of the float64
 chain; the chain kernel's record of its blocks' SMs.  The NL kernel's
 pipelined scan bitwise its plain version where its ring of D slots wraps or
 is never full (nlev 2, D, D + 1), and its occupancy entry: the ring's depth
-and shared bytes, at least 4 blocks of 128 an SM.
+and shared bytes, at least 4 blocks of 128 an SM.  The sharded forward step
+on the card's mesh and on a hand-made mesh of 3 shards of it bitwise the
+unsharded step.
 """
 import numpy as np
 import pytest
@@ -715,3 +717,28 @@ def test_full_step_norms_bitwise_symmetry_on_card(cuda, dtype):
     ref1, ref2 = SymmetryTest(constants=c).run(s, dt)
     np.testing.assert_array_equal(norm1.cpu().numpy(), ref1)
     np.testing.assert_array_equal(norm2.cpu().numpy(), ref2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sharded_forward_step_bitwise_on_card(cuda, dtype):
+    """The sharded forward step on the card's mesh, and on a hand-made mesh
+    of 3 shards of the one card, is bitwise the unsharded fused step, one
+    NL launch a shard; a mesh of more cards than the machine has raises."""
+    from cloudsc2_tpu_torch.parallel import mesh
+    from cloudsc2_tpu_torch.parallel.step import forward_step, make_sharded_forward_step
+
+    c = CONFIGS["default"]()
+    s, dt = _state(1152, dtype, c, cuda)
+    s.pop("qsat")
+    want = {k: v for d in forward_step(s, dt, c) for k, v in d.items()}
+    card = mesh.column_mesh(device="cuda")
+    assert card.shape == (1, torch.cuda.device_count())
+    with pytest.raises(ValueError, match="card"):
+        mesh.column_mesh(torch.cuda.device_count() + 1, device="cuda")
+    for m in (mesh.column_mesh(1, device="cuda"), mesh.ColumnMesh((1, 3), 0, 1, (cuda,) * 3)):
+        before = nlk.cloudsc2_nl_cuda.launches
+        got = {k: v for d in make_sharded_forward_step(m, dt=dt, c=c)(s) for k, v in d.items()}
+        assert nlk.cloudsc2_nl_cuda.launches == before + len(m.devices)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert torch.equal(mesh.gather_columns(got[k]), v), k

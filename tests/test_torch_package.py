@@ -39,7 +39,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "cloudsc2_tpu_torch"
 #: the port's drivers, which import the port only
 DRIVERS = ("run_nonlinear_torch", "run_taylor_test_torch", "run_symmetry_test_torch", "kernel_ab_torch",
-           "microbench_hbm_torch", "microbench_div_torch")
+           "microbench_hbm_torch", "microbench_div_torch", "generate_reference_torch")
+#: the port's test worker process, which imports the port only
+WORKERS = ("torch_distributed_worker",)
 #: what the port may not import: jax, and the JAX package with any module of it
 FORBIDDEN = ("jax", "jaxlib", "cloudsc2_tpu")
 
@@ -53,12 +55,11 @@ def _imported_modules(path):
 
 
 def test_port_sources_never_import_jax():
-    """AST scan: no file of the port (nor its drivers and smoke test)
-    imports jax, the JAX package or any module of it, nor the JAX drivers'
-    configuration (which imports the JAX package)."""
+    """AST scan: no file of the port (nor its drivers, its test worker and
+    smoke test) imports jax, the JAX package or any module of it, nor the
+    JAX drivers' configuration (which imports the JAX package)."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "drivers" / f"{d}.py" for d in DRIVERS] + [
-        REPO / "chip_smoke.py"
-    ]
+        REPO / "tests" / f"{w}.py" for w in WORKERS] + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [
         f"{p.relative_to(REPO)}: {m}"
@@ -107,13 +108,13 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_import_leaves_jax_unloaded():
-    """Importing every module of the port and its drivers in a fresh process
-    with jax and the JAX package blocked succeeds, and leaves both out of
-    sys.modules."""
+    """Importing every module of the port, its drivers and its test worker
+    in a fresh process with jax and the JAX package blocked succeeds, and
+    leaves both out of sys.modules."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
-    ) + [f"drivers.{d}" for d in DRIVERS]
+    ) + [f"drivers.{d}" for d in DRIVERS] + [f"tests.{w}" for w in WORKERS]
     code = (
         "import importlib, importlib.abc, sys\n"
         f"FORBIDDEN = {FORBIDDEN!r}\n"
@@ -437,6 +438,10 @@ def test_small_copies_equal_jax(capsys):
     ref = jconfig.Config().with_precision("single").with_num_cols(9).with_num_runs(2)
     for f in dataclasses.fields(mine):
         assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+    for m, r in ((mine.with_sharded(True), ref.with_sharded(True)),
+                 (mine.with_distributed(True), ref.with_distributed(True))):
+        assert (m.sharded, m.distributed) == (r.sharded, r.distributed)
+    assert mine.with_distributed(True).sharded
     assert mine.dtype == ref.dtype
     assert output.FLOPS_PER_POINT == joutput.FLOPS_PER_POINT
     assert output.performance_stats(100, [1.0, 2.0]) == joutput.performance_stats(100, [1.0, 2.0])
