@@ -131,7 +131,9 @@ Phases, each timed; any failure raises and the script exits non-zero:
    rolled and resident with its plan (block, blocks and threads per SM,
    levels of the stack in shared memory, scratch bytes), the card's
    occupancy held to the plan at the card's registers, each AD kernel's registers
-   and local memory (the card's) and spills (ptxas), each beside its bound
+   and local memory (the card's) and spills (ptxas), the reverse kernel's
+   blocks per SM, ring depth and shared bytes (``reverse_occupancy``, held
+   to ``reverse_plan``) and its time with LEVAPLS2, each beside its bound
    by bytes and by operations (the bytes each input read once and each
    output written once) and, as a reading, the operations of the
    hand-transposed reverse level by its hand count; and each wrapper's host
@@ -377,6 +379,14 @@ def build_kernels(build, loaders, card):
                 print(f"[build]   {name} {entry}: {line.strip()}")
 
 
+def is_nl_kernel(name):
+    """Whether a profiled kernel's name is the NL kernel's: the pipelined
+    scan (``levelscan.cuh`` ``level_scan_pipelined_kernel``) over
+    ``NLPipeBody``; the AD's reverse kernel is the same scan over another
+    body."""
+    return "level_scan_pipelined_kernel" in name and "NLPipeBody" in name
+
+
 def profile_main_path(torch, c, card, fused, steps=20):
     """Profile ``steps`` main-path steps (f32, 65,536 x 137), ``fused``
     (Cloudsc2NL with saturation fused in, the driver's default) or
@@ -416,7 +426,7 @@ def profile_main_path(torch, c, card, fused, steps=20):
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-        if "level_scan_pipelined_kernel" in e.key:
+        if is_nl_kernel(e.key):
             kernel_us += us
         else:
             other_us += us
@@ -1274,8 +1284,7 @@ def form_timing(torch, nlk, tlk, adk, build, c0, card):
             res["fused rolled"] = kernel_ms(torch, lambda: adk.cloudsc2_ad_fused_cuda(s, dt, c), 3)[0]
             div = div_switch(c, dtype)
             suffix, _ = build.form(bool(c.CUADJ_COMPACT), div != 0)
-            rev = kernel_usage(build, adk, c, dtype, "cloudsc2_ad" + suffix, "reverse",
-                               ("ADBodyIfLb0ELb1E" if tag == "f32" else "ADBodyIdLb0ELb1E") + f"Li{div}E")
+            rev = kernel_usage(build, adk, c, dtype, "cloudsc2_ad" + suffix, "reverse", reverse_entry(tag, div))
             # fused_occupancy raises where the card's blocks per SM are not
             # the plan's at its registers
             fus = kernel_usage(build, adk, c, dtype, "cloudsc2_ad_fused" + suffix, "fused rolled",
@@ -1285,7 +1294,9 @@ def form_timing(torch, nlk, tlk, adk, build, c0, card):
             print(f"[form-timing {tag} {BIG}x{NLEV} {form}] NL kernel {res['nl']:.4f} ms, TL kernel "
                   f"{res['tl']:.4f} ms, two-kernel AD {res['ad']:.4f} ms (reverse alone {res['reverse']:.4f}), "
                   f"fused AD rolled {res['fused rolled']:.4f} ms (CUDA events); reverse kernel {rev['registers']} "
-                  f"registers, {rev['local_bytes']} B local, ptxas spills {rev['spill_stores']}/{rev['spill_loads']} B; "
+                  f"registers, {rev['local_bytes']} B local, ptxas spills {rev['spill_stores']}/"
+                  f"{rev['spill_loads']} B, {rev['blocks_per_sm']} blocks of 128 per SM, ring {rev['depth']} x "
+                  f"{rev['shared_bytes']} B shared; "
                   f"fused {fus['registers']} registers, {fus['block']} x {fus['blocks_per_sm']} = "
                   f"{fus['threads_per_sm']} threads per SM, resident {occ['registers']} registers, "
                   f"{occ['threads_per_sm']} threads per SM (each the plan's at its registers); {card}")
@@ -1337,10 +1348,17 @@ def fused_entry(tag, resident, div=0):
     return f"ADFusedRevI{t}Lb0ELb1ELb{int(resident)}ELi{div}EEE{t}{ring}Li128ELi{blocks}E"
 
 
+def reverse_entry(tag, div=0, evap=False):
+    """The mangled-name key in ptxas's log of the reverse kernel's
+    instantiation with LREGCL: its pipelined body's type, switches and
+    divide."""
+    return f"ADPipeBodyI{'f' if tag == 'f32' else 'd'}Lb{int(evap)}ELb1ELi{div}E"
+
+
 #: the mangled-name keys of each AD kernel's default instantiation (f32 /
 #: f64, no evaporation, LREGCL) in ptxas's log, by library and form
 AD_ENTRIES = {
-    ("cloudsc2_ad", "reverse"): ("ADBodyIfLb0ELb1E", "ADBodyIdLb0ELb1E"),
+    ("cloudsc2_ad", "reverse"): (reverse_entry("f32"), reverse_entry("f64")),
     ("cloudsc2_ad_fused", "fused rolled"): (fused_entry("f32", False), fused_entry("f64", False)),
     ("cloudsc2_ad_fused", "fused resident"): (fused_entry("f32", True), fused_entry("f64", True)),
 }
@@ -1375,12 +1393,12 @@ def kernel_usage(build, adk, c, dtype, lib, form, key):
     reports them (``cudaFuncGetAttributes``; the fused kernel's at the
     block the card picks, with that plan), and the spill bytes ptxas
     reported where this process built the library (None where not); raises
-    where ptxas's registers differ from the card's."""
-    from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
-
+    where ptxas's registers differ from the card's.  The reverse kernel's
+    reading also has its blocks per SM, ring depth and shared bytes."""
     if form == "reverse":
-        usage = dict(adk.reverse_attributes(dtype, bool(c.LEVAPLS2 or c.LDRAIN1D), bool(c.LREGCL),
-                                            div_switch(c, dtype), bool(c.CUADJ_COMPACT)))
+        # reverse_occupancy raises where the card's blocks per SM or shared
+        # bytes are not the plan's at its registers and ring depth
+        usage = dict(adk.reverse_occupancy(dtype, c))
     else:
         usage = dict(adk.fused_occupancy(dtype, c, form == "fused resident", NLEV))
     regs, usage["spill_stores"], usage["spill_loads"] = ptxas_usage(build, lib, key)
@@ -1516,6 +1534,9 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
                              f"{BIG * NLEV * AD_LEVEL_FLOPS[evap] / PEAK_FLOPS[tag] * 1e3:.4f} ms at peak; "
                              f"{u['registers']} registers and {u['local_bytes']} B local memory a thread "
                              f"(cudaFuncGetAttributes), {spills}")
+                    if form == "reverse":
+                        extra += (f"; {u['blocks_per_sm']} blocks of 128 per SM, its ring {u['depth']} levels, "
+                                  f"{u['shared_bytes']} B shared a block (reverse_occupancy)")
             if resident is not None:
                 res[label + " occupancy"] = occ = fused_plan_reading(adk, dtype, c, resident, BIG)
                 extra += "; " + fused_plan_text(occ)
@@ -1525,8 +1546,24 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
                   f"{b_by} (bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, operations of the function "
                   f"{BIG * NLEV * flops / PEAK_FLOPS[tag] * 1e3:.4f} ms): {b_ms / k:.3f} of it{extra}; "
                   f"wrapper host time {h:.4f} ms per call; kernel runs {[round(x, 4) for x in k_ms]}; {card}")
-        out[tag] = res
+        # the reverse kernel with evaporation (LEVAPLS2): 45 values a
+        # column-level, beside the default's 43
+        cl = c.replace(LEVAPLS2=True)
         del s, traj, cases
+        _, s, dt = ad_state(torch, BIG, dtype, cl, seed=2)
+        traj = nlk.cloudsc2_nl_cuda(s, dt, cl, with_trajectory=True)[2]
+        k, h, k_ms = kernel_ms(torch, lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, cl), 10)
+        b_ms, b_by = bound(BIG * (NLEV * (41 + 1 + 3) + 6) * item, BIG * NLEV * (NL_FLOPS + TL_FLOPS), tag)
+        u = res["reverse levapls2 registers"] = kernel_usage(build, adk, cl, dtype, "cloudsc2_ad", "reverse",
+                                                              reverse_entry(tag, 0, True))
+        res["reverse levapls2"] = (k, h, b_ms, b_by)
+        print(f"[ad-timing {tag} {BIG}x{NLEV} reverse levapls2] kernel {k:.4f} ms, {k / res['reverse'][0]:.3f} of "
+              f"the default's {res['reverse'][0]:.4f}; bound {b_ms:.4f} ms by {b_by}: {b_ms / k:.3f} of it; "
+              f"{u['registers']} registers, {u['local_bytes']} B local, ptxas spills {u['spill_stores']}/"
+              f"{u['spill_loads']} B, {u['blocks_per_sm']} blocks of 128 per SM, ring {u['depth']} x "
+              f"{u['shared_bytes']} B shared; kernel runs {[round(x, 4) for x in k_ms]}; {card}")
+        out[tag] = res
+        del s, traj
         torch.cuda.empty_cache()
     return out
 
@@ -1759,7 +1796,7 @@ def trace_overlap(path):
         span = (args.get("stream", e.get("tid")), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
         if name.startswith("Memcpy") and ("HtoD" in name or "DtoH" in name):
             copies.append((name, *span))
-        elif e.get("cat") == "kernel" and "level_scan_pipelined_kernel" in name:
+        elif e.get("cat") == "kernel" and is_nl_kernel(name):
             kernels.append(span)
     return copies, kernels
 
@@ -2639,6 +2676,20 @@ def main() -> int:
         "rev_bound_ms": rev32[2],
         "bound_ms_f64": fused64[2],
         "rev_registers": {"f32": ad_time["f32"]["reverse registers"], "f64": ad_time["f64"]["reverse registers"]},
+        "rev_design": "the pipelined reverse scan: each level's 27 values (29 with evaporation) copied by "
+                      "cp.async into a ring in shared memory while the levels below run",
+        "rev_ring_depth": ad_time["f32"]["reverse registers"]["depth"],
+        "rev_ring_depth_f64": ad_time["f64"]["reverse registers"]["depth"],
+        "rev_shared_bytes": ad_time["f32"]["reverse registers"]["shared_bytes"],
+        "rev_shared_bytes_f64": ad_time["f64"]["reverse registers"]["shared_bytes"],
+        "rev_blocks_per_sm": ad_time["f32"]["reverse registers"]["blocks_per_sm"],
+        "rev_blocks_per_sm_f64": ad_time["f64"]["reverse registers"]["blocks_per_sm"],
+        "rev_ms_levapls2": ad_time["f32"]["reverse levapls2"][0],
+        "rev_ms_levapls2_f64": ad_time["f64"]["reverse levapls2"][0],
+        "rev_bound_ms_levapls2": ad_time["f32"]["reverse levapls2"][2],
+        "rev_bound_ms_levapls2_f64": ad_time["f64"]["reverse levapls2"][2],
+        "rev_registers_levapls2": {"f32": ad_time["f32"]["reverse levapls2 registers"],
+                                   "f64": ad_time["f64"]["reverse levapls2 registers"]},
         "library_ms": None,
         "host_ms": fwd32[1] + rev32[1],
         "host_ms_f64": fwd64[1] + rev64[1],

@@ -10,19 +10,24 @@ form included, with its two kernels:
    (:func:`cloudsc2_tpu_torch.kernels.nonlinear.cloudsc2_nl_cuda` with
    ``with_trajectory``): the forward outputs and the carry entering each
    level;
-2. the reverse sweep (``csrc/adjoint.cu`` over ``csrc/ad_level.h`` and the
-   reverse form of ``csrc/levelscan.cuh``): one thread per column runs the
-   levels bottom-up and applies the transpose of the TL level, written by
-   hand (one primal pass and one adjoint pass, about 700 flops per
-   column-level), around the stored carry; it folds the raw fields and
-   seeds and writes the 16 assembled input cotangents itself.
+2. the reverse sweep (``csrc/adjoint.cu`` over ``csrc/ad_level.h``
+   ``ADPipeBody`` and the pipelined scan of ``csrc/levelscan.cuh`` run
+   bottom-up): one thread per column runs the levels bottom-up and applies
+   the transpose of the TL level, written by hand (one primal pass and one
+   adjoint pass, about 700 flops per column-level), around the stored
+   carry; it folds the raw fields and seeds and writes the 16 assembled
+   input cotangents itself.  Each level's 27 input values (29 with
+   evaporation) are copied ahead into a ring in shared memory while the
+   levels below it run, so the wrapper refuses outputs that overlap an
+   input.
 
-Both are bound by bytes; the reverse level's registers (128 a thread in
-f32, 244-246 in f64) set how many columns an SM runs at once, as the note
-at the top of ``adjoint.cu`` counts.  Unlike the Pallas kernel, it takes
-f32 and f64, any column count, and ``LPHYLIN=False``: the TL, and so the
-AD, does not read ``LPHYLIN`` (``physics/tangent_linear.py:26-27``), and the
-forward sweep runs the NL step under linearized physics
+Both are bound by bytes; the reverse level's registers and its ring's
+shared bytes set how many columns an SM runs at once
+(:func:`reverse_occupancy`, the note at the top of ``adjoint.cu``).
+Unlike the Pallas kernel, it takes f32 and f64, any column count, and
+``LPHYLIN=False``: the TL, and so the AD, does not read ``LPHYLIN``
+(``physics/tangent_linear.py:26-27``), and the forward sweep runs the NL
+step under linearized physics
 (:func:`forward_constants`), which is the TL's own forward, so both
 settings give the same numbers, as the JAX package's scan adjoint does.
 It takes the ``FAST_DIV`` divide modes (float32; float64 divides exactly)
@@ -54,10 +59,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from cloudsc2_tpu_torch.kernels import build
+from cloudsc2_tpu_torch.kernels import build, nonlinear
 from cloudsc2_tpu_torch.kernels.nonlinear import (
     NL_INPUTS,
     STEP_OUTPUTS,
+    check_disjoint,
     check_inputs,
     cloudsc2_nl_cuda,
     cloudsc2_nl_host,
@@ -106,6 +112,8 @@ SM_SHARED_BYTES = 233_472
 BLOCK_RESERVED_BYTES = 1_024
 #: the fused kernel's threads a block (``kBlock`` in ``ad_fused.cu``)
 FUSED_BLOCK = 128
+#: the reverse kernel's threads a block (``kBlock`` in ``adjoint.cu``)
+REVERSE_BLOCK = 128
 #: the fused kernel's forward sweep runs the NL kernel's pipelined scan: its
 #: ring's slots in shared memory by dtype (``nl_level.h`` ``NLRing``: f32
 #: three, f64 two in registers), each of the unfused NL level's 16 raw
@@ -180,12 +188,14 @@ def _load(kind: str, form: str = "ad", compact: bool = True, fast: bool = False)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     if kind == "cuda" and form == "ad":
-        lib.cloudsc2_ad_attributes.argtypes = [_I] * 5 + [_P]
-        lib.cloudsc2_ad_attributes.restype = ctypes.c_int
+        lib.cloudsc2_ad_occupancy.argtypes = [_I] * 5 + [_P]
+        lib.cloudsc2_ad_occupancy.restype = ctypes.c_int
     if kind == "cuda" and form == "ad_fused":
         lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 6 + [_P]
         lib.cloudsc2_ad_fused_occupancy.restype = ctypes.c_int
     if kind == "host" and form == "ad":
+        lib.cloudsc2_ad_direct_host.argtypes = argtypes
+        lib.cloudsc2_ad_direct_host.restype = ctypes.c_int
         lib.cloudsc2_ad_level_host.argtypes = [_I] * 5 + [_P] * 4 + [_I]
         lib.cloudsc2_ad_level_host.restype = ctypes.c_int
         lib.cloudsc2_ad_level_signature.restype = ctypes.c_char_p
@@ -237,11 +247,8 @@ def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: T
     ins, dtype = check_inputs(state, c, device_type, names, _IFACE)
     by_name = dict(zip(names, ins))
     nlev, ncols = state["ap"].shape
-    outs = [
-        torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype,
-                    device=state["ap"].device)
-        for n in outputs
-    ]
+    outs = [nonlinear._empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device)
+            for n in outputs]
     return [by_name.get(n) for n in inputs], outs, dtype
 
 
@@ -249,12 +256,12 @@ def _reverse(state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Co
              device_type: str) -> Tuple[list, list, Tensor, Tuple[int, ...]]:
     """Check the state, the seeds and the trajectory, and return the reverse
     kernel's inputs in order (``None`` for one it does not read), fresh
-    outputs, the constant struct and the switches."""
+    outputs (none overlapping an input: the kernel reads the next levels up
+    ahead of its stores), the constant struct and the switches."""
     ins, outs, dtype = _marshal({**state, **traj}, c, device_type, AD_INPUTS, AD_OUTPUTS)
+    check_disjoint(ins, dict(zip(AD_OUTPUTS, outs)), AD_INPUTS)
     consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
-    switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
-                div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
-    return ins, outs, consts, switches
+    return ins, outs, consts, reverse_switches(dtype, c)
 
 
 def _assemble(
@@ -273,7 +280,9 @@ def cloudsc2_ad_reverse_cuda(
 ) -> Dict[str, Tensor]:
     """The reverse kernel alone, on PyTorch's current stream: the 16 input
     cotangents (named as in ``AD_OUTPUTS``) from the state, its seeds and
-    the forward trajectory ``traj``.  Each launch adds one to
+    the forward trajectory ``traj``.  Raises on anything the kernel does
+    not take, on a failed build and on a refused launch (its ring's shared
+    memory included); never falls back.  Each launch adds one to
     ``cloudsc2_ad_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
     ins, outs, consts, switches = _reverse(state, traj, dt, c, "cuda")
@@ -315,18 +324,60 @@ cloudsc2_ad_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
+def reverse_switches(dtype: torch.dtype, c: Constants) -> Tuple[int, ...]:
+    """The reverse kernel's int switches for a dtype and constants ``c``:
+    ``is_double``, ``evap``, ``lregcl``, ``div``, ``compact``."""
+    return (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
+            div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
+
+
 @functools.lru_cache(maxsize=None)
-def reverse_attributes(dtype: torch.dtype, evap: bool, lregcl: bool, div: int = 0,
-                       compact: bool = True) -> Dict[str, int]:
-    """The reverse kernel's ``registers`` and ``local_bytes`` a thread on
-    the card (``cudaFuncGetAttributes``) for one instantiation (``div``: the
-    divide switch, ``compact``: the library's form).  Needs the card."""
-    out = (ctypes.c_int * 2)()
-    switches = (int(dtype == torch.float64), int(evap), int(lregcl), div, int(compact))
-    err = _form_lib("cuda", "ad", switches).cloudsc2_ad_attributes(*switches, out)
+def _reverse_query(switches: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = (ctypes.c_int * 5)()
+    err = _form_lib("cuda", "ad", switches).cloudsc2_ad_occupancy(*switches, out)
     if err != 0:
-        raise RuntimeError(f"cloudsc2_ad attribute query failed: cudaError_t {err}")
-    return {"registers": out[0], "local_bytes": out[1]}
+        raise RuntimeError(f"cloudsc2_ad occupancy query failed: cudaError_t {err}")
+    return tuple(out)
+
+
+def reverse_ring_fields(evap: bool) -> int:
+    """Values of one level in a slot of the reverse kernel's ring
+    (``ad_level.h`` ``ADRingField``): 16 raw fields, 9 seeds and 2 values
+    of the trajectory, and with evaporation ``covptot_i`` and ``c_cov``."""
+    return 29 if evap else 27
+
+
+def reverse_plan(dtype: torch.dtype, evap: bool, registers: int, depth: int) -> Dict[str, int]:
+    """The reverse kernel's launch at a register count and ring depth:
+    blocks of ``REVERSE_BLOCK`` threads, its ring of ``depth`` slots of
+    :func:`reverse_ring_fields` values a thread in dynamic shared memory
+    (``shared_bytes``: 27,648 B a block in f32 at 2 slots, 55,296 B in f64),
+    and as many blocks an SM as the registers
+    (:func:`register_blocks`) and the rings leave."""
+    item = torch.empty((), dtype=dtype).element_size()
+    shared = depth * reverse_ring_fields(evap) * REVERSE_BLOCK * item
+    per_sm = min(register_blocks(registers, REVERSE_BLOCK), SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES))
+    return {"block": REVERSE_BLOCK, "blocks_per_sm": per_sm, "shared_bytes": shared, "depth": depth}
+
+
+def reverse_occupancy(dtype: torch.dtype, c: Constants) -> Dict[str, int]:
+    """What the card makes of the reverse kernel that
+    :func:`cloudsc2_ad_reverse_cuda` launches for constants ``c``, at its
+    128 threads a block: ``blocks_per_sm``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
+    ``local_bytes`` a thread (``cudaFuncGetAttributes``), ``shared_bytes``
+    a block and the ring ``depth``.  Raises ``RuntimeError`` where the
+    card's blocks per SM or shared bytes are not :func:`reverse_plan`'s at
+    the card's registers and depth.  Needs the card; the answers are kept
+    per instantiation."""
+    switches = reverse_switches(dtype, c)
+    per_sm, registers, local, shared, depth = _reverse_query(switches)
+    got = {"blocks_per_sm": per_sm, "registers": registers, "local_bytes": local, "shared_bytes": shared,
+           "depth": depth}
+    plan = reverse_plan(dtype, bool(switches[1]), registers, depth)
+    if (per_sm, shared) != (plan["blocks_per_sm"], plan["shared_bytes"]):
+        raise RuntimeError(f"the card holds the AD reverse kernel otherwise than its plan: {got} against {plan}")
+    return got
 
 
 def cloudsc2_ad_host(
@@ -336,13 +387,31 @@ def cloudsc2_ad_host(
     only): the host NL body with its trajectory, then the reverse body."""
     tends, diags, traj = cloudsc2_nl_host(state, dt, forward_constants(c), with_trajectory=True,
                                           traj_only=cotangent_only)
+    return _assemble(tends, diags, cloudsc2_ad_reverse_host(state, traj, dt, c))
+
+
+def cloudsc2_ad_reverse_host(
+    state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants, direct: bool = False
+) -> Dict[str, Tensor]:
+    """The reverse kernel's body compiled for the host, on CPU tensors
+    (tests only), as :func:`cloudsc2_ad_reverse_cuda` takes them: through
+    the pipelined reverse scan the card runs, at the card's ring depth, or
+    with ``direct`` through the direct reverse scan, its reference."""
     ins, outs, consts, switches = _reverse(state, traj, dt, c, "cpu")
     lib = _form_lib("host", "ad", switches)
     nlev, ncols = state["ap"].shape
-    err = lib.cloudsc2_ad_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
+    entry = lib.cloudsc2_ad_direct_host if direct else lib.cloudsc2_ad_host
+    err = entry(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad host body failed: {err}")
-    return _assemble(tends, diags, dict(zip(AD_OUTPUTS, outs)))
+    return dict(zip(AD_OUTPUTS, outs))
+
+
+def reverse_ring_depth(dtype: torch.dtype) -> int:
+    """The slots of the reverse kernel's ring (``ad_level.h`` ``ADRing``):
+    the level running and the next levels up in flight, as the host build
+    reports them."""
+    return _load("host").cloudsc2_ad_ring_depth(int(dtype == torch.float64))
 
 
 def cloudsc2_ad_level_host(

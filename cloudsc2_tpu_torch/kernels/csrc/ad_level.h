@@ -2,13 +2,14 @@
 // Licensed under the Apache License, Version 2.0.
 //
 // One reverse level of the CLOUDSC2 adjoint for one column, and the
-// per-column body that runs it bottom-up through the level scan
-// (levelscan.cuh, REVERSE).  The reverse half of cloudsc2_ad_pallas
-// (cloudsc2_tpu/pallas/adjoint.py:125): its reverse body _make_rev_body
-// (:320, jax.vjp of tl_level, one reverse sweep per level), its input folds
-// _reverse_problem (:260) and its assembly _assemble (:362), which
-// cloudsc2_ad_pallas_fused (:432) shares: the fused kernel (ad_fused.h) runs
-// this body too, from its stack.
+// per-column bodies that run it bottom-up through the level scan: ADBody
+// through the direct scan (levelscan.cuh, REVERSE), ADPipeBody through the
+// pipelined scan that the reverse kernel runs.  The reverse half of
+// cloudsc2_ad_pallas (cloudsc2_tpu/pallas/adjoint.py:125): its reverse body
+// _make_rev_body (:320, jax.vjp of tl_level, one reverse sweep per level),
+// its input folds _reverse_problem (:260) and its assembly _assemble
+// (:362), which cloudsc2_ad_pallas_fused (:432) shares: the fused kernel
+// (ad_fused.h) runs ADBody too, from its stack.
 //
 // The TL level (tl_level of tl_level.h) is exactly linear in its
 // perturbations: every branch depends on forward values only.  ad_level is
@@ -31,10 +32,14 @@
 // (a primal pass of about 280 with 9 exp, a tanh and 2 sqrt, an adjoint
 // pass of about 420), about 860 with evaporation (a sqrt and 2 pow more),
 // where running tl_level once per input direction (12-14 times) cost
-// 8,400-9,800.  The primal values the adjoint reads stay in registers: 128
-// a thread in f32 and 244-246 in f64 without evaporation, with no spill;
-// 159-164 and 255 with evaporation, where f64 spills 192-200 bytes (ptxas,
-// sm_90a).
+// 8,400-9,800.  The primal values the adjoint reads stay in registers.  On
+// the card the reverse kernel runs ADPipeBody (below), its level's inputs
+// copied ahead into a ring in shared memory: in f32 under launch bounds of
+// 4 blocks of 128, 124 registers without evaporation and 128 with, where
+// ptxas spills 108 bytes; in f64 without bounds, 250 registers without
+// evaporation and 255 with, and 160 bytes of local memory (ptxas and
+// cudaFuncGetAttributes, sm_90a, on an NVIDIA H100 80GB HBM3, 700.00 W;
+// adjoint.cu).
 //
 // Static switches are template parameters: EVAP = LEVAPLS2 || LDRAIN1D,
 // LREGCL, and D, the divide policy (scalar_math.h): the primal pass divides
@@ -859,7 +864,8 @@ CLOUDSC2_HD ADCot<T> ad_level(const TLLevelIn<T>& x, const TLCol<T>& col, const 
 
 // ------------------------------------------------------------ column body ----
 // The Body of level_scan_column<Body, true>: the reverse sweep of
-// cloudsc2_ad_pallas and its XLA folds and assembly, for one column.
+// cloudsc2_ad_pallas and its XLA folds and assembly, for one column (the
+// fused kernel's reverse sweep, and the host's reference of ADPipeBody).
 template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
 struct ADBody {
   ADFields<T> f;
@@ -984,6 +990,163 @@ struct ADBody {
     f.lu_i[at(0, col)] = T(0);
     f.aph_i[at(0, col)] = T(0) - s.dp_below;
     f.aph_i[at(nlev, col)] = EVAP ? s.dp_bottom + s.surf : s.dp_bottom;
+  }
+};
+
+// ------------------------------------------------------- pipelined body ----
+// The values of one level in a slot of the pipelined reverse scan's ring,
+// in this order: the raw fields (aph at the level's top interface k, lu at
+// k+1), the flux seeds at interface k+1, the level's seeds, the trajectory;
+// covptot_i and c_cov last, and absent without EVAP.
+enum ADRingField {
+  AR_AP, AR_APH, AR_LU, AR_LUDE, AR_MFD, AR_MFU, AR_Q, AR_QI, AR_QL, AR_QSAT, AR_SUPSAT, AR_T, AR_TND_Q,
+  AR_TND_QI, AR_TND_QL, AR_TND_T, AR_FPLSL_I, AR_FPLSN_I, AR_FHPSL_I, AR_FHPSN_I, AR_TND_T_I, AR_TND_Q_I,
+  AR_TND_QL_I, AR_TND_QI_I, AR_CLC_I, AR_C_RFL, AR_C_SFL, AR_COVPTOT_I, AR_C_COV
+};
+
+// The ring's slots by type (DEPTH - 1 levels in flight while one runs),
+// in shared memory in both types, chosen by measurement on an H100 (a
+// ladder of depths, PERF.md section 6): two in both, the level running and
+// the one above it (27,648 B a block in float, 55,296 B in double; in
+// float three slots ran 2-5% slower and four 7%, in double three 7%).
+template <typename T>
+struct ADRing {
+  static constexpr int DEPTH = 2;
+};
+
+// The Body of level_scan_pipelined_column<DEPTH, true>: ADBody's reverse
+// level, its values copied into the ring ahead of the level and folded
+// from the slot as ADBody::load and ADBody::step fold them from memory
+// (the same operations in the same order), then transposed and written as
+// ADBody::step does.  aph at the level's bottom interface is carried from
+// the level below.
+template <typename T, bool EVAP, bool LREGCL, int D = DIV_EXACT>
+struct ADPipeBody : ADBody<T, EVAP, LREGCL, D> {
+  using Base = ADBody<T, EVAP, LREGCL, D>;
+  static constexpr int FIELDS = EVAP ? AR_C_COV + 1 : AR_COVPTOT_I;
+
+  struct Column : Base::Column {
+    T aph_below;  // aph at the interface below the level
+  };
+
+  // Prologue: ADBody::begin with the tropopause pass's loads issued eight
+  // levels at a time.
+  CLOUDSC2_HD Column begin(int col) const {
+    const ADFields<T>& f = this->f;
+    NLCol<T> nl;
+    nl.trpaus = tropopause_eta_ahead<8>(f.t, f.tnd_cml_t, f.eta, this->c.dt, this->nlev, this->ncols, col);
+    critical_rh_coeffs(nl);
+    nl.aph_s = f.aph[this->at(this->nlev, col)];
+    Column s;
+    static_cast<typename Base::Column&>(s) = Base::begin(nl);
+    s.aph_below = nl.aph_s;
+    return s;
+  }
+
+  template <class Ring>
+  CLOUDSC2_HD void prefetch(Ring& r, int slot, int col, int k) const {
+    const ADFields<T>& f = this->f;
+    const size_t i = this->at(k, col);
+    const size_t ib = this->at(k + 1, col);
+    r.copy(slot, AR_AP, f.ap + i);
+    r.copy(slot, AR_APH, f.aph + i);
+    if (k + 1 < this->nlev) r.copy(slot, AR_LU, f.lu + ib);
+    r.copy(slot, AR_LUDE, f.lude + i);
+    r.copy(slot, AR_MFD, f.mfd + i);
+    r.copy(slot, AR_MFU, f.mfu + i);
+    r.copy(slot, AR_Q, f.q + i);
+    r.copy(slot, AR_QI, f.qi + i);
+    r.copy(slot, AR_QL, f.ql + i);
+    r.copy(slot, AR_QSAT, f.qsat + i);
+    r.copy(slot, AR_SUPSAT, f.supsat + i);
+    r.copy(slot, AR_T, f.t + i);
+    r.copy(slot, AR_TND_Q, f.tnd_cml_q + i);
+    r.copy(slot, AR_TND_QI, f.tnd_cml_qi + i);
+    r.copy(slot, AR_TND_QL, f.tnd_cml_ql + i);
+    r.copy(slot, AR_TND_T, f.tnd_cml_t + i);
+    r.copy(slot, AR_FPLSL_I, f.fplsl_i + ib);
+    r.copy(slot, AR_FPLSN_I, f.fplsn_i + ib);
+    r.copy(slot, AR_FHPSL_I, f.fhpsl_i + ib);
+    r.copy(slot, AR_FHPSN_I, f.fhpsn_i + ib);
+    r.copy(slot, AR_TND_T_I, f.tnd_t_i + i);
+    r.copy(slot, AR_TND_Q_I, f.tnd_q_i + i);
+    r.copy(slot, AR_TND_QL_I, f.tnd_ql_i + i);
+    r.copy(slot, AR_TND_QI_I, f.tnd_qi_i + i);
+    r.copy(slot, AR_CLC_I, f.clc_i + i);
+    r.copy(slot, AR_C_RFL, f.c_rfl + i);
+    r.copy(slot, AR_C_SFL, f.c_sfl + i);
+    if constexpr (EVAP) {
+      r.copy(slot, AR_COVPTOT_I, f.covptot_i + i);
+      r.copy(slot, AR_C_COV, f.c_cov + i);
+    }
+  }
+
+  // Level k from its slot (and the interface below it, which then moves up
+  // a level): what ADBody::level loads and folds from memory.
+  template <class Slot>
+  CLOUDSC2_HD void level(Column& s, const Slot& r, int col, int k) const {
+    const TLConst<T>& c = this->c;
+    TLLevelIn<T> x = {};
+    const T aph_above = r(AR_APH);
+    x.ap = r(AR_AP);
+    x.dp = s.aph_below - aph_above;
+    x.lu_next = k + 1 < this->nlev ? r(AR_LU) : T(0);
+    x.lude = r(AR_LUDE);
+    x.mf = r(AR_MFU) + r(AR_MFD);
+    x.q2 = r(AR_Q) + c.dt * r(AR_TND_Q) + r(AR_SUPSAT);
+    x.ql_fg = r(AR_QL) + c.dt * r(AR_TND_QL);
+    x.qi_fg = r(AR_QI) + c.dt * r(AR_TND_QI);
+    x.qsat = r(AR_QSAT);
+    x.t_fg = r(AR_T) + c.dt * r(AR_TND_T);
+    x.eta = this->f.eta[k];
+    x.scalm = this->f.scalm[k];
+    s.aph_below = aph_above;
+    NLCarry<T> traj{r(AR_C_RFL), r(AR_C_SFL), T(0)};
+    if constexpr (EVAP) traj.covptot = r(AR_C_COV);
+    ADWeights<T> w;
+    w.rfl = s.rfl + (r(AR_FPLSL_I) - c.rlvtt * r(AR_FHPSL_I));
+    w.sfl = s.sfl + (r(AR_FPLSN_I) - c.rlstt * r(AR_FHPSN_I));
+    w.cov = s.cov;
+    w.tnd_t = r(AR_TND_T_I);
+    w.tnd_q = r(AR_TND_Q_I);
+    w.tnd_ql = r(AR_TND_QL_I);
+    w.tnd_qi = r(AR_TND_QI_I);
+    w.clc = r(AR_CLC_I);
+    w.covptot = T(0);
+    if constexpr (EVAP) w.covptot = r(AR_COVPTOT_I);
+    const ADCot<T> g = ad_level<T, EVAP, LREGCL, D>(x, s.col, traj, w, c);
+    // the level's cotangents, written as ADBody::step writes them (step
+    // stays as it is: the fused kernel's reverse sweep runs it, and moving
+    // these stores into a helper of both changed that kernel's code)
+    const ADFields<T>& f = this->f;
+    const size_t i = this->at(k, col);
+    const size_t ib = this->at(k + 1, col);
+    const bool below = k + 1 < this->nlev;
+    s.rfl = g.rfl;
+    s.sfl = g.sfl;
+    s.cov = g.cov;
+    f.cml_t_i[i] = c.dt * g.t_fg;
+    f.cml_q_i[i] = c.dt * g.q2;
+    f.cml_ql_i[i] = c.dt * g.ql_fg;
+    f.cml_qi_i[i] = c.dt * g.qi_fg;
+    f.ap_i[i] = g.ap;
+    f.t_i[i] = g.t_fg;
+    f.q_i[i] = g.q2;
+    f.qsat_i[i] = g.qsat;
+    f.ql_i[i] = g.ql_fg;
+    f.qi_i[i] = g.qi_fg;
+    f.lude_i[i] = g.lude;
+    f.mfd_i[i] = g.mf;
+    f.mfu_i[i] = g.mf;
+    f.supsat_i[i] = g.q2;
+    if (below) f.lu_i[ib] = g.lu_next;
+    if (below) {
+      f.aph_i[ib] = g.dp - s.dp_below;
+    } else {
+      s.dp_bottom = g.dp;
+    }
+    s.dp_below = g.dp;
+    if (EVAP) s.surf = s.surf + g.aph_s;
   }
 };
 

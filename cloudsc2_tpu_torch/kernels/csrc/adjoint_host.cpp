@@ -1,14 +1,15 @@
 // Copyright 2026.
 // Licensed under the Apache License, Version 2.0.
 //
-// Host build of the AD reverse kernel's body (ad_level.h through the
-// reverse form of levelscan.cuh), compiled with g++ -ffp-contract=off.  The
-// CPU tests run it, after the host NL body with its trajectory, against the
-// plain AD, so the kernel's own arithmetic is checked on a machine without
-// a card.  A second entry runs one level pointwise, tl_level forward and
-// ad_level in reverse, for the tests of the transpose's duality, in the
-// arrays' type or, as their reference, in long double.  Neither is used on
-// the main path.
+// Host build of the AD reverse kernel's body (ad_level.h ADPipeBody through
+// the pipelined reverse scan of levelscan.cuh, and ADBody through its
+// direct reverse scan for reference), compiled with g++ -ffp-contract=off.
+// The CPU tests run it, after the host NL body with its trajectory, against
+// the plain AD, so the kernel's own arithmetic is checked on a machine
+// without a card, and the pipelined scan against the direct one.  Another
+// entry runs one level pointwise, tl_level forward and ad_level in reverse,
+// for the tests of the transpose's duality, in the arrays' type or, as
+// their reference, in long double.  None is used on the main path.
 #include <math.h>
 
 #include "scalar_math.h"
@@ -69,6 +70,10 @@ inline long double fdiv_scalar(long double a, long double b) {
 
 namespace {
 
+// The columns in a loop, through the pipelined reverse scan the card runs
+// (its ring in shared memory as HostRing models it), or with DIRECT
+// through the direct reverse scan of ADBody.
+template <bool DIRECT>
 struct HostRunner {
   const void* const* in;
   void* const* out;
@@ -77,9 +82,13 @@ struct HostRunner {
 
   template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
-    using Body = cloudsc2::ADBody<T, EVAP, LREGCL, D>;
-    cloudsc2::level_scan_host<Body, true>(
-        cloudsc2::make_ad_body<T, EVAP, LREGCL, D>(in, out, consts, nlev, ncols));
+    const auto body = cloudsc2::make_ad_body<T, EVAP, LREGCL, D>(in, out, consts, nlev, ncols);
+    if constexpr (DIRECT) {
+      cloudsc2::level_scan_host<decltype(body), true>(body);
+    } else {
+      using Pipe = cloudsc2::ADPipeBody<T, EVAP, LREGCL, D>;
+      cloudsc2::level_scan_pipelined_host<cloudsc2::ADRing<T>::DEPTH, true, Pipe, T, true>(Pipe{body});
+    }
     return 0;
   }
 };
@@ -165,12 +174,29 @@ extern "C" {
 const char* cloudsc2_ad_signature() { return cloudsc2::ad_signature(); }
 
 // Same arguments as cloudsc2_ad_launch (adjoint.cu) with host pointers and
-// no stream.
+// no stream, through the pipelined reverse scan the card runs (its ring of
+// cloudsc2_ad_ring_depth slots, the copies modelled as landing at their
+// wait); returns 0 on success.
 int cloudsc2_ad_host(int is_double, int evap, int lregcl, int div, int compact, const void* const* in,
                      void* const* out, const void* consts, int nlev, int ncols) {
   if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
-  const HostRunner r{in, out, consts, nlev, ncols};
+  const HostRunner<false> r{in, out, consts, nlev, ncols};
   return cloudsc2::ad_dispatch(r, is_double, evap, lregcl, div);
+}
+
+// The same through the direct reverse scan (level_scan_host of ADBody:
+// each level's loads, then its arithmetic, then its stores), the
+// reference of the pipelined scan in the CPU tests.
+int cloudsc2_ad_direct_host(int is_double, int evap, int lregcl, int div, int compact, const void* const* in,
+                            void* const* out, const void* consts, int nlev, int ncols) {
+  if (nlev < 1 || ncols < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
+  const HostRunner<true> r{in, out, consts, nlev, ncols};
+  return cloudsc2::ad_dispatch(r, is_double, evap, lregcl, div);
+}
+
+// The ring's depth for float (is_double 0) or double (1), the card's.
+int cloudsc2_ad_ring_depth(int is_double) {
+  return is_double ? cloudsc2::ADRing<double>::DEPTH : cloudsc2::ADRing<float>::DEPTH;
 }
 
 #define CLOUDSC2_STR(n) #n ","

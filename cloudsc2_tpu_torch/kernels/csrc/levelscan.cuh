@@ -48,11 +48,13 @@ CLOUDSC2_HD void level_scan_column(const Body& body, int col) {
 }
 
 #ifdef __CUDACC__
-template <class Body, bool REVERSE = false>
+// The direct top-down kernel (the TL kernel's); the card runs the
+// bottom-up form only pipelined (below).
+template <class Body>
 __global__ void __launch_bounds__(128) level_scan_kernel(const Body body) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= body.ncols) return;  // ragged last block
-  level_scan_column<Body, REVERSE>(body, col);
+  level_scan_column<Body>(body, col);
 }
 #endif
 
@@ -63,13 +65,13 @@ inline void level_scan_host(const Body& body) {
 }
 
 // ------------------------------------------------------------- pipelined ----
-// The pipelined form of the top-down scan: each level's inputs are copied
-// ahead into a per-thread ring of DEPTH slots, so that while a thread
-// computes level k the copies of levels k+1 .. k+DEPTH-1 are in flight.
-// In the direct form above a level's loads wait for the arithmetic of the
-// level before and nothing is in flight while it runs; here the copies
-// overlap it.  A slot holds a level's raw input values; the body folds
-// them as it would have folded its loads.
+// The pipelined form of the scan: each level's inputs are copied ahead
+// into a per-thread ring of DEPTH slots, so that while a thread computes
+// one level the copies of the next DEPTH-1 levels are in flight.  In the
+// direct form above a level's loads wait for the arithmetic of the level
+// before and nothing is in flight while it runs; here the copies overlap
+// it.  A slot holds a level's raw input values; the body folds them as it
+// would have folded its loads.
 //
 // A PipeBody provides
 //   typename PipeBody::Column                   per-column state, carry included
@@ -81,37 +83,43 @@ inline void level_scan_host(const Body& body) {
 //   template <class Slot>
 //   void level(Column&, const Slot&, int col, int k) const
 //       level k, its inputs read back as slot(field)
+//   void end(Column&, int col) const            epilogue (REVERSE only)
 //   int nlev, ncols;
 // A Ring provides copy(slot, field, const T* src), commit() (closes the
 // copies issued since the last commit into a group), wait<N>() (returns
 // when at most the N most recent groups are still pending), advance()
 // (called as each level's step begins) and slot(s).
 //
-// Level k's copies are group k; past the last level each step commits an
-// empty group, so group k is always the DEPTH-th most recent when level k
-// waits for it.  A level's slot is refilled (with level k+DEPTH) only in
-// the step after it was read, by the thread that read it.  The first
-// DEPTH-1 levels are issued before the prologue, which then runs under
-// them.  The body's loads are issued ahead of the stores of the levels
-// before them: the caller guarantees that no output overlaps an input.
-template <int DEPTH, class Body, class Ring>
+// Top down the levels run 0 .. nlev-1; with REVERSE they run nlev-1 .. 0,
+// then end().  Step j runs the j-th level in that order, and its copies
+// are group j; past the last level each step commits an empty group, so
+// group j is always the DEPTH-th most recent when step j waits for it.  A
+// level's slot is refilled (with the level DEPTH steps on) only in the
+// step after it was read, by the thread that read it.  The first DEPTH-1
+// levels in sweep order (the top ones, or with REVERSE the bottom ones)
+// are issued before the prologue, which then runs under them.  The body's
+// loads are issued ahead of the stores of the levels before them: the
+// caller guarantees that no output overlaps an input.
+template <int DEPTH, bool REVERSE = false, class Body, class Ring>
 CLOUDSC2_HD typename Body::Column level_scan_pipelined_column(const Body& body, Ring& ring, int col) {
   static_assert(DEPTH >= 1, "a ring needs a slot");
-  for (int k = 0; k < DEPTH - 1; ++k) {
-    if (k < body.nlev) body.prefetch(ring, k, col, k);
+  for (int j = 0; j < DEPTH - 1; ++j) {
+    if (j < body.nlev) body.prefetch(ring, j, col, REVERSE ? body.nlev - 1 - j : j);
     ring.commit();
   }
   typename Body::Column s = body.begin(col);
-  int slot = 0;  // k % DEPTH
-  for (int k = 0; k < body.nlev; ++k) {
+  int slot = 0;  // j % DEPTH
+  for (int j = 0; j < body.nlev; ++j) {
     ring.advance();
-    // level k+DEPTH-1 into the slot that level k-1 read
-    if (k + DEPTH - 1 < body.nlev) body.prefetch(ring, slot == 0 ? DEPTH - 1 : slot - 1, col, k + DEPTH - 1);
+    // the level DEPTH-1 steps on into the slot that step j-1 read
+    if (j + DEPTH - 1 < body.nlev)
+      body.prefetch(ring, slot == 0 ? DEPTH - 1 : slot - 1, col, REVERSE ? body.nlev - DEPTH - j : j + DEPTH - 1);
     ring.commit();
     ring.template wait<DEPTH - 1>();
-    body.level(s, ring.slot(slot), col, k);
+    body.level(s, ring.slot(slot), col, REVERSE ? body.nlev - 1 - j : j);
     slot = slot + 1 == DEPTH ? 0 : slot + 1;
   }
+  if constexpr (REVERSE) body.end(s, col);
   return s;
 }
 
@@ -170,23 +178,31 @@ struct SharedRing {
   __device__ __forceinline__ Slot slot(int s) const { return {base + s * FIELDS * stride, stride}; }
 };
 
-// SHARED: the ring in shared memory (SharedRing), else two slots in
-// registers (RegisterPair).  At most 128 registers a thread, so that four
-// blocks of 128 fit an SM.
-template <class Body, typename T, int DEPTH, bool SHARED>
-__global__ void __launch_bounds__(128, 4) level_scan_pipelined_kernel(const Body body) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= body.ncols) return;  // ragged last block
+// One column of the pipelined scan on the card: with SHARED the ring in
+// dynamic shared memory (SharedRing), else two slots in registers
+// (RegisterPair).
+template <int DEPTH, bool SHARED, bool REVERSE, typename T, class Body>
+__device__ __forceinline__ typename Body::Column level_scan_pipelined_device_column(const Body& body, int col) {
   if constexpr (SHARED) {
     extern __shared__ __align__(16) unsigned char cloudsc2_ring[];
     SharedRing<T, Body::FIELDS> ring{reinterpret_cast<T*>(cloudsc2_ring) + threadIdx.x,
                                      static_cast<int>(blockDim.x)};
-    level_scan_pipelined_column<DEPTH>(body, ring, col);
+    return level_scan_pipelined_column<DEPTH, REVERSE>(body, ring, col);
   } else {
     static_assert(DEPTH == 2, "a ring in registers has two slots");
     RegisterPair<T, Body::FIELDS> ring;
-    level_scan_pipelined_column<DEPTH>(body, ring, col);
+    return level_scan_pipelined_column<DEPTH, REVERSE>(body, ring, col);
   }
+}
+
+// The kernel, either direction: BLOCK threads a block and MIN_BLOCKS of
+// them an SM, which caps the registers a thread at what that many blocks
+// leave (1: no cap but the card's 255).
+template <class Body, typename T, int DEPTH, bool SHARED, bool REVERSE, int BLOCK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) level_scan_pipelined_kernel(const Body body) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= body.ncols) return;  // ragged last block
+  level_scan_pipelined_device_column<DEPTH, SHARED, REVERSE, T>(body, col);
 }
 #endif
 
@@ -232,26 +248,26 @@ struct HostRing {
 // One column of the host scan: with SHARED the shared-memory ring as
 // HostRing models it, else the card's RegisterPair itself; either starts
 // as NaN.
-template <int DEPTH, bool SHARED, typename T, class Body>
+template <int DEPTH, bool SHARED, typename T, bool REVERSE = false, class Body>
 inline typename Body::Column level_scan_pipelined_host_column(const Body& body, int col) {
   if constexpr (SHARED) {
     std::vector<T> buf(static_cast<size_t>(DEPTH) * Body::FIELDS, T(NAN));
     std::vector<typename HostRing<T, Body::FIELDS>::Pending> pending;
     int open = 0;
     HostRing<T, Body::FIELDS> ring{buf.data(), &pending, &open};
-    return level_scan_pipelined_column<DEPTH>(body, ring, col);
+    return level_scan_pipelined_column<DEPTH, REVERSE>(body, ring, col);
   } else {
     static_assert(DEPTH == 2, "a ring in registers has two slots");
     RegisterPair<T, Body::FIELDS> ring;
     for (int f = 0; f < Body::FIELDS; ++f) ring.cur.v[f] = ring.next.v[f] = T(NAN);
-    return level_scan_pipelined_column<DEPTH>(body, ring, col);
+    return level_scan_pipelined_column<DEPTH, REVERSE>(body, ring, col);
   }
 }
 
 // The host scan, a column at a time.
-template <int DEPTH, bool SHARED, class Body, typename T>
+template <int DEPTH, bool SHARED, class Body, typename T, bool REVERSE = false>
 inline void level_scan_pipelined_host(const Body& body) {
-  for (int col = 0; col < body.ncols; ++col) level_scan_pipelined_host_column<DEPTH, SHARED, T>(body, col);
+  for (int col = 0; col < body.ncols; ++col) level_scan_pipelined_host_column<DEPTH, SHARED, T, REVERSE>(body, col);
 }
 
 // ----------------------------------------------------- forward + reverse ----
@@ -336,8 +352,8 @@ CLOUDSC2_HD void level_scan_rev_sweep(const RevBody& rev, const FwdColumn& s, co
 }
 
 #ifdef __CUDACC__
-// The forward sweep's ring as level_scan_pipelined_kernel keeps it (DEPTH
-// slots, SHARED: in dynamic shared memory, else two in registers);
+// The forward sweep's ring as level_scan_pipelined_device_column keeps it
+// (DEPTH slots, SHARED: in dynamic shared memory, else two in registers);
 // BLOCK threads a block, MIN_BLOCKS of them an SM, which caps the
 // registers a thread at what that many blocks leave (the wrapper's plan,
 // kernels/adjoint.py fused_plan, counts the blocks the card then holds).
@@ -349,17 +365,8 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) level_scan_fwdrev_kernel(co
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= fwd.ncols) return;  // ragged last block; no thread reads another's stack or ring
   const ScratchStack<T> stack{scratch + col, fwd.nlev, fwd.ncols};
-  typename FwdBody::Column s;
-  if constexpr (SHARED) {
-    extern __shared__ __align__(16) unsigned char cloudsc2_ring[];
-    SharedRing<T, FwdBody::FIELDS> ring{reinterpret_cast<T*>(cloudsc2_ring) + threadIdx.x,
-                                        static_cast<int>(blockDim.x)};
-    s = level_scan_pipelined_column<DEPTH>(stacked(fwd, stack), ring, col);
-  } else {
-    static_assert(DEPTH == 2, "a ring in registers has two slots");
-    RegisterPair<T, FwdBody::FIELDS> ring;
-    s = level_scan_pipelined_column<DEPTH>(stacked(fwd, stack), ring, col);
-  }
+  const typename FwdBody::Column s =
+      level_scan_pipelined_device_column<DEPTH, SHARED, false, T>(stacked(fwd, stack), col);
   level_scan_rev_sweep(rev, s, stack, col, fwd.nlev);
 }
 #endif

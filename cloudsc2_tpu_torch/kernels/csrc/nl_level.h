@@ -754,7 +754,7 @@ struct NLKernel {
   using Body = NLPipeBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
   static constexpr int DEPTH = NLRing<T>::DEPTH;
   static constexpr bool SHARED = NLRing<T>::SHARED;
-  static auto fn() { return &level_scan_pipelined_kernel<Body, T, DEPTH, SHARED>; }
+  static auto fn() { return &level_scan_pipelined_kernel<Body, T, DEPTH, SHARED, false, kNLThreads, 4>; }
   static size_t shared_bytes(int threads) {
     return SHARED ? static_cast<size_t>(DEPTH) * Body::FIELDS * static_cast<size_t>(threads) * sizeof(T) : 0;
   }
@@ -772,8 +772,8 @@ struct NLKernel {
   }
   static void launch(int blocks, int threads, cudaStream_t stream,
                      const NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>& body) {
-    level_scan_pipelined_kernel<Body, T, DEPTH, SHARED><<<blocks, threads, shared_bytes(threads), stream>>>(
-        Body{body});
+    level_scan_pipelined_kernel<Body, T, DEPTH, SHARED, false, kNLThreads, 4>
+        <<<blocks, threads, shared_bytes(threads), stream>>>(Body{body});
   }
 };
 

@@ -194,12 +194,14 @@ def _empty(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> 
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Tensor]]) -> None:
-    """Raise ``ValueError`` where an output's bytes overlap an input's: the
-    kernel reads a level's inputs ahead of the stores of the levels before
-    it, which is the same step only when no output is an input."""
+def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Tensor]],
+                   names: Sequence[str] = NL_INPUTS) -> None:
+    """Raise ``ValueError`` where an output's bytes overlap an input's (the
+    inputs named by ``names``, in order): a pipelined kernel reads a level's
+    inputs ahead of the stores of the levels before it, which is the same
+    step only when no output is an input."""
     spans = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), n)
-             for t, n in zip(ins, NL_INPUTS) if t is not None]
+             for t, n in zip(ins, names) if t is not None]
     for name, o in outs.items():
         if o is None:
             continue

@@ -10,8 +10,19 @@ Times, with CUDA events over batches of back-to-back calls, at 65,536 x 137
 fused (saturation diagnosed in the kernel: the main path's form), with its
 trajectory (the AD's forward), ``traj_only`` (the gradient-only AD's
 forward), fused under ``CUADJ_COMPACT=False``, and in f32 fused under the
-faithful and approx divides -- the TL kernel and the AD's reverse kernel,
-the exact divide unless named.  Where the checkout has
+faithful and approx divides -- the TL kernel (also with ``LEVAPLS2``) and
+the AD's reverse kernel, the exact divide unless named.  ``ad`` times the
+reverse kernel in the default switches, with ``LEVAPLS2``, with
+``CUADJ_COMPACT=False`` and in f32 under the faithful and approx divides,
+beside the two-kernel AD (default and ``LEVAPLS2``) and the
+``cotangent_only`` step, and prints for each reverse form a checksum of
+its 16 outputs (their bits summed as integers, so two checkouts whose
+outputs are bitwise equal print the same), the wrapper's host milliseconds
+a call (read before the device is synchronized) and what the card makes of
+it: ``kernels.adjoint.reverse_occupancy`` where the
+checkout has it (registers, local bytes, blocks per SM, shared bytes, ring
+depth), else ``reverse_attributes``, with ptxas's spills where this process
+built the library.  Where the checkout has
 ``kernels.nonlinear.occupancy``, each NL form's registers, blocks per SM and
 ring depth are printed beside its time, and, as a yardstick of a rate with
 writes, ``torch.add(a, b, out=o)`` over the fused NL kernel's f32 bytes.
@@ -35,6 +46,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import statistics
 import sys
 import time
@@ -85,6 +97,7 @@ def main(argv=None) -> int:
     loads = [nlk.load_cuda, lambda: nlk.load_cuda(False)]
     ad = bool(kernels & {"ad", "ad_fused"})
     loads += [tlk.load_cuda] * ("tl" in kernels or ad) + [adk.load_cuda] * ad
+    loads += [lambda: adk.load_cuda(True, True), lambda: adk.load_cuda(False)] * ("ad" in kernels)
     loads += [adk.load_fused_cuda] * ("ad_fused" in kernels)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loads)) as pool:
@@ -108,6 +121,19 @@ def main(argv=None) -> int:
         runs = [cardmod.run_ms(fn, args.batch, device, hold=False) / args.batch for _ in range(args.runs)]
         return statistics.median(runs), runs
 
+    def host_ms(fn):
+        """Host milliseconds a call of ``fn``: the median over batches of
+        back-to-back calls, each read before the device is synchronized."""
+        runs = []
+        for _ in range(args.runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(args.batch):
+                fn()
+            runs.append((time.perf_counter() - t0) * 1e3 / args.batch)
+        torch.cuda.synchronize()
+        return statistics.median(runs)
+
     def seed_ad(s, dt, cf):
         """The state with the AD's output cotangent seeds: the TL kernel's
         outputs under the constants ``cf``."""
@@ -119,6 +145,44 @@ def main(argv=None) -> int:
         for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
             s[n + "_i"] = diags[n + "_i"]
         return s
+
+    def checksum(outs):
+        """The outputs' bits summed as integers, output by output, folded
+        into one hex string: equal for bitwise-equal outputs."""
+        h = 0
+        for n in adk.AD_OUTPUTS:
+            h = (h * 1_000_003 + int(outs[n].contiguous().view(torch.int32).to(torch.int64).sum())) % (2**61 - 1)
+        return f"{h:016x}"
+
+    def spills(dtype, cf):
+        """``(spill stores, spill loads)`` bytes ptxas reported for the
+        reverse kernel's instantiation, where this process built its
+        library (else None)."""
+        from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
+
+        lib = "cloudsc2_ad" + adk.build.form(bool(cf.CUADJ_COMPACT), div_switch(cf, dtype) != 0)[0]
+        key = (f"BodyI{'d' if dtype == torch.float64 else 'f'}Lb{int(bool(cf.LEVAPLS2 or cf.LDRAIN1D))}E"
+               f"Lb{int(bool(cf.LREGCL))}ELi{div_switch(cf, dtype)}E")
+        entry, found = "", None
+        for line in adk.build.logs.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif key in entry:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                found = (int(m[1]), int(m[2])) if m else found
+        return found
+
+    def reverse_reading(dtype, cf):
+        """What the card makes of the reverse kernel's instantiation."""
+        if hasattr(adk, "reverse_occupancy"):
+            o = dict(adk.reverse_occupancy(dtype, cf))
+        else:
+            from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
+
+            o = dict(adk.reverse_attributes(dtype, bool(cf.LEVAPLS2 or cf.LDRAIN1D), bool(cf.LREGCL),
+                                            div_switch(cf, dtype), bool(cf.CUADJ_COMPACT)))
+        o["spills"] = spills(dtype, cf)
+        return o
 
     def fused_reading(dtype, cf, resident):
         """What the card makes of the fused kernel's instantiation, and its
@@ -164,14 +228,27 @@ def main(argv=None) -> int:
                     occ[name] = fused_reading(dtype, cf, resident)
                 del sa
                 torch.cuda.empty_cache()
-        if kernels & {"tl", "ad"}:
-            s = seed_ad(s, dt, c)
-            if "tl" in kernels:
-                res["tl"] = ms(lambda: tlk.cloudsc2_tl_cuda(s, dt, c))
-            if "ad" in kernels:
-                traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True)[2]
-                res["ad reverse"] = ms(lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c))
-                del traj
+        if "tl" in kernels:
+            for name, cf in (("tl", c), ("tl levapls2", c.replace(LEVAPLS2=True))):
+                res[name] = ms(lambda cf=cf: tlk.cloudsc2_tl_cuda(s, dt, cf))
+        if "ad" in kernels:
+            forms = [("", c), (" levapls2", c.replace(LEVAPLS2=True)), (" ref", c.replace(CUADJ_COMPACT=False))]
+            if dtype == torch.float32:
+                forms += [(f" {m}", c.replace(FAST_DIV=m)) for m in ("faithful", "approx")]
+            for suffix, cf in forms:
+                sa = seed_ad(s, dt, c.replace(LEVAPLS2=cf.LEVAPLS2))
+                traj = nlk.cloudsc2_nl_cuda(sa, dt, cf, with_trajectory=True)[2]
+                name = "ad reverse" + suffix
+                res[name] = ms(lambda: adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf))
+                occ[name] = reverse_reading(dtype, cf)
+                occ[name]["checksum"] = checksum(adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf))
+                occ[name]["host_ms"] = round(host_ms(lambda: adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf)), 4)
+                if suffix in ("", " levapls2") and "ad_fused" not in kernels:  # else timed there
+                    res["two-kernel ad" + (suffix or " default")] = ms(lambda: adk.cloudsc2_ad_cuda(sa, dt, cf))
+                if suffix == "":
+                    res["cotangent_only"] = ms(lambda: adk.cloudsc2_ad_cuda(sa, dt, cf, cotangent_only=True))
+                del sa, traj
+                torch.cuda.empty_cache()
         tag = str(dtype)[6:]
         print(f"{label} {tag} {args.num_cols}x137: "
               + "; ".join(f"{k} {v[0]:.4f} ms (runs {[round(x, 4) for x in v[1]]})" for k, v in res.items())
@@ -182,6 +259,10 @@ def main(argv=None) -> int:
                 print(f"{label} {tag} {name}: {res[name][0]:.4f} ms; block {o['block']}, {o['blocks_per_sm']} "
                       f"blocks and {o['threads_per_sm']} threads per SM, {o['registers']} registers, "
                       f"{o['local_bytes']} B local, {o['shared_bytes']} B shared a block{scratch}", flush=True)
+                continue
+            if name.startswith("ad reverse"):
+                print(f"{label} {tag} {name}: {res[name][0]:.4f} ms; outputs checksum {o['checksum']}; "
+                      + ", ".join(f"{k} {v}" for k, v in o.items() if k != "checksum"), flush=True)
                 continue
             print(f"{label} {tag} {name}: {o['registers']} registers, {o['local_bytes']} B local, "
                   f"{o['blocks_per_sm']} blocks of 128 per SM, {o['shared_bytes']} B shared a block, "

@@ -40,7 +40,10 @@ one step within its ulp bound, every variant within 1e-6 of the float64
 chain; the chain kernel's record of its blocks' SMs.  The NL kernel's
 pipelined scan bitwise its plain version where its ring of D slots wraps or
 is never full (nlev 2, D, D + 1), and its occupancy entry: the ring's depth
-and shared bytes, at least 4 blocks of 128 an SM.  The sharded forward step
+and shared bytes, at least 4 blocks of 128 an SM.  The AD reverse kernel's
+pipelined scan likewise bitwise the fused AD's direct reverse sweep at nlev
+2, D and D + 1, its occupancy as its plan counts, and its refusal of an
+output that overlaps an input.  The sharded forward step
 on the card's mesh and on a hand-made mesh of 3 shards of it bitwise the
 unsharded step.
 """
@@ -450,10 +453,64 @@ def test_ad_fused_kernel_refuses_bad_inputs(cuda):
 
 def test_ad_reverse_attributes_on_card(cuda):
     """The reverse kernel's registers a thread, as the launch bounds allow,
-    and no local memory in the default instantiations."""
+    and no local memory in the default instantiations; the card holds it
+    as its plan counts (``reverse_occupancy`` raises otherwise): the ring
+    depth the host build reports, its shared bytes, and the blocks per SM
+    that the registers and the rings leave; in f32 the 4 blocks of 128 that
+    65,536 columns need to run in one wave."""
     for dtype in (torch.float32, torch.float64):
-        att = adk.reverse_attributes(dtype, False, True)
-        assert 0 < att["registers"] <= 255 and att["local_bytes"] == 0, att
+        for cfg in CONFIGS:
+            c = CONFIGS[cfg]()
+            occ = adk.reverse_occupancy(dtype, c)
+            evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+            assert 0 < occ["registers"] <= 255, occ
+            assert occ["depth"] == adk.reverse_ring_depth(dtype), occ
+            plan = adk.reverse_plan(dtype, evap, occ["registers"], occ["depth"])
+            assert (occ["blocks_per_sm"], occ["shared_bytes"]) == (plan["blocks_per_sm"], plan["shared_bytes"])
+            if dtype == torch.float32:
+                assert occ["blocks_per_sm"] == 4, (cfg, occ)
+            if not evap:
+                assert occ["local_bytes"] == 0, (cfg, occ)
+
+
+@pytest.mark.parametrize("at", ["2", "D", "D+1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ad_reverse_kernel_at_the_rings_edges_on_card(cuda, at, dtype):
+    """The reverse kernel's ring (D levels in flight, the card's depth) at
+    the depths where it wraps or is never full: nlev 2, D and D + 1, at a
+    ragged 1000 columns, bitwise the fused rolled AD (whose reverse sweep
+    is the direct scan of the same level), with and without evaporation;
+    one reverse launch each."""
+    depth = adk.reverse_occupancy(dtype, CONFIGS["default"]())["depth"]
+    nlev = {"2": 2, "D": max(depth, 2), "D+1": depth + 1}[at]
+    for cfg in ("default", "levapls2"):
+        c = CONFIGS[cfg]()
+        s, dt = _ad_state(1000, dtype, c, cuda, nlev)
+        before = adk.cloudsc2_ad_cuda.launches
+        got = _host(adk.cloudsc2_ad_cuda(s, dt, c))
+        assert adk.cloudsc2_ad_cuda.launches == before + 1
+        want = _host(adk.cloudsc2_ad_fused_cuda(s, dt, c))
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{cfg} {dtype} {nlev}x1000 {k}")
+
+
+def test_ad_reverse_kernel_refuses_an_overlapping_output_on_card(cuda, monkeypatch):
+    """The reverse kernel reads the next levels up ahead of its stores, so
+    its wrapper refuses an output that overlaps an input (the first output
+    allocated as the state's ``t``) before it launches."""
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(256, torch.float32, c, cuda)
+    traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    t0 = s["t"].clone()
+    real = nlk._empty
+    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
+    before = adk.cloudsc2_ad_cuda.launches
+    with pytest.raises(ValueError, match="overlaps input 't'"):
+        adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)
+    assert adk.cloudsc2_ad_cuda.launches == before
+    assert torch.equal(s["t"], t0)
 
 
 def test_ad_fused_occupancy_on_card(cuda):
@@ -564,16 +621,19 @@ def test_ad_kernels_without_lphylin_on_card(cuda, dtype):
 
 def test_form_attributes_on_card(cuda):
     """In every form the reverse kernel fits the register file (no more
-    than 255 registers a thread) and the card holds the fused kernel as
-    the plan counts at its registers."""
+    than 255 registers a thread), without local memory in the default form,
+    and the card holds it (``reverse_occupancy``) and the fused kernel as
+    their plans count at their registers."""
     for dtype in (torch.float32, torch.float64):
         forms = [("exact", False)] + ([("faithful", True), ("approx", True)] if dtype == torch.float32 else [])
         for mode, _ in forms:
             for compact in (True, False):
                 c = CONFIGS["default"]().replace(FAST_DIV=mode, CUADJ_COMPACT=compact)
-                div = ("exact", "faithful", "approx").index(mode)
-                att = adk.reverse_attributes(dtype, False, True, div, compact)
-                assert 0 < att["registers"] <= 255, (mode, compact, att)
+                rev = adk.reverse_occupancy(dtype, c)
+                assert 0 < rev["registers"] <= 255, (mode, compact, rev)
+                assert rev["depth"] == adk.reverse_ring_depth(dtype), rev
+                if mode == "exact" and compact:
+                    assert rev["local_bytes"] == 0, rev
                 occ = adk.fused_occupancy(dtype, c, False, 137)
                 plan = adk.fused_plan(137, 1, dtype, False, False, occ["registers"])
                 assert (occ["blocks_per_sm"], occ["shared_bytes"]) == (plan["blocks_per_sm"], plan["shared_bytes"])
