@@ -156,6 +156,18 @@ Phases, each timed; any failure raises and the script exits non-zero:
    with saturation fused in) and two-stage (Saturation + Cloudsc2NL), f32,
    65,536 x 137: wall time, device time of the NL kernel and of the rest,
    and the device's busy share.
+   Then the main path's launch path unprofiled (``drivers/kernel_ab_torch.py``
+   ``launch_readings``), the launch counts from 0 over it: at 65,536 x 137
+   and 100 x 137, f32 and f64, the fused NL wrapper and the
+   ``cotangent_only`` AD step, each its host ms a call (asynchronous calls),
+   device ms a call (CUDA events behind a sleep kernel) and the wall of one
+   synchronized step (the ``Cloudsc2NL(fuse_saturation=True)`` component; the
+   AD through ``dispatch.cloudsc2_ad`` and ``device_sync``) with the device's
+   busy share of it, the host split of such a step by stage (each function
+   of the launch path timed in place, microseconds a step), checksums of
+   every NL and two-kernel AD form's outputs, and the launch plans' caches
+   (``kernels/nonlinear.py`` ``_nl_plan``, ``kernels/adjoint.py``
+   ``_reverse_plan``) held within their bound.
 12. probes (``cloudsc2_tpu_torch.kernels.microbench``): the reader kernel
    bitwise its plain version at every instantiation and shape its path
    runs (S = 1-32 in both layouts at a ragged 4000 columns, S = 3 and 10 at
@@ -438,6 +450,27 @@ def profile_main_path(torch, c, card, fused, steps=20):
     if kernel_us == 0.0:
         raise AssertionError(f"the profile of the {path} path shows no NL kernel time")
     return wall, busy, kernel_us / 1e3 / steps, other_us / 1e3 / steps
+
+
+def launch_phase(torch, nlk, adk, card):
+    """Phase 11, the launch path: :func:`drivers.kernel_ab_torch.
+    launch_readings` on this checkout, the NL and AD launch counts from 0
+    over it (both must grow), and the launch plans' caches held within their
+    bound.  Returns ``(readings, launches)``."""
+    from drivers.kernel_ab_torch import launch_readings
+
+    reset_counts(nlk.cloudsc2_nl_cuda, adk.cloudsc2_ad_cuda)
+    readings = launch_readings(torch, torch.device("cuda:0"), card, "[launch]", runs=5)
+    launches = {"cloudsc2_nl_cuda": nlk.cloudsc2_nl_cuda.launches, "cloudsc2_ad_cuda": adk.cloudsc2_ad_cuda.launches}
+    caches = {"NL": nlk._nl_plan.cache_info(), "AD reverse": adk._reverse_plan.cache_info()}
+    print(f"[launch] launches in this phase: {launches}; launch plans: "
+          + ", ".join(f"{k} {i.currsize} kept (bound {i.maxsize}), {i.hits} hits, {i.misses} builds"
+                      for k, i in caches.items()) + f" in this process; {card}")
+    if not all(launches.values()):
+        raise AssertionError(f"[launch] a kernel of the launch path never launched: {launches}")
+    if any(i.currsize > i.maxsize for i in caches.values()):
+        raise AssertionError(f"[launch] launch plans kept above their bound: {caches}")
+    return readings, launches
 
 
 def taylor_gates(torch, nlk, tlk, card):
@@ -2467,7 +2500,8 @@ def main() -> int:
 
     # ---- 11. where the NL main paths' time goes (torch.profiler, f32, 65,536 columns)
     profiles = {fused: profile_main_path(torch, c0, card, fused) for fused in (True, False)}
-    phase_done("11 profile")
+    launch, launch_counts = launch_phase(torch, nlk, adk, card)
+    phase_done("11 profile and launch path")
 
     # ---- 12. the probes: each kernel against its plain version, then through its driver
     probe_rows = probe_phase(torch, mbk, nlk, tlk, adk, c0, card)
@@ -2507,6 +2541,13 @@ def main() -> int:
     def mode_row(mode, kernel, bound_f32, err):
         return {"ms": form_time[("f32", mode)][kernel], "ms_exact": form_time[("f32", "default")][kernel],
                 "bound_ms": bound_f32, "bound_by": "bytes", **err}
+
+    def launch_row(path):
+        """The launch path's unprofiled readings of one path, by type and
+        column count (phase 11)."""
+        return {f"{tag} {ncols}": {k: launch[f"{tag} {ncols} {path}"][k]
+                                   for k in ("host_ms", "device_ms", "step_ms", "step_mean_ms", "busy_share")}
+                for tag in ("float32", "float64") for ncols in (BIG, 100)}
 
     nl_forms_json = {
         ref: ref_row("nl", timing["f32"][3], timing["f64"][3],
@@ -2611,6 +2652,8 @@ def main() -> int:
         "card": card,
         "profile_fused": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[True])),
         "profile_two_stage": dict(zip(("wall_ms", "device_ms", "nl_kernel_ms", "other_ms"), profiles[False])),
+        "launch_path": launch_row("nl fused"),
+        "launches_launch_path": launch_counts["cloudsc2_nl_cuda"],
         "forms": nl_forms_json,
         "launches_stream": stream_readings["launches"]["cloudsc2_nl_cuda stream"],
         "launches_full_step": stream_readings["launches"]["cloudsc2_nl_cuda full_step"],
@@ -2694,6 +2737,8 @@ def main() -> int:
         "host_ms": fwd32[1] + rev32[1],
         "host_ms_f64": fwd64[1] + rev64[1],
         "ms_cotangent_only": ad_time["f32"]["cotangent_only step"][0],
+        "launch_path_cotangent_only": launch_row("ad cotangent_only"),
+        "launches_launch_path": launch_counts["cloudsc2_ad_cuda"],
         "ms_cotangent_only_f64": ad_time["f64"]["cotangent_only step"][0],
         "fwd_ms_traj_only": ad_time["f32"]["traj_only forward"][0],
         "fwd_ms_traj_only_f64": ad_time["f64"]["traj_only forward"][0],

@@ -19,7 +19,10 @@ form included, with its two kernels:
    input cotangents itself.  Each level's 27 input values (29 with
    evaporation) are copied ahead into a ring in shared memory while the
    levels below it run, so the wrapper refuses outputs that overlap an
-   input.
+   input.  Its launch is worked out once per configuration, a cached
+   :class:`~cloudsc2_tpu_torch.kernels.nonlinear.LaunchPlan`
+   (:func:`_reverse_plan`), as the NL kernel's is; the two launches of a
+   step share the ``eta`` and ``scalm`` of the first.
 
 Both are bound by bytes; the reverse level's registers and its ring's
 shared bytes set how many columns an SM runs at once
@@ -55,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,10 +66,9 @@ from cloudsc2_tpu_torch.kernels import build, nonlinear
 from cloudsc2_tpu_torch.kernels.nonlinear import (
     NL_INPUTS,
     STEP_OUTPUTS,
-    check_disjoint,
+    LaunchPlan,
+    cached,
     check_inputs,
-    cloudsc2_nl_cuda,
-    cloudsc2_nl_host,
     count_launch,
     div_switch,
     ptrs,
@@ -242,26 +244,51 @@ def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: T
              outputs: Tuple[str, ...]) -> Tuple[list, list, torch.dtype]:
     """Check the state for a kernel, and return its ``inputs`` in order
     (``None`` for one it does not read) and fresh ``outputs``."""
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    names = [n for n in inputs if evap or n not in _EVAP_ONLY]
-    ins, dtype = check_inputs(state, c, device_type, names, _IFACE)
-    by_name = dict(zip(names, ins))
+    ins, dtype = check_inputs(state, c, device_type, _read(inputs, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE)
     nlev, ncols = state["ap"].shape
     outs = [nonlinear._empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device)
             for n in outputs]
-    return [by_name.get(n) for n in inputs], outs, dtype
+    return ins, outs, dtype
 
 
-def _reverse(state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants,
-             device_type: str) -> Tuple[list, list, Tensor, Tuple[int, ...]]:
-    """Check the state, the seeds and the trajectory, and return the reverse
-    kernel's inputs in order (``None`` for one it does not read), fresh
-    outputs (none overlapping an input: the kernel reads the next levels up
-    ahead of its stores), the constant struct and the switches."""
-    ins, outs, dtype = _marshal({**state, **traj}, c, device_type, AD_INPUTS, AD_OUTPUTS)
-    check_disjoint(ins, dict(zip(AD_OUTPUTS, outs)), AD_INPUTS)
-    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
-    return ins, outs, consts, reverse_switches(dtype, c)
+@functools.lru_cache(maxsize=None)
+def _read(inputs: Tuple[str, ...], evap: bool) -> Tuple[Optional[str], ...]:
+    """``inputs`` with ``None`` for each that the kernel does not read
+    (``c_cov`` and ``covptot_i`` only with evaporation, ``evap``)."""
+    return tuple(n if evap or n not in _EVAP_ONLY else None for n in inputs)
+
+
+@functools.lru_cache(maxsize=64, typed=True)
+def _reverse_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constants, dt: float) -> LaunchPlan:
+    """The plan of one reverse launch through ``entry`` (``"cuda"``, or a
+    host build's entry on the CPU) at ``shape``, ``(nlev, ncols)``: the C
+    entry, the switches, the constant struct and the 16 outputs."""
+    switches = reverse_switches(dtype, c)
+    lib = _form_lib("cuda" if entry == "cuda" else "host", "ad", switches)
+    if entry == "cuda":
+        fn, failure = lib.cloudsc2_ad_launch, "cloudsc2_ad kernel launch failed: cudaError_t {}"
+    else:
+        fn, failure = getattr(lib, entry), "cloudsc2_ad host body failed: {}"
+    return LaunchPlan.make(fn, failure, switches, torch.from_numpy(tl_kernel_constants(c, dt, dtype)), AD_INPUTS,
+                           AD_OUTPUTS, AD_OUTPUTS, _IFACE, dtype, *shape)
+
+
+def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants,
+                 vertical=None) -> Dict[str, Tensor]:
+    """One reverse launch through ``entry``: every check of the state, its
+    seeds and the trajectory (:func:`check_inputs`; ``vertical`` the
+    ``(eta, scalm)`` of the forward launch on the same state, where there
+    is one), then the launch by its plan.  Returns the 16 input cotangents
+    by name (none overlapping an input: the kernel reads the next levels
+    up ahead of its stores); a launch on the card counts in
+    ``cloudsc2_ad_cuda.launches``."""
+    ins, dtype = check_inputs({**state, **traj}, c, "cuda" if entry == "cuda" else "cpu",
+                              _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE, vertical)
+    plan = cached(_reverse_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt)
+    outs = plan.run(ins)
+    if entry == "cuda":
+        count_launch(cloudsc2_ad_cuda, plan.switches)
+    return outs
 
 
 def _assemble(
@@ -285,16 +312,7 @@ def cloudsc2_ad_reverse_cuda(
     memory included); never falls back.  Each launch adds one to
     ``cloudsc2_ad_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
-    ins, outs, consts, switches = _reverse(state, traj, dt, c, "cuda")
-    lib = _form_lib("cuda", "ad", switches)
-    nlev, ncols = state["ap"].shape
-    with torch.cuda.device(state["ap"].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cloudsc2_ad_launch(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols, stream)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_ad kernel launch failed: cudaError_t {err}")
-    count_launch(cloudsc2_ad_cuda, switches)
-    return dict(zip(AD_OUTPUTS, outs))
+    return _run_reverse("cuda", state, traj, dt, c)
 
 
 def cloudsc2_ad_cuda(
@@ -314,9 +332,17 @@ def cloudsc2_ad_cuda(
     on anything the kernels do not take, on a failed build and on a refused
     launch; never falls back to the plain version.
     """
-    tends, diags, traj = cloudsc2_nl_cuda(state, dt, forward_constants(c), with_trajectory=True,
-                                          traj_only=cotangent_only)
-    return _assemble(tends, diags, cloudsc2_ad_reverse_cuda(state, traj, dt, c))
+    return _two_kernels("cuda", state, dt, c, cotangent_only)
+
+
+def _two_kernels(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool):
+    """The NL launch with its trajectory under :func:`forward_constants`,
+    then the reverse launch on the ``eta`` and ``scalm`` of the first,
+    through ``entry`` (``"cuda"`` or ``"host"``)."""
+    fwd, rev = ("cuda", "cuda") if entry == "cuda" else ("cloudsc2_nl_host", "cloudsc2_ad_host")
+    outs, vertical = nonlinear._run_nl(fwd, state, dt, forward_constants(c), True, cotangent_only, False, 1)
+    tends, diags, traj = nonlinear._assemble(outs, True, cotangent_only)
+    return _assemble(tends, diags, _run_reverse(rev, state, traj, dt, c, vertical))
 
 
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
@@ -385,9 +411,7 @@ def cloudsc2_ad_host(
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The kernels' bodies compiled for the host, on CPU tensors (tests
     only): the host NL body with its trajectory, then the reverse body."""
-    tends, diags, traj = cloudsc2_nl_host(state, dt, forward_constants(c), with_trajectory=True,
-                                          traj_only=cotangent_only)
-    return _assemble(tends, diags, cloudsc2_ad_reverse_host(state, traj, dt, c))
+    return _two_kernels("host", state, dt, c, cotangent_only)
 
 
 def cloudsc2_ad_reverse_host(
@@ -397,14 +421,7 @@ def cloudsc2_ad_reverse_host(
     (tests only), as :func:`cloudsc2_ad_reverse_cuda` takes them: through
     the pipelined reverse scan the card runs, at the card's ring depth, or
     with ``direct`` through the direct reverse scan, its reference."""
-    ins, outs, consts, switches = _reverse(state, traj, dt, c, "cpu")
-    lib = _form_lib("host", "ad", switches)
-    nlev, ncols = state["ap"].shape
-    entry = lib.cloudsc2_ad_direct_host if direct else lib.cloudsc2_ad_host
-    err = entry(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_ad host body failed: {err}")
-    return dict(zip(AD_OUTPUTS, outs))
+    return _run_reverse("cloudsc2_ad_direct_host" if direct else "cloudsc2_ad_host", state, traj, dt, c)
 
 
 def reverse_ring_depth(dtype: torch.dtype) -> int:

@@ -20,7 +20,10 @@ ahead are in flight into a per-thread ring (float: three slots in shared
 memory, filled by ``cp.async``; double: two slots in registers), so the
 loads overlap the arithmetic where the direct scan added the two.  The
 loads run ahead of the stores of the levels before them, so the wrapper
-refuses outputs that overlap an input (:func:`check_disjoint`).  The note
+refuses outputs that overlap an input (:func:`check_disjoint`).  The
+wrapper works out the launch of each configuration once, a
+:class:`LaunchPlan` cached by value (:func:`_nl_plan`), and checks the
+state itself on every call (:func:`check_inputs`).  The note
 at the top of ``nonlinear.cu`` gives what bounds the kernel, before and
 after, and why the ring needs no block synchronisation.
 
@@ -37,10 +40,13 @@ checks.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cloudsc2_tpu_torch.params import Constants
@@ -72,7 +78,11 @@ NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS + ("qsat_out",)
 NL_SWITCHES = ("is_double", "thermo", "evap", "traj", "fuse", "div", "compact")
 _IFACE = ("aph", "fplsl", "fplsn", "fhpsl", "fhpsn")
 _VERT = ("eta", "scalm")
+#: the inputs of the fused form, which diagnoses ``qsat`` instead of reading it
+_FUSED_INPUTS = tuple(None if n == "qsat" else n for n in NL_INPUTS)
 _DTYPES = (torch.float32, torch.float64)
+#: the types of ``dt`` whose launch plans are cached (by value and type)
+_DT_TYPES = (float, int, np.float64, np.float32)
 
 _P = ctypes.c_void_p
 _ARGS = [ctypes.c_int] * len(NL_SWITCHES) + [_P, _P, _P, ctypes.c_int, ctypes.c_int]
@@ -121,15 +131,17 @@ def load_cuda(compact: bool = True) -> ctypes.CDLL:
 
 
 def check_inputs(
-    state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[str],
-    iface: Sequence[str],
-) -> Tuple[List[Tensor], torch.dtype]:
+    state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[Optional[str]],
+    iface: Sequence[str], vertical: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tuple[List[Optional[Tensor]], torch.dtype]:
     """Check the constants (:func:`check_constants`) and the state for a
-    kernel, and return its ``inputs`` in order: ``eta`` in the state's dtype and ``scalm``
-    computed from it, the other fields as they are.  Fields named in
-    ``iface`` are ``(nlev + 1, ncols)``, ``eta``/``scalm`` ``(nlev,)``, the
-    rest ``(nlev, ncols)``; all of one float dtype, contiguous, on one
-    device of ``device_type``."""
+    kernel, and return its ``inputs`` in order (``None`` for a name that is
+    ``None``, an input the kernel does not read): ``eta`` in the state's
+    dtype and ``scalm`` computed from it, or ``vertical``, the ``(eta,
+    scalm)`` of an earlier launch on the same state; the other fields as
+    they are.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
+    ``eta``/``scalm`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one
+    float dtype, contiguous, on one device of ``device_type``."""
     check_constants(c)
     ap = state["ap"]
     if ap.dim() != 2:
@@ -137,56 +149,155 @@ def check_inputs(
     nlev, ncols = ap.shape
     if nlev < 2 or ncols < 1:
         raise ValueError(f"need nlev >= 2 and ncols >= 1, got {(nlev, ncols)}")
-    dtype = ap.dtype
+    dtype, device = ap.dtype, ap.device
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} not supported (float32 | float64)")
-    if ap.device.type != device_type:
-        raise ValueError(f"tensors must be on {device_type}, got {ap.device}")
-    eta = state["eta"]
-    if eta.dtype != dtype:
-        eta = eta.to(dtype)
-    fields = {n: state[n] for n in inputs if n not in _VERT}
-    fields["eta"] = eta
-    fields["scalm"] = scalm_profile(eta, c)
-    for n, v in fields.items():
-        want = (nlev,) if n in _VERT else ((nlev + 1, ncols) if n in iface else (nlev, ncols))
-        if tuple(v.shape) != want:
-            raise ValueError(f"field {n!r} has shape {tuple(v.shape)}, want {want}")
-        if v.dtype != dtype:
-            raise TypeError(f"field {n!r} has dtype {v.dtype}, want {dtype}")
-        if v.device != ap.device:
-            raise ValueError(f"field {n!r} is on {v.device}, want {ap.device}")
-        if not v.is_contiguous():
+    if device.type != device_type:
+        raise ValueError(f"tensors must be on {device_type}, got {device}")
+    if vertical is None:
+        eta = state["eta"]
+        if eta.dtype != dtype:
+            eta = eta.to(dtype)
+        vertical = (eta, scalm_profile(eta, c))
+    names, wants, order = _layout(tuple(inputs), tuple(iface), nlev, ncols)
+    fields = [state[n] for n in names[:-2]]
+    fields += vertical
+    for n, v, want in zip(names, fields, wants):
+        if v.shape != want or v.dtype is not dtype or v.device != device or not v.is_contiguous():
+            if tuple(v.shape) != want:
+                raise ValueError(f"field {n!r} has shape {tuple(v.shape)}, want {want}")
+            if v.dtype != dtype:
+                raise TypeError(f"field {n!r} has dtype {v.dtype}, want {dtype}")
+            if v.device != device:
+                raise ValueError(f"field {n!r} is on {v.device}, want {device}")
             raise ValueError(f"field {n!r} is not contiguous")
-    return [fields[n] for n in inputs], dtype
+    return [None if k < 0 else fields[k] for k in order], dtype
 
 
-def _marshal(
-    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, with_trajectory: bool,
-    traj_only: bool, fuse_saturation: bool, kflag: int,
-) -> Tuple[List[Optional[Tensor]], Dict[str, Optional[Tensor]], Tensor, Tuple[int, ...]]:
-    """Check the options and the state, and return the kernel's inputs in
-    order (``None`` for ``qsat`` when fused), freshly allocated outputs
-    (``None`` for one not written), the constant struct and the switches."""
-    if traj_only and not with_trajectory:
-        raise ValueError("traj_only requires with_trajectory=True")
-    names = tuple(n for n in NL_INPUTS if not (fuse_saturation and n == "qsat"))
-    ins, dtype = check_inputs(state, c, device_type, names, _IFACE)
-    if fuse_saturation:
-        ins.insert(NL_INPUTS.index("qsat"), None)
-    nlev, ncols = state["ap"].shape
+@functools.lru_cache(maxsize=64)
+def _layout(inputs: Tuple[Optional[str], ...], iface: Tuple[str, ...], nlev: int, ncols: int):
+    """What :func:`check_inputs` checks for these ``inputs``, worked out
+    once: ``names``, the fields it takes from the state in order, then
+    ``eta`` and ``scalm``; ``wants``, their shapes; ``order``, for each
+    input its index in ``names`` (-1 where it is ``None``)."""
+    names = tuple(n for n in inputs if n is not None and n not in _VERT) + _VERT
+    wants = tuple(_shape(n, iface, nlev, ncols) for n in names)
+    return names, wants, tuple(-1 if n is None else names.index(n) for n in inputs)
+
+
+def _shape(name: str, iface: Sequence[str], nlev: int, ncols: int) -> Tuple[int, ...]:
+    """A field's shape: ``(nlev + 1, ncols)`` for one named in ``iface``,
+    ``(nlev,)`` for ``eta``/``scalm``, else ``(nlev, ncols)``."""
+    return (nlev,) if name in _VERT else ((nlev + 1, ncols) if name in iface else (nlev, ncols))
+
+
+@dataclass(frozen=True, eq=False)
+class LaunchPlan:
+    """What a kernel wrapper works out once per launch configuration, the
+    port's counterpart of ``jax.jit``'s cached dispatch
+    (``cloudsc2_tpu/pallas/nonlinear.py:68-69``): the library's C entry
+    ``fn`` (``failure`` the error of a refused launch, ``{}`` its code),
+    its int ``switches`` and the constant struct ``consts``, folded once;
+    the kernel's ``inputs`` and ``outputs`` by name, each output's shape
+    (``None``: not written) and the byte counts of both."""
+
+    fn: Callable[..., int]
+    failure: str
+    switches: Tuple[int, ...]
+    consts: Tensor
+    inputs: Tuple[str, ...]
+    outputs: Tuple[str, ...]
+    shapes: Tuple[Optional[Tuple[int, ...]], ...]
+    in_bytes: Tuple[int, ...]
+    out_bytes: Tuple[int, ...]
+    nlev: int
+    ncols: int
+
+    @classmethod
+    def make(cls, fn: Callable[..., int], failure: str, switches: Tuple[int, ...], consts: Tensor,
+             inputs: Tuple[str, ...], outputs: Tuple[str, ...], written: Sequence[str], iface: Sequence[str],
+             dtype: torch.dtype, nlev: int, ncols: int) -> "LaunchPlan":
+        """The plan of a kernel that writes the outputs named in
+        ``written``, its shapes those of :func:`_shape`."""
+        item = torch.finfo(dtype).bits // 8
+        shapes = tuple(_shape(n, iface, nlev, ncols) if n in written else None for n in outputs)
+        return cls(fn, failure, switches, consts, inputs, outputs, shapes,
+                   tuple(item * int(np.prod(_shape(n, iface, nlev, ncols))) for n in inputs),
+                   tuple(0 if sh is None else item * int(np.prod(sh)) for sh in shapes), nlev, ncols)
+
+    def run(self, ins: Sequence[Optional[Tensor]]) -> Dict[str, Optional[Tensor]]:
+        """Launch on ``ins``, the kernel's inputs as :func:`check_inputs`
+        returns them (``ap`` first): fresh outputs (:func:`_empty`),
+        refused where one overlaps an input (:func:`check_spans`), then
+        the C entry, on the card on PyTorch's current stream of the
+        inputs' device.  Returns the outputs by name; raises on a refused
+        launch."""
+        dtype, device = ins[0].dtype, ins[0].device
+        outs = [None if sh is None else _empty(sh, dtype, device) for sh in self.shapes]
+        in_ptrs = [0 if t is None else t.data_ptr() for t in ins]
+        out_ptrs = [0 if t is None else t.data_ptr() for t in outs]
+        check_spans(in_ptrs, self.in_bytes, self.inputs, out_ptrs, self.out_bytes, self.outputs)
+        # the pointer arrays as 64-bit words, alive until the call returns
+        in_words, out_words = array.array("Q", in_ptrs), array.array("Q", out_ptrs)
+        args = (*self.switches, in_words.buffer_info()[0], out_words.buffer_info()[0], self.consts.data_ptr(),
+                self.nlev, self.ncols)
+        if device.type != "cuda":
+            err = self.fn(*args)
+        elif torch.cuda.current_device() == device.index:
+            err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(self.failure.format(err))
+        return dict(zip(self.outputs, outs))
+
+
+def cached(build: Callable[..., LaunchPlan], dt) -> Callable[..., LaunchPlan]:
+    """``build``, a plan builder under ``functools.lru_cache``, for a
+    ``dt`` that is a Python or numpy number (a key by value; the cache is
+    ``typed``, since its type sets the arithmetic that folds the constant
+    struct); for another ``dt`` (a tensor hashes by identity) the builder
+    itself, whose plan is kept nowhere."""
+    return build if type(dt) in _DT_TYPES else build.__wrapped__
+
+
+@functools.lru_cache(maxsize=64, typed=True)
+def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constants, dt: float,
+             with_trajectory: bool, traj_only: bool, fuse_saturation: bool, kflag: int) -> LaunchPlan:
+    """The plan of one NL launch through ``entry`` (``"cuda"``, or a host
+    build's entry on the CPU) at ``shape``, ``(nlev, ncols)``: the C entry,
+    the switches, the constant struct and the outputs written."""
+    nlev, ncols = shape
     written = trajectory_names(c) if with_trajectory else ()
     if not traj_only:
         written = STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
-    outs = {
-        n: None if n not in written else _empty(
-            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device
-        )
-        for n in NL_OUTPUTS
-    }
-    check_disjoint(ins, outs)
-    consts = torch.from_numpy(kernel_constants(c, dt, dtype, kflag))
-    return ins, outs, consts, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
+    if entry == "cuda":
+        fn, failure = load_cuda(c.CUADJ_COMPACT).cloudsc2_nl_launch, "cloudsc2_nl kernel launch failed: cudaError_t {}"
+    else:
+        fn, failure = getattr(_load("host", c.CUADJ_COMPACT), entry), entry + " failed: {}"
+    return LaunchPlan.make(
+        fn, failure, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation),
+        torch.from_numpy(kernel_constants(c, dt, dtype, kflag)), NL_INPUTS, NL_OUTPUTS, written, _IFACE, dtype,
+        nlev, ncols)
+
+
+def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool,
+            traj_only: bool, fuse_saturation: bool, kflag: int, vertical=None):
+    """One NL launch through ``entry``: every check of the options and the
+    state (:func:`check_inputs`; ``qsat`` not read when fused), then the
+    launch by its plan.  Returns ``(outputs by name, (eta, scalm))``; a
+    launch on the card counts in ``cloudsc2_nl_cuda.launches``."""
+    if traj_only and not with_trajectory:
+        raise ValueError("traj_only requires with_trajectory=True")
+    names = _FUSED_INPUTS if fuse_saturation else NL_INPUTS
+    ins, dtype = check_inputs(state, c, "cuda" if entry == "cuda" else "cpu", names, _IFACE, vertical)
+    plan = cached(_nl_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt, bool(with_trajectory),
+                                bool(traj_only), bool(fuse_saturation), kflag)
+    outs = plan.run(ins)
+    if entry == "cuda":
+        count_launch(cloudsc2_nl_cuda, plan.switches)
+    return outs, (ins[-2], ins[-1])
 
 
 def _empty(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -199,16 +310,35 @@ def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Ten
     """Raise ``ValueError`` where an output's bytes overlap an input's (the
     inputs named by ``names``, in order): a pipelined kernel reads a level's
     inputs ahead of the stores of the levels before it, which is the same
-    step only when no output is an input."""
-    spans = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), n)
-             for t, n in zip(ins, names) if t is not None]
-    for name, o in outs.items():
-        if o is None:
-            continue
-        lo, hi = o.data_ptr(), o.data_ptr() + o.numel() * o.element_size()
-        for a, b, n in spans:
-            if lo < b and a < hi:
-                raise ValueError(f"output {name!r} overlaps input {n!r}; the kernel needs them apart")
+    step only when no output is an input.  :func:`check_spans` on the
+    tensors' addresses and byte counts."""
+    def spans(tensors):
+        return [0 if t is None else t.data_ptr() for t in tensors], [0 if t is None else t.nbytes for t in tensors]
+
+    check_spans(*spans(ins), names, *spans(list(outs.values())), list(outs))
+
+
+def check_spans(in_ptrs: Sequence[int], in_bytes: Sequence[int], in_names: Sequence[str], out_ptrs: Sequence[int],
+                out_bytes: Sequence[int], out_names: Sequence[str]) -> None:
+    """:func:`check_disjoint` on addresses and byte counts (a null address
+    is a field the kernel does not take).  One sweep over the spans sorted
+    by address finds whether any output overlaps an input (a span that
+    starts before the furthest end of the other kind so far); only then are
+    the pairs searched, for the first output and its first input to name."""
+    spans = sorted([(p, p + n, 0) for p, n in zip(in_ptrs, in_bytes) if p]
+                   + [(p, p + n, 1) for p, n in zip(out_ptrs, out_bytes) if p])
+    ends = [0, 0]
+    for lo, hi, kind in spans:
+        if lo < ends[1 - kind]:
+            break
+        if hi > ends[kind]:
+            ends[kind] = hi
+    else:
+        return
+    for q, m, name in zip(out_ptrs, out_bytes, out_names):
+        for p, n, input_name in zip(in_ptrs, in_bytes, in_names):
+            if p and q and q < p + n and p < q + m:
+                raise ValueError(f"output {name!r} overlaps input {input_name!r}; the kernel needs them apart")
 
 
 def div_switch(c: Constants, dtype: torch.dtype) -> int:
@@ -268,18 +398,7 @@ def cloudsc2_nl_cuda(
     launch under a non-exact divide also to ``.fast_div_launches``, and one
     with ``CUADJ_COMPACT=False`` to ``.ref_launches``.
     """
-    ins, outs, consts, switches = _marshal(
-        state, dt, c, "cuda", with_trajectory, traj_only, fuse_saturation, kflag)
-    lib = load_cuda(c.CUADJ_COMPACT)
-    nlev, ncols = state["ap"].shape
-    with torch.cuda.device(state["ap"].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cloudsc2_nl_launch(
-            *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_nl kernel launch failed: cudaError_t {err}")
-    count_launch(cloudsc2_nl_cuda, switches)
+    outs, _ = _run_nl("cuda", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
     return _assemble(outs, with_trajectory, traj_only)
 
 
@@ -325,14 +444,7 @@ def occupancy(dtype: torch.dtype, c: Constants, with_trajectory: bool = False, t
 
 
 def _host(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):
-    ins, outs, consts, switches = _marshal(
-        state, dt, c, "cpu", with_trajectory, traj_only, fuse_saturation, kflag)
-    nlev, ncols = state["ap"].shape
-    err = getattr(_load("host", c.CUADJ_COMPACT), entry)(
-        *switches, ptrs(ins), ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,
-    )
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: {err}")
+    outs, _ = _run_nl(entry, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
     return _assemble(outs, with_trajectory, traj_only)
 
 

@@ -32,7 +32,18 @@ resident, in the default switches and with ``LEVAPLS2``, beside the
 two-kernel AD on the same state, and prints next to each time what
 ``kernels.adjoint.fused_occupancy`` reads from the card (block, blocks and
 threads per SM, registers, local and shared bytes) and, where the checkout
-has them, the scratch bytes of the kernel's stack.  It imports ``cloudsc2_tpu_torch`` from
+has them, the scratch bytes of the kernel's stack.  ``--kernels launch``
+times the main path's launch path (:func:`launch_readings`): at 65,536 and
+100 columns, f32 and f64, the fused NL wrapper and the
+``cotangent_only`` AD step, each its host milliseconds a call (asynchronous
+calls, read before the device is synchronized), its device milliseconds a
+call (CUDA events behind a sleep kernel) and the wall of one synchronized,
+unprofiled step (the ``Cloudsc2NL(fuse_saturation=True)`` component; the
+AD through ``dispatch.cloudsc2_ad`` and ``device_sync``); the host split of
+one synchronized step of each by stage (:class:`StageClock`, the functions
+of the checkout wrapped in place, their names those the checkout has); and
+checksums of every NL form's and every two-kernel AD form's outputs.  It
+imports ``cloudsc2_tpu_torch`` from
 ``--tree`` (by default this checkout), so one copy of the script times any
 checkout whose kernels have these entry points.  Compare two checkouts only
 inside one call on one card, in turns::
@@ -65,6 +76,280 @@ def _card_module():
     return module
 
 
+def host_times(torch, fn, runs, batch):
+    """Host milliseconds a call of ``fn`` in each of ``runs`` batches of
+    ``batch`` back-to-back calls, each read before the device is
+    synchronized."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / batch)
+    torch.cuda.synchronize()
+    return times
+
+
+
+def step_ms(fn, steps):
+    """``(median, mean)`` wall milliseconds of one call of ``fn``, a step
+    that ends in a device synchronization, over ``steps`` steps."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), statistics.fmean(times)
+
+
+def checksum(torch, outs):
+    """The bits of every tensor of ``outs`` (a dict of tensors, or a tuple
+    of them), summed as integers tensor by tensor in the order of the
+    dicts' sorted names, folded into one hex string: equal for
+    bitwise-equal outputs."""
+    h = 0
+    for d in outs if isinstance(outs, tuple) else (outs,):
+        for n in sorted(d):
+            bits = d[n].contiguous().view(torch.int32).to(torch.int64).sum()
+            h = (h * 1_000_003 + int(bits)) % (2**61 - 1)
+    return f"{h:016x}"
+
+
+def nl_forms(c):
+    """The NL forms the script times: ``(constants, options of
+    cloudsc2_nl_cuda)`` by name; f64 runs those of the exact divide."""
+    return {
+        "nl": (c, {}),
+        "nl fused": (c, {"fuse_saturation": True}),
+        "ad forward": (c, {"with_trajectory": True}),
+        "traj_only": (c, {"with_trajectory": True, "traj_only": True}),
+        "nl fused ref": (c.replace(CUADJ_COMPACT=False), {"fuse_saturation": True}),
+        "nl fused faithful": (c.replace(FAST_DIV="faithful"), {"fuse_saturation": True}),
+        "nl fused approx": (c.replace(FAST_DIV="approx"), {"fuse_saturation": True}),
+    }
+
+
+def seed_ad(tlk, s, dt, cf):
+    """The state with the AD's output cotangent seeds: the TL kernel's
+    outputs under the constants ``cf``."""
+    s = dict(s)
+    tends, diags = tlk.cloudsc2_tl_cuda(s, dt, cf)
+    for n in ("t", "q", "ql", "qi"):
+        s["tnd_" + n] = tends[n]
+        s["tnd_" + n + "_i"] = tends[n + "_i"]
+    for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
+        s[n + "_i"] = diags[n + "_i"]
+    return s
+
+
+class StageClock:
+    """Host time of named functions of the checkout under test, by label.
+
+    :meth:`wrap` replaces a function in place (a module's, a class's or a
+    kernel library's entry) by one that times each call with
+    ``time.perf_counter_ns``, less the time of the wrapped calls it makes:
+    a label holds its functions' own time.  The wrappers cost some tenths
+    of a microsecond a call each, which the step's instrumented total
+    includes.  :meth:`restore` puts every function back."""
+
+    def __init__(self):
+        self.ns = {}
+        self._stack = []
+        self._undo = []
+
+    def wrap(self, owner, attr, label) -> None:
+        fn = getattr(owner, attr, None)
+        if fn is None:
+            return
+        stack, ns = self._stack, self.ns
+        ns.setdefault(label, 0)
+
+        def timed(*a, **k):
+            stack.append(0)
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*a, **k)
+            finally:
+                took = time.perf_counter_ns() - t0
+                ns[label] += took - stack.pop()
+                if stack:
+                    stack[-1] += took
+
+        self._undo.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def reset(self) -> None:
+        for label in self.ns:
+            self.ns[label] = 0
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+def launch_stages(modules):
+    """``(owner, attribute, label)`` of every function of the launch path
+    that the checkout has, from the component down to the kernel
+    library's C entry: the per-call marshalling's stages and the launch
+    plan's (``_nl_plan`` and ``_reverse_plan`` hold the cache lookup, the
+    key's hashing included)."""
+    nlk, adk, comps, dispatch, timing = (modules[k] for k in ("nlk", "adk", "comps", "dispatch", "timing"))
+    stages = [
+        (comps.Component, "_check_state", "component _check_state"),
+        (timing, "device_sync", "device_sync"),
+        (dispatch, "cloudsc2_nl_cuda", "cloudsc2_nl_cuda (own)"),
+        (dispatch, "cloudsc2_ad_cuda", "cloudsc2_ad_cuda (own)"),
+        (adk, "cloudsc2_nl_cuda", "cloudsc2_nl_cuda (own)"),
+        (adk, "cloudsc2_ad_reverse_cuda", "cloudsc2_ad_reverse_cuda (own)"),
+        (adk, "forward_constants", "forward_constants"),
+    ]
+    for mod, tag in ((nlk, ""), (adk, "ad ")):
+        stages += [(mod, name, tag + name) for name in ("_marshal", "_reverse", "_assemble")]
+        stages += [(mod, name, name) for name in (
+            "check_inputs", "check_constants", "scalm_profile", "_empty", "check_disjoint", "kernel_constants",
+            "tl_kernel_constants", "launch_switches", "reverse_switches", "load_cuda", "_form_lib", "ptrs",
+            "count_launch", "cached", "_nl_plan", "_run_nl", "_reverse_plan", "_run_reverse", "_two_kernels",
+            "_read", "_layout", "check_spans")]
+    if hasattr(nlk, "LaunchPlan"):
+        stages += [(nlk.LaunchPlan, "run", "LaunchPlan.run")]
+    stages += [(nlk.load_cuda(True), "cloudsc2_nl_launch", "ctypes call cloudsc2_nl_launch"),
+               (adk.load_cuda(True, False), "cloudsc2_ad_launch", "ctypes call cloudsc2_ad_launch")]
+    return stages
+
+
+def host_split(torch, modules, step, steps):
+    """The host time of one synchronized ``step`` by stage
+    (:func:`launch_stages`, :class:`StageClock`), microseconds a step:
+    each stage's own time, ``other`` the step's time outside them (the
+    component's timer and the dispatch among them), and ``step
+    (instrumented)`` the whole.  The checkout's launch plans, where it has
+    them, are dropped before and after, so that they are built under the
+    wrappers and hold none once done."""
+    caches = [getattr(modules[k], name) for k, name in (("nlk", "_nl_plan"), ("adk", "_reverse_plan"))
+              if hasattr(getattr(modules[k], name, None), "cache_clear")]
+    clock = StageClock()
+    for cache in caches:
+        cache.cache_clear()
+    for owner, attr, label in launch_stages(modules):
+        clock.wrap(owner, attr, label)
+    try:
+        for _ in range(5):
+            step()
+        clock.reset()
+        t0 = time.perf_counter_ns()
+        for _ in range(steps):
+            step()
+        total = (time.perf_counter_ns() - t0) / steps / 1e3
+    finally:
+        clock.restore()
+        for cache in caches:
+            cache.cache_clear()
+    split = {k: round(v / steps / 1e3, 2) for k, v in sorted(clock.ns.items(), key=lambda kv: -kv[1]) if v}
+    split["other"] = round(total - sum(split.values()), 2)
+    split["step (instrumented)"] = round(total, 2)
+    return split
+
+
+def launch_readings(torch, device, card, label, runs=10, batch=10):
+    """The main path's launch path, for each type and column count: the
+    fused NL wrapper and the ``cotangent_only`` AD step, each its host ms a
+    call (:func:`host_ms`), device ms a call (CUDA events behind a sleep
+    kernel), synchronized unprofiled step wall (median and mean,
+    :func:`step_ms`; the NL step is the ``Cloudsc2NL(fuse_saturation=True)``
+    component, the AD step ``dispatch.cloudsc2_ad`` then ``device_sync``),
+    the host split of such a step (:func:`host_split`), and checksums of
+    the outputs of every NL form and every two-kernel AD form.  Prints a
+    line each and returns the readings."""
+    from cloudsc2_tpu_torch import components as comps
+    from cloudsc2_tpu_torch import dispatch
+    from cloudsc2_tpu_torch.kernels import adjoint as adk
+    from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+    from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
+    from cloudsc2_tpu_torch.params import make_constants
+    from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+    from cloudsc2_tpu_torch.physics.increment import state_increment
+    from cloudsc2_tpu_torch.physics.saturation import saturation
+    from cloudsc2_tpu_torch.state import synthesize_state
+    from cloudsc2_tpu_torch.utils import card as cardmod
+    from cloudsc2_tpu_torch.utils import timing
+
+    modules = {"nlk": nlk, "adk": adk, "comps": comps, "dispatch": dispatch, "timing": timing}
+    c = make_constants(lphylin=True, ldrain1d=False)
+    c_lin = c.replace(LPHYLIN=False)
+    forms = {
+        **nl_forms(c),
+        "nl ref": (c.replace(CUADJ_COMPACT=False), {}),
+        "nl faithful": (c.replace(FAST_DIV="faithful"), {}),
+        "nl fused kflag 2": (c_lin, {"fuse_saturation": True, "kflag": 2}),
+    }
+    ad_forms = {
+        "ad": (c, {}),
+        "cotangent_only": (c, {"cotangent_only": True}),
+        "ad levapls2": (c.replace(LEVAPLS2=True), {}),
+        "cotangent_only levapls2": (c.replace(LEVAPLS2=True), {"cotangent_only": True}),
+        "ad ref": (c.replace(CUADJ_COMPACT=False), {}),
+        "ad faithful": (c.replace(FAST_DIV="faithful"), {}),
+        "ad approx": (c.replace(FAST_DIV="approx"), {}),
+        "ad lphylin=False": (c_lin, {}),
+    }
+    readings = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        for ncols in (65536, 100):
+            grid, s, dt = synthesize_state(ncols, 137, 2, device, dtype)
+            s["eta"] = eta_levels(s["ap"], s["aph"])
+            s["qsat"] = saturation(s["ap"], s["t"], c=c)
+            s.update(state_increment(s, 0.01, ignore_supsat=True))
+            sa = seed_ad(tlk, s, dt, c)
+            bare = {k: v for k, v in s.items() if k != "qsat"}
+            nl = comps.Cloudsc2NL(grid, c, fuse_saturation=True)
+            paths = {
+                "nl fused": (lambda: nlk.cloudsc2_nl_cuda(bare, dt, c, fuse_saturation=True),
+                             lambda: nl(bare, dt)),
+                "ad cotangent_only": (lambda: adk.cloudsc2_ad_cuda(sa, dt, c, cotangent_only=True),
+                                      lambda: timing.device_sync(dispatch.cloudsc2_ad(sa, dt, c, cotangent_only=True))),
+                "ad cotangent_only lphylin=False": (
+                    lambda: adk.cloudsc2_ad_cuda(sa, dt, c_lin, cotangent_only=True), None),
+            }
+            steps = 200 if ncols <= 4096 else 50
+            for path, (call, step) in paths.items():
+                for _ in range(3):
+                    call()
+                hosts = host_times(torch, call, 3 * runs, batch)
+                r = {"host_ms": statistics.median(hosts), "host_min_ms": min(hosts),
+                     "device_ms": statistics.median(
+                         cardmod.run_ms(call, batch, device, hold=True) / batch for _ in range(runs))}
+                if step is not None:
+                    r["step_ms"], r["step_mean_ms"] = step_ms(step, steps)
+                    r["busy_share"] = r["device_ms"] / r["step_ms"]
+                    r["split_us"] = host_split(torch, modules, step, steps)
+                readings[f"{tag} {ncols} {path}"] = r
+                print(f"{label} launch {tag} {ncols}x137 {path}: host {r['host_ms']:.4f} ms a call (least "
+                      f"{r['host_min_ms']:.4f}), device "
+                      f"{r['device_ms']:.4f} ms a call"
+                      + (f", synchronized step {r['step_ms']:.4f} ms (mean {r['step_mean_ms']:.4f}), device busy "
+                         f"{r['busy_share']:.3f} of it; host split, us a step: {r['split_us']}" if step else "")
+                      + f"; {card}", flush=True)
+            sums = {}
+            for name, (cf, opts) in forms.items():
+                if dtype == torch.float64 and cf.FAST_DIV != "exact":
+                    continue
+                x = bare if opts.get("fuse_saturation") else s
+                sums[name] = checksum(torch, nlk.cloudsc2_nl_cuda(x, dt, cf, **opts))
+            for name, (cf, opts) in ad_forms.items():
+                if dtype == torch.float64 and cf.FAST_DIV != "exact":
+                    continue
+                x = sa if not cf.LEVAPLS2 else seed_ad(tlk, s, dt, cf)
+                sums[name] = checksum(torch, adk.cloudsc2_ad_cuda(x, dt, cf, **opts))
+            readings[f"{tag} {ncols} checksums"] = sums
+            print(f"{label} launch {tag} {ncols}x137 outputs checksums: {sums}", flush=True)
+            del s, sa, bare
+            torch.cuda.empty_cache()
+    return readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
@@ -72,7 +357,7 @@ def main(argv=None) -> int:
     ap.add_argument("--num-cols", type=int, default=65536)
     ap.add_argument("--runs", type=int, default=10, help="batches per kernel (the median is reported)")
     ap.add_argument("--batch", type=int, default=10, help="back-to-back calls per batch")
-    ap.add_argument("--kernels", default="nl,tl,ad", help="comma-separated: nl, tl, ad, ad_fused")
+    ap.add_argument("--kernels", default="nl,tl,ad", help="comma-separated: nl, tl, ad, ad_fused, launch")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -95,25 +380,22 @@ def main(argv=None) -> int:
     c = make_constants(lphylin=True, ldrain1d=False)
     kernels = set(args.kernels.split(","))
     loads = [nlk.load_cuda, lambda: nlk.load_cuda(False)]
-    ad = bool(kernels & {"ad", "ad_fused"})
+    ad = bool(kernels & {"ad", "ad_fused", "launch"})
     loads += [tlk.load_cuda] * ("tl" in kernels or ad) + [adk.load_cuda] * ad
-    loads += [lambda: adk.load_cuda(True, True), lambda: adk.load_cuda(False)] * ("ad" in kernels)
+    loads += [lambda: adk.load_cuda(True, True), lambda: adk.load_cuda(False)] * bool(kernels & {"ad", "launch"})
     loads += [adk.load_fused_cuda] * ("ad_fused" in kernels)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loads)) as pool:
         for f in [pool.submit(load) for load in loads]:
             f.result()
     print(f"{label} built and loaded in {time.perf_counter() - t0:.1f} s; {card}", flush=True)
-    #: the NL forms: (constants, options of cloudsc2_nl_cuda), f64 without the divide modes
-    nl_forms = {
-        "nl": (c, {}),
-        "nl fused": (c, {"fuse_saturation": True}),
-        "ad forward": (c, {"with_trajectory": True}),
-        "traj_only": (c, {"with_trajectory": True, "traj_only": True}),
-        "nl fused ref": (c.replace(CUADJ_COMPACT=False), {"fuse_saturation": True}),
-        "nl fused faithful": (c.replace(FAST_DIV="faithful"), {"fuse_saturation": True}),
-        "nl fused approx": (c.replace(FAST_DIV="approx"), {"fuse_saturation": True}),
-    }
+    if "launch" in kernels:
+        readings = launch_readings(torch, device, card, label, args.runs, args.batch)
+        print(json.dumps({"tree": args.tree, "launch": readings, "card": card}), flush=True)
+        kernels.discard("launch")
+        if not kernels:
+            return 0
+    nl_timed = nl_forms(c)
 
     def ms(fn):
         for _ in range(3):
@@ -121,34 +403,9 @@ def main(argv=None) -> int:
         runs = [cardmod.run_ms(fn, args.batch, device, hold=False) / args.batch for _ in range(args.runs)]
         return statistics.median(runs), runs
 
-    def host_ms(fn):
-        """Host milliseconds a call of ``fn``: the median over batches of
-        back-to-back calls, each read before the device is synchronized."""
-        runs = []
-        for _ in range(args.runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(args.batch):
-                fn()
-            runs.append((time.perf_counter() - t0) * 1e3 / args.batch)
-        torch.cuda.synchronize()
-        return statistics.median(runs)
-
-    def seed_ad(s, dt, cf):
-        """The state with the AD's output cotangent seeds: the TL kernel's
-        outputs under the constants ``cf``."""
-        s = dict(s)
-        tends, diags = tlk.cloudsc2_tl_cuda(s, dt, cf)
-        for n in ("t", "q", "ql", "qi"):
-            s["tnd_" + n] = tends[n]
-            s["tnd_" + n + "_i"] = tends[n + "_i"]
-        for n in ("clc", "covptot", "fhpsl", "fhpsn", "fplsl", "fplsn"):
-            s[n + "_i"] = diags[n + "_i"]
-        return s
-
-    def checksum(outs):
-        """The outputs' bits summed as integers, output by output, folded
-        into one hex string: equal for bitwise-equal outputs."""
+    def reverse_checksum(outs):
+        """The reverse kernel's outputs' bits summed as integers, output by
+        output in the order of ``AD_OUTPUTS``, folded into one hex string."""
         h = 0
         for n in adk.AD_OUTPUTS:
             h = (h * 1_000_003 + int(outs[n].contiguous().view(torch.int32).to(torch.int64).sum())) % (2**61 - 1)
@@ -201,7 +458,7 @@ def main(argv=None) -> int:
         s.update(state_increment(s, 0.01, ignore_supsat=True))
         res, occ = {}, {}
         if "nl" in kernels:
-            for name, (cf, opts) in nl_forms.items():
+            for name, (cf, opts) in nl_timed.items():
                 if dtype == torch.float64 and cf.FAST_DIV != "exact":
                     continue
                 res[name] = ms(lambda cf=cf, opts=opts: nlk.cloudsc2_nl_cuda(s, dt, cf, **opts))
@@ -220,7 +477,7 @@ def main(argv=None) -> int:
             del a, b, o
         if "ad_fused" in kernels:
             for cname, cf in (("default", c), ("levapls2", c.replace(LEVAPLS2=True))):
-                sa = seed_ad(s, dt, cf)
+                sa = seed_ad(tlk, s, dt, cf)
                 res[f"two-kernel ad {cname}"] = ms(lambda: adk.cloudsc2_ad_cuda(sa, dt, cf))
                 for form, resident in (("rolled", False), ("resident", True)):
                     name = f"fused {form} {cname}"
@@ -236,13 +493,14 @@ def main(argv=None) -> int:
             if dtype == torch.float32:
                 forms += [(f" {m}", c.replace(FAST_DIV=m)) for m in ("faithful", "approx")]
             for suffix, cf in forms:
-                sa = seed_ad(s, dt, c.replace(LEVAPLS2=cf.LEVAPLS2))
+                sa = seed_ad(tlk, s, dt, c.replace(LEVAPLS2=cf.LEVAPLS2))
                 traj = nlk.cloudsc2_nl_cuda(sa, dt, cf, with_trajectory=True)[2]
                 name = "ad reverse" + suffix
                 res[name] = ms(lambda: adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf))
                 occ[name] = reverse_reading(dtype, cf)
-                occ[name]["checksum"] = checksum(adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf))
-                occ[name]["host_ms"] = round(host_ms(lambda: adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf)), 4)
+                occ[name]["checksum"] = reverse_checksum(adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf))
+                occ[name]["host_ms"] = round(statistics.median(host_times(
+                    torch, lambda: adk.cloudsc2_ad_reverse_cuda(sa, traj, dt, cf), args.runs, args.batch)), 4)
                 if suffix in ("", " levapls2") and "ad_fused" not in kernels:  # else timed there
                     res["two-kernel ad" + (suffix or " default")] = ms(lambda: adk.cloudsc2_ad_cuda(sa, dt, cf))
                 if suffix == "":

@@ -45,7 +45,11 @@ pipelined scan likewise bitwise the fused AD's direct reverse sweep at nlev
 2, D and D + 1, its occupancy as its plan counts, and its refusal of an
 output that overlaps an input.  The sharded forward step
 on the card's mesh and on a hand-made mesh of 3 shards of it bitwise the
-unsharded step.
+unsharded step.  The launch plans (``nonlinear.LaunchPlan``): with a warm
+plan the NL and AD wrappers refuse what the first call refuses, with its
+error and without a launch; configurations that differ in one field the
+kernel reads, called in turns on warm plans, give bitwise the outputs of a
+cold cache.
 """
 import numpy as np
 import pytest
@@ -802,3 +806,114 @@ def test_sharded_forward_step_bitwise_on_card(cuda, dtype):
         assert sorted(got) == sorted(want)
         for k, v in want.items():
             assert torch.equal(mesh.gather_columns(got[k]), v), k
+
+
+# ---- the launch plans (nonlinear.LaunchPlan)
+
+
+PLAN_CACHES = (nlk._nl_plan, adk._reverse_plan)
+
+
+def _clear_plans():
+    for cache in PLAN_CACHES:
+        cache.cache_clear()
+
+
+def _plan_counts():
+    """``(builds, hits)`` of the NL and reverse plans together."""
+    infos = [cache.cache_info() for cache in PLAN_CACHES]
+    return sum(i.misses for i in infos), sum(i.hits for i in infos)
+
+
+def _non_contiguous(t):
+    bad = torch.empty(tuple(reversed(t.shape)), dtype=t.dtype, device=t.device).t()
+    bad.copy_(t)
+    return bad
+
+
+PLAN_FAULTS = {
+    "shape": lambda s, n: s.__setitem__(n, s[n][:, :-1].contiguous()),
+    "dtype": lambda s, n: s.__setitem__(n, s[n].double()),
+    "device": lambda s, n: s.__setitem__(n, s[n].cpu()),
+    "non-contiguous": lambda s, n: s.__setitem__(n, _non_contiguous(s[n])),
+    "missing": lambda s, n: s.__delitem__(n),
+}
+
+
+@pytest.mark.parametrize("target", ["nl fused", "ad reverse"])
+@pytest.mark.parametrize("fault", list(PLAN_FAULTS))
+def test_warm_plan_refuses_what_the_first_call_refuses_on_card(cuda, fault, target):
+    """A fault refused from a cold cache is refused with a warm plan too,
+    with the same error, before the plan is looked up, and nothing
+    launches."""
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(256, torch.float32, c, cuda)
+    traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    if target == "nl fused":
+        field, call = "q", lambda x: nlk.cloudsc2_nl_cuda(x, dt, c, fuse_saturation=True)
+    else:
+        field, call = "clc_i", lambda x: adk.cloudsc2_ad_reverse_cuda(x, traj, dt, c)
+    bad = dict(s)
+    PLAN_FAULTS[fault](bad, field)
+    _clear_plans()
+    launches = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    with pytest.raises(Exception) as cold:
+        call(bad)
+    assert _plan_counts() == (0, 0)
+    call(s)  # the plan, warm
+    counts = _plan_counts()
+    with pytest.raises(Exception) as warm:
+        call(bad)
+    assert _plan_counts() == counts
+    assert (type(warm.value), str(warm.value)) == (type(cold.value), str(cold.value))
+    after = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    assert sum(after) - sum(launches) == 1  # the warm-up call alone
+
+
+@pytest.mark.parametrize("target", ["nl", "ad reverse"])
+def test_warm_plan_refuses_an_overlapping_output_on_card(cuda, target, monkeypatch):
+    """With the plan warm, an output allocated as the state's ``t`` is
+    refused before anything launches."""
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(256, torch.float32, c, cuda)
+    traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    call = ((lambda: nlk.cloudsc2_nl_cuda(s, dt, c)) if target == "nl"
+            else (lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)))
+    call()
+    t0 = s["t"].clone()
+    real = nlk._empty
+    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
+    before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
+    with pytest.raises(ValueError, match="overlaps input 't'"):
+        call()
+    assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
+    assert torch.equal(s["t"], t0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_alternating_forms_on_warm_plans_match_a_cold_cache_on_card(cuda, dtype):
+    """The fused NL step and the ``cotangent_only`` AD step under
+    configurations that differ in one field the kernel reads (LEVAPLS2,
+    dt, FAST_DIV), called in turns on warm plans: each bitwise its cold
+    cache's outputs."""
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(1000, dtype, c, cuda)
+    bare = {k: v for k, v in s.items() if k != "qsat"}
+    configs = [(c, dt), (c.replace(LEVAPLS2=True), dt), (c, dt * 0.5), (c.replace(FAST_DIV="faithful"), dt)]
+    steps = [lambda cf, d: nlk.cloudsc2_nl_cuda(bare, d, cf, fuse_saturation=True),
+             lambda cf, d: adk.cloudsc2_ad_cuda(s, d, cf, cotangent_only=True)]
+    cold = []
+    for step in steps:
+        for cf, d in configs:
+            _clear_plans()
+            cold.append(_host(step(cf, d)))
+    _clear_plans()
+    for turn in range(2):
+        for i, (step, (cf, d)) in enumerate((st, cd) for st in steps for cd in configs):
+            got = _host(step(cf, d))
+            assert got.keys() == cold[i].keys()
+            for k in got:
+                np.testing.assert_array_equal(got[k], cold[i][k], err_msg=f"{dtype} case {i} turn {turn} {k}")
+    assert _plan_counts()[1] > 0
+

@@ -86,10 +86,12 @@ def test_fastdiv_host_library_argument_lists():
     assert nlk.signature().startswith("switches:is_double,thermo,evap,traj,fuse,div,compact,;")
     c = CONFIGS["default"]()
     _, state, dt = iox.synthesize_input(ncols=4, nlev=8, seed=0, dtype=np.float64)
-    ins, outs, consts, switches = nlk._marshal(port_state(state, np.float64, c), dt, c, "cpu",
-                                               False, False, False, 1)
+    ins, dtype = nlk.check_inputs(port_state(state, np.float64, c), c, "cpu", nlk.NL_INPUTS, nlk._IFACE)
+    plan = nlk._nl_plan("cloudsc2_nl_host", dtype, (8, 4), c, dt, False, False, False, 1)
+    outs = [None if shape is None else torch.empty(shape, dtype=dtype) for shape in plan.shapes]
+    switches = plan.switches
     run = lambda sw: lib.cloudsc2_nl_host(  # noqa: E731
-        *sw, nlk.ptrs(ins), nlk.ptrs(list(outs.values())), consts.data_ptr(), 8, 4)
+        *sw, nlk.ptrs(ins), nlk.ptrs(outs), plan.consts.data_ptr(), 8, 4)
     assert switches[0] == 1 and switches[-2:] == (0, 1) and run(switches) == 0
     for div in (1, 2, 3):
         assert run(switches[:-2] + (div, 1)) == 1

@@ -1,0 +1,400 @@
+# Copyright 2026.
+# Licensed under the Apache License, Version 2.0.
+"""The launch plans of the NL and two-kernel AD wrappers
+(``kernels/nonlinear.py`` ``LaunchPlan``, ``_nl_plan``;
+``kernels/adjoint.py`` ``_reverse_plan``), through the host builds on the
+CPU, which take the same plans as the card's wrappers.
+
+- A warm plan is reused: the caches count one build and then hits, and
+  the constant struct is not folded again.
+- Constants that differ in one field the kernel reads (``LEVAPLS2``,
+  ``dt``, ``FAST_DIV``), alternated between calls, give outputs bitwise
+  those of a cold cache: no plan goes stale.
+- Each cache keeps at most its bound, dropping the least recently used.
+- Every refusal of the first call still fires with a warm plan, with the
+  first call's own error and before the plan is looked up: a field of the
+  wrong shape, dtype or device, a non-contiguous field, a missing field;
+  and an output that overlaps an input (the ``_empty`` monkeypatch of
+  ``tests/test_torch_ad_pipeline.py``).
+- The NL and AD outputs are bitwise those of the per-call marshalling the
+  plans replace (every check, the constant struct folded, the host entry
+  called directly), in every form.
+- The overlap check's sweep refuses exactly what the pairwise rule
+  refuses, naming the same pair; a ``dt`` that hashes by identity keeps no
+  plan.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from cloudsc2_tpu_torch import iox
+from cloudsc2_tpu_torch.kernels import adjoint as adk
+from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.params import make_constants
+from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
+from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
+from cloudsc2_tpu_torch.physics.saturation import saturation
+from cloudsc2_tpu_torch.state import kernel_constants, state_from_numpy, tl_kernel_constants
+
+torch.set_num_threads(1)
+
+NLEV, NCOLS = 137, 12
+DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
+SEEDS = adk.AD_SEEDS
+
+
+CACHES = (nlk._nl_plan, adk._reverse_plan)
+
+
+def _clear():
+    for cache in CACHES:
+        cache.cache_clear()
+
+
+def _counts():
+    """``(builds, hits, plans kept)`` of both caches together."""
+    infos = [cache.cache_info() for cache in CACHES]
+    return sum(i.misses for i in infos), sum(i.hits for i in infos), sum(i.currsize for i in infos)
+
+
+@pytest.fixture(autouse=True)
+def _cold_cache():
+    _clear()
+    yield
+    _clear()
+
+
+@functools.lru_cache(maxsize=None)
+def _state_np(dtype):
+    np_dtype = DTYPES[dtype][0]
+    _, state, dt = iox.synthesize_input(ncols=NCOLS, nlev=NLEV, seed=5, dtype=np_dtype)
+    rng = np.random.default_rng(5)
+    for n in SEEDS:
+        rows = NLEV + 1 if n[:4] in ("fpls", "fhps") else NLEV
+        state[n] = rng.standard_normal((rows, NCOLS)).astype(np_dtype)
+    return state, dt
+
+
+def _state(dtype):
+    """A fresh state dict (new tensors) with eta, qsat and the AD's seeds."""
+    state, dt = _state_np(dtype)
+    s = state_from_numpy(state, torch.device("cpu"), DTYPES[dtype][1])
+    s["eta"] = eta_levels(s["ap"], s["aph"])
+    s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=make_constants())
+    return s, dt
+
+
+def _flat(out):
+    return {f"{i}.{k}": v for i, d in enumerate(out) for k, v in d.items()}
+
+
+def _assert_bitwise(got, want, label):
+    got, want = _flat(got), _flat(want)
+    assert got.keys() == want.keys(), label
+    for k in want:
+        assert torch.equal(got[k], want[k]), f"{label} {k}"
+
+
+def _nl(s, dt, c, **opts):
+    return nlk.cloudsc2_nl_host(s, dt, c, **opts)
+
+
+def _ad(s, dt, c, **opts):
+    return adk.cloudsc2_ad_host(s, dt, c, **opts)
+
+
+# ---- reuse
+
+
+@pytest.mark.parametrize("kind, builds", [("nl", 1), ("ad", 2)])
+def test_a_warm_plan_is_reused(kind, builds, monkeypatch):
+    """The second call finds its plans (one for the NL, two for the AD's
+    two launches): the cache counts no new build, and the constant struct
+    is folded once, at the first call."""
+    folds = []
+    for mod, name in ((nlk, "kernel_constants"), (adk, "tl_kernel_constants")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, real=real, **k: folds.append(1) or real(*a, **k))
+    s, dt = _state("f32")
+    c = make_constants()
+    call = _nl if kind == "nl" else _ad
+    first = call(s, dt, c)
+    assert (*_counts()[:2], len(folds)) == (builds, 0, builds)
+    second = call(s, dt, c)
+    assert (*_counts()[:2], len(folds)) == (builds, builds, builds)
+    _assert_bitwise(second, first, kind)
+
+
+# ---- no stale plan
+
+
+ALTERNATIONS = {
+    "LEVAPLS2": lambda c, dt: ((c, dt), (c.replace(LEVAPLS2=True), dt)),
+    "dt": lambda c, dt: ((c, dt), (c, dt * 0.5)),
+    "FAST_DIV": lambda c, dt: ((c, dt), (c.replace(FAST_DIV="faithful"), dt)),
+}
+
+
+@pytest.mark.parametrize("kind", ["nl", "nl fused", "ad", "cotangent_only"])
+@pytest.mark.parametrize("field", list(ALTERNATIONS))
+def test_alternating_constants_match_a_cold_cache(kind, field):
+    """Two configurations that differ in one field the kernel reads,
+    called in turns on warm plans, each give bitwise what it gives from a
+    cold cache."""
+    s, dt0 = _state("f32")
+    pair = ALTERNATIONS[field](make_constants(), dt0)
+    opts = {"nl fused": {"fuse_saturation": True}, "cotangent_only": {"cotangent_only": True}}.get(kind, {})
+    call = _ad if kind in ("ad", "cotangent_only") else _nl
+    cold = []
+    for c, dt in pair:
+        _clear()
+        cold.append(call(s, dt, c, **opts))
+    _clear()
+    for turn in range(4):
+        c, dt = pair[turn % 2]
+        _assert_bitwise(call(s, dt, c, **opts), cold[turn % 2], f"{kind} {field} turn {turn}")
+    assert _counts()[1] > 0
+
+
+# ---- the bound
+
+
+def test_plan_cache_keeps_its_bound_least_recently_used_out():
+    """70 NL configurations (70 values of dt) leave 64 plans: the six
+    oldest are dropped and built again at their next use; a plan used
+    since it was built is kept."""
+    c = make_constants()
+    dts = [1800.0 * (1 + i / 100) for i in range(70)]
+
+    def plan_for(dt):
+        return nlk._nl_plan("cloudsc2_nl_host", torch.float32, (NLEV, NCOLS), c, dt, False, False, False, 1)
+
+    first = [plan_for(dt) for dt in dts[:4]]
+    for dt in dts[4:64]:
+        plan_for(dt)
+    assert plan_for(dts[0]) is first[0]  # dts[0] is now the most recent
+    for dt in dts[64:]:
+        plan_for(dt)
+    info = nlk._nl_plan.cache_info()
+    assert (info.currsize, info.maxsize, info.misses, info.hits) == (64, 64, 70, 1)
+    assert plan_for(dts[0]) is first[0]
+    assert plan_for(dts[1]) is not first[1]
+    assert nlk._nl_plan.cache_info().misses == 71
+
+
+def test_the_process_cache_stays_within_its_bound():
+    """70 configurations through the NL and AD wrappers' host builds leave
+    64 plans of each kernel."""
+    s, dt = _state("f32")
+    c = make_constants()
+    traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    for i in range(70):
+        adk.cloudsc2_ad_reverse_host(s, traj, dt * (1 + i / 100), c)
+    for i in range(70):
+        _nl(s, dt * (1 + i / 100), c)
+    for cache in CACHES:
+        info = cache.cache_info()
+        assert (info.currsize, info.maxsize) == (64, 64), cache
+    assert _counts()[0] == 141  # the trajectory's plan, then 70 of each
+
+
+# ---- refusals on a warm plan
+
+
+def _non_contiguous(t):
+    bad = torch.empty(tuple(reversed(t.shape)), dtype=t.dtype).t()
+    bad.copy_(t)
+    return bad
+
+
+FAULTS = {
+    "shape": lambda s, n: s.__setitem__(n, s[n][:, :-1].contiguous()),
+    "dtype": lambda s, n: s.__setitem__(n, s[n].double()),
+    "device": lambda s, n: s.__setitem__(n, torch.empty_like(s[n], device="meta")),
+    "non-contiguous": lambda s, n: s.__setitem__(n, _non_contiguous(s[n])),
+    "missing": lambda s, n: s.__delitem__(n),
+}
+#: the wrapper and the field a fault is put in: the NL step reads ``t``,
+#: the reverse kernel also a seed
+TARGETS = {
+    "nl": (lambda s, dt, c, traj: _nl(s, dt, c), "t"),
+    "nl fused": (lambda s, dt, c, traj: _nl(s, dt, c, fuse_saturation=True), "q"),
+    "ad reverse": (lambda s, dt, c, traj: adk.cloudsc2_ad_reverse_host(s, traj, dt, c), "clc_i"),
+}
+
+
+def _error(fn):
+    with pytest.raises(Exception) as info:
+        fn()
+    return type(info.value), str(info.value)
+
+
+@pytest.mark.parametrize("target", list(TARGETS))
+@pytest.mark.parametrize("fault", list(FAULTS))
+def test_a_warm_plan_refuses_what_the_first_call_refuses(target, fault):
+    """The fault refused from a cold cache is refused with a warm plan too,
+    with the same error: the state is checked before its plan is looked
+    up, so a refused call neither builds nor finds one."""
+    call, field = TARGETS[target]
+    c = make_constants()
+    s, dt = _state("f32")
+    traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    bad = dict(s)
+    FAULTS[fault](bad, field)
+    _clear()
+    cold = _error(lambda: call(bad, dt, c, traj))
+    assert _counts() == (0, 0, 0)
+    call(s, dt, c, traj)  # the plan, warm
+    counts = _counts()
+    warm = _error(lambda: call(bad, dt, c, traj))
+    assert _counts() == counts, "the faulty call reached the plan"
+    assert warm == cold
+
+
+@pytest.mark.parametrize("target", ["nl", "ad reverse"])
+def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target, monkeypatch):
+    """With the plan warm, an output allocated as the state's ``t`` itself
+    is refused before anything runs, as at the first call."""
+    c = make_constants()
+    s, dt = _state("f32")
+    traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    call = TARGETS[target][0]
+    call(s, dt, c, traj)
+    hits = _counts()[1]
+    t0 = s["t"].clone()
+    real = nlk._empty
+    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
+    with pytest.raises(ValueError, match="overlaps input 't'"):
+        call(s, dt, c, traj)
+    assert _counts()[1] == hits + 1
+    assert torch.equal(s["t"], t0)
+
+
+# ---- bitwise the per-call marshalling
+
+
+def _per_call_nl(s, dt, c, with_trajectory=False, traj_only=False, fuse_saturation=False, kflag=1):
+    """The NL step as the wrappers marshalled it on every call before the
+    plans: every check, fresh outputs, the constant struct folded, the host
+    entry called on the pointers."""
+    names = tuple(n for n in nlk.NL_INPUTS if not (fuse_saturation and n == "qsat"))
+    ins, dtype = nlk.check_inputs(s, c, "cpu", names, nlk._IFACE)
+    if fuse_saturation:
+        ins.insert(nlk.NL_INPUTS.index("qsat"), None)
+    written = trajectory_names(c) if with_trajectory else ()
+    if not traj_only:
+        written = nlk.STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
+    nlev, ncols = s["ap"].shape
+    outs = {n: torch.empty((nlev + 1, ncols) if n in nlk._IFACE else (nlev, ncols), dtype=dtype)
+            if n in written else None for n in nlk.NL_OUTPUTS}
+    consts = torch.from_numpy(kernel_constants(c, dt, dtype, kflag))
+    switches = nlk.launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
+    err = nlk._load("host", c.CUADJ_COMPACT).cloudsc2_nl_host(
+        *switches, nlk.ptrs(ins), nlk.ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols)
+    assert err == 0
+    return nlk._assemble(outs, with_trajectory, traj_only)
+
+
+def _per_call_ad(s, dt, c, cotangent_only=False):
+    tends, diags, traj = _per_call_nl(s, dt, adk.forward_constants(c), True, cotangent_only)
+    merged = {**s, **traj}
+    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
+    names = [n for n in adk.AD_INPUTS if evap or n not in adk._EVAP_ONLY]
+    ins, dtype = nlk.check_inputs(merged, c, "cpu", names, adk._IFACE)
+    by_name = dict(zip(names, ins))
+    nlev, ncols = s["ap"].shape
+    outs = [torch.empty((nlev + 1, ncols) if n in adk._IFACE else (nlev, ncols), dtype=dtype)
+            for n in adk.AD_OUTPUTS]
+    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
+    switches = adk.reverse_switches(dtype, c)
+    err = adk._form_lib("host", "ad", switches).cloudsc2_ad_host(
+        *switches, nlk.ptrs([by_name.get(n) for n in adk.AD_INPUTS]), nlk.ptrs(outs), consts.data_ptr(),
+        nlev, ncols)
+    assert err == 0
+    return adk._assemble(tends, diags, dict(zip(adk.AD_OUTPUTS, outs)))
+
+
+NL_FORMS = {
+    "unfused": {},
+    "fused": {"fuse_saturation": True},
+    "fused kflag 2": {"fuse_saturation": True, "kflag": 2},
+    "with_trajectory": {"with_trajectory": True},
+    "traj_only": {"with_trajectory": True, "traj_only": True},
+}
+CONSTANTS = {
+    "default": lambda: make_constants(),
+    "levapls2": lambda: make_constants().replace(LEVAPLS2=True),
+    "faithful": lambda: make_constants().replace(FAST_DIV="faithful"),
+    "ref": lambda: make_constants().replace(CUADJ_COMPACT=False),
+    "lphylin=False": lambda: make_constants().replace(LPHYLIN=False),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("cname", list(CONSTANTS))
+@pytest.mark.parametrize("form", list(NL_FORMS))
+def test_nl_outputs_are_the_per_call_marshalling(dtype, cname, form):
+    s, dt = _state(dtype)
+    c = CONSTANTS[cname]()
+    want = _per_call_nl(s, dt, c, **NL_FORMS[form])
+    for turn in ("cold", "warm"):
+        _assert_bitwise(_nl(s, dt, c, **NL_FORMS[form]), want, f"{dtype} {cname} {form} {turn}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("cname", list(CONSTANTS))
+@pytest.mark.parametrize("cotangent_only", [False, True])
+def test_ad_outputs_are_the_per_call_marshalling(dtype, cname, cotangent_only):
+    s, dt = _state(dtype)
+    c = CONSTANTS[cname]()
+    want = _per_call_ad(s, dt, c, cotangent_only)
+    for turn in ("cold", "warm"):
+        _assert_bitwise(_ad(s, dt, c, cotangent_only=cotangent_only), want, f"{dtype} {cname} {turn}")
+
+
+# ---- the parts
+
+
+def test_overlap_sweep_is_the_pairwise_rule():
+    """``check_disjoint`` on views of one buffer at random offsets and
+    lengths (absent fields among them) refuses exactly where some output
+    overlaps some input, and names the first such output and its first
+    input, as the search over every pair does."""
+    rng = np.random.default_rng(11)
+    buf = torch.empty(256, dtype=torch.uint8)
+
+    def views(k):
+        return [buf[lo:lo + n] if rng.integers(0, 4) else None
+                for lo, n in zip(rng.integers(0, 200, k), rng.integers(1, 10, k))]
+
+    refused = 0
+    for _ in range(2000):
+        ins, outs = views(int(rng.integers(1, 30))), views(int(rng.integers(1, 20)))
+        names = [f"i{k}" for k in range(len(ins))]
+        outd = {f"o{k}": o for k, o in enumerate(outs)}
+        pairs = [(o, n) for o, t in outd.items() if t is not None for n, u in zip(names, ins) if u is not None
+                 and t.data_ptr() < u.data_ptr() + u.nbytes and u.data_ptr() < t.data_ptr() + t.nbytes]
+        if not pairs:
+            nlk.check_disjoint(ins, outd, names)
+            continue
+        refused += 1
+        with pytest.raises(ValueError, match=f"output '{pairs[0][0]}' overlaps input '{pairs[0][1]}';"):
+            nlk.check_disjoint(ins, outd, names)
+    assert 200 < refused < 1800
+
+
+def test_a_dt_that_hashes_by_identity_keeps_no_plan():
+    """A ``dt`` is a key by value for Python and numpy numbers, its type
+    included; a tensor's hash is its identity, so its plan is built for
+    the call and kept nowhere."""
+    s, dt = _state("f64")
+    c = make_constants()
+    got = _nl(s, torch.tensor(dt, dtype=torch.float64), c)
+    assert _counts() == (0, 0, 0)
+    _assert_bitwise(got, _nl(s, dt, c), "dt as a float64 tensor")
+    _nl(s, np.float64(dt), c)
+    _nl(s, np.float32(dt), c)
+    assert _counts() == (3, 0, 3)  # float, numpy float64 and float32: three keys
