@@ -52,7 +52,11 @@ holds: :func:`fused_plan` counts them at a register count, and
 tensors and raise for anything else; the plain version of both is
 :func:`cloudsc2_tpu_torch.physics.adjoint.cloudsc2_ad`.
 :func:`cloudsc2_ad_host` and :func:`cloudsc2_ad_fused_host` run the same
-bodies compiled for the CPU, for the tests only.
+bodies compiled for the CPU, for the tests only.  While a profiler runs,
+each call records a root span (``ad``, ``ad_fused``; ``ad_reverse`` for the
+reverse kernel alone) and its stages (:mod:`cloudsc2_tpu_torch.utils.
+timing`): ``check``, ``scalm``, ``plan``, ``alloc`` and ``launch``, those
+of both launches under one ``ad``.
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS, AD_DIAGNOSTICS, AD_TENDENCIES
 from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, TL_CONST_NAMES, kernel_constants, tl_kernel_constants
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
 
 Tensor = torch.Tensor
 
@@ -243,11 +248,19 @@ def forward_constants(c: Constants) -> Constants:
 def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Tuple[str, ...],
              outputs: Tuple[str, ...]) -> Tuple[list, list, torch.dtype]:
     """Check the state for a kernel, and return its ``inputs`` in order
-    (``None`` for one it does not read) and fresh ``outputs``."""
+    (``None`` for one it does not read) and fresh ``outputs``: the spans
+    ``check`` (with ``scalm`` inside) and ``alloc``."""
+    on = PROFILER._is_profiler_enabled
+    if on:
+        k = open_span("check")
     ins, dtype = check_inputs(state, c, device_type, _read(inputs, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE)
+    if on:
+        k = next_span(k, "alloc")
     nlev, ncols = state["ap"].shape
     outs = [nonlinear._empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device)
             for n in outputs]
+    if on:
+        close_span(k)
     return ins, outs, dtype
 
 
@@ -281,10 +294,19 @@ def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], 
     is one), then the launch by its plan.  Returns the 16 input cotangents
     by name (none overlapping an input: the kernel reads the next levels
     up ahead of its stores); a launch on the card counts in
-    ``cloudsc2_ad_cuda.launches``."""
+    ``cloudsc2_ad_cuda.launches``.  Its stages are the spans ``check``,
+    ``plan`` and those of :meth:`~cloudsc2_tpu_torch.kernels.nonlinear.
+    LaunchPlan.run`."""
+    on = PROFILER._is_profiler_enabled
+    if on:
+        k = open_span("check")
     ins, dtype = check_inputs({**state, **traj}, c, "cuda" if entry == "cuda" else "cpu",
                               _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE, vertical)
+    if on:
+        k = next_span(k, "plan")
     plan = cached(_reverse_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt)
+    if on:
+        close_span(k)
     outs = plan.run(ins)
     if entry == "cuda":
         count_launch(cloudsc2_ad_cuda, plan.switches)
@@ -312,7 +334,19 @@ def cloudsc2_ad_reverse_cuda(
     memory included); never falls back.  Each launch adds one to
     ``cloudsc2_ad_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
-    return _run_reverse("cuda", state, traj, dt, c)
+    return _reverse_entry("cuda", state, traj, dt, c)
+
+
+def _reverse_entry(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float,
+                   c: Constants) -> Dict[str, Tensor]:
+    """One call of the reverse kernel alone through ``entry``, the root span
+    ``ad_reverse`` while a profiler runs."""
+    k = open_span("ad_reverse") if PROFILER._is_profiler_enabled else None
+    try:
+        return _run_reverse(entry, state, traj, dt, c)
+    finally:
+        if k:
+            close_span(k)
 
 
 def cloudsc2_ad_cuda(
@@ -338,11 +372,17 @@ def cloudsc2_ad_cuda(
 def _two_kernels(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool):
     """The NL launch with its trajectory under :func:`forward_constants`,
     then the reverse launch on the ``eta`` and ``scalm`` of the first,
-    through ``entry`` (``"cuda"`` or ``"host"``)."""
+    through ``entry`` (``"cuda"`` or ``"host"``); the root span ``ad`` while
+    a profiler runs."""
     fwd, rev = ("cuda", "cuda") if entry == "cuda" else ("cloudsc2_nl_host", "cloudsc2_ad_host")
-    outs, vertical = nonlinear._run_nl(fwd, state, dt, forward_constants(c), True, cotangent_only, False, 1)
-    tends, diags, traj = nonlinear._assemble(outs, True, cotangent_only)
-    return _assemble(tends, diags, _run_reverse(rev, state, traj, dt, c, vertical))
+    k = open_span("ad") if PROFILER._is_profiler_enabled else None
+    try:
+        outs, vertical = nonlinear._run_nl(fwd, state, dt, forward_constants(c), True, cotangent_only, False, 1)
+        tends, diags, traj = nonlinear._assemble(outs, True, cotangent_only)
+        return _assemble(tends, diags, _run_reverse(rev, state, traj, dt, c, vertical))
+    finally:
+        if k:
+            close_span(k)
 
 
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
@@ -421,7 +461,7 @@ def cloudsc2_ad_reverse_host(
     (tests only), as :func:`cloudsc2_ad_reverse_cuda` takes them: through
     the pipelined reverse scan the card runs, at the card's ring depth, or
     with ``direct`` through the direct reverse scan, its reference."""
-    return _run_reverse("cloudsc2_ad_direct_host" if direct else "cloudsc2_ad_host", state, traj, dt, c)
+    return _reverse_entry("cloudsc2_ad_direct_host" if direct else "cloudsc2_ad_host", state, traj, dt, c)
 
 
 def reverse_ring_depth(dtype: torch.dtype) -> int:
@@ -517,13 +557,53 @@ def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
            device_type: str) -> Tuple[list, list, Tensor, Tensor, Tuple[int, ...]]:
     """Check the options and the state, and return the fused kernel's inputs
     in order, fresh outputs, the NL and TL constant structs and the
-    switches (the NL constants those of :func:`forward_constants`)."""
+    switches (the NL constants those of :func:`forward_constants`): the
+    spans ``check``, ``alloc`` and ``plan``."""
     ins, outs, dtype = _marshal(state, c, device_type, AD_FUSED_INPUTS, AD_FUSED_OUTPUTS)
+    k = open_span("plan") if PROFILER._is_profiler_enabled else None
     nl_consts = torch.from_numpy(kernel_constants(forward_constants(c), dt, dtype))
     tl_consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
     switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
                 int(resident), div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
+    if k:
+        close_span(k)
     return ins, outs, nl_consts, tl_consts, switches
+
+
+def _run_fused(device_type: str, state: Dict[str, Tensor], dt: float, c: Constants,
+               resident: bool) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One call of the fused kernel on ``device_type`` (``"cuda"``: on
+    PyTorch's current stream; ``"cpu"``: the host build, its scratch NaN
+    before the call), the root span ``ad_fused`` while a profiler runs; the
+    scratch is a second ``alloc``."""
+    k = open_span("ad_fused") if PROFILER._is_profiler_enabled else None
+    try:
+        ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, device_type)
+        nlev, ncols = state["ap"].shape
+        on_card = device_type == "cuda"
+        s = open_span("alloc") if k else None
+        scratch = _scratch(state, switches, None if on_card else float("nan"))
+        if s:
+            s = next_span(s, "launch")
+        lib = _form_lib("cuda" if on_card else "host", "ad_fused", switches)
+        args = (*switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(),
+                nlev, ncols)
+        if on_card:
+            with torch.cuda.device(state["ap"].device):
+                err = lib.cloudsc2_ad_fused_launch(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            err = lib.cloudsc2_ad_fused_host(*args)
+        if s:
+            close_span(s)
+        if err != 0:
+            raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}" if on_card
+                               else f"cloudsc2_ad_fused host body failed: {err}")
+        if on_card:
+            count_launch(cloudsc2_ad_fused_cuda, switches)
+        return _assemble_fused(outs)
+    finally:
+        if k:
+            close_span(k)
 
 
 def _scratch(state: Dict[str, Tensor], switches: Tuple[int, ...], fill: float | None = None) -> Tensor:
@@ -558,18 +638,7 @@ def cloudsc2_ad_fused_cuda(
     build and on a refused launch; never falls back to the plain version
     or to the two-kernel AD.
     """
-    ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cuda")
-    nlev, ncols = state["ap"].shape
-    scratch = _scratch(state, switches)
-    with torch.cuda.device(state["ap"].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_launch(
-            *switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(),
-            nlev, ncols, stream)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}")
-    count_launch(cloudsc2_ad_fused_cuda, switches)
-    return _assemble_fused(outs)
+    return _run_fused("cuda", state, dt, c, resident)
 
 
 cloudsc2_ad_fused_cuda.launches = 0  # type: ignore[attr-defined]
@@ -615,12 +684,4 @@ def cloudsc2_ad_fused_host(
     (tests only): the kernel's scratch layout and index function, the
     scratch NaN before the call, every column's forward sweep before any
     reverse sweep."""
-    ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, "cpu")
-    nlev, ncols = state["ap"].shape
-    scratch = _scratch(state, switches, float("nan"))
-    err = _form_lib("host", "ad_fused", switches).cloudsc2_ad_fused_host(
-        *switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(), nlev,
-        ncols)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_ad_fused host body failed: {err}")
-    return _assemble_fused(outs)
+    return _run_fused("cpu", state, dt, c, resident)

@@ -23,7 +23,10 @@ loads run ahead of the stores of the levels before them, so the wrapper
 refuses outputs that overlap an input (:func:`check_disjoint`).  The
 wrapper works out the launch of each configuration once, a
 :class:`LaunchPlan` cached by value (:func:`_nl_plan`), and checks the
-state itself on every call (:func:`check_inputs`).  The note
+state itself on every call (:func:`check_inputs`).  While a profiler
+runs, each call records a root span and its stages
+(:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``, ``scalm``, ``plan``,
+``alloc`` and ``launch``.  The note
 at the top of ``nonlinear.cu`` gives what bounds the kernel, before and
 after, and why the ring needs no block synchronisation.
 
@@ -59,6 +62,7 @@ from cloudsc2_tpu_torch.physics.nonlinear import (
     trajectory_names,
 )
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, kernel_constants
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
 
 Tensor = torch.Tensor
 
@@ -158,7 +162,10 @@ def check_inputs(
         eta = state["eta"]
         if eta.dtype != dtype:
             eta = eta.to(dtype)
+        k = open_span("scalm") if PROFILER._is_profiler_enabled else None
         vertical = (eta, scalm_profile(eta, c))
+        if k:
+            close_span(k)
     names, wants, order = _layout(tuple(inputs), tuple(iface), nlev, ncols)
     fields = [state[n] for n in names[:-2]]
     fields += vertical
@@ -231,12 +238,20 @@ class LaunchPlan:
         refused where one overlaps an input (:func:`check_spans`), then
         the C entry, on the card on PyTorch's current stream of the
         inputs' device.  Returns the outputs by name; raises on a refused
-        launch."""
+        launch.  Its stages are the spans ``alloc``, ``check`` and
+        ``launch``."""
         dtype, device = ins[0].dtype, ins[0].device
+        on = PROFILER._is_profiler_enabled
+        if on:
+            k = open_span("alloc")
         outs = [None if sh is None else _empty(sh, dtype, device) for sh in self.shapes]
+        if on:
+            k = next_span(k, "check")
         in_ptrs = [0 if t is None else t.data_ptr() for t in ins]
         out_ptrs = [0 if t is None else t.data_ptr() for t in outs]
         check_spans(in_ptrs, self.in_bytes, self.inputs, out_ptrs, self.out_bytes, self.outputs)
+        if on:
+            k = next_span(k, "launch")
         # the pointer arrays as 64-bit words, alive until the call returns
         in_words, out_words = array.array("Q", in_ptrs), array.array("Q", out_ptrs)
         args = (*self.switches, in_words.buffer_info()[0], out_words.buffer_info()[0], self.consts.data_ptr(),
@@ -248,6 +263,8 @@ class LaunchPlan:
         else:
             with torch.cuda.device(device):
                 err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if on:
+            close_span(k)
         if err != 0:
             raise RuntimeError(self.failure.format(err))
         return dict(zip(self.outputs, outs))
@@ -287,13 +304,22 @@ def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_
     """One NL launch through ``entry``: every check of the options and the
     state (:func:`check_inputs`; ``qsat`` not read when fused), then the
     launch by its plan.  Returns ``(outputs by name, (eta, scalm))``; a
-    launch on the card counts in ``cloudsc2_nl_cuda.launches``."""
+    launch on the card counts in ``cloudsc2_nl_cuda.launches``.  Its
+    stages are the spans ``check`` (with ``scalm`` inside), ``plan`` and
+    those of :meth:`LaunchPlan.run`."""
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
     names = _FUSED_INPUTS if fuse_saturation else NL_INPUTS
+    on = PROFILER._is_profiler_enabled
+    if on:
+        k = open_span("check")
     ins, dtype = check_inputs(state, c, "cuda" if entry == "cuda" else "cpu", names, _IFACE, vertical)
+    if on:
+        k = next_span(k, "plan")
     plan = cached(_nl_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt, bool(with_trajectory),
                                 bool(traj_only), bool(fuse_saturation), kflag)
+    if on:
+        close_span(k)
     outs = plan.run(ins)
     if entry == "cuda":
         count_launch(cloudsc2_nl_cuda, plan.switches)
@@ -396,10 +422,10 @@ def cloudsc2_nl_cuda(
     failed build and on a refused launch; never falls back to the plain
     version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, a
     launch under a non-exact divide also to ``.fast_div_launches``, and one
-    with ``CUADJ_COMPACT=False`` to ``.ref_launches``.
+    with ``CUADJ_COMPACT=False`` to ``.ref_launches``.  While a profiler
+    runs, each call is a root span ``nl``.
     """
-    outs, _ = _run_nl("cuda", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
-    return _assemble(outs, with_trajectory, traj_only)
+    return _entry("cuda", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
@@ -443,9 +469,16 @@ def occupancy(dtype: torch.dtype, c: Constants, with_trajectory: bool = False, t
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth"), _occupancy(sw)))
 
 
-def _host(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):
-    outs, _ = _run_nl(entry, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
-    return _assemble(outs, with_trajectory, traj_only)
+def _entry(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):
+    """One call into an NL entry (``"cuda"`` or a host build's), the root
+    span ``nl`` while a profiler runs."""
+    k = open_span("nl") if PROFILER._is_profiler_enabled else None
+    try:
+        outs, _ = _run_nl(entry, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
+        return _assemble(outs, with_trajectory, traj_only)
+    finally:
+        if k:
+            close_span(k)
 
 
 def cloudsc2_nl_host(
@@ -455,7 +488,7 @@ def cloudsc2_nl_host(
     """The kernel compiled for the host, on CPU tensors (tests only): its
     body through the pipelined scan the card runs, at the card's ring
     depth."""
-    return _host("cloudsc2_nl_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
+    return _entry("cloudsc2_nl_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
 
 
 def cloudsc2_nl_direct_host(
@@ -465,7 +498,7 @@ def cloudsc2_nl_direct_host(
     """:func:`cloudsc2_nl_host` through the direct scan (each level's loads,
     arithmetic and stores in turn): the pipelined scan's reference in the
     tests."""
-    return _host("cloudsc2_nl_direct_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
+    return _entry("cloudsc2_nl_direct_host", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
 
 
 def ring_depth(dtype: torch.dtype) -> int:

@@ -18,7 +18,10 @@ does through its level body; each form is a library of its own
 anything else; its plain version is
 :func:`cloudsc2_tpu_torch.physics.tangent_linear.cloudsc2_tl`.
 :func:`cloudsc2_tl_host` runs the same body compiled for the CPU, for the
-tests only.
+tests only.  While a profiler runs, each call records the root span ``tl``
+and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``,
+``scalm``, ``alloc``, ``plan`` (the constant struct folded and the switches,
+on every call: the TL keeps no launch plan) and ``launch``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
 from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, STEP_OUTPUTS, check_inputs, count_launch, div_switch, ptrs
 from cloudsc2_tpu_torch.state import TL_CONST_NAMES, tl_kernel_constants
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
 
 Tensor = torch.Tensor
 
@@ -91,8 +95,14 @@ def _marshal(
 ) -> Tuple[List[Tensor], List, Tensor, Tuple[int, ...]]:
     """Check the state, and return the kernel's inputs in order, the output
     list (fresh tensors; ``None`` for the forward outputs with
-    ``tangent_only``), the constant struct and the switches."""
+    ``tangent_only``), the constant struct and the switches: the spans
+    ``check`` (with ``scalm`` inside), ``alloc`` and ``plan``."""
+    on = PROFILER._is_profiler_enabled
+    if on:
+        k = open_span("check")
     ins, dtype = check_inputs(state, c, device_type, TL_INPUTS, _IFACE)
+    if on:
+        k = next_span(k, "alloc")
     nlev, ncols = state["ap"].shape
     outs = [
         None if tangent_only and not n.endswith("_i") else torch.empty(
@@ -100,6 +110,8 @@ def _marshal(
         )
         for n in TL_OUTPUTS
     ]
+    if on:
+        k = next_span(k, "plan")
     consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
     switches = (
         int(dtype == torch.float64),
@@ -109,7 +121,40 @@ def _marshal(
         div_switch(c, dtype),
         int(bool(c.CUADJ_COMPACT)),
     )
+    if on:
+        close_span(k)
     return ins, outs, consts, switches
+
+
+def _run_tl(device_type: str, state: Dict[str, Tensor], dt: float, c: Constants,
+            tangent_only: bool) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One TL call on ``device_type`` (``"cuda"``: the kernel on PyTorch's
+    current stream; ``"cpu"``: the host build), the root span ``tl`` while a
+    profiler runs."""
+    k = open_span("tl") if PROFILER._is_profiler_enabled else None
+    try:
+        ins, outs, consts, switches = _marshal(state, dt, c, device_type, tangent_only)
+        nlev, ncols = state["ap"].shape
+        s = open_span("launch") if k else None
+        lib = _lib("cuda" if device_type == "cuda" else "host", c, switches)
+        if device_type == "cuda":
+            with torch.cuda.device(state["ap"].device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = lib.cloudsc2_tl_launch(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols,
+                                             stream)
+        else:
+            err = lib.cloudsc2_tl_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
+        if s:
+            close_span(s)
+        if err != 0:
+            raise RuntimeError(f"cloudsc2_tl kernel launch failed: cudaError_t {err}" if device_type == "cuda"
+                               else f"cloudsc2_tl host body failed: {err}")
+        if device_type == "cuda":
+            count_launch(cloudsc2_tl_cuda, switches)
+        return _assemble(outs)
+    finally:
+        if k:
+            close_span(k)
 
 
 def _assemble(outs: List) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
@@ -135,18 +180,7 @@ def cloudsc2_tl_cuda(
     adds one to ``cloudsc2_tl_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`).
     """
-    ins, outs, consts, switches = _marshal(state, dt, c, "cuda", tangent_only)
-    lib = _lib("cuda", c, switches)
-    nlev, ncols = state["ap"].shape
-    with torch.cuda.device(state["ap"].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cloudsc2_tl_launch(
-            *switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_tl kernel launch failed: cudaError_t {err}")
-    count_launch(cloudsc2_tl_cuda, switches)
-    return _assemble(outs)
+    return _run_tl("cuda", state, dt, c, tangent_only)
 
 
 cloudsc2_tl_cuda.launches = 0  # type: ignore[attr-defined]
@@ -158,10 +192,4 @@ def cloudsc2_tl_host(
     state: Dict[str, Tensor], dt: float, c: Constants, tangent_only: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    ins, outs, consts, switches = _marshal(state, dt, c, "cpu", tangent_only)
-    lib = _lib("host", c, switches)
-    nlev, ncols = state["ap"].shape
-    err = lib.cloudsc2_tl_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
-    if err != 0:
-        raise RuntimeError(f"cloudsc2_tl host body failed: {err}")
-    return _assemble(outs)
+    return _run_tl("cpu", state, dt, c, tangent_only)

@@ -33,9 +33,9 @@ two-kernel AD on the same state, and prints next to each time what
 ``kernels.adjoint.fused_occupancy`` reads from the card (block, blocks and
 threads per SM, registers, local and shared bytes) and, where the checkout
 has them, the scratch bytes of the kernel's stack.  ``--kernels launch``
-times the main path's launch path (:func:`launch_readings`): at 65,536 and
-100 columns, f32 and f64, the fused NL wrapper and the
-``cotangent_only`` AD step, each its host milliseconds a call (asynchronous
+times the main path's launch path (:func:`launch_readings`): at
+``--num-cols`` (65,536 by default) and 100 columns, f32 and f64, the fused
+NL wrapper and the ``cotangent_only`` AD step, each its host milliseconds a call (asynchronous
 calls, read before the device is synchronized), its device milliseconds a
 call (CUDA events behind a sleep kernel) and the wall of one synchronized,
 unprofiled step (the ``Cloudsc2NL(fuse_saturation=True)`` component; the
@@ -252,11 +252,11 @@ def host_split(torch, modules, step, steps):
     return split
 
 
-def launch_readings(torch, device, card, label, runs=10, batch=10):
-    """The main path's launch path, for each type and column count: the
-    fused NL wrapper and the ``cotangent_only`` AD step, each its host ms a
-    call (:func:`host_ms`), device ms a call (CUDA events behind a sleep
-    kernel), synchronized unprofiled step wall (median and mean,
+def launch_readings(torch, device, card, label, runs=10, batch=10, columns=(65536, 100)):
+    """The main path's launch path, for each type and column count of
+    ``columns``: the fused NL wrapper and the ``cotangent_only`` AD step,
+    each its host ms a call (:func:`host_ms`), device ms a call (CUDA
+    events behind a sleep kernel), synchronized unprofiled step wall (median and mean,
     :func:`step_ms`; the NL step is the ``Cloudsc2NL(fuse_saturation=True)``
     component, the AD step ``dispatch.cloudsc2_ad`` then ``device_sync``),
     the host split of such a step (:func:`host_split`), and checksums of
@@ -297,7 +297,7 @@ def launch_readings(torch, device, card, label, runs=10, batch=10):
     readings = {}
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype)[6:]
-        for ncols in (65536, 100):
+        for ncols in columns:
             grid, s, dt = synthesize_state(ncols, 137, 2, device, dtype)
             s["eta"] = eta_levels(s["ap"], s["aph"])
             s["qsat"] = saturation(s["ap"], s["t"], c=c)
@@ -390,7 +390,7 @@ def main(argv=None) -> int:
             f.result()
     print(f"{label} built and loaded in {time.perf_counter() - t0:.1f} s; {card}", flush=True)
     if "launch" in kernels:
-        readings = launch_readings(torch, device, card, label, args.runs, args.batch)
+        readings = launch_readings(torch, device, card, label, args.runs, args.batch, (args.num_cols, 100))
         print(json.dumps({"tree": args.tree, "launch": readings, "card": card}), flush=True)
         kernels.discard("launch")
         if not kernels:

@@ -26,7 +26,10 @@ package keeps the non-exact modes inside its kernels.
 performance row and its per-component timings (``--host-alias`` names the
 host) as ``drivers/run_nonlinear.py`` does, the variant ``nl-torch:cuda``
 or ``nl-torch:cpu``; ``--profile-dir`` writes a ``torch.profiler`` trace of
-the timed runs (CPU activity, and CUDA activity on the card).
+the timed runs (CPU activity, and CUDA activity on the card), with the
+port's own spans of the same runs appended (the kernel wrappers' stages and
+the ``timing`` blocks, :func:`cloudsc2_tpu_torch.utils.timing.append_spans`):
+one timeline shows each stage above the kernels it launched.
 
 ``--stream-chunk N`` sweeps ``--num-cols`` columns through the device in
 chunks of N (:func:`cloudsc2_tpu_torch.parallel.stream.stream_columns`:
@@ -152,7 +155,7 @@ def core(
         write_performance_to_csv,
         write_stencils_performance_to_csv,
     )
-    from cloudsc2_tpu_torch.utils.timing import Timer, device_sync, timing
+    from cloudsc2_tpu_torch.utils.timing import Timer, append_spans, clear, device_sync, timing
 
     if stream_chunk and config.sharded:
         raise ValueError("--stream-chunk is a single-device mode (the multi-device path keeps the columns "
@@ -275,6 +278,7 @@ def core(
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         prof = profile(activities=activities)
+        clear()
         prof.start()
     runtimes = []
     for _ in range(config.num_runs):
@@ -284,8 +288,9 @@ def core(
     if prof is not None:
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        print(f"Profiler trace written to {profile_dir}")
+        trace = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(trace)
+        print(f"Profiler trace written to {profile_dir}, with {append_spans(trace)} spans of the port")
     stats = print_performance(ncols, runtimes, nlev=grid.nlev)
     print(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if device.type == "cuda":

@@ -1,0 +1,13 @@
+"""``wrapper_us.check``: the host microseconds a step of the port's ``check``
+stage, ``check_inputs`` less its ``scalm``, and ``check_spans`` on the outputs'
+addresses: the self time of the spans the kernel wrappers record under that
+name in the traced sub-window (``portbench/spans.py``), over its steps."""
+from portbench import spans
+
+LAYER = "kernel wrappers"
+UNIT = "us"
+MOVES = "cols_per_s"
+
+
+def read(run):
+    return spans.stage_us(run, "check")
