@@ -244,7 +244,7 @@ BIG = 65536
 SMALL = 4096
 #: a column count that fills no block of the AD kernels (128, 64, 32, 16)
 RAGGED = 4000
-#: kernel calls per timed batch: the wrapper's host work (checks, scalm,
+#: kernel calls per timed batch: the wrapper's host work (checks,
 #: allocation, launch; phase 10 measures it) overlaps the previous call's
 #: kernel, so the batch times the device
 KERNEL_BATCH = 10
@@ -1603,11 +1603,11 @@ def ad_timing(torch, nlk, adk, build, plain_ad, plain_nl, c, card):
 
 def kernel_stream_counts(nlk, tlk, adk, c):
     """The input fields each port kernel reads at the default switches,
-    counted from its wrapper's argument list (the ``(nlev,)`` vectors
-    ``eta`` and ``scalm`` left out): the reader's stream count for it."""
+    counted from its wrapper's argument list (the ``(nlev,)`` vector
+    ``eta`` left out): the reader's stream count for it."""
     from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, trajectory_names
 
-    skip = {"eta", "scalm"} | (set(TRAJ_OUTPUTS) - set(trajectory_names(c)))
+    skip = {"eta"} | (set(TRAJ_OUTPUTS) - set(trajectory_names(c)))
     return {
         "cloudsc2_nl fused": len([n for n in nlk.NL_INPUTS if n not in skip | {"qsat"}]),
         "cloudsc2_tl": len([n for n in tlk.TL_INPUTS if n not in skip]),

@@ -22,7 +22,9 @@ form included, with its two kernels:
    input.  Its launch is worked out once per configuration, a cached
    :class:`~cloudsc2_tpu_torch.kernels.nonlinear.LaunchPlan`
    (:func:`_reverse_plan`), as the NL kernel's is; the two launches of a
-   step share the ``eta`` and ``scalm`` of the first.
+   step share the ``eta`` of the first.  Each block of either kernel
+   derives ``scalm`` from ``eta`` once, into shared memory before its ring
+   (``levelscan.cuh`` "level table"), so no wrapper computes it.
 
 Both are bound by bytes; the reverse level's registers and its ring's
 shared bytes set how many columns an SM runs at once
@@ -55,8 +57,8 @@ tensors and raise for anything else; the plain version of both is
 bodies compiled for the CPU, for the tests only.  While a profiler runs,
 each call records a root span (``ad``, ``ad_fused``; ``ad_reverse`` for the
 reverse kernel alone) and its stages (:mod:`cloudsc2_tpu_torch.utils.
-timing`): ``check``, ``scalm``, ``plan``, ``alloc`` and ``launch``, those
-of both launches under one ``ad``.
+timing`): ``check``, ``plan``, ``alloc`` and ``launch``, those of both
+launches under one ``ad``.
 """
 from __future__ import annotations
 
@@ -91,13 +93,13 @@ AD_SEEDS = (
     "fplsl_i", "fplsn_i", "fhpsl_i", "fhpsn_i",
 )
 #: argument orders of ``CLOUDSC2_AD_INPUTS`` / ``_OUTPUTS`` in ``ad_level.h``
-AD_INPUTS = NL_INPUTS[:-2] + AD_SEEDS + TRAJ_OUTPUTS + NL_INPUTS[-2:]
+AD_INPUTS = NL_INPUTS[:-1] + AD_SEEDS + TRAJ_OUTPUTS + NL_INPUTS[-1:]
 AD_OUTPUTS = tuple("cml_" + n + "_i" for n in AD_TENDENCIES) + (
     "ap_i", "aph_i", "t_i", "q_i", "qsat_i", "ql_i", "qi_i", "lu_i", "lude_i",
     "mfd_i", "mfu_i", "supsat_i",
 )
 #: argument orders of ``CLOUDSC2_AD_FUSED_INPUTS`` / ``_OUTPUTS`` in ``ad_fused.h``
-AD_FUSED_INPUTS = NL_INPUTS[:-2] + AD_SEEDS + NL_INPUTS[-2:]
+AD_FUSED_INPUTS = NL_INPUTS[:-1] + AD_SEEDS + NL_INPUTS[-1:]
 AD_FUSED_OUTPUTS = STEP_OUTPUTS + AD_OUTPUTS
 #: the folded level inputs the fused kernel's resident form keeps on its
 #: stack (``FWD_INPUTS``, ``pallas/adjoint.py:98``)
@@ -195,10 +197,10 @@ def _load(kind: str, form: str = "ad", compact: bool = True, fast: bool = False)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     if kind == "cuda" and form == "ad":
-        lib.cloudsc2_ad_occupancy.argtypes = [_I] * 5 + [_P]
+        lib.cloudsc2_ad_occupancy.argtypes = [_I] * 6 + [_P]
         lib.cloudsc2_ad_occupancy.restype = ctypes.c_int
     if kind == "cuda" and form == "ad_fused":
-        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 6 + [_P]
+        lib.cloudsc2_ad_fused_occupancy.argtypes = [_I] * 7 + [_P]
         lib.cloudsc2_ad_fused_occupancy.restype = ctypes.c_int
     if kind == "host" and form == "ad":
         lib.cloudsc2_ad_direct_host.argtypes = argtypes
@@ -249,7 +251,7 @@ def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: T
              outputs: Tuple[str, ...]) -> Tuple[list, list, torch.dtype]:
     """Check the state for a kernel, and return its ``inputs`` in order
     (``None`` for one it does not read) and fresh ``outputs``: the spans
-    ``check`` (with ``scalm`` inside) and ``alloc``."""
+    ``check`` and ``alloc``."""
     on = PROFILER._is_profiler_enabled
     if on:
         k = open_span("check")
@@ -287,11 +289,11 @@ def _reverse_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Con
 
 
 def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants,
-                 vertical=None) -> Dict[str, Tensor]:
+                 eta: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """One reverse launch through ``entry``: every check of the state, its
-    seeds and the trajectory (:func:`check_inputs`; ``vertical`` the
-    ``(eta, scalm)`` of the forward launch on the same state, where there
-    is one), then the launch by its plan.  Returns the 16 input cotangents
+    seeds and the trajectory (:func:`check_inputs`; ``eta`` that of the
+    forward launch on the same state, where there is one), then the launch
+    by its plan.  Returns the 16 input cotangents
     by name (none overlapping an input: the kernel reads the next levels
     up ahead of its stores); a launch on the card counts in
     ``cloudsc2_ad_cuda.launches``.  Its stages are the spans ``check``,
@@ -301,7 +303,7 @@ def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], 
     if on:
         k = open_span("check")
     ins, dtype = check_inputs({**state, **traj}, c, "cuda" if entry == "cuda" else "cpu",
-                              _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE, vertical)
+                              _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE, eta)
     if on:
         k = next_span(k, "plan")
     plan = cached(_reverse_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt)
@@ -371,15 +373,15 @@ def cloudsc2_ad_cuda(
 
 def _two_kernels(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, cotangent_only: bool):
     """The NL launch with its trajectory under :func:`forward_constants`,
-    then the reverse launch on the ``eta`` and ``scalm`` of the first,
+    then the reverse launch on the ``eta`` of the first,
     through ``entry`` (``"cuda"`` or ``"host"``); the root span ``ad`` while
     a profiler runs."""
     fwd, rev = ("cuda", "cuda") if entry == "cuda" else ("cloudsc2_nl_host", "cloudsc2_ad_host")
     k = open_span("ad") if PROFILER._is_profiler_enabled else None
     try:
-        outs, vertical = nonlinear._run_nl(fwd, state, dt, forward_constants(c), True, cotangent_only, False, 1)
+        outs, eta = nonlinear._run_nl(fwd, state, dt, forward_constants(c), True, cotangent_only, False, 1)
         tends, diags, traj = nonlinear._assemble(outs, True, cotangent_only)
-        return _assemble(tends, diags, _run_reverse(rev, state, traj, dt, c, vertical))
+        return _assemble(tends, diags, _run_reverse(rev, state, traj, dt, c, eta))
     finally:
         if k:
             close_span(k)
@@ -398,9 +400,9 @@ def reverse_switches(dtype: torch.dtype, c: Constants) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=None)
-def _reverse_query(switches: Tuple[int, ...]) -> Tuple[int, ...]:
+def _reverse_query(switches: Tuple[int, ...], nlev: int) -> Tuple[int, ...]:
     out = (ctypes.c_int * 5)()
-    err = _form_lib("cuda", "ad", switches).cloudsc2_ad_occupancy(*switches, out)
+    err = _form_lib("cuda", "ad", switches).cloudsc2_ad_occupancy(*switches, nlev, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad occupancy query failed: cudaError_t {err}")
     return tuple(out)
@@ -413,34 +415,36 @@ def reverse_ring_fields(evap: bool) -> int:
     return 29 if evap else 27
 
 
-def reverse_plan(dtype: torch.dtype, evap: bool, registers: int, depth: int) -> Dict[str, int]:
-    """The reverse kernel's launch at a register count and ring depth:
-    blocks of ``REVERSE_BLOCK`` threads, its ring of ``depth`` slots of
-    :func:`reverse_ring_fields` values a thread in dynamic shared memory
-    (``shared_bytes``: 27,648 B a block in f32 at 2 slots, 55,296 B in f64),
-    and as many blocks an SM as the registers
-    (:func:`register_blocks`) and the rings leave."""
+def reverse_plan(dtype: torch.dtype, evap: bool, registers: int, depth: int, nlev: int = 137) -> Dict[str, int]:
+    """The reverse kernel's launch at a register count and ring depth, at
+    ``nlev`` levels (the model's 137 unless told): blocks of
+    ``REVERSE_BLOCK`` threads, in dynamic shared memory the level table
+    (``nlev`` values) and its ring of ``depth`` slots of
+    :func:`reverse_ring_fields` values a thread (``shared_bytes``: 28,196 B
+    a block in f32 at 2 slots and 137 levels, 56,392 B in f64), and as many
+    blocks an SM as the registers (:func:`register_blocks`) and the shared
+    bytes leave."""
     item = torch.empty((), dtype=dtype).element_size()
-    shared = depth * reverse_ring_fields(evap) * REVERSE_BLOCK * item
+    shared = nlev * item + depth * reverse_ring_fields(evap) * REVERSE_BLOCK * item
     per_sm = min(register_blocks(registers, REVERSE_BLOCK), SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES))
     return {"block": REVERSE_BLOCK, "blocks_per_sm": per_sm, "shared_bytes": shared, "depth": depth}
 
 
-def reverse_occupancy(dtype: torch.dtype, c: Constants) -> Dict[str, int]:
+def reverse_occupancy(dtype: torch.dtype, c: Constants, nlev: int = 137) -> Dict[str, int]:
     """What the card makes of the reverse kernel that
     :func:`cloudsc2_ad_reverse_cuda` launches for constants ``c``, at its
-    128 threads a block: ``blocks_per_sm``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
-    ``local_bytes`` a thread (``cudaFuncGetAttributes``), ``shared_bytes``
-    a block and the ring ``depth``.  Raises ``RuntimeError`` where the
-    card's blocks per SM or shared bytes are not :func:`reverse_plan`'s at
-    the card's registers and depth.  Needs the card; the answers are kept
-    per instantiation."""
+    128 threads a block and ``nlev`` levels (the model's 137 unless told):
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
+    ``shared_bytes`` a block and the ring ``depth``.  Raises
+    ``RuntimeError`` where the card's blocks per SM or shared bytes are not
+    :func:`reverse_plan`'s at the card's registers and depth.  Needs the
+    card; the answers are kept per instantiation and depth."""
     switches = reverse_switches(dtype, c)
-    per_sm, registers, local, shared, depth = _reverse_query(switches)
+    per_sm, registers, local, shared, depth = _reverse_query(switches, nlev)
     got = {"blocks_per_sm": per_sm, "registers": registers, "local_bytes": local, "shared_bytes": shared,
            "depth": depth}
-    plan = reverse_plan(dtype, bool(switches[1]), registers, depth)
+    plan = reverse_plan(dtype, bool(switches[1]), registers, depth, nlev)
     if (per_sm, shared) != (plan["blocks_per_sm"], plan["shared_bytes"]):
         raise RuntimeError(f"the card holds the AD reverse kernel otherwise than its plan: {got} against {plan}")
     return got
@@ -539,14 +543,15 @@ def fused_plan(nlev: int, ncols: int, dtype: torch.dtype, evap: bool, resident: 
     ``FUSED_BLOCK`` threads, as many an SM as the registers allow
     (:func:`register_blocks`: 4 at the 128 registers of the f32 default
     switches, 512 threads; 2 at f64's 238-255, 256 threads), which the
-    forward sweep's ring in shared memory (``shared_bytes``: 24 KB a block
-    in f32, none in f64) leaves them; no level of the stack in shared
+    level table and the forward sweep's ring in shared memory
+    (``shared_bytes``: ``nlev`` values, then 24 KB a block in f32, none in
+    f64) leave them; no level of the stack in shared
     memory (``levels_in_shared``); the stack's scratch in device memory,
     ``scratch_bytes``: :func:`fused_stack_slots` x ``nlev`` x ``ncols``
     values (71.8 MB in f32 at 65,536 x 137 rolled, 431 MB resident).  Any
     depth: the stack no longer bounds the columns."""
     item = torch.empty((), dtype=dtype).element_size()
-    shared = FUSED_RING_SLOTS[dtype] * FUSED_RING_FIELDS * FUSED_BLOCK * item
+    shared = nlev * item + FUSED_RING_SLOTS[dtype] * FUSED_RING_FIELDS * FUSED_BLOCK * item
     per_sm = min(register_blocks(registers, FUSED_BLOCK), SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES))
     return {"block": FUSED_BLOCK, "blocks_per_sm": per_sm, "threads_per_sm": FUSED_BLOCK * per_sm,
             "shared_bytes": shared, "levels_in_shared": 0,
@@ -647,28 +652,29 @@ cloudsc2_ad_fused_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(switches: Tuple[int, ...]) -> Tuple[int, int, int, int]:
+def _occupancy(switches: Tuple[int, ...], nlev: int) -> Tuple[int, int, int, int]:
     out = (ctypes.c_int * 4)()
-    err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_occupancy(*switches, out)
+    err = _form_lib("cuda", "ad_fused", switches).cloudsc2_ad_fused_occupancy(*switches, nlev, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_ad_fused occupancy query failed: cudaError_t {err}")
     return tuple(out)
 
 
 def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int) -> Dict[str, int]:
-    """What the card makes of the fused kernel's instantiation: ``block``,
-    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    ``threads_per_sm``, ``registers`` and ``local_bytes`` a thread
-    (``cudaFuncGetAttributes``), ``shared_bytes`` a block and
+    """What the card makes of the fused kernel's instantiation at ``nlev``
+    levels: ``block``, ``blocks_per_sm``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``threads_per_sm``,
+    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
+    ``shared_bytes`` a block (the level table, then the ring) and
     ``levels_in_shared``.  Raises ``RuntimeError`` where the card's blocks
     per SM or shared bytes are not :func:`fused_plan`'s at ``nlev`` levels
     and the card's registers (which the depth does not change: the stack is
     in device memory).  Needs the card; the answers are kept per
-    instantiation."""
+    instantiation and depth."""
     evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
     switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident),
                 div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
-    per_sm, registers, local, shared = _occupancy(switches)
+    per_sm, registers, local, shared = _occupancy(switches, nlev)
     plan = fused_plan(nlev, 1, dtype, evap, resident, registers)
     got = {"block": FUSED_BLOCK, "blocks_per_sm": per_sm, "threads_per_sm": FUSED_BLOCK * per_sm,
            "registers": registers, "local_bytes": local, "shared_bytes": shared, "levels_in_shared": 0}

@@ -78,6 +78,8 @@ struct Kernel {
   static constexpr int MIN_BLOCKS = min_blocks<T, EVAP, D>();
   // the forward sweep's ring in shared memory, where the type keeps it there
   static constexpr size_t RING_BYTES = Ring::SHARED ? size_t(Ring::DEPTH) * Fwd::FIELDS * kBlock * sizeof(T) : 0;
+  // dynamic shared memory a block at nlev levels: the level table, then the ring
+  static size_t shared_bytes(int nlev) { return cloudsc2::level_table_bytes<T>(nlev) + RING_BYTES; }
   using Fn = void (*)(const Fwd, const Rev, T*);
   static Fn fn() {
     return &cloudsc2::level_scan_fwdrev_kernel<Fwd, Rev, T, Ring::DEPTH, Ring::SHARED, kBlock, MIN_BLOCKS>;
@@ -96,26 +98,32 @@ struct Launcher {
   template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
     using K = Kernel<T, EVAP, LREGCL, RESIDENT, D>;
+    const cudaError_t err = cloudsc2::allow_dynamic_shared(K::fn(), K::shared_bytes(nlev));
+    if (err != cudaSuccess) return static_cast<int>(err);
     const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(in, out, nl_consts, tl_consts,
                                                                          nlev, ncols);
     const int blocks = (ncols + kBlock - 1) / kBlock;
     cloudsc2::level_scan_fwdrev_kernel<typename K::Fwd, typename K::Rev, T, K::Ring::DEPTH, K::Ring::SHARED, kBlock,
                                        K::MIN_BLOCKS>
-        <<<blocks, kBlock, K::RING_BYTES, stream>>>(b.fwd, b.rev, static_cast<T*>(scratch));
+        <<<blocks, kBlock, K::shared_bytes(nlev), stream>>>(b.fwd, b.rev, static_cast<T*>(scratch));
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// What the card makes of one instantiation: blocks of kBlock per SM,
-// registers a thread, local (spill) bytes a thread, shared bytes a block.
+// What the card makes of one instantiation at nlev levels: blocks of
+// kBlock per SM, registers a thread, local (spill) bytes a thread, shared
+// bytes a block.
 struct Query {
   int* out;
+  int nlev;
 
   template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
     using K = Kernel<T, EVAP, LREGCL, RESIDENT, D>;
+    cudaError_t err = cloudsc2::allow_dynamic_shared(K::fn(), K::shared_bytes(nlev));
+    if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kBlock, K::RING_BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kBlock, K::shared_bytes(nlev));
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, K::fn());
@@ -123,7 +131,7 @@ struct Query {
     out[0] = per_sm;
     out[1] = attr.numRegs;
     out[2] = static_cast<int>(attr.localSizeBytes);
-    out[3] = static_cast<int>(K::RING_BYTES + attr.sharedSizeBytes);
+    out[3] = static_cast<int>(K::shared_bytes(nlev) + attr.sharedSizeBytes);
     return 0;
   }
 };
@@ -151,13 +159,13 @@ int cloudsc2_ad_fused_launch(int is_double, int evap, int lregcl, int resident, 
   return cloudsc2::ad_fused_dispatch(l, is_double, evap, lregcl, resident, div);
 }
 
-// Fill out[0..3] for the instantiation: blocks of 128 per SM
+// Fill out[0..3] for the instantiation at nlev levels: blocks of 128 per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread, local
 // bytes a thread, shared bytes a block.  Returns a cudaError_t.
-int cloudsc2_ad_fused_occupancy(int is_double, int evap, int lregcl, int resident, int div, int compact,
+int cloudsc2_ad_fused_occupancy(int is_double, int evap, int lregcl, int resident, int div, int compact, int nlev,
                                 int* out) {
-  if (!cloudsc2::forms_valid(is_double, div, compact)) return static_cast<int>(cudaErrorInvalidValue);
-  const Query q{out};
+  if (nlev < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return static_cast<int>(cudaErrorInvalidValue);
+  const Query q{out, nlev};
   return cloudsc2::ad_fused_dispatch(q, is_double, evap, lregcl, resident, div);
 }
 

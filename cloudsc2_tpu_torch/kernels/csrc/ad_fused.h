@@ -37,8 +37,8 @@ namespace cloudsc2 {
 // Mirrored in Python (kernels/adjoint.py AD_FUSED_INPUTS / AD_FUSED_OUTPUTS;
 // the constants are NLConst's and TLConst's); ad_fused_signature() reports
 // them for the wrapper.  (nlev, ncols) fields, except aph and the four flux
-// seeds (nlev+1, ncols) and eta, scalm (nlev,); covptot_i is read only with
-// EVAP and may be null otherwise.
+// seeds (nlev+1, ncols) and eta (nlev,); covptot_i is read only with EVAP
+// and may be null otherwise.
 #define CLOUDSC2_AD_FUSED_RAW(X)                                               \
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
   X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t)
@@ -46,7 +46,7 @@ namespace cloudsc2 {
   X(tnd_t_i) X(tnd_q_i) X(tnd_ql_i) X(tnd_qi_i) X(clc_i) X(covptot_i)          \
   X(fplsl_i) X(fplsn_i) X(fhpsl_i) X(fhpsn_i)
 #define CLOUDSC2_AD_FUSED_INPUTS(X)                                            \
-  CLOUDSC2_AD_FUSED_RAW(X) CLOUDSC2_AD_FUSED_SEEDS(X) X(eta) X(scalm)
+  CLOUDSC2_AD_FUSED_RAW(X) CLOUDSC2_AD_FUSED_SEEDS(X) X(eta)
 
 // The NL step's outputs (the fluxes (nlev+1, ncols)), then the AD's.
 #define CLOUDSC2_AD_FUSED_FWD_OUTPUTS(X)                                       \
@@ -90,6 +90,8 @@ struct ADFusedFwd {
   int nlev, ncols;
 
   CLOUDSC2_HD Column begin(int col) const { return nl.begin(col); }
+
+  CLOUDSC2_HD const ScalmTable<T>& level_table() const { return nl.level_table(); }
 
   template <class Ring>
   CLOUDSC2_HD void prefetch(Ring& r, int slot, int col, int k) const {
@@ -172,7 +174,6 @@ inline ADFused<T, EVAP, LREGCL, RESIDENT, D> make_ad_fused(const void* const* in
   CLOUDSC2_AD_FUSED_RAW(CLOUDSC2_BOTH)
   CLOUDSC2_AD_FUSED_SEEDS(CLOUDSC2_AD_ONLY)
   CLOUDSC2_BOTH(eta)
-  CLOUDSC2_BOTH(scalm)
 #undef CLOUDSC2_BOTH
 #undef CLOUDSC2_AD_ONLY
   i = 0;
@@ -184,6 +185,8 @@ inline ADFused<T, EVAP, LREGCL, RESIDENT, D> make_ad_fused(const void* const* in
 #undef CLOUDSC2_AD_OUT
   memcpy(&b.fwd.nl.c, nl_consts, sizeof(NLConst<T>));
   memcpy(&b.rev.ad.c, tl_consts, sizeof(TLConst<T>));
+  nf.scalm = {nf.eta, b.fwd.nl.c.zscal, b.fwd.nl.c.zeps1};
+  af.scalm = {af.eta, b.rev.ad.c.zscal, b.rev.ad.c.zeps1};
   b.fwd.nl.nlev = b.fwd.nlev = b.rev.ad.nlev = nlev;
   b.fwd.nl.ncols = b.fwd.ncols = b.rev.ad.ncols = ncols;
   return b;

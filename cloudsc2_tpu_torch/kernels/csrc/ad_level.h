@@ -61,14 +61,14 @@ namespace cloudsc2 {
 // Mirrored in Python (kernels/adjoint.py AD_INPUTS / AD_OUTPUTS; the
 // constants are TLConst's); ad_signature() reports them for the wrapper.
 // (nlev, ncols) fields, except aph and the four flux seeds (nlev+1, ncols)
-// and eta, scalm (nlev,); c_cov and covptot_i are read only with EVAP and
-// may be null otherwise.
+// and eta (nlev,); c_cov and covptot_i are read only with EVAP and may be
+// null otherwise.
 #define CLOUDSC2_AD_INPUTS(X)                                                  \
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
   X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t)                   \
   X(tnd_t_i) X(tnd_q_i) X(tnd_ql_i) X(tnd_qi_i) X(clc_i) X(covptot_i)          \
   X(fplsl_i) X(fplsn_i) X(fhpsl_i) X(fhpsn_i) X(c_rfl) X(c_sfl) X(c_cov)       \
-  X(eta) X(scalm)
+  X(eta)
 
 // (nlev, ncols) fields, except aph_i (nlev+1, ncols)
 #define CLOUDSC2_AD_OUTPUTS(X)                                                 \
@@ -121,6 +121,7 @@ struct ADFields {
 #define CLOUDSC2_FIELD(n) T* n;
   CLOUDSC2_AD_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
+  ScalmTable<T> scalm;  // from eta and the constants, not an input
 };
 
 // One cotangent per input direction.
@@ -884,6 +885,8 @@ struct ADBody {
     return static_cast<size_t>(k) * static_cast<size_t>(ncols) + static_cast<size_t>(col);
   }
 
+  CLOUDSC2_HD const ScalmTable<T>& level_table() const { return f.scalm; }
+
   // Prologue: the tropopause, the critical-RH coefficients, the surface
   // pressure, and zero carry cotangents.
   CLOUDSC2_HD Column begin(int col) const {
@@ -1164,6 +1167,7 @@ inline ADBody<T, EVAP, LREGCL, D> make_ad_body(const void* const* in, void* cons
   CLOUDSC2_AD_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
   memcpy(&b.c, consts, sizeof(TLConst<T>));
+  b.f.scalm = {b.f.eta, b.c.zscal, b.c.zeps1};
   b.nlev = nlev;
   b.ncols = ncols;
   return b;

@@ -16,7 +16,9 @@
 // primal pass and one adjoint pass, as the Pallas kernel's jax.vjp of
 // tl_level sweeps once).  It also does what the JAX wrapper does around its
 // kernel in XLA: the folds of the raw fields (dp, q2, the first guesses,
-// mf, lu_next, the tropopause and critical-RH coefficients), the fold of
+// mf, lu_next, the tropopause and critical-RH coefficients, scalm from eta,
+// which each block derives once into shared memory before its ring:
+// levelscan.cuh "level table"), the fold of
 // the flux seeds (s_fpls = fpls_i[k+1] - L * fhps_i[k+1]), and the assembly
 // of the 16 input cotangents (aph_i from cot_dp and the column sum of the
 // surface cotangent, lu_i shifted one level, mfu_i = mfd_i, q_i = supsat_i,
@@ -99,39 +101,42 @@ struct Kernel {
   using Body = cloudsc2::ADPipeBody<T, EVAP, LREGCL, D>;
   static constexpr int DEPTH = cloudsc2::ADRing<T>::DEPTH;
   static constexpr int MIN_BLOCKS = kMinBlocks<T>;
-  // the ring, [slot][field][thread] in dynamic shared memory
-  static constexpr size_t SHARED_BYTES = size_t(DEPTH) * Body::FIELDS * kBlock * sizeof(T);
+  // dynamic shared memory a block at nlev levels: the level table, then the
+  // ring, [slot][field][thread]
+  static size_t shared_bytes(int nlev) {
+    return cloudsc2::level_table_bytes<T>(nlev) + size_t(DEPTH) * Body::FIELDS * kBlock * sizeof(T);
+  }
   static auto fn() {
     return &cloudsc2::level_scan_pipelined_kernel<Body, T, DEPTH, true, true, kBlock, MIN_BLOCKS>;
   }
-  // Allow the ring's bytes (above 48 KB in double), and ask for the
+  // Allow the bytes at nlev levels (above 48 KB in double), and ask for the
   // shared-memory carveout that the blocks the registers allow need, so
-  // that the ring never holds an SM to fewer.
-  static cudaError_t set_attributes() {
+  // that the ring and the table never hold an SM to fewer.
+  static cudaError_t set_attributes(int nlev) {
     cudaError_t err = cudaFuncSetAttribute(fn(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(SHARED_BYTES));
+                                           static_cast<int>(shared_bytes(nlev)));
     if (err != cudaSuccess) return err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn(), kBlock, 0);
     if (err != cudaSuccess) return err;
-    const size_t want = static_cast<size_t>(blocks) * (SHARED_BYTES + kBlockReserved);
+    const size_t want = static_cast<size_t>(blocks) * (shared_bytes(nlev) + kBlockReserved);
     const int percent = static_cast<int>((want * 100 + kSmShared - 1) / kSmShared);
     return cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout, percent > 100 ? 100 : percent);
   }
   // set_attributes once per device (a function's attributes are the
-  // device's), its cudaError_t kept for the later launches there.
-  static cudaError_t prepare() {
+  // device's) and depth: the depth they were set for is kept, and another
+  // depth sets them again.
+  static cudaError_t prepare(int nlev) {
     int dev = 0;
-    const cudaError_t err = cudaGetDevice(&dev);
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices) return set_attributes();
-    static int done[kMaxDevices];  // cudaError_t + 1; 0: not yet set
-    int d = __atomic_load_n(&done[dev], __ATOMIC_ACQUIRE);
-    if (d == 0) {
-      d = static_cast<int>(set_attributes()) + 1;
-      __atomic_store_n(&done[dev], d, __ATOMIC_RELEASE);
+    if (dev >= kMaxDevices) return set_attributes(nlev);
+    static int done[kMaxDevices];  // the depth set; 0: not yet set
+    if (__atomic_load_n(&done[dev], __ATOMIC_ACQUIRE) != nlev) {
+      err = set_attributes(nlev);
+      if (err == cudaSuccess) __atomic_store_n(&done[dev], nlev, __ATOMIC_RELEASE);
     }
-    return static_cast<cudaError_t>(d - 1);
+    return err;
   }
 };
 
@@ -145,30 +150,31 @@ struct Launcher {
   template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
     using K = Kernel<T, EVAP, LREGCL, D>;
-    const cudaError_t err = K::prepare();
+    const cudaError_t err = K::prepare(nlev);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto body = cloudsc2::make_ad_body<T, EVAP, LREGCL, D>(in, out, consts, nlev, ncols);
     const int blocks = (ncols + kBlock - 1) / kBlock;
     cloudsc2::level_scan_pipelined_kernel<typename K::Body, T, K::DEPTH, true, true, kBlock, K::MIN_BLOCKS>
-        <<<blocks, kBlock, K::SHARED_BYTES, stream>>>(typename K::Body{body});
+        <<<blocks, kBlock, K::shared_bytes(nlev), stream>>>(typename K::Body{body});
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// What the card makes of one instantiation at kBlock threads a block:
-// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after
-// prepare), registers a thread, local (spill) bytes a thread, dynamic
+// What the card makes of one instantiation at kBlock threads a block and
+// nlev levels: blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// after prepare), registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block, ring depth.
 struct Query {
   int* out;
+  int nlev;
 
   template <typename T, bool EVAP, bool LREGCL, int D>
   int run() const {
     using K = Kernel<T, EVAP, LREGCL, D>;
-    cudaError_t err = K::prepare();
+    cudaError_t err = K::prepare(nlev);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kBlock, K::SHARED_BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kBlock, K::shared_bytes(nlev));
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, K::fn());
@@ -176,7 +182,7 @@ struct Query {
     out[0] = per_sm;
     out[1] = attr.numRegs;
     out[2] = static_cast<int>(attr.localSizeBytes);
-    out[3] = static_cast<int>(K::SHARED_BYTES);
+    out[3] = static_cast<int>(K::shared_bytes(nlev));
     out[4] = K::DEPTH;
     return 0;
   }
@@ -204,12 +210,12 @@ int cloudsc2_ad_launch(int is_double, int evap, int lregcl, int div, int compact
   return cloudsc2::ad_dispatch(l, is_double, evap, lregcl, div);
 }
 
-// Fill out[0..4] for the instantiation: blocks of 128 per SM, registers a
-// thread, local bytes a thread, dynamic shared bytes a block, ring depth
-// (Query).  Returns a cudaError_t.
-int cloudsc2_ad_occupancy(int is_double, int evap, int lregcl, int div, int compact, int* out) {
-  if (!cloudsc2::forms_valid(is_double, div, compact)) return static_cast<int>(cudaErrorInvalidValue);
-  const Query q{out};
+// Fill out[0..4] for the instantiation at nlev levels: blocks of 128 per SM,
+// registers a thread, local bytes a thread, dynamic shared bytes a block,
+// ring depth (Query).  Returns a cudaError_t.
+int cloudsc2_ad_occupancy(int is_double, int evap, int lregcl, int div, int compact, int nlev, int* out) {
+  if (nlev < 1 || !cloudsc2::forms_valid(is_double, div, compact)) return static_cast<int>(cudaErrorInvalidValue);
+  const Query q{out, nlev};
   return cloudsc2::ad_dispatch(q, is_double, evap, lregcl, div);
 }
 

@@ -17,6 +17,7 @@
 //   Column begin(int col) const             prologue; the carry starts at 0
 //   void level(Column&, int col, int k) const
 //   void end(Column&, int col) const        epilogue (REVERSE only)
+//   const Table& level_table() const        its level table (below)
 //   int nlev, ncols;
 // Top down, the levels run 0 .. nlev-1 with the carry zeroed at the top;
 // with REVERSE they run nlev-1 .. 0 with the carry zeroed at the bottom,
@@ -36,6 +37,57 @@
 
 namespace cloudsc2 {
 
+// ----------------------------------------------------------- level table ----
+// A value that depends on the level alone, which every thread would
+// otherwise derive again at each level of its column.  A Table provides
+//   T derive(int k) const                   level k's value, from the
+//                                           (nlev,) inputs it reads itself
+// On the card each block derives the nlev values once, before any of its
+// threads runs a column or returns past the last one
+// (level_table_prologue): the threads take the levels in turn into the
+// first nlev values of the block's dynamic shared memory, then meet at one
+// barrier; the ring of the pipelined scan, where the kernel keeps one in
+// shared memory, follows them.  A body reads level k's value back with
+// level_table_at: from shared memory on the card, derived where it is read
+// in the host build.
+template <typename T>
+constexpr size_t level_table_bytes(int nlev) {
+  return static_cast<size_t>(nlev) * sizeof(T);
+}
+
+#ifdef __CUDACC__
+// The block's dynamic shared memory: the level table, then the ring.
+__device__ __forceinline__ unsigned char* dynamic_shared() {
+  extern __shared__ __align__(16) unsigned char cloudsc2_dynamic_shared[];
+  return cloudsc2_dynamic_shared;
+}
+
+template <class Table>
+__device__ __forceinline__ void level_table_prologue(const Table& table, int nlev) {
+  using T = decltype(table.derive(0));
+  T* values = reinterpret_cast<T*>(dynamic_shared());
+  for (int k = threadIdx.x; k < nlev; k += blockDim.x) values[k] = table.derive(k);
+  __syncthreads();
+}
+
+// Allow `bytes` of dynamic shared memory a block where that is above the
+// 48 KB a kernel takes without asking.
+template <class Fn>
+inline cudaError_t allow_dynamic_shared(Fn fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+#endif
+
+template <class Table>
+CLOUDSC2_HD auto level_table_at(const Table& table, int k) -> decltype(table.derive(k)) {
+#ifdef __CUDA_ARCH__
+  return reinterpret_cast<const decltype(table.derive(k))*>(dynamic_shared())[k];
+#else
+  return table.derive(k);
+#endif
+}
+
 template <class Body, bool REVERSE = false>
 CLOUDSC2_HD void level_scan_column(const Body& body, int col) {
   typename Body::Column s = body.begin(col);
@@ -52,6 +104,7 @@ CLOUDSC2_HD void level_scan_column(const Body& body, int col) {
 // bottom-up form only pipelined (below).
 template <class Body>
 __global__ void __launch_bounds__(128) level_scan_kernel(const Body body) {
+  level_table_prologue(body.level_table(), body.nlev);
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= body.ncols) return;  // ragged last block
   level_scan_column<Body>(body, col);
@@ -84,6 +137,7 @@ inline void level_scan_host(const Body& body) {
 //   void level(Column&, const Slot&, int col, int k) const
 //       level k, its inputs read back as slot(field)
 //   void end(Column&, int col) const            epilogue (REVERSE only)
+//   const Table& level_table() const            its level table (above)
 //   int nlev, ncols;
 // A Ring provides copy(slot, field, const T* src), commit() (closes the
 // copies issued since the last commit into a group), wait<N>() (returns
@@ -145,8 +199,9 @@ struct RegisterPair {
 };
 
 #ifdef __CUDACC__
-// The ring in dynamic shared memory, DEPTH * FIELDS * blockDim.x values
-// indexed [slot][field][thread]: at one field the threads of a warp touch
+// The ring in dynamic shared memory after the level table, DEPTH * FIELDS
+// * blockDim.x values indexed [slot][field][thread]: at one field the
+// threads of a warp touch
 // consecutive words, so no bank conflicts.  copy is cp.async (4 B in
 // float, 8 B in double, through L1: .ca), one commit group a level.  A
 // thread waits only for its own copies and reads only what it copied, so
@@ -184,8 +239,7 @@ struct SharedRing {
 template <int DEPTH, bool SHARED, bool REVERSE, typename T, class Body>
 __device__ __forceinline__ typename Body::Column level_scan_pipelined_device_column(const Body& body, int col) {
   if constexpr (SHARED) {
-    extern __shared__ __align__(16) unsigned char cloudsc2_ring[];
-    SharedRing<T, Body::FIELDS> ring{reinterpret_cast<T*>(cloudsc2_ring) + threadIdx.x,
+    SharedRing<T, Body::FIELDS> ring{reinterpret_cast<T*>(dynamic_shared()) + body.nlev + threadIdx.x,
                                      static_cast<int>(blockDim.x)};
     return level_scan_pipelined_column<DEPTH, REVERSE>(body, ring, col);
   } else {
@@ -200,6 +254,7 @@ __device__ __forceinline__ typename Body::Column level_scan_pipelined_device_col
 // leave (1: no cap but the card's 255).
 template <class Body, typename T, int DEPTH, bool SHARED, bool REVERSE, int BLOCK, int MIN_BLOCKS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) level_scan_pipelined_kernel(const Body body) {
+  level_table_prologue(body.level_table(), body.nlev);
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= body.ncols) return;  // ragged last block
   level_scan_pipelined_device_column<DEPTH, SHARED, REVERSE, T>(body, col);
@@ -293,6 +348,7 @@ inline void level_scan_pipelined_host(const Body& body) {
 //       one level, top down, its inputs from the slot; it pushes onto
 //       stack(slot, k) the carry entering the level (and what else the
 //       reverse level k reads back)
+//   const Table& level_table() const            the level table of both sweeps
 //   int nlev, ncols;
 // A RevBody provides
 //   typename RevBody::Column                    per-column state, cotangent carry included
@@ -362,6 +418,7 @@ CLOUDSC2_HD void level_scan_rev_sweep(const RevBody& rev, const FwdColumn& s, co
 template <class FwdBody, class RevBody, typename T, int DEPTH, bool SHARED, int BLOCK, int MIN_BLOCKS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) level_scan_fwdrev_kernel(const FwdBody fwd,
                                                                               const RevBody rev, T* scratch) {
+  level_table_prologue(fwd.level_table(), fwd.nlev);  // the reverse sweep reads the same table
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= fwd.ncols) return;  // ragged last block; no thread reads another's stack or ring
   const ScratchStack<T> stack{scratch + col, fwd.nlev, fwd.ncols};

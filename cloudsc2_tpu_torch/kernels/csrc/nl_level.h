@@ -31,7 +31,8 @@ namespace cloudsc2 {
 // Each list is mirrored in Python (state.NL_CONST_NAMES, kernels/nonlinear.py
 // NL_INPUTS / NL_OUTPUTS); nl_signature() reports them for the wrapper to check.
 // (sat_tice, sat_twat_r: the liquid-fraction ramp of the fused saturation,
-// foealfa's RTICE or foealfcu's RTICECU by LPHYLIN and kflag)
+// foealfa's RTICE or foealfcu's RTICECU by LPHYLIN and kflag; zscal, zeps1:
+// scalm's, ScalmTable)
 #define CLOUDSC2_NL_CONSTS(X)                                                  \
   X(dt) X(rdt) X(ckcodtl) X(ckcodti) X(cons2) X(cons3) X(cons2_rlmlt)          \
   X(meltp2) X(rcpd) X(rcpd_rvtmp2) X(rcpd_inv) X(rlmlt) X(rlstt) X(rlvtt)      \
@@ -39,13 +40,13 @@ namespace cloudsc2 {
   X(r3ies) X(r4les) X(r4ies) X(r5les) X(r5ies) X(r5alvcp) X(r5alscp)           \
   X(ralvdcp) X(ralsdcp) X(retv) X(zqmax) X(cor_clip) X(rg) X(rd) X(rlmin)      \
   X(zeps2) X(lcrit_k) X(icrit_k) X(dt_rg) X(rg_rpecons) X(sat_tice)            \
-  X(sat_twat_r)
+  X(sat_twat_r) X(zscal) X(zeps1)
 
-// (nlev, ncols) fields, except aph (nlev+1, ncols) and eta, scalm (nlev,);
-// with FUSE qsat is not read and may be null
+// (nlev, ncols) fields, except aph (nlev+1, ncols) and eta (nlev,); with
+// FUSE qsat is not read and may be null
 #define CLOUDSC2_NL_INPUTS(X)                                                  \
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
-  X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t) X(eta) X(scalm)
+  X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t) X(eta)
 
 // (nlev, ncols) fields, except the fluxes (nlev+1, ncols).  The trajectory
 // c_rfl, c_sfl, c_cov is written only with TRAJ, and c_cov only with EVAP
@@ -79,6 +80,22 @@ struct NLConst {
 #undef CLOUDSC2_FIELD
 };
 
+// scalm as every body reads it, scalm[k]: the level table (levelscan.cuh)
+// of ZSCAL * max(eta - 0.2, ZEPS1) ** 0.2 (physics/nonlinear.py
+// scalm_profile) from eta and the constant struct's zscal and zeps1, in
+// torch's operations and order: the difference, the clamp (a NaN passes),
+// the power, the product, each rounded once in T.  Every form of every
+// kernel derives it so.  On an H100 it is bitwise torch's in float; in
+// double libdevice's pow, built here without FMA contraction and in
+// PyTorch with it, parts by up to 2 ulps at some 5e-7 of the arguments.
+template <typename T>
+struct ScalmTable {
+  const T* eta;
+  T zscal, zeps1;
+  CLOUDSC2_HD T derive(int k) const { return zscal * m_pow(m_max(eta[k] - T(0.2), zeps1), T(0.2)); }
+  CLOUDSC2_HD T operator[](int k) const { return level_table_at(*this, k); }
+};
+
 template <typename T>
 struct NLFields {
 #define CLOUDSC2_FIELD(n) const T* n;
@@ -87,6 +104,7 @@ struct NLFields {
 #define CLOUDSC2_FIELD(n) T* n;
   CLOUDSC2_NL_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
+  ScalmTable<T> scalm;  // from eta and the constants, not an input
 };
 
 // One level's inputs, with the combines the JAX wrapper forms in XLA
@@ -447,6 +465,8 @@ struct NLBody {
     return static_cast<size_t>(k) * static_cast<size_t>(ncols) + static_cast<size_t>(col);
   }
 
+  CLOUDSC2_HD const ScalmTable<T>& level_table() const { return f.scalm; }
+
   // Prologue: the tropopause, the critical-RH coefficients, and the zero
   // top interface of the fluxes.
   CLOUDSC2_HD Column begin(int col) const {
@@ -666,9 +686,8 @@ struct NLPipeBody : NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> {
     }
     x.t_fg = r(NR_T) + c.dt * r(NR_TND_T);
     const T* __restrict__ eta = this->f.eta;
-    const T* __restrict__ scalm = this->f.scalm;
     x.eta = eta[k];
-    x.scalm = scalm[k];
+    x.scalm = this->f.scalm[k];
     s.aph_top = aph_below;
     return x;
   }
@@ -689,6 +708,7 @@ inline NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D> make_nl_body(const void
   CLOUDSC2_NL_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
   memcpy(&b.c, consts, sizeof(NLConst<T>));
+  b.f.scalm = {b.f.eta, b.c.zscal, b.c.zeps1};
   b.nlev = nlev;
   b.ncols = ncols;
   return b;
@@ -742,29 +762,39 @@ __global__ void rcp_probe_kernel(const float* x, float* r, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) r[i] = rcp<D>(x[i]);
 }
+
+// The kernels' derivation of scalm alone, one eta a thread
+// (cloudsc2_scalm_probe, nonlinear.cu).
+template <typename T>
+__global__ void scalm_probe_kernel(const ScalmTable<T> table, T* scalm, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) scalm[i] = table.derive(i);
+}
 #endif
 
 #ifdef __CUDACC__
 constexpr int kNLThreads = 128;  // threads a block
 
 // The device kernel of one body: its entry point, and what its launch
-// needs (dynamic shared bytes a block of `threads`).
+// needs (dynamic shared bytes a block of `threads` at `nlev` levels: the
+// level table, then the ring).
 template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
 struct NLKernel {
   using Body = NLPipeBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
   static constexpr int DEPTH = NLRing<T>::DEPTH;
   static constexpr bool SHARED = NLRing<T>::SHARED;
   static auto fn() { return &level_scan_pipelined_kernel<Body, T, DEPTH, SHARED, false, kNLThreads, 4>; }
-  static size_t shared_bytes(int threads) {
-    return SHARED ? static_cast<size_t>(DEPTH) * Body::FIELDS * static_cast<size_t>(threads) * sizeof(T) : 0;
+  static size_t shared_bytes(int threads, int nlev) {
+    const size_t ring = SHARED ? static_cast<size_t>(DEPTH) * Body::FIELDS * static_cast<size_t>(threads) * sizeof(T) : 0;
+    return level_table_bytes<T>(nlev) + ring;
   }
-  static_assert(!SHARED || DEPTH * (NR_QSAT + 1) * kNLThreads * sizeof(T) <= 48 * 1024,
-                "a ring above 48 KB a block needs cudaFuncAttributeMaxDynamicSharedMemorySize");
-  // Ask for the shared-memory carveout that four blocks' rings need (an SM
-  // has 228 KB; each block costs 1 KB more).
-  static cudaError_t prepare(int threads) {
-    if (!SHARED) return cudaSuccess;
-    const size_t bytes = shared_bytes(threads);
+  // Allow the bytes, and ask for the shared-memory carveout that four
+  // blocks' rings and tables need (an SM has 228 KB; each block costs 1 KB
+  // more).
+  static cudaError_t prepare(int threads, int nlev) {
+    const size_t bytes = shared_bytes(threads, nlev);
+    const cudaError_t err = allow_dynamic_shared(fn(), bytes);
+    if (err != cudaSuccess || !SHARED) return err;
     const size_t sm_bytes = 233472;
     const int percent = static_cast<int>((4 * (bytes + 1024) * 100 + sm_bytes - 1) / sm_bytes);
     return cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -773,7 +803,7 @@ struct NLKernel {
   static void launch(int blocks, int threads, cudaStream_t stream,
                      const NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>& body) {
     level_scan_pipelined_kernel<Body, T, DEPTH, SHARED, false, kNLThreads, 4>
-        <<<blocks, threads, shared_bytes(threads), stream>>>(Body{body});
+        <<<blocks, threads, shared_bytes(threads, body.nlev), stream>>>(Body{body});
   }
 };
 
@@ -789,7 +819,7 @@ struct NLLauncher {
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
     using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
-    const cudaError_t err = K::prepare(kNLThreads);
+    const cudaError_t err = K::prepare(kNLThreads, nlev);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto body = make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols);
     const int blocks = (ncols + kNLThreads - 1) / kNLThreads;
@@ -798,22 +828,23 @@ struct NLLauncher {
   }
 };
 
-// What the card makes of one body's kernel at 128 threads a block
-// (cloudsc2_nl_occupancy, nonlinear.cu): out[0..4] = blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
-// (spill) bytes a thread (cudaFuncGetAttributes), dynamic shared bytes a
-// block, ring depth.  Returns a cudaError_t.
+// What the card makes of one body's kernel at 128 threads a block and
+// nlev levels (cloudsc2_nl_occupancy, nonlinear.cu): out[0..4] = blocks
+// per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
+// local (spill) bytes a thread (cudaFuncGetAttributes), dynamic shared
+// bytes a block, ring depth.  Returns a cudaError_t.
 struct NLQuery {
   int* out;
+  int nlev;
 
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
     using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
-    cudaError_t err = K::prepare(kNLThreads);
+    cudaError_t err = K::prepare(kNLThreads, nlev);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kNLThreads,
-                                                        K::shared_bytes(kNLThreads));
+                                                        K::shared_bytes(kNLThreads, nlev));
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, K::fn());
@@ -821,7 +852,7 @@ struct NLQuery {
     out[0] = per_sm;
     out[1] = attr.numRegs;
     out[2] = static_cast<int>(attr.localSizeBytes);
-    out[3] = static_cast<int>(K::shared_bytes(kNLThreads));
+    out[3] = static_cast<int>(K::shared_bytes(kNLThreads, nlev));
     out[4] = K::DEPTH;
     return 0;
   }

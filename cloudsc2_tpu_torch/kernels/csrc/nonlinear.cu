@@ -16,8 +16,11 @@
 // What it computes: one whole NL step for every column, including what the
 // JAX wrapper does around its kernel in XLA (first-guess combines, dp, mf,
 // lu_next, the tropopause search, the critical-RH coefficients) and the
-// assembly of the fluxes (zero top interface, fhps* = -L * fpls*).  Only eta
-// and scalm, two (nlev,) vectors, come from torch.
+// assembly of the fluxes (zero top interface, fhps* = -L * fpls*), and scalm
+// from eta: each block derives the nlev values of scalm once, into shared
+// memory before its ring, and every level reads its value back from there
+// (levelscan.cuh "level table", nl_level.h ScalmTable; the TL and AD
+// kernels do the same).  Only eta, one (nlev,) vector, comes from torch.
 //
 // With fuse (fuse_saturation, pallas/nonlinear.py:105-110) it diagnoses qsat
 // from ap and t at each point instead of reading it, and writes it: the
@@ -100,14 +103,14 @@ int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, 
 }
 
 // Fill out[0..4] for the body of these switches (as cloudsc2_nl_launch's)
-// at 128 threads a block: blocks per SM, registers a thread, local bytes a
-// thread, dynamic shared bytes a block, ring depth (nl_level.h NLQuery).
-// Returns a cudaError_t.
+// at 128 threads a block and nlev levels: blocks per SM, registers a
+// thread, local bytes a thread, dynamic shared bytes a block, ring depth
+// (nl_level.h NLQuery).  Returns a cudaError_t.
 int cloudsc2_nl_occupancy(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
-                          int* out) {
-  if (!cloudsc2::nl_switches_valid(1, 1, is_double, traj, div, compact))
+                          int nlev, int* out) {
+  if (!cloudsc2::nl_switches_valid(nlev, 1, is_double, traj, div, compact))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cloudsc2::NLQuery q{out};
+  const cloudsc2::NLQuery q{out, nlev};
   return cloudsc2::nl_dispatch(q, is_double, thermo, evap, traj, fuse, div);
 }
 
@@ -126,6 +129,29 @@ int cloudsc2_rcp_probe(int div, const float* x, float* r, int n, void* stream) {
     cloudsc2::rcp_probe_kernel<cloudsc2::DIV_APPROX><<<blocks, threads, 0, s>>>(x, r, n);
   else
     cloudsc2::rcp_probe_kernel<cloudsc2::DIV_EXACT><<<blocks, threads, 0, s>>>(x, r, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scalm of eta[i] into scalm[i] for i < n, on `stream`, by the derivation
+// every kernel runs in its prologue (nl_level.h ScalmTable::derive), in
+// float (is_double 0) or double (1); consts: host pointer to zscal and
+// zeps1 in that type.  For the card tests' comparison with torch's
+// scalm_profile (never on the main path).  Returns the launch's
+// cudaError_t.
+int cloudsc2_scalm_probe(int is_double, const void* eta, void* scalm, int n, const void* consts, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    const double* z = static_cast<const double*>(consts);
+    cloudsc2::scalm_probe_kernel<double><<<blocks, threads, 0, s>>>(
+        cloudsc2::ScalmTable<double>{static_cast<const double*>(eta), z[0], z[1]}, static_cast<double*>(scalm), n);
+  } else {
+    const float* z = static_cast<const float*>(consts);
+    cloudsc2::scalm_probe_kernel<float><<<blocks, threads, 0, s>>>(
+        cloudsc2::ScalmTable<float>{static_cast<const float*>(eta), z[0], z[1]}, static_cast<float*>(scalm), n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

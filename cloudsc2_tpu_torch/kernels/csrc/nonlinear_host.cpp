@@ -53,4 +53,20 @@ int cloudsc2_rcp_probe_host(int div, const float* x, float* r, int n) {
   return 0;
 }
 
+// As cloudsc2_scalm_probe (nonlinear.cu) on host pointers; returns 0 on
+// success.
+int cloudsc2_scalm_probe_host(int is_double, const void* eta, void* scalm, int n, const void* consts) {
+  if (n < 1) return 1;
+  if (is_double) {
+    const double* z = static_cast<const double*>(consts);
+    const cloudsc2::ScalmTable<double> table{static_cast<const double*>(eta), z[0], z[1]};
+    for (int i = 0; i < n; ++i) static_cast<double*>(scalm)[i] = table.derive(i);
+  } else {
+    const float* z = static_cast<const float*>(consts);
+    const cloudsc2::ScalmTable<float> table{static_cast<const float*>(eta), z[0], z[1]};
+    for (int i = 0; i < n; ++i) static_cast<float*>(scalm)[i] = table.derive(i);
+  }
+  return 0;
+}
+
 }  // extern "C"

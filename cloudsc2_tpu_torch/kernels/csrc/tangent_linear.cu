@@ -12,8 +12,9 @@
 // (zero at the bottom), aph_s/aph_s_i, the tropopause search on t_fg, the
 // critical-RH coefficients, the zero top interface of the four fluxes,
 // fhps* = -L fpls* for values and perturbations, and zero covptot/covptot_i
-// when evaporation is compiled out.  Only eta and scalm, two (nlev,)
-// vectors, come from torch.  With tangent_only it writes only the *_i
+// when evaporation is compiled out, and scalm from eta, which each block
+// derives once into shared memory (levelscan.cuh "level table", nl_level.h
+// ScalmTable).  Only eta, one (nlev,) vector, comes from torch.  With tangent_only it writes only the *_i
 // outputs (the forward recompute still runs: it feeds the linearization).
 //
 // What bounds it: bytes, and registers.  Per column-level it reads the 16
@@ -59,11 +60,14 @@ struct Launcher {
 
   template <typename T, bool EVAP, bool LREGCL, bool TANGENT_ONLY, int D>
   int run() const {
-    const auto body =
-        cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY, D>(in, out, consts, nlev, ncols);
+    using Body = cloudsc2::TLBody<T, EVAP, LREGCL, TANGENT_ONLY, D>;
+    const Body body = cloudsc2::make_tl_body<T, EVAP, LREGCL, TANGENT_ONLY, D>(in, out, consts, nlev, ncols);
     const int threads = 128;
     const int blocks = (ncols + threads - 1) / threads;
-    cloudsc2::level_scan_kernel<<<blocks, threads, 0, stream>>>(body);
+    const size_t shared = cloudsc2::level_table_bytes<T>(nlev);  // the level table
+    const cudaError_t err = cloudsc2::allow_dynamic_shared(&cloudsc2::level_scan_kernel<Body>, shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cloudsc2::level_scan_kernel<Body><<<blocks, threads, shared, stream>>>(body);
     return static_cast<int>(cudaGetLastError());
   }
 };

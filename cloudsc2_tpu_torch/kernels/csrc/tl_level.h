@@ -29,6 +29,7 @@ namespace cloudsc2 {
 // ------------------------------------------------------------ argument lists
 // Mirrored in Python (state.TL_CONST_NAMES, kernels/tangent_linear.py
 // TL_INPUTS / TL_OUTPUTS); tl_signature() reports them for the wrapper.
+// (zscal, zeps1: scalm's, nl_level.h ScalmTable)
 #define CLOUDSC2_TL_CONSTS(X)                                                  \
   X(dt) X(rdt) X(cons2) X(cons3) X(cons2_rlmlt) X(meltp2) X(rcpd)              \
   X(rcpd_rvtmp2) X(rcpd_inv) X(rlmlt) X(rlstt) X(rlvtt) X(rtt) X(rtice)        \
@@ -36,15 +37,15 @@ namespace cloudsc2 {
   X(m2_r5les) X(m2_r5ies) X(r5alvcp) X(r5alscp) X(ralvdcp) X(ralsdcp) X(retv)  \
   X(zqmax) X(rg) X(rd) X(rlmin) X(zeps2) X(ckcodtl) X(ckcodti) X(lcrit_k)      \
   X(icrit_k) X(icrit_k2) X(dl_k) X(di_k) X(dt_rg) X(mdt_rg) X(rg_rpecons)      \
-  X(beta_i_k)
+  X(beta_i_k) X(zscal) X(zeps1)
 
-// (nlev, ncols) fields, except aph, aph_i (nlev+1, ncols) and eta, scalm (nlev,)
+// (nlev, ncols) fields, except aph, aph_i (nlev+1, ncols) and eta (nlev,)
 #define CLOUDSC2_TL_INPUTS(X)                                                  \
   X(ap) X(aph) X(lu) X(lude) X(mfd) X(mfu) X(q) X(qi) X(ql) X(qsat) X(supsat)  \
   X(t) X(tnd_cml_q) X(tnd_cml_qi) X(tnd_cml_ql) X(tnd_cml_t)                   \
   X(ap_i) X(aph_i) X(lu_i) X(lude_i) X(mfd_i) X(mfu_i) X(q_i) X(qi_i) X(ql_i)  \
   X(qsat_i) X(supsat_i) X(t_i) X(tnd_cml_q_i) X(tnd_cml_qi_i) X(tnd_cml_ql_i)  \
-  X(tnd_cml_t_i) X(eta) X(scalm)
+  X(tnd_cml_t_i) X(eta)
 
 // (nlev, ncols) fields, except the fluxes (nlev+1, ncols); the first ten
 // are not written (and may be null) with TANGENT_ONLY
@@ -76,6 +77,7 @@ struct TLFields {
 #define CLOUDSC2_FIELD(n) T* n;
   CLOUDSC2_TL_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
+  ScalmTable<T> scalm;  // from eta and the constants, not an input
 };
 
 // One level's inputs, with the combines the JAX wrapper forms in XLA
@@ -538,6 +540,8 @@ struct TLBody {
     return static_cast<size_t>(k) * static_cast<size_t>(ncols) + static_cast<size_t>(col);
   }
 
+  CLOUDSC2_HD const ScalmTable<T>& level_table() const { return f.scalm; }
+
   // the four fluxes and their enthalpy partners at interface ib
   CLOUDSC2_HD void fluxes(size_t ib, const TLCarry<T>& s) const {
     if (!TANGENT_ONLY) {
@@ -628,6 +632,7 @@ inline TLBody<T, EVAP, LREGCL, TANGENT_ONLY, D> make_tl_body(const void* const* 
   CLOUDSC2_TL_OUTPUTS(CLOUDSC2_FIELD)
 #undef CLOUDSC2_FIELD
   memcpy(&b.c, consts, sizeof(TLConst<T>));
+  b.f.scalm = {b.f.eta, b.c.zscal, b.c.zeps1};
   b.nlev = nlev;
   b.ncols = ncols;
   return b;

@@ -20,15 +20,17 @@ ahead are in flight into a per-thread ring (float: three slots in shared
 memory, filled by ``cp.async``; double: two slots in registers), so the
 loads overlap the arithmetic where the direct scan added the two.  The
 loads run ahead of the stores of the levels before them, so the wrapper
-refuses outputs that overlap an input (:func:`check_disjoint`).  The
-wrapper works out the launch of each configuration once, a
-:class:`LaunchPlan` cached by value (:func:`_nl_plan`), and checks the
-state itself on every call (:func:`check_inputs`).  While a profiler
-runs, each call records a root span and its stages
-(:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``, ``scalm``, ``plan``,
-``alloc`` and ``launch``.  The note
-at the top of ``nonlinear.cu`` gives what bounds the kernel, before and
-after, and why the ring needs no block synchronisation.
+refuses outputs that overlap an input (:func:`check_disjoint`).  Each
+block derives ``scalm`` from ``eta`` once, into shared memory before its
+ring (``levelscan.cuh`` "level table", ``nl_level.h`` ``ScalmTable``), so
+no wrapper computes it.  The wrapper works out the launch of each
+configuration once, a :class:`LaunchPlan` cached by value
+(:func:`_nl_plan`), and checks the state itself on every call
+(:func:`check_inputs`).  While a profiler runs, each call records a root
+span and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``,
+``plan``, ``alloc`` and ``launch``.  The note at the top of
+``nonlinear.cu`` gives what bounds the kernel, before and after, and why
+the ring needs no block synchronisation.
 
 :func:`cloudsc2_nl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
@@ -38,8 +40,9 @@ anything else; its plain version is
 :func:`cloudsc2_nl_host` runs the same body and harness compiled for the
 CPU, for the tests only, and :func:`cloudsc2_nl_direct_host` the body
 through the direct scan, the harness's reference.  :func:`rcp_cuda` /
-:func:`rcp_host` run the divide policies' reciprocal alone, for the
-checks.
+:func:`rcp_host` run the divide policies' reciprocal alone, and
+:func:`scalm_cuda` / :func:`scalm_host` the kernels' derivation of
+``scalm``, for the checks.
 """
 from __future__ import annotations
 
@@ -55,12 +58,7 @@ import torch
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
 from cloudsc2_tpu_torch.physics.fastmath import DIV_MODES
-from cloudsc2_tpu_torch.physics.nonlinear import (
-    TRAJ_OUTPUTS,
-    check_constants,
-    scalm_profile,
-    trajectory_names,
-)
+from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants, trajectory_names
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, kernel_constants
 from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
 
@@ -69,7 +67,7 @@ Tensor = torch.Tensor
 #: argument orders of ``CLOUDSC2_NL_INPUTS`` / ``_OUTPUTS`` in ``nl_level.h``
 NL_INPUTS = (
     "ap", "aph", "lu", "lude", "mfd", "mfu", "q", "qi", "ql", "qsat", "supsat",
-    "t", "tnd_cml_q", "tnd_cml_qi", "tnd_cml_ql", "tnd_cml_t", "eta", "scalm",
+    "t", "tnd_cml_q", "tnd_cml_qi", "tnd_cml_ql", "tnd_cml_t", "eta",
 )
 #: (the step's outputs, then the trajectory of ``with_trajectory``, then
 #: the ``qsat`` of ``fuse_saturation``)
@@ -81,7 +79,7 @@ NL_OUTPUTS = STEP_OUTPUTS + TRAJ_OUTPUTS + ("qsat_out",)
 #: the int switches of the launch, in the order of ``CLOUDSC2_NL_SWITCHES``
 NL_SWITCHES = ("is_double", "thermo", "evap", "traj", "fuse", "div", "compact")
 _IFACE = ("aph", "fplsl", "fplsn", "fhpsl", "fhpsn")
-_VERT = ("eta", "scalm")
+_VERT = ("eta",)
 #: the inputs of the fused form, which diagnoses ``qsat`` instead of reading it
 _FUSED_INPUTS = tuple(None if n == "qsat" else n for n in NL_INPUTS)
 _DTYPES = (torch.float32, torch.float64)
@@ -108,19 +106,21 @@ def _load(kind: str, compact: bool = True) -> ctypes.CDLL:
     suffix, defines = build.form(compact, False, nl=True)
     if kind == "cuda":
         lib = build.load(kind, "cloudsc2_nl" + suffix, ["nonlinear.cu"], defines)
-        fn, probe = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe
+        fn, probe, scalm = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe, lib.cloudsc2_scalm_probe
         fn.argtypes = _ARGS + [_P]
-        lib.cloudsc2_nl_occupancy.argtypes = [ctypes.c_int] * len(NL_SWITCHES) + [_P]
+        lib.cloudsc2_nl_occupancy.argtypes = [ctypes.c_int] * (len(NL_SWITCHES) + 1) + [_P]
         lib.cloudsc2_nl_occupancy.restype = ctypes.c_int
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
+        scalm.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P, _P]
     else:
         lib = build.load(kind, "cloudsc2_nl_host" + suffix, ["nonlinear_host.cpp"], defines)
-        fn, probe = lib.cloudsc2_nl_host, lib.cloudsc2_rcp_probe_host
+        fn, probe, scalm = lib.cloudsc2_nl_host, lib.cloudsc2_rcp_probe_host, lib.cloudsc2_scalm_probe_host
         fn.argtypes = lib.cloudsc2_nl_direct_host.argtypes = _ARGS
         lib.cloudsc2_nl_direct_host.restype = lib.cloudsc2_nl_ring_depth.restype = ctypes.c_int
         lib.cloudsc2_nl_ring_depth.argtypes = [ctypes.c_int]
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int]
-    fn.restype = probe.restype = ctypes.c_int
+        scalm.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
+    fn.restype = probe.restype = scalm.restype = ctypes.c_int
     lib.cloudsc2_nl_signature.restype = ctypes.c_char_p
     got = lib.cloudsc2_nl_signature().decode()
     if got != signature():
@@ -136,16 +136,16 @@ def load_cuda(compact: bool = True) -> ctypes.CDLL:
 
 def check_inputs(
     state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[Optional[str]],
-    iface: Sequence[str], vertical: Optional[Tuple[Tensor, Tensor]] = None,
+    iface: Sequence[str], eta: Optional[Tensor] = None,
 ) -> Tuple[List[Optional[Tensor]], torch.dtype]:
     """Check the constants (:func:`check_constants`) and the state for a
     kernel, and return its ``inputs`` in order (``None`` for a name that is
-    ``None``, an input the kernel does not read): ``eta`` in the state's
-    dtype and ``scalm`` computed from it, or ``vertical``, the ``(eta,
-    scalm)`` of an earlier launch on the same state; the other fields as
-    they are.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
-    ``eta``/``scalm`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one
-    float dtype, contiguous, on one device of ``device_type``."""
+    ``None``, an input the kernel does not read): the state's ``eta`` in its
+    dtype, or ``eta``, that of an earlier launch on the same state; the
+    other fields as they are.  The kernels derive ``scalm`` from ``eta``
+    themselves.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
+    ``eta`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one float dtype,
+    contiguous, on one device of ``device_type``."""
     check_constants(c)
     ap = state["ap"]
     if ap.dim() != 2:
@@ -158,17 +158,12 @@ def check_inputs(
         raise TypeError(f"dtype {dtype} not supported (float32 | float64)")
     if device.type != device_type:
         raise ValueError(f"tensors must be on {device_type}, got {device}")
-    if vertical is None:
+    if eta is None:
         eta = state["eta"]
         if eta.dtype != dtype:
             eta = eta.to(dtype)
-        k = open_span("scalm") if PROFILER._is_profiler_enabled else None
-        vertical = (eta, scalm_profile(eta, c))
-        if k:
-            close_span(k)
     names, wants, order = _layout(tuple(inputs), tuple(iface), nlev, ncols)
-    fields = [state[n] for n in names[:-2]]
-    fields += vertical
+    fields = [state[n] for n in names[:-1]] + [eta]
     for n, v, want in zip(names, fields, wants):
         if v.shape != want or v.dtype is not dtype or v.device != device or not v.is_contiguous():
             if tuple(v.shape) != want:
@@ -185,8 +180,8 @@ def check_inputs(
 def _layout(inputs: Tuple[Optional[str], ...], iface: Tuple[str, ...], nlev: int, ncols: int):
     """What :func:`check_inputs` checks for these ``inputs``, worked out
     once: ``names``, the fields it takes from the state in order, then
-    ``eta`` and ``scalm``; ``wants``, their shapes; ``order``, for each
-    input its index in ``names`` (-1 where it is ``None``)."""
+    ``eta``; ``wants``, their shapes; ``order``, for each input its index
+    in ``names`` (-1 where it is ``None``)."""
     names = tuple(n for n in inputs if n is not None and n not in _VERT) + _VERT
     wants = tuple(_shape(n, iface, nlev, ncols) for n in names)
     return names, wants, tuple(-1 if n is None else names.index(n) for n in inputs)
@@ -194,7 +189,7 @@ def _layout(inputs: Tuple[Optional[str], ...], iface: Tuple[str, ...], nlev: int
 
 def _shape(name: str, iface: Sequence[str], nlev: int, ncols: int) -> Tuple[int, ...]:
     """A field's shape: ``(nlev + 1, ncols)`` for one named in ``iface``,
-    ``(nlev,)`` for ``eta``/``scalm``, else ``(nlev, ncols)``."""
+    ``(nlev,)`` for ``eta``, else ``(nlev, ncols)``."""
     return (nlev,) if name in _VERT else ((nlev + 1, ncols) if name in iface else (nlev, ncols))
 
 
@@ -300,20 +295,20 @@ def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constant
 
 
 def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool,
-            traj_only: bool, fuse_saturation: bool, kflag: int, vertical=None):
+            traj_only: bool, fuse_saturation: bool, kflag: int):
     """One NL launch through ``entry``: every check of the options and the
     state (:func:`check_inputs`; ``qsat`` not read when fused), then the
-    launch by its plan.  Returns ``(outputs by name, (eta, scalm))``; a
-    launch on the card counts in ``cloudsc2_nl_cuda.launches``.  Its
-    stages are the spans ``check`` (with ``scalm`` inside), ``plan`` and
-    those of :meth:`LaunchPlan.run`."""
+    launch by its plan.  Returns ``(outputs by name, eta)``, the ``eta`` in
+    the state's dtype that the kernel read; a launch on the card counts in
+    ``cloudsc2_nl_cuda.launches``.  Its stages are the spans ``check``,
+    ``plan`` and those of :meth:`LaunchPlan.run`."""
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
     names = _FUSED_INPUTS if fuse_saturation else NL_INPUTS
     on = PROFILER._is_profiler_enabled
     if on:
         k = open_span("check")
-    ins, dtype = check_inputs(state, c, "cuda" if entry == "cuda" else "cpu", names, _IFACE, vertical)
+    ins, dtype = check_inputs(state, c, "cuda" if entry == "cuda" else "cpu", names, _IFACE)
     if on:
         k = next_span(k, "plan")
     plan = cached(_nl_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt, bool(with_trajectory),
@@ -323,7 +318,7 @@ def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_
     outs = plan.run(ins)
     if entry == "cuda":
         count_launch(cloudsc2_nl_cuda, plan.switches)
-    return outs, (ins[-2], ins[-1])
+    return outs, ins[-1]
 
 
 def _empty(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -449,24 +444,26 @@ def launch_switches(c: Constants, dtype: torch.dtype, with_trajectory: bool = Fa
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(sw: Tuple[int, ...]) -> Tuple[int, ...]:
+def _occupancy(sw: Tuple[int, ...], nlev: int) -> Tuple[int, ...]:
     out = (ctypes.c_int * 5)()
-    err = load_cuda(bool(sw[-1])).cloudsc2_nl_occupancy(*sw, out)
+    err = load_cuda(bool(sw[-1])).cloudsc2_nl_occupancy(*sw, nlev, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl occupancy query failed: cudaError_t {err}")
     return tuple(out)
 
 
 def occupancy(dtype: torch.dtype, c: Constants, with_trajectory: bool = False, traj_only: bool = False,
-              fuse_saturation: bool = False) -> Dict[str, int]:
+              fuse_saturation: bool = False, nlev: int = 137) -> Dict[str, int]:
     """What the card makes of the kernel that :func:`cloudsc2_nl_cuda`
-    launches for these options, at its 128 threads a block:
-    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    ``registers`` and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
-    ``shared_bytes`` a block and the ring ``depth``.  Needs the card; the
-    answers are kept per instantiation."""
+    launches for these options, at its 128 threads a block and ``nlev``
+    levels (the model's 137 unless told): ``blocks_per_sm``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
+    ``local_bytes`` a thread (``cudaFuncGetAttributes``), ``shared_bytes``
+    a block (the level table's ``nlev`` values, then the ring) and the ring
+    ``depth``.  Needs the card; the answers are kept per instantiation and
+    depth."""
     sw = launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
-    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth"), _occupancy(sw)))
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth"), _occupancy(sw, nlev)))
 
 
 def _entry(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):
@@ -536,3 +533,35 @@ def rcp_host(x: Tensor, mode: str) -> Tensor:
     """:func:`rcp_cuda` of the host build (the approximate reciprocal as
     Pallas interpret mode models it), on a float32 CPU tensor."""
     return _rcp(x, mode, "cpu")
+
+
+def _scalm(eta: Tensor, c: Constants, device_type: str) -> Tensor:
+    if eta.dtype not in _DTYPES or eta.device.type != device_type or not eta.is_contiguous() or eta.numel() < 1:
+        raise ValueError(f"need a non-empty contiguous float32 or float64 tensor on {device_type}")
+    out = torch.empty_like(eta)
+    # zscal and zeps1 rounded to the dtype, as the constant structs fold them
+    consts = torch.tensor([c.ZSCAL, c.ZEPS1], dtype=eta.dtype)
+    is_double = int(eta.dtype == torch.float64)
+    if device_type == "cuda":
+        with torch.cuda.device(eta.device):
+            err = _load("cuda").cloudsc2_scalm_probe(is_double, eta.data_ptr(), out.data_ptr(), eta.numel(),
+                                                     consts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    else:
+        err = _load("host").cloudsc2_scalm_probe_host(is_double, eta.data_ptr(), out.data_ptr(), eta.numel(),
+                                                      consts.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"cloudsc2_scalm_probe failed: {err}")
+    return out
+
+
+def scalm_cuda(eta: Tensor, c: Constants) -> Tensor:
+    """``scalm`` of each value of ``eta`` (a float32 or float64 CUDA tensor)
+    by the kernels' own derivation (``nl_level.h`` ``ScalmTable::derive``,
+    which each block of every kernel runs in its prologue): for the checks
+    against :func:`cloudsc2_tpu_torch.physics.nonlinear.scalm_profile`."""
+    return _scalm(eta, c, "cuda")
+
+
+def scalm_host(eta: Tensor, c: Constants) -> Tensor:
+    """:func:`scalm_cuda` of the host build, on a CPU tensor."""
+    return _scalm(eta, c, "cpu")

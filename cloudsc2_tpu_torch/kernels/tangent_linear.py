@@ -12,7 +12,9 @@ the top of ``tangent_linear.cu`` gives the count.  It takes the
 ``FAST_DIV`` divide modes (float32; float64 divides exactly) and both
 ``CUADJ_COMPACT`` forms of the saturation adjustment, as the Pallas kernel
 does through its level body; each form is a library of its own
-(:func:`cloudsc2_tpu_torch.kernels.build.form`).
+(:func:`cloudsc2_tpu_torch.kernels.build.form`).  Each block derives
+``scalm`` from ``eta`` once, into shared memory (``levelscan.cuh`` "level
+table"), so the wrapper does not compute it.
 
 :func:`cloudsc2_tl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
@@ -20,8 +22,8 @@ anything else; its plain version is
 :func:`cloudsc2_tl_host` runs the same body compiled for the CPU, for the
 tests only.  While a profiler runs, each call records the root span ``tl``
 and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``,
-``scalm``, ``alloc``, ``plan`` (the constant struct folded and the switches,
-on every call: the TL keeps no launch plan) and ``launch``.
+``alloc``, ``plan`` (the constant struct folded and the switches, on every
+call: the TL keeps no launch plan) and ``launch``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ Tensor = torch.Tensor
 
 #: argument orders of ``CLOUDSC2_TL_INPUTS`` / ``_OUTPUTS`` in ``tl_level.h``:
 #: the NL lists, then the perturbation of each field and output
-TL_INPUTS = NL_INPUTS[:-2] + tuple(n + "_i" for n in NL_INPUTS[:-2]) + NL_INPUTS[-2:]
+TL_INPUTS = NL_INPUTS[:-1] + tuple(n + "_i" for n in NL_INPUTS[:-1]) + NL_INPUTS[-1:]
 TL_OUTPUTS = STEP_OUTPUTS + tuple(n + "_i" for n in STEP_OUTPUTS)
 _IFACE = ("aph", "aph_i") + tuple(
     n + s for n in ("fplsl", "fplsn", "fhpsl", "fhpsn") for s in ("", "_i")
@@ -96,7 +98,7 @@ def _marshal(
     """Check the state, and return the kernel's inputs in order, the output
     list (fresh tensors; ``None`` for the forward outputs with
     ``tangent_only``), the constant struct and the switches: the spans
-    ``check`` (with ``scalm`` inside), ``alloc`` and ``plan``."""
+    ``check``, ``alloc`` and ``plan``."""
     on = PROFILER._is_profiler_enabled
     if on:
         k = open_span("check")

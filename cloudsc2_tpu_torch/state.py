@@ -35,7 +35,7 @@ NL_CONST_NAMES = (
     "r2es", "r3les", "r3ies", "r4les", "r4ies", "r5les", "r5ies",
     "r5alvcp", "r5alscp", "ralvdcp", "ralsdcp",
     "retv", "zqmax", "cor_clip", "rg", "rd", "rlmin", "zeps2",
-    "lcrit_k", "icrit_k", "dt_rg", "rg_rpecons", "sat_tice", "sat_twat_r",
+    "lcrit_k", "icrit_k", "dt_rg", "rg_rpecons", "sat_tice", "sat_twat_r", "zscal", "zeps1",
 )
 
 #: field order of ``struct TLConst`` in ``kernels/csrc/tl_level.h``
@@ -48,7 +48,7 @@ TL_CONST_NAMES = (
     "r5alvcp", "r5alscp", "ralvdcp", "ralsdcp",
     "retv", "zqmax", "rg", "rd", "rlmin", "zeps2",
     "ckcodtl", "ckcodti", "lcrit_k", "icrit_k", "icrit_k2", "dl_k", "di_k",
-    "dt_rg", "mdt_rg", "rg_rpecons", "beta_i_k",
+    "dt_rg", "mdt_rg", "rg_rpecons", "beta_i_k", "zscal", "zeps1",
 )
 
 
@@ -80,8 +80,9 @@ def kernel_constants(c: Constants, dt: float, dtype: torch.dtype, kflag: int = 1
     liquid-fraction ramp of the fused saturation, picked as
     :func:`cloudsc2_tpu_torch.physics.saturation.saturation` picks its
     branch: ``foeewmcu``'s (RTICECU) for ``kflag`` 1 without ``LPHYLIN``,
-    else ``foealfa``'s (RTICE).  Returns a contiguous array in the order of
-    :data:`NL_CONST_NAMES`.
+    else ``foealfa``'s (RTICE).  ``zscal``/``zeps1`` are ``scalm``'s, which
+    the kernels derive from ``eta`` (the TL's struct holds them too).
+    Returns a contiguous array in the order of :data:`NL_CONST_NAMES`.
     """
     lcrit, icrit = lcrit_icrit(c)
     cons2 = 1.0 / (c.RG * dt)
@@ -130,6 +131,8 @@ def kernel_constants(c: Constants, dt: float, dtype: torch.dtype, kflag: int = 1
         "rg_rpecons": c.RG * c.RPECONS,
         "sat_tice": c.RTICECU if convective else c.RTICE,
         "sat_twat_r": c.RTWAT_RTICECU_R if convective else c.RTWAT_RTICE_R,
+        "zscal": c.ZSCAL,
+        "zeps1": c.ZEPS1,
     }
     return np.array([float(vals[n]) for n in NL_CONST_NAMES], dtype=_NUMPY[dtype])
 
@@ -198,5 +201,7 @@ def tl_kernel_constants(c: Constants, dt: float, dtype: torch.dtype) -> np.ndarr
         "mdt_rg": -dt * c.RG,
         "rg_rpecons": c.RG * c.RPECONS,
         "beta_i_k": 0.5777 * c.RG * c.RPECONS / 0.00509,
+        "zscal": c.ZSCAL,
+        "zeps1": c.ZEPS1,
     }
     return np.array([float(vals[n]) for n in TL_CONST_NAMES], dtype=_NUMPY[dtype])

@@ -231,22 +231,23 @@ _SCRATCH = {n: n * 137 * 65_536 for n in (2, 3, 12, 13)}
     ("f32", False, False, 153, 3, _SCRATCH[2]), ("f64", False, False, 240, 2, _SCRATCH[2]),
     ("f64", False, True, 238, 2, _SCRATCH[12]), ("f64", True, False, 255, 2, _SCRATCH[3]),
     ("f64", True, True, 255, 2, _SCRATCH[13]), ("f32", False, False, 129, 3, _SCRATCH[2]),
-    ("f32", False, False, 32, 9, _SCRATCH[2]),
+    ("f32", False, False, 32, 8, _SCRATCH[2]),
 ])
 def test_fused_plan_block_sizes_at_137_levels(tag, evap, resident, registers, per_sm, values):
     """Blocks of 128 threads, as many an SM as the registers allow (f32
     default switches 4 at 128 registers, 512 threads; one register more
-    and an SM holds 3; f64 2), the forward sweep's ring in shared memory
-    (f32 3 slots x 16 fields x 128 threads, 24 KB a block, which would
-    bound an SM at 9 blocks, at 32 registers; f64's ring is in registers),
-    no level of the stack in shared memory, and the stack's scratch in
-    device memory: 71.8 MB rolled and 431 MB resident in f32 at 65,536 x
-    137, twice that in f64."""
+    and an SM holds 3; f64 2), the level table (137 values) and the
+    forward sweep's ring in shared memory (f32 3 slots x 16 fields x 128
+    threads, 24 KB a block, which with the table would bound an SM at 8
+    blocks, at 32 registers; f64's ring is in registers), no level of the
+    stack in shared memory, and the stack's scratch in device memory: 71.8
+    MB rolled and 431 MB resident in f32 at 65,536 x 137, twice that in
+    f64."""
     dtype = torch.float64 if tag == "f64" else torch.float32
     item = 8 if tag == "f64" else 4
     plan = adk.fused_plan(137, 65_536, dtype, evap, resident, registers)
     assert plan == {"block": 128, "blocks_per_sm": per_sm, "threads_per_sm": 128 * per_sm,
-                    "shared_bytes": 24_576 if tag == "f32" else 0, "levels_in_shared": 0,
+                    "shared_bytes": 137 * item + (24_576 if tag == "f32" else 0), "levels_in_shared": 0,
                     "scratch_bytes": values * item}
     assert plan["scratch_bytes"] == adk.fused_stack_slots(evap, resident) * 137 * 65_536 * item
 
@@ -275,14 +276,14 @@ def test_fused_occupancy_takes_the_cards_best_block(monkeypatch):
     refused where anything else (shared memory, a wrong launch bound) sets
     them."""
     c = CONFIGS["default"]()
-    monkeypatch.setattr(adk, "_occupancy", lambda switches: (4, 128, 0, 24_576))
+    monkeypatch.setattr(adk, "_occupancy", lambda switches, nlev: (4, 128, 0, 25_124))
     assert adk.fused_occupancy(torch.float32, c, False, 137) == {
         "block": 128, "blocks_per_sm": 4, "threads_per_sm": 512, "registers": 128, "local_bytes": 0,
-        "shared_bytes": 24_576, "levels_in_shared": 0}
-    monkeypatch.setattr(adk, "_occupancy", lambda switches: (2, 240, 0, 0))
+        "shared_bytes": 25_124, "levels_in_shared": 0}
+    monkeypatch.setattr(adk, "_occupancy", lambda switches, nlev: (2, 240, 0, 1_096))
     assert adk.fused_occupancy(torch.float64, c, True, 137)["threads_per_sm"] == 256
-    for reading in ((3, 128, 0, 24_576), (4, 128, 0, 49_152)):
-        monkeypatch.setattr(adk, "_occupancy", lambda switches, r=reading: r)
+    for reading in ((3, 128, 0, 25_124), (4, 128, 0, 24_576), (4, 128, 0, 49_152)):
+        monkeypatch.setattr(adk, "_occupancy", lambda switches, nlev, r=reading: r)
         with pytest.raises(RuntimeError, match="otherwise than its plan"):
             adk.fused_occupancy(torch.float32, c, False, 137)
 

@@ -126,18 +126,19 @@ def test_reverse_wrapper_refuses_an_output_that_overlaps_an_input(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype, evap, shared, blocks", [
-    (torch.float32, False, 27648, (8, 4, 3, 2)),
-    (torch.float32, True, 29696, (7, 4, 3, 2)),
-    (torch.float64, False, 55296, (4, 4, 3, 2)),
-    (torch.float64, True, 59392, (3, 3, 3, 2)),
+    (torch.float32, False, 27648 + 548, (7, 4, 3, 2)),
+    (torch.float32, True, 29696 + 548, (7, 4, 3, 2)),
+    (torch.float64, False, 55296 + 1096, (4, 4, 3, 2)),
+    (torch.float64, True, 59392 + 1096, (3, 3, 3, 2)),
 ])
 def test_reverse_plan_counts_the_ring(dtype, evap, shared, blocks):
-    """The plan of the reverse kernel's launch: a ring of 2 slots of 27
-    values a thread (29 with evaporation) for 128 threads, and the blocks
-    of 128 an SM at 64, 128, 168 and 255 registers a thread, the fewer of
-    what the registers and the ring leave: in f32 the registers set them
-    from 128 registers up (4 at 128: 512 threads); in f64 the ring of more
-    than 48 KB caps them at 4, 3 with evaporation."""
+    """The plan of the reverse kernel's launch at 137 levels: the level
+    table (137 values) and a ring of 2 slots of 27 values a thread (29 with
+    evaporation) for 128 threads, and the blocks of 128 an SM at 64, 128,
+    168 and 255 registers a thread, the fewer of what the registers and the
+    shared bytes leave: in f32 the registers set them from 128 registers up
+    (4 at 128: 512 threads); in f64 the ring of more than 48 KB caps them
+    at 4, 3 with evaporation."""
     assert adk.reverse_ring_depth(dtype) == 2
     assert adk.reverse_ring_fields(evap) == (29 if evap else 27)
     for registers, want in zip((64, 128, 168, 255), blocks):

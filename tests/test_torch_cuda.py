@@ -135,15 +135,16 @@ def test_pipelined_kernel_is_plain_at_the_rings_edges_on_card(cuda, form, at, dt
 def test_nl_occupancy_keeps_the_grid_in_one_wave_on_card(cuda, dtype):
     """The occupancy entry: in every form the kernel takes the ring depth
     the host build reports, in shared memory in float32 ([slot][field]
-    [thread], 16 fields, 15 fused) and in registers in float64, and at
-    least 4 blocks of 128 fit an SM, so 65,536 columns (512 blocks on 132
-    SMs) run in one wave."""
+    [thread], 16 fields, 15 fused) and in registers in float64, after the
+    level table of 137 values, and at least 4 blocks of 128 fit an SM, so
+    65,536 columns (512 blocks on 132 SMs) run in one wave."""
     c = CONFIGS["default"]()
     depth = nlk.ring_depth(dtype)
+    item = torch.empty((), dtype=dtype).element_size()
     for form, opts in NL_FORMS.items():
         o = nlk.occupancy(dtype, c, **opts)
         fields = 15 if opts.get("fuse_saturation") else 16
-        shared = depth * fields * 128 * 4 if dtype == torch.float32 else 0
+        shared = 137 * item + (depth * fields * 128 * 4 if dtype == torch.float32 else 0)
         assert (o["depth"], o["shared_bytes"]) == (depth, shared), (form, o)
         assert o["blocks_per_sm"] >= 4, (form, o)
 

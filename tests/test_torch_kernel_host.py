@@ -309,3 +309,36 @@ def test_ad_host_body_finite(case, dtype):
         s[n + "_i"] = diags[n + "_i"]
     for k, v in flat(adk.cloudsc2_ad_host(s, dt, c)).items():
         assert np.isfinite(v).all(), f"{case}: {k} has non-finite values"
+
+
+@pytest.mark.parametrize("build", ["nl", "nl trajectory", "tl", "ad", "ad fused", "ad fused resident"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_host_builds_match_plain_where_eta_crosses_the_clamp(build, dtype):
+    """Every kernel derives ``scalm`` from ``eta`` itself (``nl_level.h``
+    ``ScalmTable``), where the plain versions take ``scalm_profile``: on a
+    state whose ``eta`` runs across the clamp at 0.2 (``scalm`` is
+    ``ZSCAL * ZEPS1 ** 0.2`` above it), each host build still matches its
+    plain version within the gates above."""
+    c = CONFIGS["default"]()
+    _, state, dt = iox.synthesize_input(ncols=16, nlev=137, seed=0, dtype=dtype)
+    make = port_ad_state if build.startswith("ad") else port_tl_state if build == "tl" else port_state
+    s = make(state, dtype, c, dt) if build.startswith("ad") else make(state, dtype, c)
+    eta = s["eta"].numpy()
+    assert (eta < 0.2).sum() >= 10 and (eta > 0.2).sum() >= 10
+    tend, diag = TOL[dtype]
+    if build == "nl":
+        assert_fields(flat(nlk.cloudsc2_nl_host(s, dt, c)), flat(cloudsc2_nl(s, dt, c)),
+                      nl_tolerances(tend, diag, c, dtype), build)
+    elif build == "nl trajectory":
+        got, want = nlk.cloudsc2_nl_host(s, dt, c, with_trajectory=True), cloudsc2_nl(s, dt, c, with_trajectory=True)
+        tol = nl_tolerances(tend, diag, c, dtype)
+        assert_fields(flat(got[:2]), flat(want[:2]), tol, build)
+        assert_fields({k: v.numpy() for k, v in got[2].items()}, {k: v.numpy() for k, v in want[2].items()},
+                      {"c_rfl": tol["fplsl"], "c_sfl": tol["fplsn"]}, build)
+    elif build == "tl":
+        _assert_tl_host(flat(tlk.cloudsc2_tl_host(s, dt, c)), flat(cloudsc2_tl(s, dt, c)), c, dtype, build)
+    else:
+        got = {"ad": lambda: adk.cloudsc2_ad_host(s, dt, c),
+               "ad fused": lambda: adk.cloudsc2_ad_fused_host(s, dt, c),
+               "ad fused resident": lambda: adk.cloudsc2_ad_fused_host(s, dt, c, resident=True)}[build]()
+        assert_ad(flat(got), flat(cloudsc2_ad(s, dt, c)), dtype, build)

@@ -2,8 +2,8 @@
 # Licensed under the Apache License, Version 2.0.
 """The port's spans (``utils/timing.py``; the kernel wrappers'
 ``nl``, ``tl``, ``ad`` and ``ad_fused`` root spans and their ``check``,
-``scalm``, ``plan``, ``alloc`` and ``launch`` stages), through the host
-builds on the CPU:
+``plan``, ``alloc`` and ``launch`` stages), through the host builds on the
+CPU:
 
 - outside a profiler nothing records; inside one each call records one
   root span, its stages nested under it with its call id, durations not
@@ -42,7 +42,7 @@ from cloudsc2_tpu_torch.state import state_from_numpy
 from cloudsc2_tpu_torch.utils import timing
 
 NLEV, NCOLS = 137, 8
-STAGES = {"check", "scalm", "plan", "alloc", "launch"}
+STAGES = {"check", "plan", "alloc", "launch"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,8 +113,7 @@ def test_a_profiled_call_is_one_root_with_its_stages(root):
             parent = found[sp.parent]
             assert parent.start_us <= sp.start_us and sp.end_us <= parent.end_us, (sp, parent)
             assert 0 <= _self_us(found, k) <= parent.end_us - parent.start_us
-            assert sp.name == "scalm" or parent is top, sp
-    assert all(found[sp.parent].name == "check" for sp in found if sp.name == "scalm")
+            assert parent is top, sp
 
 
 def test_the_profiler_flag_follows_the_session():
@@ -185,8 +184,9 @@ def test_timing_adds_to_the_timer(profiled):
 
 
 def test_spans_are_on_the_trace_clock(tmp_path):
-    """``scalm``'s tensor operations, which the CPU profiler records, fall
-    inside the ``scalm`` span once it is put on the trace's clock."""
+    """The outputs' allocations, ``aten::empty`` ops that the CPU profiler
+    records, fall inside the ``alloc`` span once it is put on the trace's
+    clock."""
     s, dt = _state()
     c = make_constants()
     CALLS["nl"](s, dt, c)
@@ -195,10 +195,10 @@ def test_spans_are_on_the_trace_clock(tmp_path):
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     trace = json.loads(path.read_text())
-    scalm = [sp for sp in timing.spans(int(trace.get("baseTimeNanoseconds", 0))) if sp.name == "scalm"]
-    assert len(scalm) == 1
-    lo, hi = scalm[0].start_us, scalm[0].end_us
-    ops = [e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("name", "").startswith("aten::")]
+    alloc = [sp for sp in timing.spans(int(trace.get("baseTimeNanoseconds", 0))) if sp.name == "alloc"]
+    assert len(alloc) == 1
+    lo, hi = alloc[0].start_us, alloc[0].end_us
+    ops = [e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("name") == "aten::empty"]
     inside = [e for e in ops if lo - 20 <= e["ts"] and e["ts"] + e["dur"] <= hi + 20]
     assert inside, (lo, hi, [(e["name"], e["ts"]) for e in ops][:20])
 
