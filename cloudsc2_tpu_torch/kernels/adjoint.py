@@ -21,8 +21,9 @@ form included, with its two kernels:
    levels below it run, so the wrapper refuses outputs that overlap an
    input.  Its launch is worked out once per configuration, a cached
    :class:`~cloudsc2_tpu_torch.kernels.nonlinear.LaunchPlan`
-   (:func:`_reverse_plan`), as the NL kernel's is; the two launches of a
-   step share the ``eta`` of the first.  Each block of either kernel
+   (:func:`_reverse_plan`), as the NL kernel's is, and launched by one
+   compiled call; the two launches of a step share the ``eta`` of the
+   first.  Each block of either kernel
    derives ``scalm`` from ``eta`` once, into shared memory before its ring
    (``levelscan.cuh`` "level table"), so no wrapper computes it.
 
@@ -58,7 +59,8 @@ bodies compiled for the CPU, for the tests only.  While a profiler runs,
 each call records a root span (``ad``, ``ad_fused``; ``ad_reverse`` for the
 reverse kernel alone) and its stages (:mod:`cloudsc2_tpu_torch.utils.
 timing`): ``check``, ``plan``, ``alloc`` and ``launch``, those of both
-launches under one ``ad``.
+launches under one ``ad`` (the compiled launches' ``check``, ``alloc``,
+``check`` and ``launch`` stamped inside the call).
 """
 from __future__ import annotations
 
@@ -75,13 +77,15 @@ from cloudsc2_tpu_torch.kernels.nonlinear import (
     LaunchPlan,
     cached,
     check_inputs,
+    check_layout,
     count_launch,
     div_switch,
+    layout,
     ptrs,
 )
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS, AD_DIAGNOSTICS, AD_TENDENCIES
-from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS
+from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, TL_CONST_NAMES, kernel_constants, tl_kernel_constants
 from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
 
@@ -259,7 +263,7 @@ def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: T
     if on:
         k = next_span(k, "alloc")
     nlev, ncols = state["ap"].shape
-    outs = [nonlinear._empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype, state["ap"].device)
+    outs = [torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device)
             for n in outputs]
     if on:
         close_span(k)
@@ -274,44 +278,42 @@ def _read(inputs: Tuple[str, ...], evap: bool) -> Tuple[Optional[str], ...]:
 
 
 @functools.lru_cache(maxsize=64, typed=True)
-def _reverse_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constants, dt: float) -> LaunchPlan:
+def _reverse_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, ...], c: Constants, dt: float) -> LaunchPlan:
     """The plan of one reverse launch through ``entry`` (``"cuda"``, or a
     host build's entry on the CPU) at ``shape``, ``(nlev, ncols)``: the C
     entry, the switches, the constant struct and the 16 outputs."""
+    check_layout(dtype, shape)
     switches = reverse_switches(dtype, c)
     lib = _form_lib("cuda" if entry == "cuda" else "host", "ad", switches)
     if entry == "cuda":
         fn, failure = lib.cloudsc2_ad_launch, "cloudsc2_ad kernel launch failed: cudaError_t {}"
     else:
         fn, failure = getattr(lib, entry), "cloudsc2_ad host body failed: {}"
-    return LaunchPlan.make(fn, failure, switches, torch.from_numpy(tl_kernel_constants(c, dt, dtype)), AD_INPUTS,
-                           AD_OUTPUTS, AD_OUTPUTS, _IFACE, dtype, *shape)
+    return LaunchPlan.make(fn, entry == "cuda", failure, switches,
+                           torch.from_numpy(tl_kernel_constants(c, dt, dtype)),
+                           _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), AD_OUTPUTS, AD_OUTPUTS, _IFACE, dtype,
+                           *shape)
 
 
 def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], dt: float, c: Constants,
                  eta: Optional[Tensor] = None) -> Dict[str, Tensor]:
-    """One reverse launch through ``entry``: every check of the state, its
-    seeds and the trajectory (:func:`check_inputs`; ``eta`` that of the
-    forward launch on the same state, where there is one), then the launch
-    by its plan.  Returns the 16 input cotangents
-    by name (none overlapping an input: the kernel reads the next levels
-    up ahead of its stores); a launch on the card counts in
-    ``cloudsc2_ad_cuda.launches``.  Its stages are the spans ``check``,
-    ``plan`` and those of :meth:`~cloudsc2_tpu_torch.kernels.nonlinear.
-    LaunchPlan.run`."""
-    on = PROFILER._is_profiler_enabled
-    if on:
-        k = open_span("check")
-    ins, dtype = check_inputs({**state, **traj}, c, "cuda" if entry == "cuda" else "cpu",
-                              _read(AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE, eta)
-    if on:
-        k = next_span(k, "plan")
-    plan = cached(_reverse_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt)
-    if on:
+    """One reverse launch through ``entry``: the constants checked, the plan
+    looked up by the state's ``ap``, then the launch by its plan, which
+    checks the state, its seeds and the trajectory (``traj``'s fields
+    first; ``eta`` that of the forward launch on the same state, where
+    there is one).  Returns the 16 input cotangents by name (none
+    overlapping an input: the kernel reads the next levels up ahead of its
+    stores); a launch on the card counts in ``cloudsc2_ad_cuda.launches``.
+    Its stages are the span ``plan`` and those of
+    :meth:`~cloudsc2_tpu_torch.kernels.nonlinear.LaunchPlan.run`."""
+    k = open_span("plan") if PROFILER._is_profiler_enabled else None
+    check_constants(c)
+    plan = cached(_reverse_plan, dt)(entry, *layout(state, entry), c, dt)
+    if k:
         close_span(k)
-    outs = plan.run(ins)
+    outs, _ = plan.run(state, traj, eta)
     if entry == "cuda":
-        count_launch(cloudsc2_ad_cuda, plan.switches)
+        count_launch(cloudsc2_ad_cuda, plan.switches, compiled=True)
     return outs
 
 
@@ -334,7 +336,7 @@ def cloudsc2_ad_reverse_cuda(
     the forward trajectory ``traj``.  Raises on anything the kernel does
     not take, on a failed build and on a refused launch (its ring's shared
     memory included); never falls back.  Each launch adds one to
-    ``cloudsc2_ad_cuda.launches`` (and by its form, see
+    ``cloudsc2_ad_cuda.launches`` and ``.compiled_launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
     return _reverse_entry("cuda", state, traj, dt, c)
 
@@ -388,6 +390,7 @@ def _two_kernels(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, 
 
 
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
@@ -580,7 +583,11 @@ def _run_fused(device_type: str, state: Dict[str, Tensor], dt: float, c: Constan
     """One call of the fused kernel on ``device_type`` (``"cuda"``: on
     PyTorch's current stream; ``"cpu"``: the host build, its scratch NaN
     before the call), the root span ``ad_fused`` while a profiler runs; the
-    scratch is a second ``alloc``."""
+    scratch is a second ``alloc``.  Unlike the NL, TL and reverse launches
+    it keeps its own path in Python, with no launch plan and not through
+    the compiled launcher: its stack's scratch is fresh for each call (a
+    plan cache of 64 must not hold up to 862 MB each), and it is off the
+    cells' path.  So its launches never count in ``compiled_launches``."""
     k = open_span("ad_fused") if PROFILER._is_profiler_enabled else None
     try:
         ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, device_type)
@@ -647,6 +654,7 @@ def cloudsc2_ad_fused_cuda(
 
 
 cloudsc2_ad_fused_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_ad_fused_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_fused_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_fused_cuda.ref_launches = 0  # type: ignore[attr-defined]
 

@@ -14,20 +14,33 @@ saturation adjustment and the divide policies it holds, passed as ``-D``
 flags (``csrc/scalar_math.h``, "library forms").  Each library holds fewer
 bodies than all forms would, the libraries build in parallel, and the
 default form's library compiles the same bodies whatever the others add.
+
+:func:`launcher` builds the kernel wrappers' per-call launch path
+(``launcher/launcher.cpp``) the same way, with ``g++`` against the installed
+torch's headers and libraries, into a Python module that every launch plan
+calls (``kernels/nonlinear.py`` ``LaunchPlan``).  A build holds a lock file
+beside its library, so concurrent processes (test workers) compile each
+library once.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from types import ModuleType
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the launch path's source (``launcher.cpp``), apart from the kernels'
+LAUNCHER_SRC = Path(__file__).resolve().parent / "launcher"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
 
 NVCC_FLAGS = (
@@ -90,9 +103,9 @@ def find_nvcc() -> str:
     return found
 
 
-def _digest(sources: Sequence[str], flags: Sequence[str]) -> str:
+def _digest(sources: Sequence[str], flags: Sequence[str], src: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(src.iterdir()):
         if path.suffix in (".cu", ".cuh", ".h", ".cpp"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -100,23 +113,32 @@ def _digest(sources: Sequence[str], flags: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(compiler: str, sources: Sequence[str], flags: Sequence[str], name: str) -> Path:
+def _compile(compiler: str, sources: Sequence[str], flags: Sequence[str], name: str,
+             libs: Sequence[str] = (), src: Path = CSRC) -> Path:
+    """The library ``name`` built from ``sources`` in ``src`` with ``flags``
+    (``libs`` after the sources), or the one a build of the same hash
+    left."""
     BUILD_DIR.mkdir(exist_ok=True)
-    out = BUILD_DIR / f"{name}-{_digest(sources, flags)}.so"
+    out = BUILD_DIR / f"{name}-{_digest(sources, (*flags, *libs), src)}.so"
     if out.exists():
         return out
-    # compile to a private name and rename: concurrent builds (test
-    # workers) never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [compiler, *flags, "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise BuildError(
-            f"{' '.join(cmd)}\nexit {proc.returncode}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # one process compiles, the others wait for its library
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        # compile to a private name and rename: no process loads a
+        # half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [compiler, *flags, "-I", str(src), "-o", tmp, *(str(src / s) for s in sources), *libs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise BuildError(
+                f"{' '.join(cmd)}\nexit {proc.returncode}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
     logs[name] = proc.stdout + proc.stderr
     return out
 
@@ -139,3 +161,48 @@ def load(kind: str, name: str, sources: Sequence[str], defines: Sequence[str] = 
                 raise ValueError(f"unknown build kind {kind!r}")
             _loaded[key] = ctypes.CDLL(str(path))
         return _loaded[key]
+
+
+_launcher: Optional[ModuleType] = None
+_launcher_lock = threading.Lock()
+
+
+def launcher_flags(cuda: bool) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """``(flags, libraries)`` of the launcher's build against the installed
+    torch: its headers, Python's, its C++ ABI and, with ``cuda``, the CUDA
+    toolkit's headers and ``c10_cuda``.  The torch version is a define of
+    its own, so another torch builds another library."""
+    import torch
+    from torch.utils import cpp_extension
+
+    includes = [*cpp_extension.include_paths(), sysconfig.get_paths()["include"]]
+    if cuda:
+        includes.append(str(Path(find_nvcc()).parents[1] / "include"))
+    flags = (*HOST_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+             f"-DCLOUDSC2_LAUNCHER_CUDA={int(cuda)}", f'-DCLOUDSC2_TORCH_VERSION="{torch.__version__}"',
+             *(f"-I{p}" for p in includes))
+    lib_dirs = cpp_extension.library_paths()
+    libs = (*(f"-L{p}" for p in lib_dirs), *(f"-Wl,-rpath,{p}" for p in lib_dirs),
+            "-lc10", "-ltorch", "-ltorch_cpu", "-ltorch_python", *(("-lc10_cuda",) if cuda else ()))
+    return flags, libs
+
+
+def launcher() -> ModuleType:
+    """Build (once per process and per source hash) and import the launch
+    path (``launcher/launcher.cpp``): with CUDA where the installed torch is a
+    CUDA build, so that it launches on the card and serves the host builds
+    too, else for the host builds alone.  A failed build raises
+    :class:`BuildError`; nothing falls back."""
+    global _launcher
+    with _launcher_lock:
+        if _launcher is None:
+            import torch
+
+            flags, libs = launcher_flags(torch.version.cuda is not None)
+            path = _compile(shutil.which("g++") or "g++", ["launcher.cpp"], flags, "cloudsc2_launcher", libs,
+                            LAUNCHER_SRC)
+            spec = importlib.util.spec_from_file_location("cloudsc2_launcher", path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            _launcher = module
+        return _launcher

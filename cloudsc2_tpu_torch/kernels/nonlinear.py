@@ -25,12 +25,15 @@ block derives ``scalm`` from ``eta`` once, into shared memory before its
 ring (``levelscan.cuh`` "level table", ``nl_level.h`` ``ScalmTable``), so
 no wrapper computes it.  The wrapper works out the launch of each
 configuration once, a :class:`LaunchPlan` cached by value
-(:func:`_nl_plan`), and checks the state itself on every call
-(:func:`check_inputs`).  While a profiler runs, each call records a root
-span and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``,
-``plan``, ``alloc`` and ``launch``.  The note at the top of
-``nonlinear.cu`` gives what bounds the kernel, before and after, and why
-the ring needs no block synchronisation.
+(:func:`_nl_plan`), and every call after the lookup is one compiled call
+(``launcher/launcher.cpp``): the checks of :func:`check_inputs` on the state,
+the outputs' allocation, the overlap check and the C entry.  The TL and
+the AD's reverse kernel launch the same way.  While a profiler runs, each
+call records a root span and its stages
+(:mod:`cloudsc2_tpu_torch.utils.timing`): ``plan``, then ``check``,
+``alloc``, ``check`` and ``launch``, stamped inside the compiled call.
+The note at the top of ``nonlinear.cu`` gives what bounds the kernel,
+before and after, and why the ring needs no block synchronisation.
 
 :func:`cloudsc2_nl_cuda` launches it on CUDA tensors and raises for
 anything else; its plain version is
@@ -46,11 +49,11 @@ through the direct scan, the harness's reference.  :func:`rcp_cuda` /
 """
 from __future__ import annotations
 
-import array
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +63,7 @@ from cloudsc2_tpu_torch.kernels import build
 from cloudsc2_tpu_torch.physics.fastmath import DIV_MODES
 from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants, trajectory_names
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, kernel_constants
-from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, open_span
 
 Tensor = torch.Tensor
 
@@ -197,72 +200,83 @@ def _shape(name: str, iface: Sequence[str], nlev: int, ncols: int) -> Tuple[int,
 class LaunchPlan:
     """What a kernel wrapper works out once per launch configuration, the
     port's counterpart of ``jax.jit``'s cached dispatch
-    (``cloudsc2_tpu/pallas/nonlinear.py:68-69``): the library's C entry
-    ``fn`` (``failure`` the error of a refused launch, ``{}`` its code),
-    its int ``switches`` and the constant struct ``consts``, folded once;
-    the kernel's ``inputs`` and ``outputs`` by name, each output's shape
-    (``None``: not written) and the byte counts of both."""
+    (``cloudsc2_tpu/pallas/nonlinear.py:68-69``): the compiled launcher of
+    the launch (``launcher/launcher.cpp``, built by
+    :func:`cloudsc2_tpu_torch.kernels.build.launcher`), which holds the
+    library's C entry, its int ``switches`` and the constant struct
+    ``consts``, folded once, the kernel's inputs and outputs by name and
+    their shapes (``shapes``: each output's, ``None`` where not written).
+    Every NL, TL and AD reverse launch runs through one: a plan lookup, then
+    one compiled call (:meth:`run`)."""
 
-    fn: Callable[..., int]
-    failure: str
+    launcher: Any
     switches: Tuple[int, ...]
     consts: Tensor
-    inputs: Tuple[str, ...]
-    outputs: Tuple[str, ...]
     shapes: Tuple[Optional[Tuple[int, ...]], ...]
-    in_bytes: Tuple[int, ...]
-    out_bytes: Tuple[int, ...]
-    nlev: int
-    ncols: int
 
     @classmethod
-    def make(cls, fn: Callable[..., int], failure: str, switches: Tuple[int, ...], consts: Tensor,
-             inputs: Tuple[str, ...], outputs: Tuple[str, ...], written: Sequence[str], iface: Sequence[str],
-             dtype: torch.dtype, nlev: int, ncols: int) -> "LaunchPlan":
-        """The plan of a kernel that writes the outputs named in
+    def make(cls, fn: Callable[..., int], cuda: bool, failure: str, switches: Tuple[int, ...], consts: Tensor,
+             inputs: Tuple[Optional[str], ...], outputs: Tuple[str, ...], written: Sequence[str],
+             iface: Sequence[str], dtype: torch.dtype, nlev: int, ncols: int) -> "LaunchPlan":
+        """The plan of a launch through the C entry ``fn`` (``cuda``: a CUDA
+        library's, which takes a stream; ``failure`` the error of a refused
+        launch, ``{}`` its code) of a kernel that reads ``inputs`` (``None``
+        for one it does not read) and writes the outputs named in
         ``written``, its shapes those of :func:`_shape`."""
-        item = torch.finfo(dtype).bits // 8
+        launcher = build.launcher().Launcher(
+            ctypes.cast(fn, ctypes.c_void_p).value, cuda, list(switches), consts.numpy().tobytes(), tuple(inputs),
+            tuple(iface), tuple(outputs), tuple(written), dtype == torch.float64, "cuda" if cuda else "cpu",
+            failure, nlev, ncols)
         shapes = tuple(_shape(n, iface, nlev, ncols) if n in written else None for n in outputs)
-        return cls(fn, failure, switches, consts, inputs, outputs, shapes,
-                   tuple(item * int(np.prod(_shape(n, iface, nlev, ncols))) for n in inputs),
-                   tuple(0 if sh is None else item * int(np.prod(sh)) for sh in shapes), nlev, ncols)
+        return cls(launcher, switches, consts, shapes)
 
-    def run(self, ins: Sequence[Optional[Tensor]]) -> Dict[str, Optional[Tensor]]:
-        """Launch on ``ins``, the kernel's inputs as :func:`check_inputs`
-        returns them (``ap`` first): fresh outputs (:func:`_empty`),
-        refused where one overlaps an input (:func:`check_spans`), then
-        the C entry, on the card on PyTorch's current stream of the
-        inputs' device.  Returns the outputs by name; raises on a refused
-        launch.  Its stages are the spans ``alloc``, ``check`` and
-        ``launch``."""
-        dtype, device = ins[0].dtype, ins[0].device
+    def run(self, state: Dict[str, Tensor], extra: Optional[Dict[str, Tensor]] = None,
+            eta: Optional[Tensor] = None) -> Tuple[Dict[str, Optional[Tensor]], Tensor]:
+        """Launch on ``state`` (``extra``'s fields first, where given) in one
+        compiled call: every check of :func:`check_inputs` but the
+        constants', with its errors, before any output exists; fresh
+        outputs; refused where one overlaps an input (:func:`check_disjoint`'s
+        rule); the C entry, on the card on PyTorch's current stream of the
+        inputs' device.  Returns the outputs by name (``None``: not
+        written) and the ``eta`` the kernel read (``eta``, else the state's
+        in the launch's dtype); raises on a refused launch.  While a
+        profiler runs, its stages are the spans ``check``, ``alloc``,
+        ``check`` (the overlap) and ``launch``, stamped inside the call."""
         on = PROFILER._is_profiler_enabled
+        outs, eta, stamps = self.launcher.run(state, extra, eta, on)
         if on:
-            k = open_span("alloc")
-        outs = [None if sh is None else _empty(sh, dtype, device) for sh in self.shapes]
-        if on:
-            k = next_span(k, "check")
-        in_ptrs = [0 if t is None else t.data_ptr() for t in ins]
-        out_ptrs = [0 if t is None else t.data_ptr() for t in outs]
-        check_spans(in_ptrs, self.in_bytes, self.inputs, out_ptrs, self.out_bytes, self.outputs)
-        if on:
-            k = next_span(k, "launch")
-        # the pointer arrays as 64-bit words, alive until the call returns
-        in_words, out_words = array.array("Q", in_ptrs), array.array("Q", out_ptrs)
-        args = (*self.switches, in_words.buffer_info()[0], out_words.buffer_info()[0], self.consts.data_ptr(),
-                self.nlev, self.ncols)
-        if device.type != "cuda":
-            err = self.fn(*args)
-        elif torch.cuda.current_device() == device.index:
-            err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(device):
-                err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
-        if on:
-            close_span(k)
-        if err != 0:
-            raise RuntimeError(self.failure.format(err))
-        return dict(zip(self.outputs, outs))
+            for name, start, end in zip(LAUNCH_STAGES, stamps, stamps[1:]):
+                close_span(open_span(name, start), end)
+        return outs, eta
+
+
+#: the stages of :meth:`LaunchPlan.run`, between its five stamps
+LAUNCH_STAGES = ("check", "alloc", "check", "launch")
+
+
+def check_layout(dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
+    """The checks of :func:`check_inputs` on ``ap``'s dtype and shape alone,
+    with its errors: every function that makes a plan runs them first, so
+    a plan exists only for a layout a kernel takes."""
+    if len(shape) != 2:
+        raise ValueError(f"ap must be (nlev, ncols), got shape {shape}")
+    nlev, ncols = shape
+    if nlev < 2 or ncols < 1:
+        raise ValueError(f"need nlev >= 2 and ncols >= 1, got {(nlev, ncols)}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not supported (float32 | float64)")
+
+
+def layout(state: Dict[str, Tensor], entry: str) -> Tuple[torch.dtype, Tuple[int, ...]]:
+    """The state's ``ap``'s dtype and shape, a plan's key, for a launch
+    through ``entry`` (``"cuda"``, or a host build's): on a device of the
+    other type, :func:`check_inputs`' refusal, after its checks of the
+    layout (:func:`check_layout`), before any library is built."""
+    ap = state["ap"]
+    if ap.is_cuda != (entry == "cuda"):
+        check_layout(ap.dtype, tuple(ap.shape))
+        raise ValueError(f"tensors must be on {'cuda' if entry == 'cuda' else 'cpu'}, got {ap.device}")
+    return ap.dtype, tuple(ap.shape)
 
 
 def cached(build: Callable[..., LaunchPlan], dt) -> Callable[..., LaunchPlan]:
@@ -275,11 +289,12 @@ def cached(build: Callable[..., LaunchPlan], dt) -> Callable[..., LaunchPlan]:
 
 
 @functools.lru_cache(maxsize=64, typed=True)
-def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constants, dt: float,
+def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, ...], c: Constants, dt: float,
              with_trajectory: bool, traj_only: bool, fuse_saturation: bool, kflag: int) -> LaunchPlan:
     """The plan of one NL launch through ``entry`` (``"cuda"``, or a host
     build's entry on the CPU) at ``shape``, ``(nlev, ncols)``: the C entry,
     the switches, the constant struct and the outputs written."""
+    check_layout(dtype, shape)
     nlev, ncols = shape
     written = trajectory_names(c) if with_trajectory else ()
     if not traj_only:
@@ -289,41 +304,33 @@ def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, int], c: Constant
     else:
         fn, failure = getattr(_load("host", c.CUADJ_COMPACT), entry), entry + " failed: {}"
     return LaunchPlan.make(
-        fn, failure, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation),
-        torch.from_numpy(kernel_constants(c, dt, dtype, kflag)), NL_INPUTS, NL_OUTPUTS, written, _IFACE, dtype,
-        nlev, ncols)
+        fn, entry == "cuda", failure, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation),
+        torch.from_numpy(kernel_constants(c, dt, dtype, kflag)), _FUSED_INPUTS if fuse_saturation else NL_INPUTS,
+        NL_OUTPUTS, written, _IFACE, dtype, nlev, ncols)
 
 
 def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool,
             traj_only: bool, fuse_saturation: bool, kflag: int):
-    """One NL launch through ``entry``: every check of the options and the
-    state (:func:`check_inputs`; ``qsat`` not read when fused), then the
-    launch by its plan.  Returns ``(outputs by name, eta)``, the ``eta`` in
-    the state's dtype that the kernel read; a launch on the card counts in
-    ``cloudsc2_nl_cuda.launches``.  Its stages are the spans ``check``,
-    ``plan`` and those of :meth:`LaunchPlan.run`."""
+    """One NL launch through ``entry``: the options and the constants
+    checked (:func:`check_constants`), the plan looked up by the state's
+    ``ap`` (:func:`layout`; a new layout checked as its plan is made),
+    then the launch by its plan, which checks the state (``qsat`` not read
+    when fused).  Returns ``(outputs by name, eta)``, the ``eta`` in the
+    state's dtype that the kernel read; a launch on the card counts in
+    ``cloudsc2_nl_cuda.launches``.  Its stages are the span ``plan`` and
+    those of :meth:`LaunchPlan.run`."""
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
-    names = _FUSED_INPUTS if fuse_saturation else NL_INPUTS
-    on = PROFILER._is_profiler_enabled
-    if on:
-        k = open_span("check")
-    ins, dtype = check_inputs(state, c, "cuda" if entry == "cuda" else "cpu", names, _IFACE)
-    if on:
-        k = next_span(k, "plan")
-    plan = cached(_nl_plan, dt)(entry, dtype, tuple(ins[0].shape), c, dt, bool(with_trajectory),
-                                bool(traj_only), bool(fuse_saturation), kflag)
-    if on:
+    k = open_span("plan") if PROFILER._is_profiler_enabled else None
+    check_constants(c)
+    plan = cached(_nl_plan, dt)(entry, *layout(state, entry), c, dt, bool(with_trajectory), bool(traj_only),
+                                bool(fuse_saturation), kflag)
+    if k:
         close_span(k)
-    outs = plan.run(ins)
+    outs, eta = plan.run(state)
     if entry == "cuda":
-        count_launch(cloudsc2_nl_cuda, plan.switches)
-    return outs, ins[-1]
-
-
-def _empty(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> Tensor:
-    """An output's storage (the kernel writes every element)."""
-    return torch.empty(shape, dtype=dtype, device=device)
+        count_launch(cloudsc2_nl_cuda, plan.switches, compiled=True)
+    return outs, eta
 
 
 def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Tensor]],
@@ -331,35 +338,30 @@ def check_disjoint(ins: Sequence[Optional[Tensor]], outs: Dict[str, Optional[Ten
     """Raise ``ValueError`` where an output's bytes overlap an input's (the
     inputs named by ``names``, in order): a pipelined kernel reads a level's
     inputs ahead of the stores of the levels before it, which is the same
-    step only when no output is an input.  :func:`check_spans` on the
-    tensors' addresses and byte counts."""
+    step only when no output is an input.  The launcher's own check
+    (``launcher/launcher.cpp`` ``first_overlap``) on the tensors' addresses and
+    byte counts (an absent tensor is a field the kernel does not take): one
+    sweep over the spans sorted by address finds whether any output
+    overlaps an input (a span that starts before the furthest end of the
+    other kind so far); only then are the pairs searched, for the first
+    output and its first input to name."""
     def spans(tensors):
         return [0 if t is None else t.data_ptr() for t in tensors], [0 if t is None else t.nbytes for t in tensors]
 
-    check_spans(*spans(ins), names, *spans(list(outs.values())), list(outs))
+    build.launcher().check_spans(*spans(ins), list(names), *spans(list(outs.values())), list(outs))
 
 
-def check_spans(in_ptrs: Sequence[int], in_bytes: Sequence[int], in_names: Sequence[str], out_ptrs: Sequence[int],
-                out_bytes: Sequence[int], out_names: Sequence[str]) -> None:
-    """:func:`check_disjoint` on addresses and byte counts (a null address
-    is a field the kernel does not take).  One sweep over the spans sorted
-    by address finds whether any output overlaps an input (a span that
-    starts before the furthest end of the other kind so far); only then are
-    the pairs searched, for the first output and its first input to name."""
-    spans = sorted([(p, p + n, 0) for p, n in zip(in_ptrs, in_bytes) if p]
-                   + [(p, p + n, 1) for p, n in zip(out_ptrs, out_bytes) if p])
-    ends = [0, 0]
-    for lo, hi, kind in spans:
-        if lo < ends[1 - kind]:
-            break
-        if hi > ends[kind]:
-            ends[kind] = hi
-    else:
-        return
-    for q, m, name in zip(out_ptrs, out_bytes, out_names):
-        for p, n, input_name in zip(in_ptrs, in_bytes, in_names):
-            if p and q and q < p + n and p < q + m:
-                raise ValueError(f"output {name!r} overlaps input {input_name!r}; the kernel needs them apart")
+@contextlib.contextmanager
+def allocated_by(alloc: Callable[[Tuple[int, ...], torch.dtype, torch.device], Tensor]) -> Iterator[None]:
+    """Inside the block, every launch plan allocates its outputs through
+    ``alloc(shape, dtype, device)`` instead of fresh storage: the tests'
+    seam for an output that overlaps an input."""
+    lib = build.launcher()
+    lib.set_alloc_seam(alloc)
+    try:
+        yield
+    finally:
+        lib.set_alloc_seam(None)
 
 
 def div_switch(c: Constants, dtype: torch.dtype) -> int:
@@ -369,11 +371,14 @@ def div_switch(c: Constants, dtype: torch.dtype) -> int:
     return DIV_MODES.index(c.FAST_DIV) if dtype == torch.float32 else 0
 
 
-def count_launch(entry, switches: Sequence[int]) -> None:
-    """Add one launch to ``entry.launches``, and by its form (the switches'
-    last two: ``div``, ``compact``) to ``.fast_div_launches`` (a non-exact
-    divide) and ``.ref_launches`` (``CUADJ_COMPACT=False``)."""
+def count_launch(entry, switches: Sequence[int], compiled: bool = False) -> None:
+    """Add one launch to ``entry.launches``, one that took the compiled
+    launch path (a :class:`LaunchPlan`) to ``.compiled_launches``, and by
+    its form (the switches' last two: ``div``, ``compact``) to
+    ``.fast_div_launches`` (a non-exact divide) and ``.ref_launches``
+    (``CUADJ_COMPACT=False``)."""
     entry.launches += 1
+    entry.compiled_launches += int(compiled)
     entry.fast_div_launches += int(switches[-2] != 0)
     entry.ref_launches += int(not switches[-1])
 
@@ -415,7 +420,8 @@ def cloudsc2_nl_cuda(
     mode (float32; float64 divides exactly), ``c.CUADJ_COMPACT`` the form
     of the saturation adjustment (one library each).  Raises on anything else, on a
     failed build and on a refused launch; never falls back to the plain
-    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, a
+    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches`` and,
+    through its launch plan's compiled path, to ``.compiled_launches``, a
     launch under a non-exact divide also to ``.fast_div_launches``, and one
     with ``CUADJ_COMPACT=False`` to ``.ref_launches``.  While a profiler
     runs, each call is a root span ``nl``.
@@ -424,6 +430,7 @@ def cloudsc2_nl_cuda(
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_nl_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 

@@ -20,24 +20,38 @@ table"), so the wrapper does not compute it.
 anything else; its plain version is
 :func:`cloudsc2_tpu_torch.physics.tangent_linear.cloudsc2_tl`.
 :func:`cloudsc2_tl_host` runs the same body compiled for the CPU, for the
-tests only.  While a profiler runs, each call records the root span ``tl``
-and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`): ``check``,
-``alloc``, ``plan`` (the constant struct folded and the switches, on every
-call: the TL keeps no launch plan) and ``launch``.
+tests only.  The wrapper works out each configuration's launch once, a
+:class:`~cloudsc2_tpu_torch.kernels.nonlinear.LaunchPlan` cached by value
+(:func:`_tl_plan`: the entry, dtype, shape, constants, ``dt`` by value and
+type, ``tangent_only``), as the NL and AD wrappers do, and every call after
+the lookup is one compiled call that checks the state, allocates the
+outputs and launches.  While a profiler runs, each call records the root
+span ``tl`` and its stages (:mod:`cloudsc2_tpu_torch.utils.timing`):
+``plan``, then ``check``, ``alloc``, ``check`` and ``launch``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.kernels import build
-from cloudsc2_tpu_torch.kernels.nonlinear import NL_INPUTS, STEP_OUTPUTS, check_inputs, count_launch, div_switch, ptrs
+from cloudsc2_tpu_torch.kernels.nonlinear import (
+    NL_INPUTS,
+    STEP_OUTPUTS,
+    LaunchPlan,
+    cached,
+    check_layout,
+    count_launch,
+    div_switch,
+    layout,
+)
+from cloudsc2_tpu_torch.physics.nonlinear import check_constants
 from cloudsc2_tpu_torch.state import TL_CONST_NAMES, tl_kernel_constants
-from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, open_span
 
 Tensor = torch.Tensor
 
@@ -88,81 +102,63 @@ def load_cuda(compact: bool = True, fast: bool = False) -> ctypes.CDLL:
     return _load("cuda", compact, fast)
 
 
-def _lib(kind: str, c: Constants, switches: Tuple[int, ...]) -> ctypes.CDLL:
-    return _load(kind, bool(c.CUADJ_COMPACT), switches[4] != 0)
+def tl_switches(c: Constants, dtype: torch.dtype, tangent_only: bool) -> Tuple[int, ...]:
+    """The kernel's int switches for constants ``c``, a dtype and
+    ``tangent_only``: ``is_double``, ``evap``, ``lregcl``,
+    ``tangent_only``, ``div``, ``compact``."""
+    return (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
+            int(tangent_only), div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
 
 
-def _marshal(
-    state: Dict[str, Tensor], dt: float, c: Constants, device_type: str, tangent_only: bool
-) -> Tuple[List[Tensor], List, Tensor, Tuple[int, ...]]:
-    """Check the state, and return the kernel's inputs in order, the output
-    list (fresh tensors; ``None`` for the forward outputs with
-    ``tangent_only``), the constant struct and the switches: the spans
-    ``check``, ``alloc`` and ``plan``."""
-    on = PROFILER._is_profiler_enabled
-    if on:
-        k = open_span("check")
-    ins, dtype = check_inputs(state, c, device_type, TL_INPUTS, _IFACE)
-    if on:
-        k = next_span(k, "alloc")
-    nlev, ncols = state["ap"].shape
-    outs = [
-        None if tangent_only and not n.endswith("_i") else torch.empty(
-            (nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device
-        )
-        for n in TL_OUTPUTS
-    ]
-    if on:
-        k = next_span(k, "plan")
-    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
-    switches = (
-        int(dtype == torch.float64),
-        int(bool(c.LEVAPLS2 or c.LDRAIN1D)),
-        int(bool(c.LREGCL)),
-        int(tangent_only),
-        div_switch(c, dtype),
-        int(bool(c.CUADJ_COMPACT)),
-    )
-    if on:
-        close_span(k)
-    return ins, outs, consts, switches
+@functools.lru_cache(maxsize=64, typed=True)
+def _tl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, ...], c: Constants, dt: float,
+             tangent_only: bool) -> LaunchPlan:
+    """The plan of one TL launch through ``entry`` (``"cuda"``, or the host
+    build's ``"cloudsc2_tl_host"`` on the CPU) at ``shape``, ``(nlev,
+    ncols)``: the C entry of the form's library, the switches, the constant
+    struct and the outputs written (the ``*_i`` alone with
+    ``tangent_only``)."""
+    check_layout(dtype, shape)
+    switches = tl_switches(c, dtype, tangent_only)
+    on_card = entry == "cuda"
+    lib = _load("cuda" if on_card else "host", bool(c.CUADJ_COMPACT), switches[4] != 0)
+    if on_card:
+        fn, failure = lib.cloudsc2_tl_launch, "cloudsc2_tl kernel launch failed: cudaError_t {}"
+    else:
+        fn, failure = getattr(lib, entry), "cloudsc2_tl host body failed: {}"
+    written = tuple(n for n in TL_OUTPUTS if not tangent_only or n.endswith("_i"))
+    return LaunchPlan.make(fn, on_card, failure, switches, torch.from_numpy(tl_kernel_constants(c, dt, dtype)),
+                           TL_INPUTS, TL_OUTPUTS, written, _IFACE, dtype, *shape)
 
 
-def _run_tl(device_type: str, state: Dict[str, Tensor], dt: float, c: Constants,
+def _run_tl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants,
             tangent_only: bool) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """One TL call on ``device_type`` (``"cuda"``: the kernel on PyTorch's
-    current stream; ``"cpu"``: the host build), the root span ``tl`` while a
-    profiler runs."""
+    """One TL call through ``entry`` (``"cuda"``: the kernel on PyTorch's
+    current stream; ``"cloudsc2_tl_host"``: the host build): the constants
+    checked, the plan looked up by the state's ``ap`` (the span ``plan``),
+    then the launch by its plan (:meth:`~cloudsc2_tpu_torch.kernels.
+    nonlinear.LaunchPlan.run`, which checks the state), the root span
+    ``tl`` while a profiler runs."""
     k = open_span("tl") if PROFILER._is_profiler_enabled else None
     try:
-        ins, outs, consts, switches = _marshal(state, dt, c, device_type, tangent_only)
-        nlev, ncols = state["ap"].shape
-        s = open_span("launch") if k else None
-        lib = _lib("cuda" if device_type == "cuda" else "host", c, switches)
-        if device_type == "cuda":
-            with torch.cuda.device(state["ap"].device):
-                stream = torch.cuda.current_stream().cuda_stream
-                err = lib.cloudsc2_tl_launch(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols,
-                                             stream)
-        else:
-            err = lib.cloudsc2_tl_host(*switches, ptrs(ins), ptrs(outs), consts.data_ptr(), nlev, ncols)
+        s = open_span("plan") if k else None
+        check_constants(c)
+        plan = cached(_tl_plan, dt)(entry, *layout(state, entry), c, dt, bool(tangent_only))
         if s:
             close_span(s)
-        if err != 0:
-            raise RuntimeError(f"cloudsc2_tl kernel launch failed: cudaError_t {err}" if device_type == "cuda"
-                               else f"cloudsc2_tl host body failed: {err}")
-        if device_type == "cuda":
-            count_launch(cloudsc2_tl_cuda, switches)
+        outs, _ = plan.run(state)
+        if entry == "cuda":
+            count_launch(cloudsc2_tl_cuda, plan.switches, compiled=True)
         return _assemble(outs)
     finally:
         if k:
             close_span(k)
 
 
-def _assemble(outs: List) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+def _assemble(outs: Dict[str, Optional[Tensor]]) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """``(tendencies, diagnostics)`` as :func:`cloudsc2_tpu_torch.physics.
     tangent_linear.cloudsc2_tl` returns them."""
-    named = {n: v for n, v in zip(TL_OUTPUTS, outs) if v is not None}
+    named = {n: v for n, v in outs.items() if v is not None}
     tends = {k[4:]: v for k, v in named.items() if k.startswith("tnd_")}
     diags = {k: v for k, v in named.items() if not k.startswith("tnd_")}
     return tends, diags
@@ -179,13 +175,15 @@ def cloudsc2_tl_cuda(
     and returned.  ``c.FAST_DIV`` and ``c.CUADJ_COMPACT`` pick the form.
     Raises on anything else, on a failed build and on a
     refused launch; never falls back to the plain version.  Each launch
-    adds one to ``cloudsc2_tl_cuda.launches`` (and by its form, see
+    adds one to ``cloudsc2_tl_cuda.launches`` and ``.compiled_launches``
+    (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`).
     """
     return _run_tl("cuda", state, dt, c, tangent_only)
 
 
 cloudsc2_tl_cuda.launches = 0  # type: ignore[attr-defined]
+cloudsc2_tl_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_tl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_tl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
@@ -194,4 +192,4 @@ def cloudsc2_tl_host(
     state: Dict[str, Tensor], dt: float, c: Constants, tangent_only: bool = False
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """The kernel's body compiled for the host, on CPU tensors (tests only)."""
-    return _run_tl("cpu", state, dt, c, tangent_only)
+    return _run_tl("cloudsc2_tl_host", state, dt, c, tangent_only)

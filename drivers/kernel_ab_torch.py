@@ -214,8 +214,13 @@ def launch_stages(modules):
             "_read", "_layout", "check_spans")]
     if hasattr(nlk, "LaunchPlan"):
         stages += [(nlk.LaunchPlan, "run", "LaunchPlan.run")]
-    stages += [(nlk.load_cuda(True), "cloudsc2_nl_launch", "ctypes call cloudsc2_nl_launch"),
-               (adk.load_cuda(True, False), "cloudsc2_ad_launch", "ctypes call cloudsc2_ad_launch")]
+    if hasattr(nlk, "allocated_by"):
+        # the compiled launcher calls the C entries by address: the plans
+        # take the entries' own ctypes objects, which stay unwrapped
+        stages += [(nlk, "check_layout", "check_layout")]
+    else:
+        stages += [(nlk.load_cuda(True), "cloudsc2_nl_launch", "ctypes call cloudsc2_nl_launch"),
+                   (adk.load_cuda(True, False), "cloudsc2_ad_launch", "ctypes call cloudsc2_ad_launch")]
     return stages
 
 

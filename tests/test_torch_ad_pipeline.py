@@ -108,7 +108,7 @@ def test_pipelined_reverse_scan_is_the_direct_scan(dtype, compact, div, evap, lr
                     f"{label} {k}: max abs difference {(got[k] - want[k]).abs().max().item():.3e}")
 
 
-def test_reverse_wrapper_refuses_an_output_that_overlaps_an_input(monkeypatch):
+def test_reverse_wrapper_refuses_an_output_that_overlaps_an_input():
     """The kernel reads the next levels up ahead of the stores of the levels
     below them, so the wrapper refuses outputs that overlap an input (here
     the first output allocated as the state's ``t`` itself) before anything
@@ -117,10 +117,9 @@ def test_reverse_wrapper_refuses_an_output_that_overlaps_an_input(monkeypatch):
     s, dt = _state("f32", 8, 100, True)
     traj = nlk.cloudsc2_nl_host(s, dt, c, with_trajectory=True, traj_only=True)[2]
     t0 = s["t"].clone()
-    real = nlk._empty
-    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
-        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
-    with pytest.raises(ValueError, match="overlaps input 't'"):
+    overlapping = nlk.allocated_by(lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else torch.empty(shape, dtype=dtype, device=device)))
+    with overlapping, pytest.raises(ValueError, match="overlaps input 't'"):
         adk.cloudsc2_ad_reverse_host(s, traj, dt, c)
     assert torch.equal(s["t"], t0)
 

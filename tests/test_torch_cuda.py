@@ -45,11 +45,15 @@ pipelined scan likewise bitwise the fused AD's direct reverse sweep at nlev
 2, D and D + 1, its occupancy as its plan counts, and its refusal of an
 output that overlaps an input.  The sharded forward step
 on the card's mesh and on a hand-made mesh of 3 shards of it bitwise the
-unsharded step.  The launch plans (``nonlinear.LaunchPlan``): with a warm
-plan the NL and AD wrappers refuse what the first call refuses, with its
-error and without a launch; configurations that differ in one field the
-kernel reads, called in turns on warm plans, give bitwise the outputs of a
-cold cache.
+unsharded step.  The launch plans (``nonlinear.LaunchPlan``) and their
+compiled launcher (``launcher/launcher.cpp``): with a warm plan the NL, TL and
+AD reverse wrappers refuse what the first call refuses, with its error,
+before any output is allocated and without a launch; configurations that
+differ in one field the kernel reads, called in turns on warm plans, give
+bitwise the outputs of a cold cache; each plan-backed form's outputs are
+bitwise those of its C entry called through ctypes after the Python checks,
+and the compiled path takes every NL, TL and AD reverse launch and no fused
+AD launch (``compiled_launches``).
 """
 import numpy as np
 import pytest
@@ -500,7 +504,7 @@ def test_ad_reverse_kernel_at_the_rings_edges_on_card(cuda, at, dtype):
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"{cfg} {dtype} {nlev}x1000 {k}")
 
 
-def test_ad_reverse_kernel_refuses_an_overlapping_output_on_card(cuda, monkeypatch):
+def test_ad_reverse_kernel_refuses_an_overlapping_output_on_card(cuda):
     """The reverse kernel reads the next levels up ahead of its stores, so
     its wrapper refuses an output that overlaps an input (the first output
     allocated as the state's ``t``) before it launches."""
@@ -508,11 +512,10 @@ def test_ad_reverse_kernel_refuses_an_overlapping_output_on_card(cuda, monkeypat
     s, dt = _ad_state(256, torch.float32, c, cuda)
     traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)[2]
     t0 = s["t"].clone()
-    real = nlk._empty
-    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
-        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
+    overlapping = nlk.allocated_by(lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else torch.empty(shape, dtype=dtype, device=device)))
     before = adk.cloudsc2_ad_cuda.launches
-    with pytest.raises(ValueError, match="overlaps input 't'"):
+    with overlapping, pytest.raises(ValueError, match="overlaps input 't'"):
         adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)
     assert adk.cloudsc2_ad_cuda.launches == before
     assert torch.equal(s["t"], t0)
@@ -812,7 +815,7 @@ def test_sharded_forward_step_bitwise_on_card(cuda, dtype):
 # ---- the launch plans (nonlinear.LaunchPlan)
 
 
-PLAN_CACHES = (nlk._nl_plan, adk._reverse_plan)
+PLAN_CACHES = (nlk._nl_plan, adk._reverse_plan, tlk._tl_plan)
 
 
 def _clear_plans():
@@ -821,9 +824,13 @@ def _clear_plans():
 
 
 def _plan_counts():
-    """``(builds, hits)`` of the NL and reverse plans together."""
+    """``(builds, hits)`` of the NL, reverse and TL plans together."""
     infos = [cache.cache_info() for cache in PLAN_CACHES]
     return sum(i.misses for i in infos), sum(i.hits for i in infos)
+
+
+def _launch_counts():
+    return nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches, tlk.cloudsc2_tl_cuda.launches
 
 
 def _non_contiguous(t):
@@ -841,38 +848,47 @@ PLAN_FAULTS = {
 }
 
 
-@pytest.mark.parametrize("target", ["nl fused", "ad reverse"])
+@pytest.mark.parametrize("target", ["nl fused", "ad reverse", "tl tangent_only"])
 @pytest.mark.parametrize("fault", list(PLAN_FAULTS))
 def test_warm_plan_refuses_what_the_first_call_refuses_on_card(cuda, fault, target):
     """A fault refused from a cold cache is refused with a warm plan too,
-    with the same error, before the plan is looked up, and nothing
-    launches."""
+    with the same error, before any output is allocated, and nothing
+    launches; the cold call builds the plan of its (sound) ``ap``'s layout,
+    the warm one builds none."""
     c = CONFIGS["default"]()
     s, dt = _ad_state(256, torch.float32, c, cuda)
     traj = nlk.cloudsc2_nl_cuda(s, dt, c, with_trajectory=True, traj_only=True)[2]
     if target == "nl fused":
         field, call = "q", lambda x: nlk.cloudsc2_nl_cuda(x, dt, c, fuse_saturation=True)
-    else:
+    elif target == "ad reverse":
         field, call = "clc_i", lambda x: adk.cloudsc2_ad_reverse_cuda(x, traj, dt, c)
+    else:
+        field, call = "q_i", lambda x: tlk.cloudsc2_tl_cuda(x, dt, c, tangent_only=True)
     bad = dict(s)
     PLAN_FAULTS[fault](bad, field)
     _clear_plans()
-    launches = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
-    with pytest.raises(Exception) as cold:
+    launches = _launch_counts()
+    allocs = []
+
+    def counting():
+        return nlk.allocated_by(lambda shape, dtype, device: allocs.append(shape) or torch.empty(
+            shape, dtype=dtype, device=device))
+
+    with counting(), pytest.raises(Exception) as cold:
         call(bad)
-    assert _plan_counts() == (0, 0)
+    assert _plan_counts() == (1, 0)
     call(s)  # the plan, warm
-    counts = _plan_counts()
-    with pytest.raises(Exception) as warm:
+    builds, hits = _plan_counts()
+    with counting(), pytest.raises(Exception) as warm:
         call(bad)
-    assert _plan_counts() == counts
+    assert _plan_counts() == (builds, hits + 1)
+    assert allocs == []
     assert (type(warm.value), str(warm.value)) == (type(cold.value), str(cold.value))
-    after = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
-    assert sum(after) - sum(launches) == 1  # the warm-up call alone
+    assert sum(_launch_counts()) - sum(launches) == 1  # the warm-up call alone
 
 
 @pytest.mark.parametrize("target", ["nl", "ad reverse"])
-def test_warm_plan_refuses_an_overlapping_output_on_card(cuda, target, monkeypatch):
+def test_warm_plan_refuses_an_overlapping_output_on_card(cuda, target):
     """With the plan warm, an output allocated as the state's ``t`` is
     refused before anything launches."""
     c = CONFIGS["default"]()
@@ -882,14 +898,126 @@ def test_warm_plan_refuses_an_overlapping_output_on_card(cuda, target, monkeypat
             else (lambda: adk.cloudsc2_ad_reverse_cuda(s, traj, dt, c)))
     call()
     t0 = s["t"].clone()
-    real = nlk._empty
-    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
-        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
+    overlapping = nlk.allocated_by(lambda shape, dtype, device: (
+        s["t"] if tuple(shape) == tuple(s["t"].shape) else torch.empty(shape, dtype=dtype, device=device)))
     before = (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches)
-    with pytest.raises(ValueError, match="overlaps input 't'"):
+    with overlapping, pytest.raises(ValueError, match="overlaps input 't'"):
         call()
     assert (nlk.cloudsc2_nl_cuda.launches, adk.cloudsc2_ad_cuda.launches) == before
     assert torch.equal(s["t"], t0)
+
+
+def _per_call(entry, state, dt, c, **opts):
+    """A launch as the wrappers marshalled it before the compiled launch
+    path: the state checked in Python (``check_inputs``), fresh outputs,
+    the constant struct folded, the CUDA library's C entry called through
+    ctypes on the current stream.  The outputs by name."""
+    from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
+    from cloudsc2_tpu_torch.state import kernel_constants, tl_kernel_constants
+
+    nlev, ncols = state["ap"].shape
+    if entry == "nl":
+        fused, traj = opts.get("fuse_saturation", False), opts.get("with_trajectory", False)
+        names = nlk._FUSED_INPUTS if fused else nlk.NL_INPUTS
+        ins, dtype = nlk.check_inputs(state, c, "cuda", names, nlk._IFACE)
+        written = nlk.STEP_OUTPUTS + (trajectory_names(c) if traj else ()) + (("qsat_out",) if fused else ())
+        outputs, iface = nlk.NL_OUTPUTS, nlk._IFACE
+        consts = kernel_constants(c, dt, dtype, 1)
+        switches = nlk.launch_switches(c, dtype, traj, False, fused)
+        fn = nlk.load_cuda(c.CUADJ_COMPACT).cloudsc2_nl_launch
+    elif entry == "tl":
+        ins, dtype = nlk.check_inputs(state, c, "cuda", tlk.TL_INPUTS, tlk._IFACE)
+        tangent_only = opts.get("tangent_only", False)
+        outputs, iface = tlk.TL_OUTPUTS, tlk._IFACE
+        written = tuple(n for n in outputs if not tangent_only or n.endswith("_i"))
+        consts = tl_kernel_constants(c, dt, dtype)
+        switches = tlk.tl_switches(c, dtype, tangent_only)
+        fn = tlk.load_cuda(c.CUADJ_COMPACT, switches[4] != 0).cloudsc2_tl_launch
+    else:
+        merged = {**state, **opts["traj"]}
+        ins, dtype = nlk.check_inputs(merged, c, "cuda", adk._read(adk.AD_INPUTS, False), adk._IFACE)
+        outputs = written = adk.AD_OUTPUTS
+        iface = adk._IFACE
+        consts = tl_kernel_constants(c, dt, dtype)
+        switches = adk.reverse_switches(dtype, c)
+        fn = adk.load_cuda(c.CUADJ_COMPACT, switches[-2] != 0).cloudsc2_ad_launch
+    outs = {n: torch.empty((nlev + 1, ncols) if n in iface else (nlev, ncols), dtype=dtype, device=state["ap"].device)
+            if n in written else None for n in outputs}
+    consts = torch.from_numpy(consts)
+    err = fn(*switches, nlk.ptrs(ins), nlk.ptrs(list(outs.values())), consts.data_ptr(), nlev, ncols,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return {n: v for n, v in outs.items() if v is not None}
+
+
+COMPILED_FORMS = {
+    "nl fused": ("nl", {"fuse_saturation": True}),
+    "nl unfused": ("nl", {}),
+    "nl with_trajectory": ("nl", {"with_trajectory": True}),
+    "tl": ("tl", {}),
+    "tl tangent_only": ("tl", {"tangent_only": True}),
+    "ad reverse": ("ad", {}),
+}
+
+
+def _compiled(entry, s, dt, c, **opts):
+    """The same launch through the wrapper's compiled path, by name."""
+    if entry == "nl":
+        out = nlk.cloudsc2_nl_cuda(s, dt, c, **opts)
+        named = {"tnd_" + k: v for k, v in out[0].items()}
+        named.update({("qsat_out" if k == "qsat" else k): v for k, v in out[1].items()})
+        if len(out) == 3:
+            named.update(out[2])
+        return named
+    if entry == "tl":
+        tends, diags = tlk.cloudsc2_tl_cuda(s, dt, c, **opts)
+        return {**{"tnd_" + k: v for k, v in tends.items()}, **diags}
+    return adk.cloudsc2_ad_reverse_cuda(s, opts["traj"], dt, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", list(COMPILED_FORMS))
+def test_compiled_launch_path_is_the_per_call_marshalling_on_card(cuda, form, dtype):
+    """Each plan-backed launch through the compiled launcher gives bitwise
+    the outputs of the same C entry called through ctypes after the Python
+    checks, and adds one to its entry's ``launches`` and
+    ``compiled_launches``."""
+    entry, opts = COMPILED_FORMS[form]
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(1000, dtype, c, cuda)
+    if entry == "ad":
+        opts = {"traj": nlk.cloudsc2_nl_cuda(s, dt, adk.forward_constants(c), with_trajectory=True,
+                                             traj_only=True)[2]}
+    counter = {"nl": nlk.cloudsc2_nl_cuda, "tl": tlk.cloudsc2_tl_cuda, "ad": adk.cloudsc2_ad_cuda}[entry]
+    before = (counter.launches, counter.compiled_launches)
+    got = _compiled(entry, s, dt, c, **opts)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.compiled_launches) == (before[0] + 1, before[1] + 1)
+    want = _per_call(entry, s, dt, c, **opts)
+    assert sorted(got) == sorted(want), form
+    for k in want:
+        assert torch.equal(got[k], want[k]), f"{form} {dtype} {k}"
+
+
+def test_compiled_share_of_launches_on_card(cuda):
+    """Over the NL, TL, two-kernel AD and fused AD entries in every form a
+    cell runs, the compiled launch path takes every NL, TL and AD reverse
+    launch and no fused AD launch, which keeps its own path."""
+    c = CONFIGS["default"]()
+    s, dt = _ad_state(512, torch.float64, c, cuda)
+    entries = (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda)
+    before = [(fn.launches, fn.compiled_launches) for fn in entries]
+    nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=True)
+    nlk.cloudsc2_nl_cuda(s, dt, c)
+    tlk.cloudsc2_tl_cuda(s, dt, c)
+    tlk.cloudsc2_tl_cuda(s, dt, c, tangent_only=True)
+    adk.cloudsc2_ad_cuda(s, dt, c)
+    adk.cloudsc2_ad_cuda(s, dt, c, cotangent_only=True)
+    adk.cloudsc2_ad_fused_cuda(s, dt, c)
+    torch.cuda.synchronize()
+    got = [(fn.launches - n, fn.compiled_launches - k) for fn, (n, k) in zip(entries, before)]
+    assert got == [(4, 4), (2, 2), (2, 2), (1, 0)], got
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

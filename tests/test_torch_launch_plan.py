@@ -1,25 +1,29 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The launch plans of the NL and two-kernel AD wrappers
+"""The launch plans of the NL, TL and two-kernel AD wrappers
 (``kernels/nonlinear.py`` ``LaunchPlan``, ``_nl_plan``;
-``kernels/adjoint.py`` ``_reverse_plan``), through the host builds on the
-CPU, which take the same plans as the card's wrappers.
+``kernels/tangent_linear.py`` ``_tl_plan``; ``kernels/adjoint.py``
+``_reverse_plan``) and their compiled launcher (``launcher/launcher.cpp``),
+through the host builds on the CPU, which take the same plans and the same
+launcher as the card's wrappers.
 
 - A warm plan is reused: the caches count one build and then hits, and
   the constant struct is not folded again.
 - Constants that differ in one field the kernel reads (``LEVAPLS2``,
   ``dt``, ``FAST_DIV``), alternated between calls, give outputs bitwise
-  those of a cold cache: no plan goes stale.
+  those of a cold cache: no plan goes stale.  The TL plan's key carries
+  ``tangent_only`` and ``dt``'s type.
 - Each cache keeps at most its bound, dropping the least recently used.
 - Every refusal of the first call still fires with a warm plan, with the
-  first call's own error and before the plan is looked up: a field of the
-  wrong shape, dtype or device, a non-contiguous field, a missing field;
-  and an output that overlaps an input (the ``_empty`` monkeypatch of
-  ``tests/test_torch_ad_pipeline.py``).
-- The NL and AD outputs are bitwise those of the per-call marshalling the
-  plans replace (every check, the constant struct folded, the host entry
-  called directly), in every form.
-- The overlap check's sweep refuses exactly what the pairwise rule
+  first call's own error and before any output is allocated (the
+  launcher's allocation seam, ``nonlinear.allocated_by``, counts none): a
+  field of the wrong shape, dtype or device, a non-contiguous field, a
+  missing field; and an output that overlaps an input (the seam hands out
+  an input's storage).
+- The NL, TL and AD outputs are bitwise those of the per-call marshalling
+  the plans replace (every check, the constant struct folded, the host
+  entry called directly through ctypes), in every form.
+- The launcher's overlap sweep refuses exactly what the pairwise rule
   refuses, naming the same pair; a ``dt`` that hashes by identity keeps no
   plan.
 """
@@ -32,6 +36,7 @@ import torch
 from cloudsc2_tpu_torch import iox
 from cloudsc2_tpu_torch.kernels import adjoint as adk
 from cloudsc2_tpu_torch.kernels import nonlinear as nlk
+from cloudsc2_tpu_torch.kernels import tangent_linear as tlk
 from cloudsc2_tpu_torch.params import make_constants
 from cloudsc2_tpu_torch.physics.diagnostics import eta_levels
 from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
@@ -45,7 +50,7 @@ DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)
 SEEDS = adk.AD_SEEDS
 
 
-CACHES = (nlk._nl_plan, adk._reverse_plan)
+CACHES = (nlk._nl_plan, adk._reverse_plan, tlk._tl_plan)
 
 
 def _clear():
@@ -78,11 +83,15 @@ def _state_np(dtype):
 
 
 def _state(dtype):
-    """A fresh state dict (new tensors) with eta, qsat and the AD's seeds."""
+    """A fresh state dict (new tensors) with eta, qsat, the AD's seeds and
+    the TL's perturbations (a hundredth of each field)."""
     state, dt = _state_np(dtype)
     s = state_from_numpy(state, torch.device("cpu"), DTYPES[dtype][1])
     s["eta"] = eta_levels(s["ap"], s["aph"])
     s["qsat"] = saturation(s["ap"], s["t"], kflag=1, lphylin=True, c=make_constants())
+    for n in tlk.TL_INPUTS:
+        if n.endswith("_i"):
+            s[n] = 0.01 * s[n[:-2]]
     return s, dt
 
 
@@ -105,21 +114,28 @@ def _ad(s, dt, c, **opts):
     return adk.cloudsc2_ad_host(s, dt, c, **opts)
 
 
+def _tl(s, dt, c, **opts):
+    return tlk.cloudsc2_tl_host(s, dt, c, **opts)
+
+
+CALLS = {"nl": _nl, "ad": _ad, "tl": _tl}
+
+
 # ---- reuse
 
 
-@pytest.mark.parametrize("kind, builds", [("nl", 1), ("ad", 2)])
+@pytest.mark.parametrize("kind, builds", [("nl", 1), ("ad", 2), ("tl", 1)])
 def test_a_warm_plan_is_reused(kind, builds, monkeypatch):
-    """The second call finds its plans (one for the NL, two for the AD's
-    two launches): the cache counts no new build, and the constant struct
-    is folded once, at the first call."""
+    """The second call finds its plans (one for the NL and the TL, two for
+    the AD's two launches): the cache counts no new build, and the constant
+    struct is folded once, at the first call."""
     folds = []
-    for mod, name in ((nlk, "kernel_constants"), (adk, "tl_kernel_constants")):
+    for mod, name in ((nlk, "kernel_constants"), (adk, "tl_kernel_constants"), (tlk, "tl_kernel_constants")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, real=real, **k: folds.append(1) or real(*a, **k))
     s, dt = _state("f32")
     c = make_constants()
-    call = _nl if kind == "nl" else _ad
+    call = CALLS[kind]
     first = call(s, dt, c)
     assert (*_counts()[:2], len(folds)) == (builds, 0, builds)
     second = call(s, dt, c)
@@ -137,7 +153,7 @@ ALTERNATIONS = {
 }
 
 
-@pytest.mark.parametrize("kind", ["nl", "nl fused", "ad", "cotangent_only"])
+@pytest.mark.parametrize("kind", ["nl", "nl fused", "ad", "cotangent_only", "tl", "tangent_only"])
 @pytest.mark.parametrize("field", list(ALTERNATIONS))
 def test_alternating_constants_match_a_cold_cache(kind, field):
     """Two configurations that differ in one field the kernel reads,
@@ -145,8 +161,9 @@ def test_alternating_constants_match_a_cold_cache(kind, field):
     cold cache."""
     s, dt0 = _state("f32")
     pair = ALTERNATIONS[field](make_constants(), dt0)
-    opts = {"nl fused": {"fuse_saturation": True}, "cotangent_only": {"cotangent_only": True}}.get(kind, {})
-    call = _ad if kind in ("ad", "cotangent_only") else _nl
+    opts = {"nl fused": {"fuse_saturation": True}, "cotangent_only": {"cotangent_only": True},
+            "tangent_only": {"tangent_only": True}}.get(kind, {})
+    call = {"ad": _ad, "cotangent_only": _ad, "tl": _tl, "tangent_only": _tl}.get(kind, _nl)
     cold = []
     for c, dt in pair:
         _clear()
@@ -185,8 +202,8 @@ def test_plan_cache_keeps_its_bound_least_recently_used_out():
 
 
 def test_the_process_cache_stays_within_its_bound():
-    """70 configurations through the NL and AD wrappers' host builds leave
-    64 plans of each kernel."""
+    """70 configurations through the NL, AD and TL wrappers' host builds
+    leave 64 plans of each kernel."""
     s, dt = _state("f32")
     c = make_constants()
     traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
@@ -194,10 +211,12 @@ def test_the_process_cache_stays_within_its_bound():
         adk.cloudsc2_ad_reverse_host(s, traj, dt * (1 + i / 100), c)
     for i in range(70):
         _nl(s, dt * (1 + i / 100), c)
+    for i in range(70):
+        _tl(s, dt * (1 + i / 100), c, tangent_only=True)
     for cache in CACHES:
         info = cache.cache_info()
         assert (info.currsize, info.maxsize) == (64, 64), cache
-    assert _counts()[0] == 141  # the trajectory's plan, then 70 of each
+    assert _counts()[0] == 211  # the trajectory's plan, then 70 of each
 
 
 # ---- refusals on a warm plan
@@ -217,11 +236,13 @@ FAULTS = {
     "missing": lambda s, n: s.__delitem__(n),
 }
 #: the wrapper and the field a fault is put in: the NL step reads ``t``,
-#: the reverse kernel also a seed
+#: the reverse kernel also a seed, the TL the perturbations
 TARGETS = {
     "nl": (lambda s, dt, c, traj: _nl(s, dt, c), "t"),
     "nl fused": (lambda s, dt, c, traj: _nl(s, dt, c, fuse_saturation=True), "q"),
     "ad reverse": (lambda s, dt, c, traj: adk.cloudsc2_ad_reverse_host(s, traj, dt, c), "clc_i"),
+    "tl": (lambda s, dt, c, traj: _tl(s, dt, c), "q_i"),
+    "tl tangent_only": (lambda s, dt, c, traj: _tl(s, dt, c, tangent_only=True), "t"),
 }
 
 
@@ -231,12 +252,21 @@ def _error(fn):
     return type(info.value), str(info.value)
 
 
+def _counting(allocs):
+    """An allocation seam that records each output's shape and hands out
+    fresh storage."""
+    return lambda shape, dtype, device: allocs.append(tuple(shape)) or torch.empty(shape, dtype=dtype,
+                                                                                   device=device)
+
+
 @pytest.mark.parametrize("target", list(TARGETS))
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_a_warm_plan_refuses_what_the_first_call_refuses(target, fault):
     """The fault refused from a cold cache is refused with a warm plan too,
-    with the same error: the state is checked before its plan is looked
-    up, so a refused call neither builds nor finds one."""
+    with the same error, and neither call allocates an output: the
+    launcher checks the state before it allocates.  The plan is looked up
+    by the state's ``ap``, which is sound, so the cold call builds the
+    plan of its layout and the warm one finds it, building none."""
     call, field = TARGETS[target]
     c = make_constants()
     s, dt = _state("f32")
@@ -244,17 +274,21 @@ def test_a_warm_plan_refuses_what_the_first_call_refuses(target, fault):
     bad = dict(s)
     FAULTS[fault](bad, field)
     _clear()
-    cold = _error(lambda: call(bad, dt, c, traj))
-    assert _counts() == (0, 0, 0)
+    allocs = []
+    with nlk.allocated_by(_counting(allocs)):
+        cold = _error(lambda: call(bad, dt, c, traj))
+    assert _counts() == (1, 0, 1)
     call(s, dt, c, traj)  # the plan, warm
-    counts = _counts()
-    warm = _error(lambda: call(bad, dt, c, traj))
-    assert _counts() == counts, "the faulty call reached the plan"
+    builds, hits, kept = _counts()
+    with nlk.allocated_by(_counting(allocs)):
+        warm = _error(lambda: call(bad, dt, c, traj))
+    assert _counts() == (builds, hits + 1, kept), "the faulty call built a plan"
+    assert allocs == [], "an output was allocated before the refusal"
     assert warm == cold
 
 
-@pytest.mark.parametrize("target", ["nl", "ad reverse"])
-def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target, monkeypatch):
+@pytest.mark.parametrize("target", ["nl", "ad reverse", "tl"])
+def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target):
     """With the plan warm, an output allocated as the state's ``t`` itself
     is refused before anything runs, as at the first call."""
     c = make_constants()
@@ -264,11 +298,10 @@ def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target, monkeypatc
     call(s, dt, c, traj)
     hits = _counts()[1]
     t0 = s["t"].clone()
-    real = nlk._empty
-    monkeypatch.setattr(nlk, "_empty", lambda shape, dtype, device: (
-        s["t"] if tuple(shape) == tuple(s["t"].shape) else real(shape, dtype, device)))
-    with pytest.raises(ValueError, match="overlaps input 't'"):
-        call(s, dt, c, traj)
+    with nlk.allocated_by(lambda shape, dtype, device: (
+            s["t"] if tuple(shape) == tuple(s["t"].shape) else torch.empty(shape, dtype=dtype, device=device))):
+        with pytest.raises(ValueError, match="overlaps input 't'"):
+            call(s, dt, c, traj)
     assert _counts()[1] == hits + 1
     assert torch.equal(s["t"], t0)
 
@@ -317,6 +350,22 @@ def _per_call_ad(s, dt, c, cotangent_only=False):
     return adk._assemble(tends, diags, dict(zip(adk.AD_OUTPUTS, outs)))
 
 
+def _per_call_tl(s, dt, c, tangent_only=False):
+    """The TL step as its wrapper marshalled it on every call before its
+    plan: every check, fresh outputs, the constant struct folded, the host
+    entry called on the pointers."""
+    ins, dtype = nlk.check_inputs(s, c, "cpu", tlk.TL_INPUTS, tlk._IFACE)
+    nlev, ncols = s["ap"].shape
+    outs = [None if tangent_only and not n.endswith("_i") else torch.empty(
+        (nlev + 1, ncols) if n in tlk._IFACE else (nlev, ncols), dtype=dtype) for n in tlk.TL_OUTPUTS]
+    consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
+    switches = tlk.tl_switches(c, dtype, tangent_only)
+    err = tlk._load("host", bool(c.CUADJ_COMPACT), switches[4] != 0).cloudsc2_tl_host(
+        *switches, nlk.ptrs(ins), nlk.ptrs(outs), consts.data_ptr(), nlev, ncols)
+    assert err == 0
+    return tlk._assemble(dict(zip(tlk.TL_OUTPUTS, outs)))
+
+
 NL_FORMS = {
     "unfused": {},
     "fused": {"fuse_saturation": True},
@@ -353,6 +402,36 @@ def test_ad_outputs_are_the_per_call_marshalling(dtype, cname, cotangent_only):
     want = _per_call_ad(s, dt, c, cotangent_only)
     for turn in ("cold", "warm"):
         _assert_bitwise(_ad(s, dt, c, cotangent_only=cotangent_only), want, f"{dtype} {cname} {turn}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("cname", list(CONSTANTS))
+@pytest.mark.parametrize("tangent_only", [False, True])
+def test_tl_outputs_are_the_per_call_marshalling(dtype, cname, tangent_only):
+    s, dt = _state(dtype)
+    c = CONSTANTS[cname]()
+    want = _per_call_tl(s, dt, c, tangent_only)
+    for turn in ("cold", "warm"):
+        _assert_bitwise(_tl(s, dt, c, tangent_only=tangent_only), want, f"{dtype} {cname} {turn}")
+
+
+def test_the_tl_plan_key_carries_tangent_only_and_the_type_of_dt():
+    """``tangent_only`` and ``dt``'s type each give a plan of their own: a
+    float, a numpy float64 and a numpy float32 of one value, each with and
+    without ``tangent_only``, build six plans, and each again finds its
+    own."""
+    s, dt = _state("f64")
+    c = make_constants()
+    first = {}
+    for kind in (float, np.float64, np.float32):
+        for tangent_only in (False, True):
+            first[kind, tangent_only] = _tl(s, kind(dt), c, tangent_only=tangent_only)
+    assert _counts() == (6, 0, 6)
+    for (kind, tangent_only), want in first.items():
+        _assert_bitwise(_tl(s, kind(dt), c, tangent_only=tangent_only), want, f"{kind.__name__} {tangent_only}")
+    assert _counts() == (6, 6, 6)
+    tangents = {"t_i", "q_i", "ql_i", "qi_i"}
+    assert set(first[float, True][0]) == tangents and set(first[float, False][0]) == tangents | {"t", "q", "ql", "qi"}
 
 
 # ---- the parts
@@ -398,3 +477,48 @@ def test_a_dt_that_hashes_by_identity_keeps_no_plan():
     _nl(s, np.float64(dt), c)
     _nl(s, np.float32(dt), c)
     assert _counts() == (3, 0, 3)  # float, numpy float64 and float32: three keys
+
+
+# ---- the compiled launcher
+
+
+def test_the_launcher_converts_eta_to_the_state_dtype():
+    """A float64 ``eta`` in a float32 state is read in float32, as
+    ``check_inputs`` converts it: the launch returns the converted ``eta``
+    and gives bitwise the outputs of a state that holds it so."""
+    s, dt = _state("f32")
+    c = make_constants()
+    want = _nl(s, dt, c)
+    wide = dict(s, eta=s["eta"].double())
+    outs, eta = nlk._run_nl("cloudsc2_nl_host", wide, dt, c, False, False, False, 1)
+    assert eta.dtype == torch.float32 and torch.equal(eta, s["eta"])
+    _assert_bitwise(nlk._assemble(outs, False, False), want, "eta in float64")
+
+
+def test_the_launcher_takes_any_mapping():
+    """A state that is a mapping but no dict gives bitwise a dict's outputs,
+    and a field missing from it the dict's ``KeyError``."""
+    from types import MappingProxyType
+
+    s, dt = _state("f32")
+    c = make_constants()
+    traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
+    _assert_bitwise(_tl(MappingProxyType(s), dt, c), _tl(s, dt, c), "tl")
+    got = adk.cloudsc2_ad_reverse_host(MappingProxyType(s), MappingProxyType(traj), dt, c)
+    _assert_bitwise([got], [adk.cloudsc2_ad_reverse_host(s, traj, dt, c)], "ad reverse")
+    partial = dict(s)
+    del partial["q_i"]
+    assert _error(lambda: _tl(MappingProxyType(partial), dt, c)) == _error(lambda: _tl(partial, dt, c))
+    assert _error(lambda: _tl(partial, dt, c)) == (KeyError, "'q_i'")
+
+
+def test_a_failed_launcher_build_raises(tmp_path, monkeypatch):
+    """A compiler that refuses the launcher raises ``BuildError`` with its
+    output and leaves no library behind; nothing falls back."""
+    from cloudsc2_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    flags, libs = build.launcher_flags(False)
+    with pytest.raises(build.BuildError, match="no-such-option"):
+        build._compile("g++", ["launcher.cpp"], (*flags, "--no-such-option"), "cloudsc2_launcher", libs)
+    assert not list(tmp_path.glob("*.so"))

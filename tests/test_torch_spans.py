@@ -230,12 +230,17 @@ def card():
 def _profiled_kernels(step, steps, path):
     """``steps`` synchronized calls of ``step`` under a device-only profiler
     (as the benchmark traces): the port's kernels ``(start, end)`` in start
-    order and its spans, both on the trace's clock (us)."""
+    order and its spans, both on the trace's clock (us).  One small torch
+    operation runs first under the profiler: its first launch sets up the
+    device tracing, and kernels launched in the milliseconds that takes can
+    be missing from the trace."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     timing.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         for _ in range(steps):
             step()
             torch.cuda.synchronize()
