@@ -164,11 +164,10 @@ Phases, each timed; any failure raises and the script exits non-zero:
    device ms a call (CUDA events behind a sleep kernel) and the wall of one
    synchronized step (the ``Cloudsc2NL(fuse_saturation=True)`` component; the
    AD through ``dispatch.cloudsc2_ad`` and ``device_sync``) with the device's
-   busy share of it, the host split of such a step by stage (each function
-   of the launch path timed in place, microseconds a step), checksums of
-   every NL and two-kernel AD form's outputs, and the launch plans' caches
-   (``kernels/nonlinear.py`` ``_nl_plan``, ``kernels/adjoint.py``
-   ``_reverse_plan``) held within their bound.
+   busy share of it, checksums of every NL and two-kernel AD form's
+   outputs, and the launch plans' caches (``kernels/nonlinear.py``
+   ``_nl_plan``, ``kernels/adjoint.py`` ``_reverse_plan``) held within
+   their bound.
 12. probes (``cloudsc2_tpu_torch.kernels.microbench``): the reader kernel
    bitwise its plain version at every instantiation and shape its path
    runs (S = 1-32 in both layouts at a ragged 4000 columns, S = 3 and 10 at
@@ -209,13 +208,6 @@ Phases, each timed; any failure raises and the script exits non-zero:
    protocol's on the same state, its NL tendencies bitwise the TL
    kernel's forward tendencies.  ``--only-stream`` builds the NL, TL and
    AD libraries and runs this phase alone.
-
-At the end of each phase a ``[compiled]`` line gives, for the NL, TL, AD
-reverse and fused AD entries, the launches that took the compiled launch
-path (``compiled_launches``, through a launch plan's ``launcher/launcher.cpp``)
-beside all launches, each counted since its last reset; the phase fails
-unless the NL, TL and AD reverse entries took it for every launch and the
-fused AD, which keeps its own path, for none.
 
 The line before the last is a JSON summary of the kernels, each with its
 forms of this slice under ``forms``; the last line is
@@ -495,8 +487,8 @@ def taylor_gates(torch, nlk, tlk, card):
         ("single", SMALL, {"tile_column": True, "floors": "auto"}, True),
         ("single", BIG, {"per_column": True, "floors": "auto"}, False),
     ]
-    nlk.cloudsc2_nl_cuda.launches = nlk.cloudsc2_nl_cuda.compiled_launches = 0
-    tlk.cloudsc2_tl_cuda.launches = tlk.cloudsc2_tl_cuda.compiled_launches = 0
+    nlk.cloudsc2_nl_cuda.launches = 0
+    tlk.cloudsc2_tl_cuda.launches = 0
     for precision, ncols, opts, gate in cases:
         t0 = time.perf_counter()
         rc, tt = core(
@@ -907,7 +899,7 @@ def symmetry_gates(torch, nlk, tlk, adk, card):
         ("single", BIG, False),
     ]
     for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda):
-        fn.launches = fn.compiled_launches = 0
+        fn.launches = 0
     for precision, ncols, gate in cases:
         t0 = time.perf_counter()
         rc, err = core(
@@ -1005,25 +997,7 @@ REF_FORM = ("CUADJ_COMPACT=False", {"CUADJ_COMPACT": False})
 def reset_counts(*fns):
     """Set every launch count of the wrappers ``fns`` to 0."""
     for fn in fns:
-        fn.launches = fn.fast_div_launches = fn.ref_launches = fn.compiled_launches = 0
-
-
-def compiled_share(nlk, tlk, adk, card, label, require=False):
-    """Print the launches of each kernel entry that took the compiled
-    launch path (``compiled_launches``, a :class:`~cloudsc2_tpu_torch.
-    kernels.nonlinear.LaunchPlan`) beside its ``launches``, each counted
-    since its last reset; with ``require``, raise unless the NL, TL and AD
-    reverse entries took it for every launch and the fused AD, which keeps
-    its own path, for none.  Returns ``{entry: (compiled, launches)}``."""
-    entries = (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda)
-    got = {fn.__name__: (fn.compiled_launches, fn.launches) for fn in entries}
-    print(f"[compiled] {label}: compiled launch path / launches: "
-          + ", ".join(f"{k} {c}/{n}" for k, (c, n) in got.items()) + f"; {card}")
-    if require:
-        plan_backed = [got[fn.__name__] for fn in entries[:3]]
-        if any(c != n for c, n in plan_backed) or got[entries[3].__name__][0] != 0:
-            raise AssertionError(f"[compiled] a launch left the compiled path, or the fused AD took it: {got}")
-    return got
+        fn.launches = fn.fast_div_launches = fn.ref_launches = 0
 
 
 def report_divide(torch, got, want, exact, form, label):
@@ -2006,7 +1980,7 @@ def stream_phase(torch, nlk, tlk, adk, c0, card):
         torch.cuda.empty_cache()
 
         # the sweeps, with the launch count from 0: the warm-up and one a chunk
-        nlk.cloudsc2_nl_cuda.launches = nlk.cloudsc2_nl_cuda.compiled_launches = 0
+        nlk.cloudsc2_nl_cuda.launches = 0
         for outputs in (False, True):
             mode = "full duplex" if outputs else "half duplex"
             stats, (tends, diags) = stream.sweep_ring(ring, dt, c, nchunks=nchunks, device="cuda:0",
@@ -2060,7 +2034,7 @@ def stream_phase(torch, nlk, tlk, adk, c0, card):
         gc.collect()
 
         # the driver's stream path (--stream-chunk), counts from 0
-        nlk.cloudsc2_nl_cuda.launches = nlk.cloudsc2_nl_cuda.compiled_launches = 0
+        nlk.cloudsc2_nl_cuda.launches = 0
         n = STREAM_DRIVER_CHUNKS[tag]
         rc = core(Config(precision=precision, num_cols=n * BIG), TorchConfig(device="cuda:0", precision=precision),
                   inputs=synthetic_input(100, precision), reference=golden, stream_chunk=BIG,
@@ -2076,7 +2050,7 @@ def stream_phase(torch, nlk, tlk, adk, c0, card):
         # full_step at 65,536 x 137, counts from 0; then its references
         _, s, dt2 = make_state(torch, BIG, dtype, c0, seed=2)
         for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda):
-            fn.launches = fn.compiled_launches = 0
+            fn.launches = 0
         tends, norm1, norm2 = full_step(s, dt2, c0)
         torch.cuda.synchronize()
         counts = {"cloudsc2_nl_cuda": nlk.cloudsc2_nl_cuda.launches, "cloudsc2_tl_cuda": tlk.cloudsc2_tl_cuda.launches,
@@ -2147,7 +2121,7 @@ def mesh_forward(torch, nlk, c0, card, out):
         for name, mesh in (("card", card_mesh), (f"split {MESH_SPLIT}", split)):
             sharded = shard_state(s, mesh)
             step = make_sharded_forward_step(mesh, dt=dt, c=c0)
-            nlk.cloudsc2_nl_cuda.launches = nlk.cloudsc2_nl_cuda.compiled_launches = 0
+            nlk.cloudsc2_nl_cuda.launches = 0
             got = flat(step(sharded))
             torch.cuda.synchronize()
             launches = nlk.cloudsc2_nl_cuda.launches
@@ -2257,7 +2231,7 @@ def mesh_phase(torch, nlk, tlk, adk, c0, card):
 
     def count(part, fn):
         for k in counters:
-            k.launches = k.compiled_launches = 0
+            k.launches = 0
         result = fn()
         torch.cuda.synchronize()
         add(part, {k.__name__: k.launches for k in counters})
@@ -2335,7 +2309,6 @@ def main() -> int:
         nonlocal phase_t
         now = time.perf_counter()
         print(f"[phase] {name}: {now - phase_t:.1f} s")
-        compiled_share(nlk, tlk, adk, card, name, require=True)
         phase_t = now
 
     c0 = make_constants(lphylin=True, ldrain1d=False)
@@ -2409,7 +2382,7 @@ def main() -> int:
 
     # ---- 7. the NL main path through the driver, on the card
     for fn in (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda):
-        fn.launches = fn.compiled_launches = 0
+        fn.launches = 0
     nlk.cloudsc2_nl_cuda.fast_div_launches = 0
     runs = [(p, n, {}) for p in ("double", "single") for n in (100, BIG)]
     runs += [("single", BIG, {"fuse_saturation": False})]
@@ -2437,7 +2410,7 @@ def main() -> int:
     phase_done("7 NL main path")
 
     # ---- 8. the TL path: the Taylor protocol through both kernels
-    adk.cloudsc2_ad_cuda.launches = adk.cloudsc2_ad_cuda.compiled_launches = 0
+    adk.cloudsc2_ad_cuda.launches = 0
     t0 = time.perf_counter()
     _, tl_launches = taylor_gates(torch, nlk, tlk, card)
     print(f"[taylor] {time.perf_counter() - t0:.1f} s; {card}")

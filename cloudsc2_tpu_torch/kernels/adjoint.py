@@ -46,9 +46,11 @@ It also replaces :func:`cloudsc2_tpu.pallas.adjoint.cloudsc2_ad_pallas_fused`
 ``csrc/ad_fused.h`` and the fused form of ``csrc/levelscan.cuh``): the same
 two sweeps in one launch, the forward sweep on the NL kernel's pipelined
 scan, the trajectory (and with ``resident`` the folded level inputs) on a
-stack in a scratch of device memory that the wrapper allocates for each
-call.  Its blocks are of 128 threads, and the registers set how many an SM
-holds: :func:`fused_plan` counts them at a register count, and
+stack in a scratch of device memory, fresh for each call.  It launches as
+the others do, through a cached launch plan (:func:`_fused_plan`) whose
+launcher allocates the scratch as the entry's last output.  Its blocks are
+of 128 threads, and the registers set how many an SM holds:
+:func:`fused_plan` counts them at a register count, and
 :func:`fused_occupancy` asks the card and holds it to the plan.
 
 :func:`cloudsc2_ad_cuda` and :func:`cloudsc2_ad_fused_cuda` launch on CUDA
@@ -58,9 +60,9 @@ tensors and raise for anything else; the plain version of both is
 bodies compiled for the CPU, for the tests only.  While a profiler runs,
 each call records a root span (``ad``, ``ad_fused``; ``ad_reverse`` for the
 reverse kernel alone) and its stages (:mod:`cloudsc2_tpu_torch.utils.
-timing`): ``check``, ``plan``, ``alloc`` and ``launch``, those of both
-launches under one ``ad`` (the compiled launches' ``check``, ``alloc``,
-``check`` and ``launch`` stamped inside the call).
+timing`): ``plan``, then ``check``, ``alloc``, ``check`` and ``launch``
+stamped inside the compiled call, those of both launches under one
+``ad``.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from cloudsc2_tpu_torch.kernels import build, nonlinear
@@ -76,7 +79,6 @@ from cloudsc2_tpu_torch.kernels.nonlinear import (
     STEP_OUTPUTS,
     LaunchPlan,
     cached,
-    check_inputs,
     check_layout,
     count_launch,
     div_switch,
@@ -87,7 +89,7 @@ from cloudsc2_tpu_torch.params import Constants
 from cloudsc2_tpu_torch.physics.adjoint import AD_COTANGENT_FIELDS, AD_DIAGNOSTICS, AD_TENDENCIES
 from cloudsc2_tpu_torch.physics.nonlinear import TRAJ_OUTPUTS, check_constants
 from cloudsc2_tpu_torch.state import NL_CONST_NAMES, TL_CONST_NAMES, kernel_constants, tl_kernel_constants
-from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, next_span, open_span
+from cloudsc2_tpu_torch.utils.timing import PROFILER, close_span, open_span
 
 Tensor = torch.Tensor
 
@@ -154,8 +156,9 @@ AD_BRANCHES = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_I] * 5 + [_P, _P, _P, _I, _I]
-_FUSED_ARGS = [_I] * 6 + [_P] * 5 + [_I, _I]
+#: a launch entry's arguments after its int switches: the inputs, the
+#: outputs, the constant buffer, nlev and ncols (and a CUDA library's stream)
+_TAIL = [_P, _P, _P, _I, _I]
 
 
 def _names(*groups) -> str:
@@ -175,20 +178,21 @@ def level_signature() -> str:
 
 
 def fused_signature() -> str:
-    """The same for the fused kernel (``ad_fused_signature`` in ``ad_fused.h``)."""
+    """The same for the fused kernel (``ad_fused_signature`` in
+    ``ad_fused.h``): one constant buffer, the NL struct then the TL struct;
+    the outputs, then the stack's scratch."""
     return _names(
-        ("nl_consts", NL_CONST_NAMES), (";tl_consts", TL_CONST_NAMES), (";inputs", AD_FUSED_INPUTS),
-        (";outputs", AD_FUSED_OUTPUTS), (";resident", AD_FUSED_RESIDENT),
+        ("consts", NL_CONST_NAMES + TL_CONST_NAMES), (";inputs", AD_FUSED_INPUTS),
+        (";outputs", AD_FUSED_OUTPUTS + ("scratch",)), (";resident", AD_FUSED_RESIDENT),
     )
 
 
 #: library name, source, C entry and its arguments, by (kind, kernel)
 _LIBRARIES = {
-    ("cuda", "ad"): ("cloudsc2_ad", "adjoint.cu", "cloudsc2_ad_launch", _ARGS + [_P]),
-    ("host", "ad"): ("cloudsc2_ad_host", "adjoint_host.cpp", "cloudsc2_ad_host", _ARGS),
-    ("cuda", "ad_fused"): ("cloudsc2_ad_fused", "ad_fused.cu", "cloudsc2_ad_fused_launch", _FUSED_ARGS + [_P]),
-    ("host", "ad_fused"): ("cloudsc2_ad_fused_host", "ad_fused_host.cpp", "cloudsc2_ad_fused_host",
-                           _FUSED_ARGS),
+    ("cuda", "ad"): ("cloudsc2_ad", "adjoint.cu", "cloudsc2_ad_launch", [_I] * 5 + _TAIL + [_P]),
+    ("host", "ad"): ("cloudsc2_ad_host", "adjoint_host.cpp", "cloudsc2_ad_host", [_I] * 5 + _TAIL),
+    ("cuda", "ad_fused"): ("cloudsc2_ad_fused", "ad_fused.cu", "cloudsc2_ad_fused_launch", [_I] * 6 + _TAIL + [_P]),
+    ("host", "ad_fused"): ("cloudsc2_ad_fused_host", "ad_fused_host.cpp", "cloudsc2_ad_fused_host", [_I] * 6 + _TAIL),
 }
 
 
@@ -251,25 +255,6 @@ def forward_constants(c: Constants) -> Constants:
     return c if c.LPHYLIN else c.replace(LPHYLIN=True)
 
 
-def _marshal(state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Tuple[str, ...],
-             outputs: Tuple[str, ...]) -> Tuple[list, list, torch.dtype]:
-    """Check the state for a kernel, and return its ``inputs`` in order
-    (``None`` for one it does not read) and fresh ``outputs``: the spans
-    ``check`` and ``alloc``."""
-    on = PROFILER._is_profiler_enabled
-    if on:
-        k = open_span("check")
-    ins, dtype = check_inputs(state, c, device_type, _read(inputs, bool(c.LEVAPLS2 or c.LDRAIN1D)), _IFACE)
-    if on:
-        k = next_span(k, "alloc")
-    nlev, ncols = state["ap"].shape
-    outs = [torch.empty((nlev + 1, ncols) if n in _IFACE else (nlev, ncols), dtype=dtype, device=state["ap"].device)
-            for n in outputs]
-    if on:
-        close_span(k)
-    return ins, outs, dtype
-
-
 @functools.lru_cache(maxsize=None)
 def _read(inputs: Tuple[str, ...], evap: bool) -> Tuple[Optional[str], ...]:
     """``inputs`` with ``None`` for each that the kernel does not read
@@ -313,7 +298,7 @@ def _run_reverse(entry: str, state: Dict[str, Tensor], traj: Dict[str, Tensor], 
         close_span(k)
     outs, _ = plan.run(state, traj, eta)
     if entry == "cuda":
-        count_launch(cloudsc2_ad_cuda, plan.switches, compiled=True)
+        count_launch(cloudsc2_ad_cuda, plan.switches)
     return outs
 
 
@@ -336,7 +321,7 @@ def cloudsc2_ad_reverse_cuda(
     the forward trajectory ``traj``.  Raises on anything the kernel does
     not take, on a failed build and on a refused launch (its ring's shared
     memory included); never falls back.  Each launch adds one to
-    ``cloudsc2_ad_cuda.launches`` and ``.compiled_launches`` (and by its form, see
+    ``cloudsc2_ad_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`)."""
     return _reverse_entry("cuda", state, traj, dt, c)
 
@@ -390,7 +375,6 @@ def _two_kernels(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, 
 
 
 cloudsc2_ad_cuda.launches = 0  # type: ignore[attr-defined]
-cloudsc2_ad_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
@@ -561,78 +545,68 @@ def fused_plan(nlev: int, ncols: int, dtype: torch.dtype, evap: bool, resident: 
             "scratch_bytes": fused_stack_slots(evap, resident) * nlev * ncols * item}
 
 
-def _fused(state: Dict[str, Tensor], dt: float, c: Constants, resident: bool,
-           device_type: str) -> Tuple[list, list, Tensor, Tensor, Tuple[int, ...]]:
-    """Check the options and the state, and return the fused kernel's inputs
-    in order, fresh outputs, the NL and TL constant structs and the
-    switches (the NL constants those of :func:`forward_constants`): the
-    spans ``check``, ``alloc`` and ``plan``."""
-    ins, outs, dtype = _marshal(state, c, device_type, AD_FUSED_INPUTS, AD_FUSED_OUTPUTS)
-    k = open_span("plan") if PROFILER._is_profiler_enabled else None
-    nl_consts = torch.from_numpy(kernel_constants(forward_constants(c), dt, dtype))
-    tl_consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
-    switches = (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
-                int(resident), div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
-    if k:
-        close_span(k)
-    return ins, outs, nl_consts, tl_consts, switches
+def fused_switches(dtype: torch.dtype, c: Constants, resident: bool) -> Tuple[int, ...]:
+    """The fused kernel's int switches for a dtype, constants ``c`` and
+    ``resident``: ``is_double``, ``evap``, ``lregcl``, ``resident``,
+    ``div``, ``compact``."""
+    return (int(dtype == torch.float64), int(bool(c.LEVAPLS2 or c.LDRAIN1D)), int(bool(c.LREGCL)),
+            int(resident), div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
 
 
-def _run_fused(device_type: str, state: Dict[str, Tensor], dt: float, c: Constants,
+@functools.lru_cache(maxsize=64, typed=True)
+def _fused_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, ...], c: Constants, dt: float,
+                resident: bool) -> LaunchPlan:
+    """The plan of one fused launch through ``entry`` (``"cuda"``, or the
+    host build's ``"cloudsc2_ad_fused_host"`` on the CPU) at ``shape``,
+    ``(nlev, ncols)``: the C entry of the form's library, the switches, one
+    constant buffer (the NL struct under :func:`forward_constants`, then
+    the TL struct), the 26 outputs and the stack's scratch,
+    :func:`fused_stack_slots` x ``nlev`` x ``ncols``, which the launcher
+    allocates fresh for each call as it does the outputs."""
+    check_layout(dtype, shape)
+    switches = fused_switches(dtype, c, resident)
+    on_card = entry == "cuda"
+    lib = _form_lib("cuda" if on_card else "host", "ad_fused", switches)
+    if on_card:
+        fn, failure = lib.cloudsc2_ad_fused_launch, "cloudsc2_ad_fused kernel launch failed: cudaError_t {}"
+    else:
+        fn, failure = getattr(lib, entry), "cloudsc2_ad_fused host body failed: {}"
+    consts = np.concatenate((kernel_constants(forward_constants(c), dt, dtype), tl_kernel_constants(c, dt, dtype)))
+    evap = bool(switches[1])
+    return LaunchPlan.make(fn, on_card, failure, switches, torch.from_numpy(consts), _read(AD_FUSED_INPUTS, evap),
+                           AD_FUSED_OUTPUTS, AD_FUSED_OUTPUTS, _IFACE, dtype, *shape,
+                           scratch=fused_stack_slots(evap, resident))
+
+
+def _run_fused(entry: str, state: Dict[str, Tensor], dt: float, c: Constants,
                resident: bool) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """One call of the fused kernel on ``device_type`` (``"cuda"``: on
-    PyTorch's current stream; ``"cpu"``: the host build, its scratch NaN
-    before the call), the root span ``ad_fused`` while a profiler runs; the
-    scratch is a second ``alloc``.  Unlike the NL, TL and reverse launches
-    it keeps its own path in Python, with no launch plan and not through
-    the compiled launcher: its stack's scratch is fresh for each call (a
-    plan cache of 64 must not hold up to 862 MB each), and it is off the
-    cells' path.  So its launches never count in ``compiled_launches``."""
+    """One call of the fused kernel through ``entry`` (``"cuda"``: on
+    PyTorch's current stream; ``"cloudsc2_ad_fused_host"``: the host build,
+    which fills its scratch with NaN before it runs), the root span
+    ``ad_fused`` while a profiler runs: the constants checked, the plan
+    looked up by the state's ``ap`` (the span ``plan``), then the launch by
+    its plan, which checks the state and allocates the outputs and the
+    scratch.  The scratch is not returned, so it is freed on return; a
+    launch on the card counts in ``cloudsc2_ad_fused_cuda.launches``."""
     k = open_span("ad_fused") if PROFILER._is_profiler_enabled else None
     try:
-        ins, outs, nl_consts, tl_consts, switches = _fused(state, dt, c, resident, device_type)
-        nlev, ncols = state["ap"].shape
-        on_card = device_type == "cuda"
-        s = open_span("alloc") if k else None
-        scratch = _scratch(state, switches, None if on_card else float("nan"))
-        if s:
-            s = next_span(s, "launch")
-        lib = _form_lib("cuda" if on_card else "host", "ad_fused", switches)
-        args = (*switches, ptrs(ins), ptrs(outs), scratch.data_ptr(), nl_consts.data_ptr(), tl_consts.data_ptr(),
-                nlev, ncols)
-        if on_card:
-            with torch.cuda.device(state["ap"].device):
-                err = lib.cloudsc2_ad_fused_launch(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            err = lib.cloudsc2_ad_fused_host(*args)
+        s = open_span("plan") if k else None
+        check_constants(c)
+        plan = cached(_fused_plan, dt)(entry, *layout(state, entry), c, dt, bool(resident))
         if s:
             close_span(s)
-        if err != 0:
-            raise RuntimeError(f"cloudsc2_ad_fused kernel launch failed: cudaError_t {err}" if on_card
-                               else f"cloudsc2_ad_fused host body failed: {err}")
-        if on_card:
-            count_launch(cloudsc2_ad_fused_cuda, switches)
+        outs, _ = plan.run(state)
+        if entry == "cuda":
+            count_launch(cloudsc2_ad_fused_cuda, plan.switches)
         return _assemble_fused(outs)
     finally:
         if k:
             close_span(k)
 
 
-def _scratch(state: Dict[str, Tensor], switches: Tuple[int, ...], fill: float | None = None) -> Tensor:
-    """The stack's scratch of one call: ``(slots, nlev, ncols)`` of the
-    state's dtype on its device, a fresh one for each call (filled with
-    ``fill`` where given)."""
-    ap = state["ap"]
-    shape = (fused_stack_slots(bool(switches[1]), bool(switches[3])), *ap.shape)
-    if fill is None:
-        return torch.empty(shape, dtype=ap.dtype, device=ap.device)
-    return torch.full(shape, fill, dtype=ap.dtype, device=ap.device)
-
-
-def _assemble_fused(outs: list) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    named = dict(zip(AD_FUSED_OUTPUTS, outs))
-    tends = {n: named["tnd_" + n] for n in AD_TENDENCIES}
-    return _assemble(tends, {n: named[n] for n in AD_DIAGNOSTICS}, named)
+def _assemble_fused(outs: Dict[str, Tensor]) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    tends = {n: outs["tnd_" + n] for n in AD_TENDENCIES}
+    return _assemble(tends, {n: outs[n] for n in AD_DIAGNOSTICS}, outs)
 
 
 def cloudsc2_ad_fused_cuda(
@@ -640,7 +614,7 @@ def cloudsc2_ad_fused_cuda(
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One AD step through the fused CUDA kernel, on PyTorch's current
     stream: both sweeps in one launch, the stack in a scratch of device
-    memory allocated for the call (:func:`fused_plan`).
+    memory allocated for the call (:func:`fused_plan` counts its bytes).
     Each launch adds one to ``cloudsc2_ad_fused_cuda.launches`` (and by
     its form, as the reverse kernel's).
 
@@ -654,7 +628,6 @@ def cloudsc2_ad_fused_cuda(
 
 
 cloudsc2_ad_fused_cuda.launches = 0  # type: ignore[attr-defined]
-cloudsc2_ad_fused_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_fused_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_ad_fused_cuda.ref_launches = 0  # type: ignore[attr-defined]
 
@@ -679,11 +652,9 @@ def fused_occupancy(dtype: torch.dtype, c: Constants, resident: bool, nlev: int)
     and the card's registers (which the depth does not change: the stack is
     in device memory).  Needs the card; the answers are kept per
     instantiation and depth."""
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    switches = (int(dtype == torch.float64), int(evap), int(bool(c.LREGCL)), int(resident),
-                div_switch(c, dtype), int(bool(c.CUADJ_COMPACT)))
+    switches = fused_switches(dtype, c, resident)
     per_sm, registers, local, shared = _occupancy(switches, nlev)
-    plan = fused_plan(nlev, 1, dtype, evap, resident, registers)
+    plan = fused_plan(nlev, 1, dtype, bool(switches[1]), resident, registers)
     got = {"block": FUSED_BLOCK, "blocks_per_sm": per_sm, "threads_per_sm": FUSED_BLOCK * per_sm,
            "registers": registers, "local_bytes": local, "shared_bytes": shared, "levels_in_shared": 0}
     if (per_sm, shared) != (plan["blocks_per_sm"], plan["shared_bytes"]):
@@ -698,4 +669,4 @@ def cloudsc2_ad_fused_host(
     (tests only): the kernel's scratch layout and index function, the
     scratch NaN before the call, every column's forward sweep before any
     reverse sweep."""
-    return _run_fused("cpu", state, dt, c, resident)
+    return _run_fused("cloudsc2_ad_fused_host", state, dt, c, resident)

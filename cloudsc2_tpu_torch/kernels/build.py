@@ -199,9 +199,13 @@ def launcher() -> ModuleType:
             import torch
 
             flags, libs = launcher_flags(torch.version.cuda is not None)
-            path = _compile(shutil.which("g++") or "g++", ["launcher.cpp"], flags, "cloudsc2_launcher", libs,
-                            LAUNCHER_SRC)
-            spec = importlib.util.spec_from_file_location("cloudsc2_launcher", path)
+            # the module's name carries its build's hash: Python keeps one
+            # extension module per name, and two checkouts' launchers (an
+            # A/B in one process) differ
+            name = f"cloudsc2_launcher_{_digest(['launcher.cpp'], (*flags, *libs), LAUNCHER_SRC)}"
+            path = _compile(shutil.which("g++") or "g++", ["launcher.cpp"],
+                            (*flags, f"-DCLOUDSC2_LAUNCHER_MODULE={name}"), "cloudsc2_launcher", libs, LAUNCHER_SRC)
+            spec = importlib.util.spec_from_file_location(name, path)
             module = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(module)
             _launcher = module

@@ -31,7 +31,7 @@
 // What the design does about it: each thread waits on its own chain of
 // loads and divides, so the kernel needs many warps an SM to hide them.
 // The stack (2-3 values a level, 12-13 resident) lives in a scratch in
-// device memory that the wrapper allocates for each call (levelscan.cuh
+// device memory, the entry's last output, fresh for each call (levelscan.cuh
 // ScratchStack, [slot][level][column]), not in shared memory: there it
 // held an SM to 192 / 96 threads (f32 / f64; resident 32 / 16), and now
 // the registers set the count.  Blocks of 128 threads; the launch bounds
@@ -89,9 +89,7 @@ struct Kernel {
 struct Launcher {
   const void* const* in;
   void* const* out;
-  void* scratch;
-  const void* nl_consts;
-  const void* tl_consts;
+  const void* consts;
   int nlev, ncols;
   cudaStream_t stream;
 
@@ -100,12 +98,13 @@ struct Launcher {
     using K = Kernel<T, EVAP, LREGCL, RESIDENT, D>;
     const cudaError_t err = cloudsc2::allow_dynamic_shared(K::fn(), K::shared_bytes(nlev));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(in, out, nl_consts, tl_consts,
-                                                                         nlev, ncols);
+    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(
+        in, out, consts, cloudsc2::fused_tl_consts<T>(consts), nlev, ncols);
+    T* const scratch = static_cast<T*>(out[cloudsc2::AD_FUSED_SCRATCH]);
     const int blocks = (ncols + kBlock - 1) / kBlock;
     cloudsc2::level_scan_fwdrev_kernel<typename K::Fwd, typename K::Rev, T, K::Ring::DEPTH, K::Ring::SHARED, kBlock,
                                        K::MIN_BLOCKS>
-        <<<blocks, kBlock, K::shared_bytes(nlev), stream>>>(b.fwd, b.rev, static_cast<T*>(scratch));
+        <<<blocks, kBlock, K::shared_bytes(nlev), stream>>>(b.fwd, b.rev, scratch);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -145,17 +144,18 @@ const char* cloudsc2_ad_fused_signature() { return cloudsc2::ad_fused_signature(
 // Launch one fused AD step on `stream`.  div (a DivMode) and compact
 // (CUADJ_COMPACT): a form the library holds (scalar_math.h "library
 // forms").  in/out: device pointers in the order of
-// CLOUDSC2_AD_FUSED_INPUTS/OUTPUTS (covptot_i may be null without evap);
-// scratch: a device buffer of ADFusedSlots<EVAP, RESIDENT>::ALL x nlev x
-// ncols values of the type, no other call's; nl_consts, tl_consts: host
-// pointers to NLConst<T> and TLConst<T>.  Returns the cudaError_t of the
-// launch (0 on success).
+// CLOUDSC2_AD_FUSED_INPUTS/OUTPUTS (covptot_i may be null without evap),
+// the outputs followed by the scratch, out[AD_FUSED_SCRATCH]: a device
+// buffer of ADFusedSlots<EVAP, RESIDENT>::ALL x nlev x ncols values of the
+// type, no other call's; consts: a host pointer to NLConst<T> followed by
+// TLConst<T>.  Returns the cudaError_t of the launch (0 on success).
 int cloudsc2_ad_fused_launch(int is_double, int evap, int lregcl, int resident, int div, int compact,
-                             const void* const* in, void* const* out, void* scratch, const void* nl_consts,
-                             const void* tl_consts, int nlev, int ncols, void* stream) {
-  if (nlev < 1 || ncols < 1 || scratch == nullptr || !cloudsc2::forms_valid(is_double, div, compact))
+                             const void* const* in, void* const* out, const void* consts, int nlev, int ncols,
+                             void* stream) {
+  if (nlev < 1 || ncols < 1 || out[cloudsc2::AD_FUSED_SCRATCH] == nullptr ||
+      !cloudsc2::forms_valid(is_double, div, compact))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Launcher l{in, out, scratch, nl_consts, tl_consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
+  const Launcher l{in, out, consts, nlev, ncols, static_cast<cudaStream_t>(stream)};
   return cloudsc2::ad_fused_dispatch(l, is_double, evap, lregcl, resident, div);
 }
 

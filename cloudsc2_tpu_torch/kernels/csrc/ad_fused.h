@@ -58,15 +58,26 @@ namespace cloudsc2 {
 #define CLOUDSC2_AD_FUSED_RESIDENT(X)                                          \
   X(ap) X(dp) X(lu_next) X(lude) X(mf) X(q2) X(ql_fg) X(qi_fg) X(qsat) X(t_fg)
 
+// The entries take both constant structs in one buffer, NLConst's then
+// TLConst's, and after the outputs the stack's scratch, the output at
+// AD_FUSED_SCRATCH.
 #define CLOUDSC2_STR(n) #n ","
 inline const char* ad_fused_signature() {
-  return "nl_consts:" CLOUDSC2_NL_CONSTS(CLOUDSC2_STR)
-         ";tl_consts:" CLOUDSC2_TL_CONSTS(CLOUDSC2_STR)
+  return "consts:" CLOUDSC2_NL_CONSTS(CLOUDSC2_STR) CLOUDSC2_TL_CONSTS(CLOUDSC2_STR)
          ";inputs:" CLOUDSC2_AD_FUSED_INPUTS(CLOUDSC2_STR)
-         ";outputs:" CLOUDSC2_AD_FUSED_OUTPUTS(CLOUDSC2_STR)
+         ";outputs:" CLOUDSC2_AD_FUSED_OUTPUTS(CLOUDSC2_STR) "scratch,"
          ";resident:" CLOUDSC2_AD_FUSED_RESIDENT(CLOUDSC2_STR);
 }
 #undef CLOUDSC2_STR
+#define CLOUDSC2_ONE(n) +1
+constexpr int AD_FUSED_SCRATCH = 0 CLOUDSC2_AD_FUSED_OUTPUTS(CLOUDSC2_ONE);
+#undef CLOUDSC2_ONE
+
+// The TL struct of an entry's constant buffer, after the NL struct.
+template <typename T>
+inline const void* fused_tl_consts(const void* consts) {
+  return static_cast<const char*>(consts) + sizeof(NLConst<T>);
+}
 
 // Stack slots per level: the trajectory (c_rfl, c_sfl, and c_cov with
 // evaporation), then with RESIDENT the folded inputs.

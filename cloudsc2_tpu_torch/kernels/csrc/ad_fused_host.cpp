@@ -9,6 +9,8 @@
 // host build of the two-kernel AD and against the JAX package, so the
 // kernel's own arithmetic and stack discipline are checked on a machine
 // without a card.  It is never used on the main path.
+#include <math.h>
+
 #include "ad_fused.h"
 
 namespace {
@@ -16,17 +18,19 @@ namespace {
 struct HostRunner {
   const void* const* in;
   void* const* out;
-  void* scratch;
-  const void* nl_consts;
-  const void* tl_consts;
+  const void* consts;
   int nlev, ncols;
 
   template <typename T, bool EVAP, bool LREGCL, bool RESIDENT, int D>
   int run() const {
-    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(in, out, nl_consts, tl_consts,
-                                                                         nlev, ncols);
+    const auto b = cloudsc2::make_ad_fused<T, EVAP, LREGCL, RESIDENT, D>(
+        in, out, consts, cloudsc2::fused_tl_consts<T>(consts), nlev, ncols);
+    // NaN before the sweeps, so that a value read before it is written shows
+    T* const scratch = static_cast<T*>(out[cloudsc2::AD_FUSED_SCRATCH]);
+    const size_t values = static_cast<size_t>(cloudsc2::ADFusedSlots<EVAP, RESIDENT>::ALL) * nlev * ncols;
+    for (size_t i = 0; i < values; ++i) scratch[i] = static_cast<T>(NAN);
     using Ring = cloudsc2::NLRing<T>;
-    cloudsc2::level_scan_fwdrev_host<Ring::DEPTH, Ring::SHARED>(b.fwd, b.rev, static_cast<T*>(scratch));
+    cloudsc2::level_scan_fwdrev_host<Ring::DEPTH, Ring::SHARED>(b.fwd, b.rev, scratch);
     return 0;
   }
 };
@@ -38,12 +42,13 @@ extern "C" {
 const char* cloudsc2_ad_fused_signature() { return cloudsc2::ad_fused_signature(); }
 
 // Same arguments as cloudsc2_ad_fused_launch (ad_fused.cu) with host
-// pointers and no stream.
+// pointers and no stream; the scratch is filled with NaN first.
 int cloudsc2_ad_fused_host(int is_double, int evap, int lregcl, int resident, int div, int compact,
-                           const void* const* in, void* const* out, void* scratch, const void* nl_consts,
-                           const void* tl_consts, int nlev, int ncols) {
-  if (nlev < 1 || ncols < 1 || scratch == nullptr || !cloudsc2::forms_valid(is_double, div, compact)) return 1;
-  const HostRunner r{in, out, scratch, nl_consts, tl_consts, nlev, ncols};
+                           const void* const* in, void* const* out, const void* consts, int nlev, int ncols) {
+  if (nlev < 1 || ncols < 1 || out[cloudsc2::AD_FUSED_SCRATCH] == nullptr ||
+      !cloudsc2::forms_valid(is_double, div, compact))
+    return 1;
+  const HostRunner r{in, out, consts, nlev, ncols};
   return cloudsc2::ad_fused_dispatch(r, is_double, evap, lregcl, resident, div);
 }
 

@@ -4,10 +4,10 @@
 // on the card.  A Launcher is made once per launch plan
 // (kernels/nonlinear.py LaunchPlan) from what the plan worked out: the
 // entry's address, its int switches, the constant struct's bytes, the
-// inputs' names and shapes and the outputs'.  Its refusals are those of
-// kernels/nonlinear.py check_inputs and check_disjoint, with the same
-// exception types and messages, and every input refusal comes before any
-// output is allocated.
+// inputs' names and shapes and the outputs'.  It is the one implementation
+// of the checks on a launch's state; its overlap rule is also
+// kernels/nonlinear.py check_disjoint's.  Every input refusal comes before
+// any output is allocated.
 //
 // Built by kernels/build.py launcher() with g++ against the installed
 // torch's headers and libraries, as a Python module (pybind11).  With
@@ -134,13 +134,13 @@ class Launcher {
   // fn: the C entry's address; cuda: a CUDA library's entry (on the card,
   // with a stream) or a host build's; switches, consts: the entry's int
   // switches and constant struct; inputs: the kernel's inputs in order, a
-  // name or None for one it does not read, `eta` (vertical, (nlev,)) among
-  // them; iface: the names of (nlev + 1, ncols) fields; outputs: the
-  // kernel's outputs in order, written: the names of those it writes;
+  // name or None for one it does not read, `eta` among them; in_shapes:
+  // their shapes (None where not read); outputs: the kernel's outputs in
+  // order; out_shapes: their shapes (None for one it does not write);
   // is_double: the dtype; device_type: "cpu" or "cuda"; failure: the error
   // of a refused launch, "{}" its code.
   Launcher(uintptr_t fn, bool cuda, std::vector<int> switches, py::bytes consts, py::tuple inputs,
-           py::tuple iface, py::tuple outputs, py::tuple written, bool is_double, std::string device_type,
+           py::tuple in_shapes, py::tuple outputs, py::tuple out_shapes, bool is_double, std::string device_type,
            std::string failure, int nlev, int ncols)
       : fn_(reinterpret_cast<void*>(fn)), cuda_(cuda), switches_(std::move(switches)), consts_(consts),
         dtype_(is_double ? at::kDouble : at::kFloat), dtype_str_(is_double ? "torch.float64" : "torch.float32"),
@@ -150,48 +150,34 @@ class Launcher {
     if (cuda_) throw std::invalid_argument("this launcher was built without CUDA");
 #endif
     const std::size_t item = is_double ? 8 : 4;
-    auto shape = [&](const std::string& n) -> std::vector<int64_t> {
-      if (n == "eta") return {nlev};
-      for (auto h : iface)
-        if (py::cast<std::string>(h) == n) return {nlev + 1, ncols};
-      return {nlev, ncols};
+    // a shape from the plan (empty for None) and its bytes
+    auto dims = [](py::handle h) {
+      return h.is_none() ? std::vector<int64_t>{} : py::cast<std::vector<int64_t>>(h);
     };
     auto bytes = [&](const std::vector<int64_t>& s) {
-      uint64_t b = item;
+      uint64_t b = s.empty() ? 0 : item;
       for (auto d : s) b *= static_cast<uint64_t>(d);
       return b;
     };
-    for (auto h : inputs) {
-      if (h.is_none()) {
-        in_names_.emplace_back();
-        in_keys_.emplace_back();
-        in_shapes_.emplace_back();
-        in_bytes_.push_back(0);
-        continue;
-      }
-      const auto n = py::cast<std::string>(h);
-      in_names_.push_back(n);
-      in_keys_.push_back(interned(n));
-      in_shapes_.push_back(shape(n));
+    for (std::size_t i = 0; i < inputs.size(); ++i) {
+      const bool reads = !inputs[i].is_none();
+      in_names_.push_back(reads ? py::cast<std::string>(inputs[i]) : std::string());
+      in_keys_.push_back(reads ? interned(in_names_.back()) : py::str());
+      in_shapes_.push_back(dims(in_shapes[i]));
       in_bytes_.push_back(bytes(in_shapes_.back()));
     }
-    // what check_inputs checks, in its order: the fields it takes from the
-    // state, then eta
+    // the order of the checks: the fields taken from the state, then eta
     for (std::size_t i = 0; i < in_names_.size(); ++i)
       if (!in_names_[i].empty() && in_names_[i] != "eta") order_.push_back(i);
     for (std::size_t i = 0; i < in_names_.size(); ++i)
       if (in_names_[i] == "eta") eta_ = static_cast<int>(i);
     if (eta_ < 0) throw std::invalid_argument("a launch reads eta");
     order_.push_back(static_cast<std::size_t>(eta_));
-    std::vector<std::string> w;
-    for (auto h : written) w.push_back(py::cast<std::string>(h));
-    for (auto h : outputs) {
-      const auto n = py::cast<std::string>(h);
-      out_names_.push_back(n);
-      out_keys_.push_back(interned(n));
-      const bool writes = std::find(w.begin(), w.end(), n) != w.end();
-      out_shapes_.push_back(writes ? shape(n) : std::vector<int64_t>{});
-      out_bytes_.push_back(writes ? bytes(out_shapes_.back()) : 0);
+    for (std::size_t o = 0; o < outputs.size(); ++o) {
+      out_names_.push_back(py::cast<std::string>(outputs[o]));
+      out_keys_.push_back(interned(out_names_.back()));
+      out_shapes_.push_back(dims(out_shapes[o]));
+      out_bytes_.push_back(bytes(out_shapes_.back()));
     }
   }
 
@@ -200,13 +186,15 @@ class Launcher {
   // state's, in the launch's dtype).  Returns (the outputs by name, None
   // for one not written; the eta the kernel read; with `timed` the five
   // stamps on the spans' clock that bound the stages check, alloc, check
-  // (the overlap) and launch, else None).  Raises as check_inputs and
-  // check_disjoint do, and RuntimeError on a refused launch.
+  // (the overlap) and launch, else None).  Raises ValueError, TypeError or
+  // KeyError on a state the kernel does not take (a field's shape, dtype,
+  // device or layout, or a field missing), ValueError on an output that
+  // overlaps an input, and RuntimeError on a refused launch.
   py::tuple run(py::handle state, py::handle extra, py::handle eta, bool timed) {
     int64_t t[5] = {0, 0, 0, 0, 0};
     if (timed) t[0] = now_ns();
     const std::size_t n_in = in_names_.size();
-    // check: every field looked up, then each checked, in check_inputs' order
+    // check: every field looked up, then each checked, in order_
     const py::object ap_obj = lookup(state, extra, 0);
     const at::Tensor& ap = tensor(ap_obj.ptr(), 0);
     const c10::Device device = ap.device();
@@ -361,7 +349,8 @@ class Launcher {
 
 }  // namespace
 
-PYBIND11_MODULE(cloudsc2_launcher, m) {
+// CLOUDSC2_LAUNCHER_MODULE: cloudsc2_launcher_<the build's hash> (kernels/build.py launcher())
+PYBIND11_MODULE(CLOUDSC2_LAUNCHER_MODULE, m) {
   m.doc() = "The kernel wrappers' per-call launch path (kernels/launcher/launcher.cpp).";
   py::class_<Launcher>(m, "Launcher")
       .def(py::init<uintptr_t, bool, std::vector<int>, py::bytes, py::tuple, py::tuple, py::tuple, py::tuple, bool,

@@ -26,9 +26,9 @@ ring (``levelscan.cuh`` "level table", ``nl_level.h`` ``ScalmTable``), so
 no wrapper computes it.  The wrapper works out the launch of each
 configuration once, a :class:`LaunchPlan` cached by value
 (:func:`_nl_plan`), and every call after the lookup is one compiled call
-(``launcher/launcher.cpp``): the checks of :func:`check_inputs` on the state,
-the outputs' allocation, the overlap check and the C entry.  The TL and
-the AD's reverse kernel launch the same way.  While a profiler runs, each
+(``launcher/launcher.cpp``): the checks on the state, the outputs'
+allocation, the overlap check and the C entry.  The TL kernel and both AD
+forms launch the same way.  While a profiler runs, each
 call records a root span and its stages
 (:mod:`cloudsc2_tpu_torch.utils.timing`): ``plan``, then ``check``,
 ``alloc``, ``check`` and ``launch``, stamped inside the compiled call.
@@ -53,7 +53,7 @@ import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -137,62 +137,10 @@ def load_cuda(compact: bool = True) -> ctypes.CDLL:
     return _load("cuda", compact)
 
 
-def check_inputs(
-    state: Dict[str, Tensor], c: Constants, device_type: str, inputs: Sequence[Optional[str]],
-    iface: Sequence[str], eta: Optional[Tensor] = None,
-) -> Tuple[List[Optional[Tensor]], torch.dtype]:
-    """Check the constants (:func:`check_constants`) and the state for a
-    kernel, and return its ``inputs`` in order (``None`` for a name that is
-    ``None``, an input the kernel does not read): the state's ``eta`` in its
-    dtype, or ``eta``, that of an earlier launch on the same state; the
-    other fields as they are.  The kernels derive ``scalm`` from ``eta``
-    themselves.  Fields named in ``iface`` are ``(nlev + 1, ncols)``,
-    ``eta`` ``(nlev,)``, the rest ``(nlev, ncols)``; all of one float dtype,
-    contiguous, on one device of ``device_type``."""
-    check_constants(c)
-    ap = state["ap"]
-    if ap.dim() != 2:
-        raise ValueError(f"ap must be (nlev, ncols), got shape {tuple(ap.shape)}")
-    nlev, ncols = ap.shape
-    if nlev < 2 or ncols < 1:
-        raise ValueError(f"need nlev >= 2 and ncols >= 1, got {(nlev, ncols)}")
-    dtype, device = ap.dtype, ap.device
-    if dtype not in _DTYPES:
-        raise TypeError(f"dtype {dtype} not supported (float32 | float64)")
-    if device.type != device_type:
-        raise ValueError(f"tensors must be on {device_type}, got {device}")
-    if eta is None:
-        eta = state["eta"]
-        if eta.dtype != dtype:
-            eta = eta.to(dtype)
-    names, wants, order = _layout(tuple(inputs), tuple(iface), nlev, ncols)
-    fields = [state[n] for n in names[:-1]] + [eta]
-    for n, v, want in zip(names, fields, wants):
-        if v.shape != want or v.dtype is not dtype or v.device != device or not v.is_contiguous():
-            if tuple(v.shape) != want:
-                raise ValueError(f"field {n!r} has shape {tuple(v.shape)}, want {want}")
-            if v.dtype != dtype:
-                raise TypeError(f"field {n!r} has dtype {v.dtype}, want {dtype}")
-            if v.device != device:
-                raise ValueError(f"field {n!r} is on {v.device}, want {device}")
-            raise ValueError(f"field {n!r} is not contiguous")
-    return [None if k < 0 else fields[k] for k in order], dtype
-
-
-@functools.lru_cache(maxsize=64)
-def _layout(inputs: Tuple[Optional[str], ...], iface: Tuple[str, ...], nlev: int, ncols: int):
-    """What :func:`check_inputs` checks for these ``inputs``, worked out
-    once: ``names``, the fields it takes from the state in order, then
-    ``eta``; ``wants``, their shapes; ``order``, for each input its index
-    in ``names`` (-1 where it is ``None``)."""
-    names = tuple(n for n in inputs if n is not None and n not in _VERT) + _VERT
-    wants = tuple(_shape(n, iface, nlev, ncols) for n in names)
-    return names, wants, tuple(-1 if n is None else names.index(n) for n in inputs)
-
-
 def _shape(name: str, iface: Sequence[str], nlev: int, ncols: int) -> Tuple[int, ...]:
-    """A field's shape: ``(nlev + 1, ncols)`` for one named in ``iface``,
-    ``(nlev,)`` for ``eta``, else ``(nlev, ncols)``."""
+    """A field's shape, the one rule every launch's checks and allocations
+    follow: ``(nlev + 1, ncols)`` for one named in ``iface``, ``(nlev,)``
+    for ``eta``, else ``(nlev, ncols)``."""
     return (nlev,) if name in _VERT else ((nlev + 1, ncols) if name in iface else (nlev, ncols))
 
 
@@ -206,8 +154,8 @@ class LaunchPlan:
     library's C entry, its int ``switches`` and the constant struct
     ``consts``, folded once, the kernel's inputs and outputs by name and
     their shapes (``shapes``: each output's, ``None`` where not written).
-    Every NL, TL and AD reverse launch runs through one: a plan lookup, then
-    one compiled call (:meth:`run`)."""
+    Every NL, TL, AD reverse and fused AD launch runs through one: a plan
+    lookup, then one compiled call (:meth:`run`)."""
 
     launcher: Any
     switches: Tuple[int, ...]
@@ -217,31 +165,37 @@ class LaunchPlan:
     @classmethod
     def make(cls, fn: Callable[..., int], cuda: bool, failure: str, switches: Tuple[int, ...], consts: Tensor,
              inputs: Tuple[Optional[str], ...], outputs: Tuple[str, ...], written: Sequence[str],
-             iface: Sequence[str], dtype: torch.dtype, nlev: int, ncols: int) -> "LaunchPlan":
+             iface: Sequence[str], dtype: torch.dtype, nlev: int, ncols: int, scratch: int = 0) -> "LaunchPlan":
         """The plan of a launch through the C entry ``fn`` (``cuda``: a CUDA
         library's, which takes a stream; ``failure`` the error of a refused
         launch, ``{}`` its code) of a kernel that reads ``inputs`` (``None``
         for one it does not read) and writes the outputs named in
-        ``written``, its shapes those of :func:`_shape`."""
+        ``written``, its shapes those of :func:`_shape`; with ``scratch``,
+        the entry's last output is a scratch of ``(scratch, nlev, ncols)``
+        values, ``"scratch"``, as fresh for each call as the outputs."""
+        in_shapes = tuple(None if n is None else _shape(n, iface, nlev, ncols) for n in inputs)
+        shapes = tuple(_shape(n, iface, nlev, ncols) if n in written else None for n in outputs)
+        if scratch:
+            outputs, shapes = (*outputs, "scratch"), (*shapes, (scratch, nlev, ncols))
         launcher = build.launcher().Launcher(
             ctypes.cast(fn, ctypes.c_void_p).value, cuda, list(switches), consts.numpy().tobytes(), tuple(inputs),
-            tuple(iface), tuple(outputs), tuple(written), dtype == torch.float64, "cuda" if cuda else "cpu",
-            failure, nlev, ncols)
-        shapes = tuple(_shape(n, iface, nlev, ncols) if n in written else None for n in outputs)
+            in_shapes, tuple(outputs), shapes, dtype == torch.float64, "cuda" if cuda else "cpu", failure, nlev,
+            ncols)
         return cls(launcher, switches, consts, shapes)
 
     def run(self, state: Dict[str, Tensor], extra: Optional[Dict[str, Tensor]] = None,
             eta: Optional[Tensor] = None) -> Tuple[Dict[str, Optional[Tensor]], Tensor]:
         """Launch on ``state`` (``extra``'s fields first, where given) in one
-        compiled call: every check of :func:`check_inputs` but the
-        constants', with its errors, before any output exists; fresh
-        outputs; refused where one overlaps an input (:func:`check_disjoint`'s
-        rule); the C entry, on the card on PyTorch's current stream of the
-        inputs' device.  Returns the outputs by name (``None``: not
-        written) and the ``eta`` the kernel read (``eta``, else the state's
-        in the launch's dtype); raises on a refused launch.  While a
-        profiler runs, its stages are the spans ``check``, ``alloc``,
-        ``check`` (the overlap) and ``launch``, stamped inside the call."""
+        compiled call: every field the kernel reads checked (present, of the
+        plan's shape, dtype and device, contiguous) before any output
+        exists; fresh outputs; refused where one overlaps an input
+        (:func:`check_disjoint`'s rule); the C entry, on the card on
+        PyTorch's current stream of the inputs' device.  Returns the
+        outputs by name (``None``: not written) and the ``eta`` the kernel
+        read (``eta``, else the state's in the launch's dtype); raises on a
+        refused launch.  While a profiler runs, its stages are the spans
+        ``check``, ``alloc``, ``check`` (the overlap) and ``launch``,
+        stamped inside the call."""
         on = PROFILER._is_profiler_enabled
         outs, eta, stamps = self.launcher.run(state, extra, eta, on)
         if on:
@@ -255,9 +209,10 @@ LAUNCH_STAGES = ("check", "alloc", "check", "launch")
 
 
 def check_layout(dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
-    """The checks of :func:`check_inputs` on ``ap``'s dtype and shape alone,
-    with its errors: every function that makes a plan runs them first, so
-    a plan exists only for a layout a kernel takes."""
+    """The checks of a launch on ``ap``'s dtype and shape alone: every
+    function that makes a plan runs them first, so a plan exists only for a
+    layout a kernel takes, and the launcher holds every other field to
+    ``ap``'s."""
     if len(shape) != 2:
         raise ValueError(f"ap must be (nlev, ncols), got shape {shape}")
     nlev, ncols = shape
@@ -270,8 +225,8 @@ def check_layout(dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
 def layout(state: Dict[str, Tensor], entry: str) -> Tuple[torch.dtype, Tuple[int, ...]]:
     """The state's ``ap``'s dtype and shape, a plan's key, for a launch
     through ``entry`` (``"cuda"``, or a host build's): on a device of the
-    other type, :func:`check_inputs`' refusal, after its checks of the
-    layout (:func:`check_layout`), before any library is built."""
+    other type, the launcher's refusal, after the checks of the layout
+    (:func:`check_layout`), before any library is built."""
     ap = state["ap"]
     if ap.is_cuda != (entry == "cuda"):
         check_layout(ap.dtype, tuple(ap.shape))
@@ -329,7 +284,7 @@ def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_
         close_span(k)
     outs, eta = plan.run(state)
     if entry == "cuda":
-        count_launch(cloudsc2_nl_cuda, plan.switches, compiled=True)
+        count_launch(cloudsc2_nl_cuda, plan.switches)
     return outs, eta
 
 
@@ -371,14 +326,11 @@ def div_switch(c: Constants, dtype: torch.dtype) -> int:
     return DIV_MODES.index(c.FAST_DIV) if dtype == torch.float32 else 0
 
 
-def count_launch(entry, switches: Sequence[int], compiled: bool = False) -> None:
-    """Add one launch to ``entry.launches``, one that took the compiled
-    launch path (a :class:`LaunchPlan`) to ``.compiled_launches``, and by
-    its form (the switches' last two: ``div``, ``compact``) to
-    ``.fast_div_launches`` (a non-exact divide) and ``.ref_launches``
-    (``CUADJ_COMPACT=False``)."""
+def count_launch(entry, switches: Sequence[int]) -> None:
+    """Add one launch to ``entry.launches``, and by its form (the switches'
+    last two: ``div``, ``compact``) to ``.fast_div_launches`` (a non-exact
+    divide) and ``.ref_launches`` (``CUADJ_COMPACT=False``)."""
     entry.launches += 1
-    entry.compiled_launches += int(compiled)
     entry.fast_div_launches += int(switches[-2] != 0)
     entry.ref_launches += int(not switches[-1])
 
@@ -420,8 +372,7 @@ def cloudsc2_nl_cuda(
     mode (float32; float64 divides exactly), ``c.CUADJ_COMPACT`` the form
     of the saturation adjustment (one library each).  Raises on anything else, on a
     failed build and on a refused launch; never falls back to the plain
-    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches`` and,
-    through its launch plan's compiled path, to ``.compiled_launches``, a
+    version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, a
     launch under a non-exact divide also to ``.fast_div_launches``, and one
     with ``CUADJ_COMPACT=False`` to ``.ref_launches``.  While a profiler
     runs, each call is a root span ``nl``.
@@ -430,7 +381,6 @@ def cloudsc2_nl_cuda(
 
 
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
-cloudsc2_nl_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 

@@ -148,7 +148,7 @@ def _run_tl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants,
             close_span(s)
         outs, _ = plan.run(state)
         if entry == "cuda":
-            count_launch(cloudsc2_tl_cuda, plan.switches, compiled=True)
+            count_launch(cloudsc2_tl_cuda, plan.switches)
         return _assemble(outs)
     finally:
         if k:
@@ -175,15 +175,13 @@ def cloudsc2_tl_cuda(
     and returned.  ``c.FAST_DIV`` and ``c.CUADJ_COMPACT`` pick the form.
     Raises on anything else, on a failed build and on a
     refused launch; never falls back to the plain version.  Each launch
-    adds one to ``cloudsc2_tl_cuda.launches`` and ``.compiled_launches``
-    (and by its form, see
+    adds one to ``cloudsc2_tl_cuda.launches`` (and by its form, see
     :func:`cloudsc2_tpu_torch.kernels.nonlinear.count_launch`).
     """
     return _run_tl("cuda", state, dt, c, tangent_only)
 
 
 cloudsc2_tl_cuda.launches = 0  # type: ignore[attr-defined]
-cloudsc2_tl_cuda.compiled_launches = 0  # type: ignore[attr-defined]
 cloudsc2_tl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_tl_cuda.ref_launches = 0  # type: ignore[attr-defined]
 

@@ -19,33 +19,31 @@ beside the two-kernel AD (default and ``LEVAPLS2``) and the
 its 16 outputs (their bits summed as integers, so two checkouts whose
 outputs are bitwise equal print the same), the wrapper's host milliseconds
 a call (read before the device is synchronized) and what the card makes of
-it: ``kernels.adjoint.reverse_occupancy`` where the
-checkout has it (registers, local bytes, blocks per SM, shared bytes, ring
-depth), else ``reverse_attributes``, with ptxas's spills where this process
-built the library.  Where the checkout has
-``kernels.nonlinear.occupancy``, each NL form's registers, blocks per SM and
-ring depth are printed beside its time, and, as a yardstick of a rate with
-writes, ``torch.add(a, b, out=o)`` over the fused NL kernel's f32 bytes.
+it: ``kernels.adjoint.reverse_occupancy`` (registers, local bytes, blocks
+per SM, shared bytes, ring depth), with ptxas's spills where this process
+built the library.  Each NL form's registers, blocks per SM and ring depth
+(``kernels.nonlinear.occupancy``) are printed beside its time, and, as a
+yardstick of a rate with writes, ``torch.add(a, b, out=o)`` over the fused
+NL kernel's f32 bytes.
 ``--kernels nl`` times the NL kernel alone (and builds only its
 libraries).  ``--kernels ad_fused`` times the fused AD kernel, rolled and
 resident, in the default switches and with ``LEVAPLS2``, beside the
 two-kernel AD on the same state, and prints next to each time what
 ``kernels.adjoint.fused_occupancy`` reads from the card (block, blocks and
-threads per SM, registers, local and shared bytes) and, where the checkout
-has them, the scratch bytes of the kernel's stack.  ``--kernels launch``
+threads per SM, registers, local and shared bytes) and the scratch bytes
+of the kernel's stack.  ``--kernels launch``
 times the main path's launch path (:func:`launch_readings`): at
 ``--num-cols`` (65,536 by default) and 100 columns, f32 and f64, the fused
 NL wrapper and the ``cotangent_only`` AD step, each its host milliseconds a call (asynchronous
 calls, read before the device is synchronized), its device milliseconds a
 call (CUDA events behind a sleep kernel) and the wall of one synchronized,
 unprofiled step (the ``Cloudsc2NL(fuse_saturation=True)`` component; the
-AD through ``dispatch.cloudsc2_ad`` and ``device_sync``); the host split of
-one synchronized step of each by stage (:class:`StageClock`, the functions
-of the checkout wrapped in place, their names those the checkout has); and
-checksums of every NL form's and every two-kernel AD form's outputs.  It
-imports ``cloudsc2_tpu_torch`` from
-``--tree`` (by default this checkout), so one copy of the script times any
-checkout whose kernels have these entry points.  Compare two checkouts only
+AD through ``dispatch.cloudsc2_ad`` and ``device_sync``); and checksums of
+every NL form's and every two-kernel AD form's outputs.  The same step's
+host time by stage is the port's own spans' (``portbench``'s
+``wrapper_us.*``).  It imports ``cloudsc2_tpu_torch`` from ``--tree`` (by
+default this checkout), so one copy of the script times any checkout whose
+kernels have these entry points.  Compare two checkouts only
 inside one call on one card, in turns::
 
     for t in PARENT . . PARENT; do python3 drivers/kernel_ab_torch.py --tree $t; done
@@ -143,130 +141,15 @@ def seed_ad(tlk, s, dt, cf):
     return s
 
 
-class StageClock:
-    """Host time of named functions of the checkout under test, by label.
-
-    :meth:`wrap` replaces a function in place (a module's, a class's or a
-    kernel library's entry) by one that times each call with
-    ``time.perf_counter_ns``, less the time of the wrapped calls it makes:
-    a label holds its functions' own time.  The wrappers cost some tenths
-    of a microsecond a call each, which the step's instrumented total
-    includes.  :meth:`restore` puts every function back."""
-
-    def __init__(self):
-        self.ns = {}
-        self._stack = []
-        self._undo = []
-
-    def wrap(self, owner, attr, label) -> None:
-        fn = getattr(owner, attr, None)
-        if fn is None:
-            return
-        stack, ns = self._stack, self.ns
-        ns.setdefault(label, 0)
-
-        def timed(*a, **k):
-            stack.append(0)
-            t0 = time.perf_counter_ns()
-            try:
-                return fn(*a, **k)
-            finally:
-                took = time.perf_counter_ns() - t0
-                ns[label] += took - stack.pop()
-                if stack:
-                    stack[-1] += took
-
-        self._undo.append((owner, attr, fn))
-        setattr(owner, attr, timed)
-
-    def reset(self) -> None:
-        for label in self.ns:
-            self.ns[label] = 0
-
-    def restore(self) -> None:
-        for owner, attr, fn in reversed(self._undo):
-            setattr(owner, attr, fn)
-        self._undo.clear()
-
-
-def launch_stages(modules):
-    """``(owner, attribute, label)`` of every function of the launch path
-    that the checkout has, from the component down to the kernel
-    library's C entry: the per-call marshalling's stages and the launch
-    plan's (``_nl_plan`` and ``_reverse_plan`` hold the cache lookup, the
-    key's hashing included)."""
-    nlk, adk, comps, dispatch, timing = (modules[k] for k in ("nlk", "adk", "comps", "dispatch", "timing"))
-    stages = [
-        (comps.Component, "_check_state", "component _check_state"),
-        (timing, "device_sync", "device_sync"),
-        (dispatch, "cloudsc2_nl_cuda", "cloudsc2_nl_cuda (own)"),
-        (dispatch, "cloudsc2_ad_cuda", "cloudsc2_ad_cuda (own)"),
-        (adk, "cloudsc2_nl_cuda", "cloudsc2_nl_cuda (own)"),
-        (adk, "cloudsc2_ad_reverse_cuda", "cloudsc2_ad_reverse_cuda (own)"),
-        (adk, "forward_constants", "forward_constants"),
-    ]
-    for mod, tag in ((nlk, ""), (adk, "ad ")):
-        stages += [(mod, name, tag + name) for name in ("_marshal", "_reverse", "_assemble")]
-        stages += [(mod, name, name) for name in (
-            "check_inputs", "check_constants", "scalm_profile", "_empty", "check_disjoint", "kernel_constants",
-            "tl_kernel_constants", "launch_switches", "reverse_switches", "load_cuda", "_form_lib", "ptrs",
-            "count_launch", "cached", "_nl_plan", "_run_nl", "_reverse_plan", "_run_reverse", "_two_kernels",
-            "_read", "_layout", "check_spans")]
-    if hasattr(nlk, "LaunchPlan"):
-        stages += [(nlk.LaunchPlan, "run", "LaunchPlan.run")]
-    if hasattr(nlk, "allocated_by"):
-        # the compiled launcher calls the C entries by address: the plans
-        # take the entries' own ctypes objects, which stay unwrapped
-        stages += [(nlk, "check_layout", "check_layout")]
-    else:
-        stages += [(nlk.load_cuda(True), "cloudsc2_nl_launch", "ctypes call cloudsc2_nl_launch"),
-                   (adk.load_cuda(True, False), "cloudsc2_ad_launch", "ctypes call cloudsc2_ad_launch")]
-    return stages
-
-
-def host_split(torch, modules, step, steps):
-    """The host time of one synchronized ``step`` by stage
-    (:func:`launch_stages`, :class:`StageClock`), microseconds a step:
-    each stage's own time, ``other`` the step's time outside them (the
-    component's timer and the dispatch among them), and ``step
-    (instrumented)`` the whole.  The checkout's launch plans, where it has
-    them, are dropped before and after, so that they are built under the
-    wrappers and hold none once done."""
-    caches = [getattr(modules[k], name) for k, name in (("nlk", "_nl_plan"), ("adk", "_reverse_plan"))
-              if hasattr(getattr(modules[k], name, None), "cache_clear")]
-    clock = StageClock()
-    for cache in caches:
-        cache.cache_clear()
-    for owner, attr, label in launch_stages(modules):
-        clock.wrap(owner, attr, label)
-    try:
-        for _ in range(5):
-            step()
-        clock.reset()
-        t0 = time.perf_counter_ns()
-        for _ in range(steps):
-            step()
-        total = (time.perf_counter_ns() - t0) / steps / 1e3
-    finally:
-        clock.restore()
-        for cache in caches:
-            cache.cache_clear()
-    split = {k: round(v / steps / 1e3, 2) for k, v in sorted(clock.ns.items(), key=lambda kv: -kv[1]) if v}
-    split["other"] = round(total - sum(split.values()), 2)
-    split["step (instrumented)"] = round(total, 2)
-    return split
-
-
 def launch_readings(torch, device, card, label, runs=10, batch=10, columns=(65536, 100)):
     """The main path's launch path, for each type and column count of
     ``columns``: the fused NL wrapper and the ``cotangent_only`` AD step,
-    each its host ms a call (:func:`host_ms`), device ms a call (CUDA
+    each its host ms a call (:func:`host_times`), device ms a call (CUDA
     events behind a sleep kernel), synchronized unprofiled step wall (median and mean,
     :func:`step_ms`; the NL step is the ``Cloudsc2NL(fuse_saturation=True)``
     component, the AD step ``dispatch.cloudsc2_ad`` then ``device_sync``),
-    the host split of such a step (:func:`host_split`), and checksums of
-    the outputs of every NL form and every two-kernel AD form.  Prints a
-    line each and returns the readings."""
+    and checksums of the outputs of every NL form and every two-kernel AD
+    form.  Prints a line each and returns the readings."""
     from cloudsc2_tpu_torch import components as comps
     from cloudsc2_tpu_torch import dispatch
     from cloudsc2_tpu_torch.kernels import adjoint as adk
@@ -280,7 +163,6 @@ def launch_readings(torch, device, card, label, runs=10, batch=10, columns=(6553
     from cloudsc2_tpu_torch.utils import card as cardmod
     from cloudsc2_tpu_torch.utils import timing
 
-    modules = {"nlk": nlk, "adk": adk, "comps": comps, "dispatch": dispatch, "timing": timing}
     c = make_constants(lphylin=True, ldrain1d=False)
     c_lin = c.replace(LPHYLIN=False)
     forms = {
@@ -329,13 +211,12 @@ def launch_readings(torch, device, card, label, runs=10, batch=10, columns=(6553
                 if step is not None:
                     r["step_ms"], r["step_mean_ms"] = step_ms(step, steps)
                     r["busy_share"] = r["device_ms"] / r["step_ms"]
-                    r["split_us"] = host_split(torch, modules, step, steps)
                 readings[f"{tag} {ncols} {path}"] = r
                 print(f"{label} launch {tag} {ncols}x137 {path}: host {r['host_ms']:.4f} ms a call (least "
                       f"{r['host_min_ms']:.4f}), device "
                       f"{r['device_ms']:.4f} ms a call"
                       + (f", synchronized step {r['step_ms']:.4f} ms (mean {r['step_mean_ms']:.4f}), device busy "
-                         f"{r['busy_share']:.3f} of it; host split, us a step: {r['split_us']}" if step else "")
+                         f"{r['busy_share']:.3f} of it" if step else "")
                       + f"; {card}", flush=True)
             sums = {}
             for name, (cf, opts) in forms.items():
@@ -436,24 +317,17 @@ def main(argv=None) -> int:
 
     def reverse_reading(dtype, cf):
         """What the card makes of the reverse kernel's instantiation."""
-        if hasattr(adk, "reverse_occupancy"):
-            o = dict(adk.reverse_occupancy(dtype, cf))
-        else:
-            from cloudsc2_tpu_torch.kernels.nonlinear import div_switch
-
-            o = dict(adk.reverse_attributes(dtype, bool(cf.LEVAPLS2 or cf.LDRAIN1D), bool(cf.LREGCL),
-                                            div_switch(cf, dtype), bool(cf.CUADJ_COMPACT)))
+        o = dict(adk.reverse_occupancy(dtype, cf))
         o["spills"] = spills(dtype, cf)
         return o
 
     def fused_reading(dtype, cf, resident):
         """What the card makes of the fused kernel's instantiation, and its
-        stack's scratch bytes where the checkout's plan has them."""
+        stack's scratch bytes."""
         occ = dict(adk.fused_occupancy(dtype, cf, resident, 137))
-        if "levels_in_shared" in occ:  # a stack in device memory
-            evap = bool(cf.LEVAPLS2 or cf.LDRAIN1D)
-            plan = adk.fused_plan(137, args.num_cols, dtype, evap, resident, occ["registers"])
-            occ["scratch_bytes"] = plan["scratch_bytes"]
+        evap = bool(cf.LEVAPLS2 or cf.LDRAIN1D)
+        occ["scratch_bytes"] = adk.fused_plan(137, args.num_cols, dtype, evap, resident,
+                                              occ["registers"])["scratch_bytes"]
         return occ
 
     for dtype in (torch.float32, torch.float64):
@@ -467,8 +341,7 @@ def main(argv=None) -> int:
                 if dtype == torch.float64 and cf.FAST_DIV != "exact":
                     continue
                 res[name] = ms(lambda cf=cf, opts=opts: nlk.cloudsc2_nl_cuda(s, dt, cf, **opts))
-                if hasattr(nlk, "occupancy"):
-                    occ[name] = nlk.occupancy(dtype, cf, **opts)
+                occ[name] = nlk.occupancy(dtype, cf, **opts)
         if "nl" in kernels and dtype == torch.float32:
             # a yardstick with writes: torch.add(a, b, out=o), 2 reads to 1
             # write, over the bytes the fused NL kernel's function moves
@@ -518,10 +391,10 @@ def main(argv=None) -> int:
               + f"; {card}", flush=True)
         for name, o in occ.items():
             if name.startswith("fused "):
-                scratch = f", {o['scratch_bytes']} B scratch" if "scratch_bytes" in o else ""
                 print(f"{label} {tag} {name}: {res[name][0]:.4f} ms; block {o['block']}, {o['blocks_per_sm']} "
                       f"blocks and {o['threads_per_sm']} threads per SM, {o['registers']} registers, "
-                      f"{o['local_bytes']} B local, {o['shared_bytes']} B shared a block{scratch}", flush=True)
+                      f"{o['local_bytes']} B local, {o['shared_bytes']} B shared a block, "
+                      f"{o['scratch_bytes']} B scratch", flush=True)
                 continue
             if name.startswith("ad reverse"):
                 print(f"{label} {tag} {name}: {res[name][0]:.4f} ms; outputs checksum {o['checksum']}; "

@@ -51,9 +51,8 @@ AD reverse wrappers refuse what the first call refuses, with its error,
 before any output is allocated and without a launch; configurations that
 differ in one field the kernel reads, called in turns on warm plans, give
 bitwise the outputs of a cold cache; each plan-backed form's outputs are
-bitwise those of its C entry called through ctypes after the Python checks,
-and the compiled path takes every NL, TL and AD reverse launch and no fused
-AD launch (``compiled_launches``).
+bitwise those of its C entry called through ctypes on the fields taken by
+name.
 """
 import numpy as np
 import pytest
@@ -909,24 +908,24 @@ def test_warm_plan_refuses_an_overlapping_output_on_card(cuda, target):
 
 def _per_call(entry, state, dt, c, **opts):
     """A launch as the wrappers marshalled it before the compiled launch
-    path: the state checked in Python (``check_inputs``), fresh outputs,
-    the constant struct folded, the CUDA library's C entry called through
-    ctypes on the current stream.  The outputs by name."""
+    path: the fields taken by name, fresh outputs, the constant struct
+    folded, the CUDA library's C entry called through ctypes on the current
+    stream.  The outputs by name."""
     from cloudsc2_tpu_torch.physics.nonlinear import trajectory_names
     from cloudsc2_tpu_torch.state import kernel_constants, tl_kernel_constants
 
     nlev, ncols = state["ap"].shape
+    dtype = state["ap"].dtype
     if entry == "nl":
         fused, traj = opts.get("fuse_saturation", False), opts.get("with_trajectory", False)
-        names = nlk._FUSED_INPUTS if fused else nlk.NL_INPUTS
-        ins, dtype = nlk.check_inputs(state, c, "cuda", names, nlk._IFACE)
+        ins = [None if n is None else state[n] for n in (nlk._FUSED_INPUTS if fused else nlk.NL_INPUTS)]
         written = nlk.STEP_OUTPUTS + (trajectory_names(c) if traj else ()) + (("qsat_out",) if fused else ())
         outputs, iface = nlk.NL_OUTPUTS, nlk._IFACE
         consts = kernel_constants(c, dt, dtype, 1)
         switches = nlk.launch_switches(c, dtype, traj, False, fused)
         fn = nlk.load_cuda(c.CUADJ_COMPACT).cloudsc2_nl_launch
     elif entry == "tl":
-        ins, dtype = nlk.check_inputs(state, c, "cuda", tlk.TL_INPUTS, tlk._IFACE)
+        ins = [state[n] for n in tlk.TL_INPUTS]
         tangent_only = opts.get("tangent_only", False)
         outputs, iface = tlk.TL_OUTPUTS, tlk._IFACE
         written = tuple(n for n in outputs if not tangent_only or n.endswith("_i"))
@@ -935,7 +934,7 @@ def _per_call(entry, state, dt, c, **opts):
         fn = tlk.load_cuda(c.CUADJ_COMPACT, switches[4] != 0).cloudsc2_tl_launch
     else:
         merged = {**state, **opts["traj"]}
-        ins, dtype = nlk.check_inputs(merged, c, "cuda", adk._read(adk.AD_INPUTS, False), adk._IFACE)
+        ins = [None if n is None else merged[n] for n in adk._read(adk.AD_INPUTS, False)]
         outputs = written = adk.AD_OUTPUTS
         iface = adk._IFACE
         consts = tl_kernel_constants(c, dt, dtype)
@@ -980,44 +979,20 @@ def _compiled(entry, s, dt, c, **opts):
 @pytest.mark.parametrize("form", list(COMPILED_FORMS))
 def test_compiled_launch_path_is_the_per_call_marshalling_on_card(cuda, form, dtype):
     """Each plan-backed launch through the compiled launcher gives bitwise
-    the outputs of the same C entry called through ctypes after the Python
-    checks, and adds one to its entry's ``launches`` and
-    ``compiled_launches``."""
+    the outputs of the same C entry called through ctypes on the fields
+    taken by name."""
     entry, opts = COMPILED_FORMS[form]
     c = CONFIGS["default"]()
     s, dt = _ad_state(1000, dtype, c, cuda)
     if entry == "ad":
         opts = {"traj": nlk.cloudsc2_nl_cuda(s, dt, adk.forward_constants(c), with_trajectory=True,
                                              traj_only=True)[2]}
-    counter = {"nl": nlk.cloudsc2_nl_cuda, "tl": tlk.cloudsc2_tl_cuda, "ad": adk.cloudsc2_ad_cuda}[entry]
-    before = (counter.launches, counter.compiled_launches)
     got = _compiled(entry, s, dt, c, **opts)
     torch.cuda.synchronize()
-    assert (counter.launches, counter.compiled_launches) == (before[0] + 1, before[1] + 1)
     want = _per_call(entry, s, dt, c, **opts)
     assert sorted(got) == sorted(want), form
     for k in want:
         assert torch.equal(got[k], want[k]), f"{form} {dtype} {k}"
-
-
-def test_compiled_share_of_launches_on_card(cuda):
-    """Over the NL, TL, two-kernel AD and fused AD entries in every form a
-    cell runs, the compiled launch path takes every NL, TL and AD reverse
-    launch and no fused AD launch, which keeps its own path."""
-    c = CONFIGS["default"]()
-    s, dt = _ad_state(512, torch.float64, c, cuda)
-    entries = (nlk.cloudsc2_nl_cuda, tlk.cloudsc2_tl_cuda, adk.cloudsc2_ad_cuda, adk.cloudsc2_ad_fused_cuda)
-    before = [(fn.launches, fn.compiled_launches) for fn in entries]
-    nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=True)
-    nlk.cloudsc2_nl_cuda(s, dt, c)
-    tlk.cloudsc2_tl_cuda(s, dt, c)
-    tlk.cloudsc2_tl_cuda(s, dt, c, tangent_only=True)
-    adk.cloudsc2_ad_cuda(s, dt, c)
-    adk.cloudsc2_ad_cuda(s, dt, c, cotangent_only=True)
-    adk.cloudsc2_ad_fused_cuda(s, dt, c)
-    torch.cuda.synchronize()
-    got = [(fn.launches - n, fn.compiled_launches - k) for fn, (n, k) in zip(entries, before)]
-    assert got == [(4, 4), (2, 2), (2, 2), (1, 0)], got
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -86,7 +86,8 @@ def test_fastdiv_host_library_argument_lists():
     assert nlk.signature().startswith("switches:is_double,thermo,evap,traj,fuse,div,compact,;")
     c = CONFIGS["default"]()
     _, state, dt = iox.synthesize_input(ncols=4, nlev=8, seed=0, dtype=np.float64)
-    ins, dtype = nlk.check_inputs(port_state(state, np.float64, c), c, "cpu", nlk.NL_INPUTS, nlk._IFACE)
+    s = port_state(state, np.float64, c)
+    ins, dtype = [s[n] for n in nlk.NL_INPUTS], s["ap"].dtype
     plan = nlk._nl_plan("cloudsc2_nl_host", dtype, (8, 4), c, dt, False, False, False, 1)
     outs = [None if shape is None else torch.empty(shape, dtype=dtype) for shape in plan.shapes]
     switches = plan.switches

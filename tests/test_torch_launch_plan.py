@@ -1,28 +1,30 @@
 # Copyright 2026.
 # Licensed under the Apache License, Version 2.0.
-"""The launch plans of the NL, TL and two-kernel AD wrappers
+"""The launch plans of the NL, TL, two-kernel AD and fused AD wrappers
 (``kernels/nonlinear.py`` ``LaunchPlan``, ``_nl_plan``;
 ``kernels/tangent_linear.py`` ``_tl_plan``; ``kernels/adjoint.py``
-``_reverse_plan``) and their compiled launcher (``launcher/launcher.cpp``),
-through the host builds on the CPU, which take the same plans and the same
-launcher as the card's wrappers.
+``_reverse_plan``, ``_fused_plan``) and their compiled launcher
+(``launcher/launcher.cpp``), through the host builds on the CPU, which take
+the same plans and the same launcher as the card's wrappers.
 
 - A warm plan is reused: the caches count one build and then hits, and
-  the constant struct is not folded again.
+  the constant structs are not folded again.
 - Constants that differ in one field the kernel reads (``LEVAPLS2``,
   ``dt``, ``FAST_DIV``), alternated between calls, give outputs bitwise
   those of a cold cache: no plan goes stale.  The TL plan's key carries
   ``tangent_only`` and ``dt``'s type.
 - Each cache keeps at most its bound, dropping the least recently used.
 - Every refusal of the first call still fires with a warm plan, with the
-  first call's own error and before any output is allocated (the
-  launcher's allocation seam, ``nonlinear.allocated_by``, counts none): a
+  first call's own error and before any output (or the fused AD's
+  scratch) is allocated (the launcher's allocation seam,
+  ``nonlinear.allocated_by``, counts none): a
   field of the wrong shape, dtype or device, a non-contiguous field, a
   missing field; and an output that overlaps an input (the seam hands out
   an input's storage).
 - The NL, TL and AD outputs are bitwise those of the per-call marshalling
-  the plans replace (every check, the constant struct folded, the host
-  entry called directly through ctypes), in every form.
+  the plans replace (the fields taken by name, fresh outputs, the constant
+  struct folded, the host entry called directly through ctypes), in every
+  form.
 - The launcher's overlap sweep refuses exactly what the pairwise rule
   refuses, naming the same pair; a ``dt`` that hashes by identity keeps no
   plan.
@@ -50,7 +52,7 @@ DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)
 SEEDS = adk.AD_SEEDS
 
 
-CACHES = (nlk._nl_plan, adk._reverse_plan, tlk._tl_plan)
+CACHES = (nlk._nl_plan, adk._reverse_plan, tlk._tl_plan, adk._fused_plan)
 
 
 def _clear():
@@ -59,7 +61,7 @@ def _clear():
 
 
 def _counts():
-    """``(builds, hits, plans kept)`` of both caches together."""
+    """``(builds, hits, plans kept)`` of every cache together."""
     infos = [cache.cache_info() for cache in CACHES]
     return sum(i.misses for i in infos), sum(i.hits for i in infos), sum(i.currsize for i in infos)
 
@@ -118,28 +120,35 @@ def _tl(s, dt, c, **opts):
     return tlk.cloudsc2_tl_host(s, dt, c, **opts)
 
 
-CALLS = {"nl": _nl, "ad": _ad, "tl": _tl}
+def _ad_fused(s, dt, c, **opts):
+    return adk.cloudsc2_ad_fused_host(s, dt, c, **opts)
+
+
+CALLS = {"nl": _nl, "ad": _ad, "tl": _tl, "ad fused": _ad_fused}
 
 
 # ---- reuse
 
 
-@pytest.mark.parametrize("kind, builds", [("nl", 1), ("ad", 2), ("tl", 1)])
+@pytest.mark.parametrize("kind, builds", [("nl", 1), ("ad", 2), ("tl", 1), ("ad fused", 1)])
 def test_a_warm_plan_is_reused(kind, builds, monkeypatch):
-    """The second call finds its plans (one for the NL and the TL, two for
-    the AD's two launches): the cache counts no new build, and the constant
-    struct is folded once, at the first call."""
+    """The second call finds its plans (one for the NL, the TL and the fused
+    AD, two for the AD's two launches): the cache counts no new build, and
+    each constant struct is folded once, at the first call (the fused AD's
+    plan folds two, the NL's and the TL's)."""
     folds = []
-    for mod, name in ((nlk, "kernel_constants"), (adk, "tl_kernel_constants"), (tlk, "tl_kernel_constants")):
+    for mod, name in ((nlk, "kernel_constants"), (adk, "kernel_constants"), (adk, "tl_kernel_constants"),
+                      (tlk, "tl_kernel_constants")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, real=real, **k: folds.append(1) or real(*a, **k))
     s, dt = _state("f32")
     c = make_constants()
     call = CALLS[kind]
+    structs = 2 if kind == "ad fused" else 1
     first = call(s, dt, c)
-    assert (*_counts()[:2], len(folds)) == (builds, 0, builds)
+    assert (*_counts()[:2], len(folds)) == (builds, 0, builds * structs)
     second = call(s, dt, c)
-    assert (*_counts()[:2], len(folds)) == (builds, builds, builds)
+    assert (*_counts()[:2], len(folds)) == (builds, builds, builds * structs)
     _assert_bitwise(second, first, kind)
 
 
@@ -202,8 +211,8 @@ def test_plan_cache_keeps_its_bound_least_recently_used_out():
 
 
 def test_the_process_cache_stays_within_its_bound():
-    """70 configurations through the NL, AD and TL wrappers' host builds
-    leave 64 plans of each kernel."""
+    """70 configurations through the NL, AD, TL and fused AD wrappers' host
+    builds leave 64 plans of each kernel."""
     s, dt = _state("f32")
     c = make_constants()
     traj = _nl(s, dt, c, with_trajectory=True, traj_only=True)[2]
@@ -213,10 +222,12 @@ def test_the_process_cache_stays_within_its_bound():
         _nl(s, dt * (1 + i / 100), c)
     for i in range(70):
         _tl(s, dt * (1 + i / 100), c, tangent_only=True)
+    for i in range(70):
+        _ad_fused(s, dt * (1 + i / 100), c)
     for cache in CACHES:
         info = cache.cache_info()
         assert (info.currsize, info.maxsize) == (64, 64), cache
-    assert _counts()[0] == 211  # the trajectory's plan, then 70 of each
+    assert _counts()[0] == 281  # the trajectory's plan, then 70 of each
 
 
 # ---- refusals on a warm plan
@@ -236,13 +247,14 @@ FAULTS = {
     "missing": lambda s, n: s.__delitem__(n),
 }
 #: the wrapper and the field a fault is put in: the NL step reads ``t``,
-#: the reverse kernel also a seed, the TL the perturbations
+#: the reverse kernel and the fused AD also a seed, the TL the perturbations
 TARGETS = {
     "nl": (lambda s, dt, c, traj: _nl(s, dt, c), "t"),
     "nl fused": (lambda s, dt, c, traj: _nl(s, dt, c, fuse_saturation=True), "q"),
     "ad reverse": (lambda s, dt, c, traj: adk.cloudsc2_ad_reverse_host(s, traj, dt, c), "clc_i"),
     "tl": (lambda s, dt, c, traj: _tl(s, dt, c), "q_i"),
     "tl tangent_only": (lambda s, dt, c, traj: _tl(s, dt, c, tangent_only=True), "t"),
+    "ad fused": (lambda s, dt, c, traj: _ad_fused(s, dt, c), "fplsl_i"),
 }
 
 
@@ -263,8 +275,9 @@ def _counting(allocs):
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_a_warm_plan_refuses_what_the_first_call_refuses(target, fault):
     """The fault refused from a cold cache is refused with a warm plan too,
-    with the same error, and neither call allocates an output: the
-    launcher checks the state before it allocates.  The plan is looked up
+    with the same error, and neither call allocates an output (nor the
+    fused AD's scratch): the launcher checks the state before it
+    allocates.  The plan is looked up
     by the state's ``ap``, which is sound, so the cold call builds the
     plan of its layout and the warm one finds it, building none."""
     call, field = TARGETS[target]
@@ -287,7 +300,7 @@ def test_a_warm_plan_refuses_what_the_first_call_refuses(target, fault):
     assert warm == cold
 
 
-@pytest.mark.parametrize("target", ["nl", "ad reverse", "tl"])
+@pytest.mark.parametrize("target", ["nl", "ad reverse", "tl", "ad fused"])
 def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target):
     """With the plan warm, an output allocated as the state's ``t`` itself
     is refused before anything runs, as at the first call."""
@@ -309,14 +322,17 @@ def test_a_warm_plan_refuses_an_output_that_overlaps_an_input(target):
 # ---- bitwise the per-call marshalling
 
 
+def _fields(s, names):
+    """The fields named, in order (``None`` for a name that is ``None``),
+    and the state's dtype."""
+    return [None if n is None else s[n] for n in names], s["ap"].dtype
+
+
 def _per_call_nl(s, dt, c, with_trajectory=False, traj_only=False, fuse_saturation=False, kflag=1):
     """The NL step as the wrappers marshalled it on every call before the
-    plans: every check, fresh outputs, the constant struct folded, the host
-    entry called on the pointers."""
-    names = tuple(n for n in nlk.NL_INPUTS if not (fuse_saturation and n == "qsat"))
-    ins, dtype = nlk.check_inputs(s, c, "cpu", names, nlk._IFACE)
-    if fuse_saturation:
-        ins.insert(nlk.NL_INPUTS.index("qsat"), None)
+    plans: the fields taken by name, fresh outputs, the constant struct
+    folded, the host entry called on the pointers."""
+    ins, dtype = _fields(s, nlk._FUSED_INPUTS if fuse_saturation else nlk.NL_INPUTS)
     written = trajectory_names(c) if with_trajectory else ()
     if not traj_only:
         written = nlk.STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
@@ -333,18 +349,14 @@ def _per_call_nl(s, dt, c, with_trajectory=False, traj_only=False, fuse_saturati
 
 def _per_call_ad(s, dt, c, cotangent_only=False):
     tends, diags, traj = _per_call_nl(s, dt, adk.forward_constants(c), True, cotangent_only)
-    merged = {**s, **traj}
-    evap = bool(c.LEVAPLS2 or c.LDRAIN1D)
-    names = [n for n in adk.AD_INPUTS if evap or n not in adk._EVAP_ONLY]
-    ins, dtype = nlk.check_inputs(merged, c, "cpu", names, adk._IFACE)
-    by_name = dict(zip(names, ins))
+    ins, dtype = _fields({**s, **traj}, adk._read(adk.AD_INPUTS, bool(c.LEVAPLS2 or c.LDRAIN1D)))
     nlev, ncols = s["ap"].shape
     outs = [torch.empty((nlev + 1, ncols) if n in adk._IFACE else (nlev, ncols), dtype=dtype)
             for n in adk.AD_OUTPUTS]
     consts = torch.from_numpy(tl_kernel_constants(c, dt, dtype))
     switches = adk.reverse_switches(dtype, c)
     err = adk._form_lib("host", "ad", switches).cloudsc2_ad_host(
-        *switches, nlk.ptrs([by_name.get(n) for n in adk.AD_INPUTS]), nlk.ptrs(outs), consts.data_ptr(),
+        *switches, nlk.ptrs(ins), nlk.ptrs(outs), consts.data_ptr(),
         nlev, ncols)
     assert err == 0
     return adk._assemble(tends, diags, dict(zip(adk.AD_OUTPUTS, outs)))
@@ -352,9 +364,9 @@ def _per_call_ad(s, dt, c, cotangent_only=False):
 
 def _per_call_tl(s, dt, c, tangent_only=False):
     """The TL step as its wrapper marshalled it on every call before its
-    plan: every check, fresh outputs, the constant struct folded, the host
-    entry called on the pointers."""
-    ins, dtype = nlk.check_inputs(s, c, "cpu", tlk.TL_INPUTS, tlk._IFACE)
+    plan: the fields taken by name, fresh outputs, the constant struct
+    folded, the host entry called on the pointers."""
+    ins, dtype = _fields(s, tlk.TL_INPUTS)
     nlev, ncols = s["ap"].shape
     outs = [None if tangent_only and not n.endswith("_i") else torch.empty(
         (nlev + 1, ncols) if n in tlk._IFACE else (nlev, ncols), dtype=dtype) for n in tlk.TL_OUTPUTS]
@@ -483,9 +495,9 @@ def test_a_dt_that_hashes_by_identity_keeps_no_plan():
 
 
 def test_the_launcher_converts_eta_to_the_state_dtype():
-    """A float64 ``eta`` in a float32 state is read in float32, as
-    ``check_inputs`` converts it: the launch returns the converted ``eta``
-    and gives bitwise the outputs of a state that holds it so."""
+    """A float64 ``eta`` in a float32 state is read in float32, converted
+    by the launcher: the launch returns the converted ``eta`` and gives
+    bitwise the outputs of a state that holds it so."""
     s, dt = _state("f32")
     c = make_constants()
     want = _nl(s, dt, c)

@@ -6,8 +6,10 @@
 CPU:
 
 - outside a profiler nothing records; inside one each call records one
-  root span, its stages nested under it with its call id, durations not
-  negative and no stage's self time above its parent's duration;
+  root span, its stages nested under it with its call id, in the order
+  ``plan``, ``check``, ``alloc``, ``check``, ``launch`` for each launch
+  (the fused AD's too), durations not negative and no stage's self time
+  above its parent's duration;
 - the profiler's flag turns on at entry and off at exit; the buffer's
   bound counts what it drops; a refused call closes what it opened;
 - ``timing(label)`` adds to ``Timer`` whether a profiler runs or not, and
@@ -43,6 +45,8 @@ from cloudsc2_tpu_torch.utils import timing
 
 NLEV, NCOLS = 137, 8
 STAGES = {"check", "plan", "alloc", "launch"}
+#: a launch's stages in order: the plan's lookup, then the compiled call's
+LAUNCH = ("plan", "check", "alloc", "check", "launch")
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +111,8 @@ def test_a_profiled_call_is_one_root_with_its_stages(root):
     assert {sp.call for sp in found} == {top.call}
     launches = 2 if root == "ad" else 1
     assert sum(sp.name == "launch" for sp in found) == launches
+    stages = sorted((sp for sp in found if sp.parent >= 0), key=lambda sp: sp.start_us)
+    assert tuple(sp.name for sp in stages) == LAUNCH * launches
     for k, sp in enumerate(found):
         assert sp.end_us >= sp.start_us, sp
         if sp.parent >= 0:
