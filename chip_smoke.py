@@ -96,7 +96,11 @@ Phases, each timed; any failure raises and the script exits non-zero:
    -> Cloudsc2NL) in single at 65,536, and ``--fast-div faithful`` and
    ``approx`` in single at 100 and 65,536 columns, at the driver's single
    gate; the NL kernel's launch count must grow, and that under a
-   non-exact divide too.
+   non-exact divide too.  Then the NL cell's launch, 262,144 columns in
+   float32, unfused and fused: each bitwise its plain version, and with the
+   counts set to 0 just before, every launch counted in
+   ``cloudsc2_nl_cuda.wide_launches`` (its carveout sized for more than 4
+   blocks an SM).
 8. TL path: the Taylor protocol (``drivers/run_taylor_test_torch.py``
    core()) through the NL and TL kernels on the card: double at 1 column;
    double per column at 65,536 columns; single with column 0 tiled over
@@ -145,8 +149,12 @@ Phases, each timed; any failure raises and the script exits non-zero:
    timed (unfused, fused, fused faithful / approx, with trajectory,
    ``traj_only``, the unfused forms below), the card's reading of it
    (``kernels.nonlinear.occupancy``: registers and local bytes a thread,
-   blocks of 128 per SM, which must be at least 4 so that 65,536 columns run
-   in one wave, the pipelined scan's ring depth and shared bytes a block).
+   blocks of 128 per SM at 65,536 and at 262,144 columns, which must be at
+   least 4 so that 65,536 columns run in one wave, with the float32
+   carveout sized for 4 blocks there, the pipelined scan's ring depth and
+   shared bytes a block), and the NL launches since the counts were last
+   set to 0 whose carveout was sized for more than 4 blocks
+   (``cloudsc2_nl_cuda.wide_launches``).
    This slice's forms: the NL
    kernel, the TL kernel, the two-kernel AD (the reverse kernel also alone)
    and the fused AD rolled under faithful and approx (f32) and
@@ -241,6 +249,8 @@ from pathlib import Path
 
 NLEV = 137
 BIG = 65536
+#: the benchmark cells' columns a call (2,048 blocks of 128: more than one wave)
+WIDE = 262_144
 SMALL = 4096
 #: a column count that fills no block of the AD kernels (128, 64, 32, 16)
 RAGGED = 4000
@@ -450,6 +460,32 @@ def profile_main_path(torch, c, card, fused, steps=20):
     if kernel_us == 0.0:
         raise AssertionError(f"the profile of the {path} path shows no NL kernel time")
     return wall, busy, kernel_us / 1e3 / steps, other_us / 1e3 / steps
+
+
+def nl_wide_checks(torch, nlk, plain_nl, c, card):
+    """Phase 7, the NL cell's launch: WIDE columns in float32, unfused and
+    fused, each launch's outputs bitwise its plain version's on the same
+    CUDA tensors; with the NL counts set to 0 just before, every launch
+    must count in ``wide_launches`` (its shared-memory carveout sized for
+    more than 4 blocks an SM).  Returns ``(launches, wide launches)``."""
+    _, s, dt = make_state(torch, WIDE, torch.float32, c, seed=1)
+    bare = {k: v for k, v in s.items() if k != "qsat"}
+    reset_counts(nlk.cloudsc2_nl_cuda)
+    for form, state, opts in (("unfused", s, {}), ("fused", bare, {"fuse_saturation": True})):
+        got = flat(nlk.cloudsc2_nl_cuda(state, dt, c, **opts))
+        want = flat(plain_nl(state, dt, c, **opts))
+        torch.cuda.synchronize()
+        label = f"[nl-wide f32 {form} {WIDE}x{NLEV}]"
+        assert_bitwise(torch, got, want, f"{label} against the plain version")
+        print(f"  {label} all {len(want)} fields bitwise equal to the plain version")
+        del got, want
+    counts = nlk.cloudsc2_nl_cuda.launches, nlk.cloudsc2_nl_cuda.wide_launches
+    print(f"[nl-wide] NL launches {counts[0]}, of them with the carveout sized for more than 4 blocks an SM "
+          f"{counts[1]}; {card}")
+    if counts != (2, 2):
+        raise AssertionError(f"[nl-wide] {counts[1]} of {counts[0]} NL launches at {WIDE:,} columns sized the "
+                             f"carveout for more than 4 blocks an SM; want 2 of 2")
+    return counts
 
 
 def launch_phase(torch, nlk, adk, card):
@@ -995,9 +1031,12 @@ REF_FORM = ("CUADJ_COMPACT=False", {"CUADJ_COMPACT": False})
 
 
 def reset_counts(*fns):
-    """Set every launch count of the wrappers ``fns`` to 0."""
+    """Set every launch count of the wrappers ``fns`` to 0, the NL's
+    ``wide_launches`` among them."""
     for fn in fns:
         fn.launches = fn.fast_div_launches = fn.ref_launches = 0
+        if hasattr(fn, "wide_launches"):
+            fn.wide_launches = 0
 
 
 def report_divide(torch, got, want, exact, form, label):
@@ -1457,9 +1496,14 @@ def nl_occupancy(torch, nlk, c0, card):
     """Phase 10, what the card makes of each NL instantiation the phase
     times (``kernels.nonlinear.occupancy``: registers and local bytes a
     thread, blocks of 128 per SM, the ring's depth and shared bytes a
-    block), printed; raises where fewer than 4 blocks fit an SM, which
-    65,536 columns need to run in one wave (512 blocks on 132 SMs).
-    Returns ``{"<f32|f64> <form>": reading}``."""
+    block) at a launch of BIG and of WIDE columns, printed with the launches
+    since the counts were last set to 0 whose shared-memory carveout was
+    sized for more than 4 blocks;
+    raises where fewer than 4 blocks fit an SM, which 65,536 columns need
+    to run in one wave (512 blocks on 132 SMs), or where a float32 launch
+    of BIG columns sizes its carveout for other than 4.  Returns
+    ``{"<f32|f64> <form>": reading at BIG, with "blocks_per_sm_wide" and
+    "carveout_blocks_wide" at WIDE}``."""
     fused, traj = {"fuse_saturation": True}, {"with_trajectory": True}
     forms = [("unfused", c0, {}), ("fused", c0, fused), ("with trajectory", c0, traj),
              ("traj_only", c0, dict(traj, traj_only=True))]
@@ -1471,13 +1515,22 @@ def nl_occupancy(torch, nlk, c0, card):
         for form, c, opts in forms:
             if dtype == torch.float64 and c.FAST_DIV != "exact":
                 continue
-            o = out[f"{tag} {form}"] = nlk.occupancy(dtype, c, **opts)
+            o = dict(nlk.occupancy(dtype, c, ncols=BIG, **opts))
+            wide = nlk.occupancy(dtype, c, ncols=WIDE, **opts)
+            o["blocks_per_sm_wide"], o["carveout_blocks_wide"] = wide["blocks_per_sm"], wide["carveout_blocks"]
+            out[f"{tag} {form}"] = o
             print(f"  [nl-occupancy {tag} {form}] {o['registers']} registers and {o['local_bytes']} B local memory "
-                  f"a thread, {o['blocks_per_sm']} blocks of 128 per SM, ring depth {o['depth']} levels, "
+                  f"a thread, blocks of 128 per SM {o['blocks_per_sm']} at {BIG:,} columns (carveout for "
+                  f"{o['carveout_blocks']}) and {o['blocks_per_sm_wide']} at {WIDE:,} (carveout for "
+                  f"{o['carveout_blocks_wide']}; 0: none asked), ring depth {o['depth']} levels, "
                   f"{o['shared_bytes']} B shared memory a block; {card}")
-            if o["blocks_per_sm"] < 4:
-                raise AssertionError(f"[nl-occupancy {tag} {form}] {o['blocks_per_sm']} blocks of 128 per SM: "
-                                     f"65,536 columns no longer run in one wave")
+            if o["blocks_per_sm"] < 4 or (dtype == torch.float32 and o["carveout_blocks"] != 4):
+                raise AssertionError(f"[nl-occupancy {tag} {form}] {o['blocks_per_sm']} blocks of 128 per SM, "
+                                     f"carveout for {o['carveout_blocks']}: 65,536 columns no longer run in one "
+                                     f"wave of 4")
+    print(f"  [nl-occupancy] NL launches since the counts were last set to 0 whose carveout was sized for more "
+          f"than 4 blocks an SM: "
+          f"{nlk.cloudsc2_nl_cuda.wide_launches} of {nlk.cloudsc2_nl_cuda.launches}; {card}")
     return out
 
 
@@ -2406,6 +2459,7 @@ def main() -> int:
     print(f"[main-path] cloudsc2_nl_cuda launches: {launches}, of them under a non-exact divide {fast_launches}")
     if launches == 0 or fast_launches == 0:
         raise AssertionError("the main path never launched the CUDA kernel (or never under a non-exact divide)")
+    nl_wide_checks(torch, nlk, plain_nl, c0, card)
 
     phase_done("7 NL main path")
 

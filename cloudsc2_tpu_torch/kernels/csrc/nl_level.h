@@ -560,8 +560,8 @@ enum NLRingField {
 // depths 2-7 in shared memory and of two slots in registers, with
 // drivers/kernel_ab_torch.py; PERF.md section 6): in float three slots in
 // shared memory (a slot is 16 fields x 128 values, 8 KB a block; 24 KB in
-// all, so four blocks of 128 fit an SM and 65,536 columns run in one
-// wave; four slots and more ran slower); in double two slots in registers
+// all, so eight blocks of 128 fit an SM's 228 KB; four slots and more ran
+// slower at four blocks an SM); in double two slots in registers
 // (RegisterPair), where a ring in shared memory ran the unfused and
 // trajectory forms 7-11% slower than the direct scan.
 template <typename T>
@@ -772,8 +772,64 @@ __global__ void scalm_probe_kernel(const ScalmTable<T> table, T* scalm, int n) {
 }
 #endif
 
+// Shared memory of one SM (228 KB), and what the card reserves of it for
+// each resident block; the memory an SM splits between its shared memory
+// and its L1 (256 KB).
+constexpr size_t kSmSharedBytes = 233472;
+constexpr size_t kBlockReservedBytes = 1024;
+constexpr size_t kSmSramBytes = 262144;
+
+// The blocks an SM that a launch of the float kernel (its ring in shared
+// memory) sizes its shared-memory carveout for: the fewest of those its
+// registers allow (register_blocks, the card's count with no shared
+// memory asked), those the SM's memory holds, and those a launch of
+// grid_blocks blocks on sms SMs keeps busy in its first wave, but never
+// fewer than four.  A block holds shared_bytes and the 1 KB the card
+// reserves in shared memory, and in L1 the lines of the copies it keeps in
+// flight, in_flight_bytes: the ring's 4-byte cp.async copies pass through
+// L1, and the carveout takes what it gives to shared memory from L1.  At
+// 65,536 columns or fewer (512 blocks of 128 on 132 SMs) that is four, the
+// grid in one wave; at 262,144 (2,048 blocks) it is what the memory holds,
+// six in every float form, where the registers allow eight and four made
+// 3.88 waves of 4 blocks.  Measured at 262,144 x 137 on an H100, four to
+// eight blocks in turns: six ran the fused form 2.4% faster than four and
+// 0.8% faster than eight, and eight blocks under the whole 228 KB carveout
+// (L1 28 KB) 1.1-2.5% slower than under the 196 KB that eight need (L1 60
+// KB).  At 65,536 columns the grid term's four ran every float form as
+// fast as a carveout for six (L1 92 KB against 156 KB) or faster, by up to
+// 3% (traj_only).  What the card then holds is what it makes of the
+// carveout, rounded up to a size it offers (NLQuery).
+constexpr int nl_carveout_blocks(int register_blocks, size_t shared_bytes, size_t in_flight_bytes,
+                                 int grid_blocks, int sms) {
+  const size_t block = shared_bytes + kBlockReservedBytes;
+  const size_t by_shared = kSmSharedBytes / block;
+  const size_t by_sram = kSmSramBytes / (block + in_flight_bytes);
+  const int by_memory = static_cast<int>(by_shared < by_sram ? by_shared : by_sram);
+  const int waves = (grid_blocks + sms - 1) / sms;
+  const int wanted = waves > 4 ? waves : 4;
+  const int cap = register_blocks < by_memory ? register_blocks : by_memory;
+  return wanted < cap ? wanted : cap;
+}
+
 #ifdef __CUDACC__
 constexpr int kNLThreads = 128;  // threads a block
+// Devices whose attributes NLKernel::prepare keeps (any further one sets
+// them at every launch).
+constexpr int kNLMaxDevices = 64;
+
+namespace {
+// What NLKernel K's prepare has read and set on each device.  In an
+// unnamed namespace, so that each library keeps its own: the libraries of
+// both saturation-adjustment forms instantiate the same NLKernel for
+// kernels of their own, and a static of NLKernel itself would be one
+// object in the whole process (the loader unifies them), so one library
+// would take the other's kernel's attributes for set.
+template <class K>
+struct NLAttributes {
+  static inline int limits[kNLMaxDevices][2];  // {register blocks, SMs}; 0 SMs: not read yet
+  static inline long long set[kNLMaxDevices];  // nlev * 64 + blocks set; 0: not yet set
+};
+}  // namespace
 
 // The device kernel of one body: its entry point, and what its launch
 // needs (dynamic shared bytes a block of `threads` at `nlev` levels: the
@@ -784,21 +840,61 @@ struct NLKernel {
   static constexpr int DEPTH = NLRing<T>::DEPTH;
   static constexpr bool SHARED = NLRing<T>::SHARED;
   static auto fn() { return &level_scan_pipelined_kernel<Body, T, DEPTH, SHARED, false, kNLThreads, 4>; }
-  static size_t shared_bytes(int threads, int nlev) {
-    const size_t ring = SHARED ? static_cast<size_t>(DEPTH) * Body::FIELDS * static_cast<size_t>(threads) * sizeof(T) : 0;
-    return level_table_bytes<T>(nlev) + ring;
+  // a ring slot's bytes a block of `threads` (0: the ring is in registers)
+  static size_t slot_bytes(int threads) {
+    return SHARED ? static_cast<size_t>(Body::FIELDS) * static_cast<size_t>(threads) * sizeof(T) : 0;
   }
-  // Allow the bytes, and ask for the shared-memory carveout that four
-  // blocks' rings and tables need (an SM has 228 KB; each block costs 1 KB
-  // more).
-  static cudaError_t prepare(int threads, int nlev) {
+  static size_t shared_bytes(int threads, int nlev) { return level_table_bytes<T>(nlev) + DEPTH * slot_bytes(threads); }
+  // The card's limits of fn() on device dev, read once per device: the
+  // blocks of kNLThreads an SM its registers allow (no shared memory
+  // asked) and the SMs.
+  static cudaError_t limits(int dev, int* register_blocks, int* sms) {
+    auto& read = NLAttributes<NLKernel>::limits;
+    if (dev < kNLMaxDevices && __atomic_load_n(&read[dev][1], __ATOMIC_ACQUIRE)) {
+      *register_blocks = read[dev][0];
+      *sms = read[dev][1];
+      return cudaSuccess;
+    }
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(register_blocks, fn(), kNLThreads, 0);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && dev < kNLMaxDevices) {
+      read[dev][0] = *register_blocks;
+      __atomic_store_n(&read[dev][1], *sms, __ATOMIC_RELEASE);
+    }
+    return err;
+  }
+  // Ready fn() for a launch of ncols columns at nlev levels on the current
+  // device: allow the bytes and, with the ring in shared memory, ask for
+  // the carveout that nl_carveout_blocks' blocks need (each block costs 1
+  // KB more; the rest of the SM's memory stays L1); *blocks is that count,
+  // 0 where the kernel asks for none (the ring in registers).  The
+  // attributes are set once per device, depth and count, and again only
+  // when another is wanted.
+  static cudaError_t prepare(int threads, int nlev, int ncols, int* blocks) {
     const size_t bytes = shared_bytes(threads, nlev);
-    const cudaError_t err = allow_dynamic_shared(fn(), bytes);
-    if (err != cudaSuccess || !SHARED) return err;
-    const size_t sm_bytes = 233472;
-    const int percent = static_cast<int>((4 * (bytes + 1024) * 100 + sm_bytes - 1) / sm_bytes);
-    return cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout,
-                                percent > 100 ? 100 : percent);
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    *blocks = 0;
+    if (SHARED) {
+      int register_blocks = 0, sms = 0;
+      err = limits(dev, &register_blocks, &sms);
+      if (err != cudaSuccess) return err;
+      // in flight while a level runs: the slots of the levels ahead
+      *blocks = nl_carveout_blocks(register_blocks, bytes, (DEPTH - 1) * slot_bytes(threads),
+                                   (ncols + threads - 1) / threads, sms);
+    }
+    auto& set = NLAttributes<NLKernel>::set;
+    const long long key = static_cast<long long>(nlev) * 64 + *blocks;
+    if (dev < kNLMaxDevices && __atomic_load_n(&set[dev], __ATOMIC_ACQUIRE) == key) return cudaSuccess;
+    err = allow_dynamic_shared(fn(), bytes);
+    if (err == cudaSuccess && SHARED) {
+      const size_t want = static_cast<size_t>(*blocks) * (bytes + kBlockReservedBytes);
+      const int percent = static_cast<int>((want * 100 + kSmSharedBytes - 1) / kSmSharedBytes);
+      err = cudaFuncSetAttribute(fn(), cudaFuncAttributePreferredSharedMemoryCarveout, percent > 100 ? 100 : percent);
+    }
+    if (err == cudaSuccess && dev < kNLMaxDevices) __atomic_store_n(&set[dev], key, __ATOMIC_RELEASE);
+    return err;
   }
   static void launch(int blocks, int threads, cudaStream_t stream,
                      const NLBody<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>& body) {
@@ -819,7 +915,8 @@ struct NLLauncher {
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
     using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
-    const cudaError_t err = K::prepare(kNLThreads, nlev);
+    int carveout_blocks = 0;
+    const cudaError_t err = K::prepare(kNLThreads, nlev, ncols, &carveout_blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto body = make_nl_body<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>(in, out, consts, nlev, ncols);
     const int blocks = (ncols + kNLThreads - 1) / kNLThreads;
@@ -828,19 +925,23 @@ struct NLLauncher {
   }
 };
 
-// What the card makes of one body's kernel at 128 threads a block and
-// nlev levels (cloudsc2_nl_occupancy, nonlinear.cu): out[0..4] = blocks
-// per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
-// local (spill) bytes a thread (cudaFuncGetAttributes), dynamic shared
-// bytes a block, ring depth.  Returns a cudaError_t.
+// What the card makes of one body's kernel at 128 threads a block, nlev
+// levels and a launch of ncols columns (cloudsc2_nl_occupancy,
+// nonlinear.cu), after the attributes that launch sets: out[0..5] =
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+// carveout asked), registers and local (spill) bytes a thread
+// (cudaFuncGetAttributes), dynamic shared bytes a block, ring depth, and
+// the blocks the carveout was sized for (nl_carveout_blocks; 0: none
+// asked).  Returns a cudaError_t.
 struct NLQuery {
   int* out;
-  int nlev;
+  int nlev, ncols;
 
   template <typename T, bool THERMO, bool EVAP, bool TRAJ, bool TRAJ_ONLY, bool FUSE, int D>
   int run() const {
     using K = NLKernel<T, THERMO, EVAP, TRAJ, TRAJ_ONLY, FUSE, D>;
-    cudaError_t err = K::prepare(kNLThreads, nlev);
+    int carveout_blocks = 0;
+    cudaError_t err = K::prepare(kNLThreads, nlev, ncols, &carveout_blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K::fn(), kNLThreads,
@@ -854,6 +955,7 @@ struct NLQuery {
     out[2] = static_cast<int>(attr.localSizeBytes);
     out[3] = static_cast<int>(K::shared_bytes(kNLThreads, nlev));
     out[4] = K::DEPTH;
+    out[5] = carveout_blocks;
     return 0;
   }
 };

@@ -43,8 +43,9 @@
 // its arithmetic, then its stores) kept nothing in flight while a level
 // computed, and took about the sum of the two: 0.55-0.57 ms f32 fused,
 // 0.98-1.00 ms f64, with the faithful divide saving 0.11-0.13 ms, about
-// what the divides cost.  More warps could not hide it: 65,536 columns make 512
-// blocks of 128, 3.88 an SM, however few registers (47) the kernel takes.
+// what the divides cost.  More warps could not hide it at that size: 65,536
+// columns make 512 blocks of 128, 3.88 an SM, however few registers (47)
+// the kernel takes.
 //
 // What the design does about it: the pipelined scan (levelscan.cuh
 // level_scan_pipelined_column, nl_level.h NLPipeBody).  One thread per
@@ -76,6 +77,20 @@
 // is neither the byte stream nor the divides: faithful and approx stop at
 // 0.41-0.45 ms.
 //
+// What was left was taken for each thread's serial chain of levels, which
+// only more warps an SM can hide, and a grid larger than one wave has the
+// blocks to bring them.  So the blocks of the float kernel an SM holds are
+// set by the shared-memory carveout each launch asks for, sized by its
+// grid (nl_level.h nl_carveout_blocks): four where the grid fits one wave
+// of four (65,536 columns or fewer), else as many as the SM's memory holds
+// with each block's ring in shared memory and the lines of its copies in
+// flight in L1: six at 262,144 columns, where the registers allow eight.
+// It gained little: the fused form 1.65 -> 1.61 ms at 262,144 x 137 (six
+// blocks; eight 1.63), the sign that the chain was not the limit either:
+// the level loop is 980 SASS instructions a warp, and a scheduler retires
+// a warp-level every ~1,540 cycles (1.98 GHz) at 4 warps and every ~1,510
+// at 8, issuing in about 64% of its cycles either way.
+//
 // Built with --fmad=false so that the result matches the plain torch
 // version (which never fuses a*b+c); never with fast math.
 #include <cuda_runtime.h>
@@ -102,15 +117,17 @@ int cloudsc2_nl_launch(int is_double, int thermo, int evap, int traj, int fuse, 
   return cloudsc2::nl_dispatch(l, is_double, thermo, evap, traj, fuse, div);
 }
 
-// Fill out[0..4] for the body of these switches (as cloudsc2_nl_launch's)
-// at 128 threads a block and nlev levels: blocks per SM, registers a
-// thread, local bytes a thread, dynamic shared bytes a block, ring depth
-// (nl_level.h NLQuery).  Returns a cudaError_t.
+// Fill out[0..5] for the body of these switches (as cloudsc2_nl_launch's)
+// at 128 threads a block, nlev levels and a launch of ncols columns: the
+// blocks per SM that launch gets, registers a thread, local bytes a
+// thread, dynamic shared bytes a block, ring depth, and the blocks its
+// shared-memory carveout is sized for (0: none asked) (nl_level.h
+// NLQuery).  Returns a cudaError_t.
 int cloudsc2_nl_occupancy(int is_double, int thermo, int evap, int traj, int fuse, int div, int compact,
-                          int nlev, int* out) {
-  if (!cloudsc2::nl_switches_valid(nlev, 1, is_double, traj, div, compact))
+                          int nlev, int ncols, int* out) {
+  if (!cloudsc2::nl_switches_valid(nlev, ncols, is_double, traj, div, compact))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cloudsc2::NLQuery q{out, nlev};
+  const cloudsc2::NLQuery q{out, nlev, ncols};
   return cloudsc2::nl_dispatch(q, is_double, thermo, evap, traj, fuse, div);
 }
 

@@ -42,6 +42,16 @@ int cloudsc2_nl_ring_depth(int is_double) {
   return is_double ? cloudsc2::NLRing<double>::DEPTH : cloudsc2::NLRing<float>::DEPTH;
 }
 
+// The blocks an SM that the card's float launch sizes its shared-memory
+// carveout for (nl_level.h nl_carveout_blocks), for the CPU tests of the
+// rule; -1 where an argument is out of range.
+int cloudsc2_nl_carveout_blocks(int register_blocks, int shared_bytes, int in_flight_bytes, int grid_blocks,
+                                int sms) {
+  if (register_blocks < 1 || shared_bytes < 0 || in_flight_bytes < 0 || grid_blocks < 1 || sms < 1) return -1;
+  return cloudsc2::nl_carveout_blocks(register_blocks, static_cast<size_t>(shared_bytes),
+                                      static_cast<size_t>(in_flight_bytes), grid_blocks, sms);
+}
+
 // As cloudsc2_rcp_probe (nonlinear.cu) on host pointers; returns 0 on
 // success.
 int cloudsc2_rcp_probe_host(int div, const float* x, float* r, int n) {

@@ -39,7 +39,9 @@ before and after, and why the ring needs no block synchronisation.
 anything else; its plain version is
 :func:`cloudsc2_tpu_torch.physics.nonlinear.cloudsc2_nl`.
 :func:`occupancy` reports what the card makes of a form's kernel
-(registers, blocks per SM, ring depth, shared bytes).
+(registers, blocks per SM, ring depth, shared bytes) at a column count,
+and :func:`carveout_blocks` is the rule that sizes a float32 launch's
+shared-memory carveout by its grid.
 :func:`cloudsc2_nl_host` runs the same body and harness compiled for the
 CPU, for the tests only, and :func:`cloudsc2_nl_direct_host` the body
 through the direct scan, the harness's reference.  :func:`rcp_cuda` /
@@ -52,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -111,7 +113,7 @@ def _load(kind: str, compact: bool = True) -> ctypes.CDLL:
         lib = build.load(kind, "cloudsc2_nl" + suffix, ["nonlinear.cu"], defines)
         fn, probe, scalm = lib.cloudsc2_nl_launch, lib.cloudsc2_rcp_probe, lib.cloudsc2_scalm_probe
         fn.argtypes = _ARGS + [_P]
-        lib.cloudsc2_nl_occupancy.argtypes = [ctypes.c_int] * (len(NL_SWITCHES) + 1) + [_P]
+        lib.cloudsc2_nl_occupancy.argtypes = [ctypes.c_int] * (len(NL_SWITCHES) + 2) + [_P]
         lib.cloudsc2_nl_occupancy.restype = ctypes.c_int
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
         scalm.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P, _P]
@@ -121,6 +123,8 @@ def _load(kind: str, compact: bool = True) -> ctypes.CDLL:
         fn.argtypes = lib.cloudsc2_nl_direct_host.argtypes = _ARGS
         lib.cloudsc2_nl_direct_host.restype = lib.cloudsc2_nl_ring_depth.restype = ctypes.c_int
         lib.cloudsc2_nl_ring_depth.argtypes = [ctypes.c_int]
+        lib.cloudsc2_nl_carveout_blocks.argtypes = [ctypes.c_int] * 5
+        lib.cloudsc2_nl_carveout_blocks.restype = ctypes.c_int
         probe.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int]
         scalm.argtypes = [ctypes.c_int, _P, _P, ctypes.c_int, _P]
     fn.restype = probe.restype = scalm.restype = ctypes.c_int
@@ -155,12 +159,16 @@ class LaunchPlan:
     ``consts``, folded once, the kernel's inputs and outputs by name and
     their shapes (``shapes``: each output's, ``None`` where not written).
     Every NL, TL, AD reverse and fused AD launch runs through one: a plan
-    lookup, then one compiled call (:meth:`run`)."""
+    lookup, then one compiled call (:meth:`run`).  ``wide``: an NL launch
+    on the card whose shared-memory carveout is sized for more than four
+    blocks an SM (:func:`occupancy`'s ``carveout_blocks``), counted in
+    ``cloudsc2_nl_cuda.wide_launches``."""
 
     launcher: Any
     switches: Tuple[int, ...]
     consts: Tensor
     shapes: Tuple[Optional[Tuple[int, ...]], ...]
+    wide: bool = False
 
     @classmethod
     def make(cls, fn: Callable[..., int], cuda: bool, failure: str, switches: Tuple[int, ...], consts: Tensor,
@@ -254,14 +262,18 @@ def _nl_plan(entry: str, dtype: torch.dtype, shape: Tuple[int, ...], c: Constant
     written = trajectory_names(c) if with_trajectory else ()
     if not traj_only:
         written = STEP_OUTPUTS + written + (("qsat_out",) if fuse_saturation else ())
+    switches = launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
     if entry == "cuda":
         fn, failure = load_cuda(c.CUADJ_COMPACT).cloudsc2_nl_launch, "cloudsc2_nl kernel launch failed: cudaError_t {}"
     else:
         fn, failure = getattr(_load("host", c.CUADJ_COMPACT), entry), entry + " failed: {}"
-    return LaunchPlan.make(
-        fn, entry == "cuda", failure, launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation),
-        torch.from_numpy(kernel_constants(c, dt, dtype, kflag)), _FUSED_INPUTS if fuse_saturation else NL_INPUTS,
-        NL_OUTPUTS, written, _IFACE, dtype, nlev, ncols)
+    plan = LaunchPlan.make(
+        fn, entry == "cuda", failure, switches, torch.from_numpy(kernel_constants(c, dt, dtype, kflag)),
+        _FUSED_INPUTS if fuse_saturation else NL_INPUTS, NL_OUTPUTS, written, _IFACE, dtype, nlev, ncols)
+    if entry != "cuda":
+        return plan
+    # wide: the launch's carveout sized for more than four blocks an SM (the query's carveout_blocks)
+    return replace(plan, wide=_occupancy(switches, nlev, ncols)[5] > 4)
 
 
 def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_trajectory: bool,
@@ -272,7 +284,8 @@ def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_
     then the launch by its plan, which checks the state (``qsat`` not read
     when fused).  Returns ``(outputs by name, eta)``, the ``eta`` in the
     state's dtype that the kernel read; a launch on the card counts in
-    ``cloudsc2_nl_cuda.launches``.  Its stages are the span ``plan`` and
+    ``cloudsc2_nl_cuda.launches`` (and, by its plan, in
+    ``.wide_launches``).  Its stages are the span ``plan`` and
     those of :meth:`LaunchPlan.run`."""
     if traj_only and not with_trajectory:
         raise ValueError("traj_only requires with_trajectory=True")
@@ -285,6 +298,7 @@ def _run_nl(entry: str, state: Dict[str, Tensor], dt: float, c: Constants, with_
     outs, eta = plan.run(state)
     if entry == "cuda":
         count_launch(cloudsc2_nl_cuda, plan.switches)
+        cloudsc2_nl_cuda.wide_launches += plan.wide
     return outs, eta
 
 
@@ -373,9 +387,12 @@ def cloudsc2_nl_cuda(
     of the saturation adjustment (one library each).  Raises on anything else, on a
     failed build and on a refused launch; never falls back to the plain
     version.  Each launch adds one to ``cloudsc2_nl_cuda.launches``, a
-    launch under a non-exact divide also to ``.fast_div_launches``, and one
-    with ``CUADJ_COMPACT=False`` to ``.ref_launches``.  While a profiler
-    runs, each call is a root span ``nl``.
+    launch under a non-exact divide also to ``.fast_div_launches``, one
+    with ``CUADJ_COMPACT=False`` to ``.ref_launches``, and one whose
+    shared-memory carveout is sized for more than four blocks an SM (a
+    float32 grid of more than one wave of four, :func:`occupancy`) to
+    ``.wide_launches``.  While a profiler runs, each call is a root span
+    ``nl``.
     """
     return _entry("cuda", state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag)
 
@@ -383,6 +400,7 @@ def cloudsc2_nl_cuda(
 cloudsc2_nl_cuda.launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.fast_div_launches = 0  # type: ignore[attr-defined]
 cloudsc2_nl_cuda.ref_launches = 0  # type: ignore[attr-defined]
+cloudsc2_nl_cuda.wide_launches = 0  # type: ignore[attr-defined]
 
 
 def launch_switches(c: Constants, dtype: torch.dtype, with_trajectory: bool = False, traj_only: bool = False,
@@ -401,26 +419,52 @@ def launch_switches(c: Constants, dtype: torch.dtype, with_trajectory: bool = Fa
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(sw: Tuple[int, ...], nlev: int) -> Tuple[int, ...]:
-    out = (ctypes.c_int * 5)()
-    err = load_cuda(bool(sw[-1])).cloudsc2_nl_occupancy(*sw, nlev, out)
+def _occupancy(sw: Tuple[int, ...], nlev: int, ncols: int) -> Tuple[int, ...]:
+    out = (ctypes.c_int * 6)()
+    err = load_cuda(bool(sw[-1])).cloudsc2_nl_occupancy(*sw, nlev, ncols, out)
     if err != 0:
         raise RuntimeError(f"cloudsc2_nl occupancy query failed: cudaError_t {err}")
     return tuple(out)
 
 
-def occupancy(dtype: torch.dtype, c: Constants, with_trajectory: bool = False, traj_only: bool = False,
-              fuse_saturation: bool = False, nlev: int = 137) -> Dict[str, int]:
+def occupancy(dtype: torch.dtype, c: Constants, *, ncols: int, with_trajectory: bool = False,
+              traj_only: bool = False, fuse_saturation: bool = False, nlev: int = 137) -> Dict[str, int]:
     """What the card makes of the kernel that :func:`cloudsc2_nl_cuda`
-    launches for these options, at its 128 threads a block and ``nlev``
-    levels (the model's 137 unless told): ``blocks_per_sm``
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``registers`` and
-    ``local_bytes`` a thread (``cudaFuncGetAttributes``), ``shared_bytes``
-    a block (the level table's ``nlev`` values, then the ring) and the ring
-    ``depth``.  Needs the card; the answers are kept per instantiation and
-    depth."""
+    launches for these options on ``ncols`` columns, at its 128 threads a
+    block and ``nlev`` levels (the model's 137 unless told):
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    under the shared-memory carveout that launch asks for), ``registers``
+    and ``local_bytes`` a thread (``cudaFuncGetAttributes``),
+    ``shared_bytes`` a block (the level table's ``nlev`` values, then the
+    ring), the ring ``depth``, and ``carveout_blocks``, the blocks an SM
+    that carveout is sized for (:func:`carveout_blocks` at the card's
+    registers and SMs, the ring's ``depth - 1`` slots in flight; 0 in
+    float64, whose ring is in registers and which asks for none).  Needs
+    the card; the answers are kept per instantiation, depth and column
+    count."""
     sw = launch_switches(c, dtype, with_trajectory, traj_only, fuse_saturation)
-    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth"), _occupancy(sw, nlev)))
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "depth", "carveout_blocks"),
+                    _occupancy(sw, nlev, ncols)))
+
+
+def carveout_blocks(register_blocks: int, shared_bytes: int, in_flight_bytes: int, grid_blocks: int,
+                    sms: int) -> int:
+    """The blocks an SM that a float32 launch of ``grid_blocks`` blocks on
+    ``sms`` SMs sizes its shared-memory carveout for: the rule the card's
+    launch runs (``nl_level.h`` ``nl_carveout_blocks``), from the host
+    build.  The fewest of ``register_blocks`` (what the body's registers
+    allow), the blocks an SM's memory holds, and the grid's blocks an SM,
+    ``ceil(grid_blocks / sms)``, but never fewer than four.  A block holds
+    ``shared_bytes`` and the 1 KB the card reserves of its 228 KB of shared
+    memory, and ``in_flight_bytes`` of L1, the lines of the ring's copies
+    in flight (the ring slots of the levels ahead), in the 256 KB an SM
+    splits between the two.  Raises ``ValueError`` on an argument out of
+    range."""
+    args = (register_blocks, shared_bytes, in_flight_bytes, grid_blocks, sms)
+    got = _load("host").cloudsc2_nl_carveout_blocks(*args)
+    if got < 0:
+        raise ValueError(f"carveout rule arguments out of range: {args}")
+    return got
 
 
 def _entry(entry: str, state, dt, c, with_trajectory, traj_only, fuse_saturation, kflag):

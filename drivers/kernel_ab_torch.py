@@ -24,7 +24,9 @@ per SM, shared bytes, ring depth), with ptxas's spills where this process
 built the library.  Each NL form's registers, blocks per SM and ring depth
 (``kernels.nonlinear.occupancy``) are printed beside its time, and, as a
 yardstick of a rate with writes, ``torch.add(a, b, out=o)`` over the fused
-NL kernel's f32 bytes.
+NL kernel's f32 bytes; each NL form's outputs are checksummed too, and its
+blocks per SM and the blocks its carveout is sized for are read at the
+launch's column count.
 ``--kernels nl`` times the NL kernel alone (and builds only its
 libraries).  ``--kernels ad_fused`` times the fused AD kernel, rolled and
 resident, in the default switches and with ``LEVAPLS2``, beside the
@@ -341,7 +343,8 @@ def main(argv=None) -> int:
                 if dtype == torch.float64 and cf.FAST_DIV != "exact":
                     continue
                 res[name] = ms(lambda cf=cf, opts=opts: nlk.cloudsc2_nl_cuda(s, dt, cf, **opts))
-                occ[name] = nlk.occupancy(dtype, cf, **opts)
+                occ[name] = nlk.occupancy(dtype, cf, ncols=args.num_cols, **opts)
+                occ[name]["checksum"] = checksum(torch, nlk.cloudsc2_nl_cuda(s, dt, cf, **opts))
         if "nl" in kernels and dtype == torch.float32:
             # a yardstick with writes: torch.add(a, b, out=o), 2 reads to 1
             # write, over the bytes the fused NL kernel's function moves
@@ -401,8 +404,9 @@ def main(argv=None) -> int:
                       + ", ".join(f"{k} {v}" for k, v in o.items() if k != "checksum"), flush=True)
                 continue
             print(f"{label} {tag} {name}: {o['registers']} registers, {o['local_bytes']} B local, "
-                  f"{o['blocks_per_sm']} blocks of 128 per SM, {o['shared_bytes']} B shared a block, "
-                  f"ring depth {o['depth']}", flush=True)
+                  f"{o['blocks_per_sm']} blocks of 128 per SM (carveout for {o['carveout_blocks']}), "
+                  f"{o['shared_bytes']} B shared a block, ring depth {o['depth']}; outputs checksum "
+                  f"{o['checksum']}", flush=True)
         print(json.dumps({"tree": args.tree, "dtype": tag, "ncols": args.num_cols, "card": card,
                           "ms": {k: v[0] for k, v in res.items()}, "occupancy": occ}), flush=True)
         del s

@@ -30,7 +30,8 @@ their host builds (g++ -ffp-contract=off) and the plain AD.
   columns, nlev 2, 3 and 137, and deep f64 resident columns of 152 and 200
   levels, which the stack in shared memory could not hold); and the plan's
   blocks per SM at a register count, as the card's occupancy calculator
-  counts them.
+  counts them, and the blocks per SM that a float32 NL launch sizes its
+  shared-memory carveout for (``nlk.carveout_blocks``).
 """
 import numpy as np
 import pytest
@@ -286,6 +287,55 @@ def test_fused_occupancy_takes_the_cards_best_block(monkeypatch):
         monkeypatch.setattr(adk, "_occupancy", lambda switches, nlev, r=reading: r)
         with pytest.raises(RuntimeError, match="otherwise than its plan"):
             adk.fused_occupancy(torch.float32, c, False, 137)
+
+
+#: the f32 NL kernel's shared bytes a block at 137 levels, fused (15 ring
+#: fields) and unfused (16): the level table, then 3 ring slots of 128
+#: values a field; and its ring's 2 slots in flight
+NL_SLOT = {"fused": 15 * 128 * 4, "unfused": 16 * 128 * 4}
+NL_SHARED = {form: 137 * 4 + 3 * slot for form, slot in NL_SLOT.items()}
+NL_IN_FLIGHT = {form: 2 * slot for form, slot in NL_SLOT.items()}
+
+
+@pytest.mark.parametrize("form,register_blocks,ncols,sms,blocks", [
+    ("fused", 8, 65_536, 132, 4),  # 512 blocks, 3.88 an SM: one wave of four
+    ("fused", 8, 262_144, 132, 6),  # 2,048 blocks, 15.5 an SM: six fit the SM's memory, eight its registers
+    ("unfused", 8, 262_144, 132, 6),
+    ("fused", 8, 100, 132, 4),  # one block: never fewer than four
+    ("fused", 5, 262_144, 132, 5),  # registers allow fewer than the grid and the memory would take
+    ("fused", 8, 66_000, 132, 4),  # 516 blocks, 3.91 an SM: four
+    ("fused", 8, 67_712, 132, 5),  # 529 blocks, a block past four waves' 528
+])
+def test_nl_carveout_blocks(form, register_blocks, ncols, sms, blocks):
+    """The rule that sizes a float32 NL launch's shared-memory carveout
+    (``nl_level.h`` ``nl_carveout_blocks``, from the host build): the fewest
+    of the registers' blocks an SM, the blocks the SM's memory holds (each
+    its shared bytes plus 1 KB, and its ring's copies in flight in L1),
+    and the grid's blocks an SM rounded up, but never fewer than four, so a
+    grid that fits one wave of four asks for the carveout of four."""
+    got = nlk.carveout_blocks(register_blocks, NL_SHARED[form], NL_IN_FLIGHT[form], -(-ncols // 128), sms)
+    assert got == blocks
+
+
+@pytest.mark.parametrize("shared,in_flight,blocks", [
+    (40_000, 0, 5),  # 228 KB of shared memory holds five blocks of 40,000 + 1,024 bytes
+    (0, 0, 16),  # nothing in shared memory: the registers' sixteen, below the grid's 63
+    (0, 30_000, 8),  # 256 KB holds eight blocks of 1,024 + 30,000 bytes
+])
+def test_nl_carveout_blocks_by_memory(shared, in_flight, blocks):
+    """The memory's term alone: the SM's 228 KB of shared memory at the
+    shared bytes plus 1 KB, and its 256 KB of shared memory and L1 at that
+    plus the bytes in flight, whichever holds fewer."""
+    assert nlk.carveout_blocks(16, shared, in_flight, -(-1_048_576 // 128), 132) == blocks
+
+
+def test_nl_carveout_blocks_refuses_out_of_range():
+    with pytest.raises(ValueError, match="out of range"):
+        nlk.carveout_blocks(8, NL_SHARED["fused"], NL_IN_FLIGHT["fused"], 2_048, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        nlk.carveout_blocks(0, NL_SHARED["fused"], NL_IN_FLIGHT["fused"], 2_048, 132)
+    with pytest.raises(ValueError, match="out of range"):
+        nlk.carveout_blocks(8, NL_SHARED["fused"], -1, 2_048, 132)
 
 
 def _seeded_ad_state(nlev, ncols, cfg, dtype, seed=5):

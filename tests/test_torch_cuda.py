@@ -40,7 +40,9 @@ one step within its ulp bound, every variant within 1e-6 of the float64
 chain; the chain kernel's record of its blocks' SMs.  The NL kernel's
 pipelined scan bitwise its plain version where its ring of D slots wraps or
 is never full (nlev 2, D, D + 1), and its occupancy entry: the ring's depth
-and shared bytes, at least 4 blocks of 128 an SM.  The AD reverse kernel's
+and shared bytes, at least 4 blocks of 128 an SM, the float32 carveout
+sized by its rule for 4 blocks at 65,536 columns and for 6 at 262,144,
+where the fused outputs stay bitwise the plain ones.  The AD reverse kernel's
 pipelined scan likewise bitwise the fused AD's direct reverse sweep at nlev
 2, D and D + 1, its occupancy as its plan counts, and its refusal of an
 output that overlaps an input.  The sharded forward step
@@ -119,7 +121,7 @@ def test_pipelined_kernel_is_plain_at_the_rings_edges_on_card(cuda, form, at, dt
     ragged 1000 columns, bitwise its plain version in each form."""
     c = CONFIGS["default"]()
     opts = NL_FORMS[form]
-    depth = nlk.occupancy(dtype, c, **opts)["depth"]
+    depth = nlk.occupancy(dtype, c, ncols=1000, **opts)["depth"]
     nlev = {"2": 2, "D": max(depth, 2), "D+1": depth + 1}[at]
     _, st, dt = iox.synthesize_input(ncols=1000, nlev=nlev, seed=5)
     s = state_from_numpy(st, cuda, dtype)
@@ -134,22 +136,56 @@ def test_pipelined_kernel_is_plain_at_the_rings_edges_on_card(cuda, form, at, dt
             assert torch.equal(g[k], w[k]), f"{form} {dtype} {nlev}x1000 {k}"
 
 
+@pytest.mark.parametrize("ncols", [65_536, 262_144])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_nl_occupancy_keeps_the_grid_in_one_wave_on_card(cuda, dtype):
-    """The occupancy entry: in every form the kernel takes the ring depth
-    the host build reports, in shared memory in float32 ([slot][field]
-    [thread], 16 fields, 15 fused) and in registers in float64, after the
-    level table of 137 values, and at least 4 blocks of 128 fit an SM, so
-    65,536 columns (512 blocks on 132 SMs) run in one wave."""
+def test_nl_occupancy_keeps_the_grid_in_one_wave_on_card(cuda, dtype, ncols):
+    """The occupancy entry at a launch of ``ncols`` columns: in every form
+    the kernel takes the ring depth the host build reports, in shared
+    memory in float32 ([slot][field][thread], 16 fields, 15 fused) and in
+    registers in float64, after the level table of 137 values, and at least
+    4 blocks of 128 fit an SM, so 65,536 columns (512 blocks on 132 SMs)
+    run in one wave.  Float32 sizes its carveout by the rule
+    (``nlk.carveout_blocks`` at the card's registers and SMs): for 4
+    blocks at 65,536 columns, as before the rule, and at 262,144 (2,048
+    blocks) for the 6 that the SM's memory holds with each block's ring in
+    flight in L1, fewer than the registers allow, which the card then holds;
+    float64 asks for none and holds what its registers allow at both
+    sizes.  A fused launch counts in ``wide_launches`` where its carveout
+    is sized for more than 4 blocks, and at 262,144 columns its float32
+    outputs are bitwise its plain version's."""
     c = CONFIGS["default"]()
     depth = nlk.ring_depth(dtype)
     item = torch.empty((), dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for form, opts in NL_FORMS.items():
-        o = nlk.occupancy(dtype, c, **opts)
+        o = nlk.occupancy(dtype, c, ncols=ncols, **opts)
         fields = 15 if opts.get("fuse_saturation") else 16
         shared = 137 * item + (depth * fields * 128 * 4 if dtype == torch.float32 else 0)
         assert (o["depth"], o["shared_bytes"]) == (depth, shared), (form, o)
         assert o["blocks_per_sm"] >= 4, (form, o)
+        by_registers = adk.register_blocks(o["registers"], 128)
+        if dtype == torch.float64:
+            assert o["carveout_blocks"] == 0 and o["blocks_per_sm"] == by_registers, (form, o)
+            assert o == nlk.occupancy(dtype, c, ncols=65_536, **opts), form
+            continue
+        in_flight = (depth - 1) * fields * 128 * 4
+        want = nlk.carveout_blocks(by_registers, shared, in_flight, -(-ncols // 128), sms)
+        assert o["carveout_blocks"] == want, (form, o, want)
+        if ncols == 65_536:
+            assert want == 4, (form, o)
+        else:
+            assert o["blocks_per_sm"] == want == 6 < by_registers, (form, o)
+    s, dt = _state(ncols, dtype, c, cuda)
+    before = nlk.cloudsc2_nl_cuda.launches, nlk.cloudsc2_nl_cuda.wide_launches
+    got = nlk.cloudsc2_nl_cuda(s, dt, c, fuse_saturation=True)
+    wide = dtype == torch.float32 and ncols == 262_144
+    assert (nlk.cloudsc2_nl_cuda.launches, nlk.cloudsc2_nl_cuda.wide_launches) == (before[0] + 1, before[1] + wide)
+    if wide:
+        want = cloudsc2_nl(s, dt, c, fuse_saturation=True)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert torch.equal(g[k], w[k]), f"fused f32 {ncols}x137 {k}"
 
 
 @pytest.mark.parametrize("ncols", [1, 100, 1000])
