@@ -1,8 +1,8 @@
 """``host_ms.nl``: the mean host milliseconds of an NL step, from the
 step's entry to the return of its last launch call, before the sync: the
 benchmark's own span around its call into the port, over the unprofiled
-window (the kernel wrappers' host time: checks, ``scalm``, allocation,
-the launch)."""
+window (the kernel wrappers' host time: the plan's lookup, checks,
+allocation, the launch)."""
 LAYER = "kernel wrappers"
 UNIT = "ms"
 MOVES = "cols_per_s"

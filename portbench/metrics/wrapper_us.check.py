@@ -1,7 +1,8 @@
 """``wrapper_us.check``: the host microseconds a step of the port's ``check``
-stage, ``check_inputs`` less its ``scalm``, and ``check_spans`` on the outputs'
-addresses: the self time of the spans the kernel wrappers record under that
-name in the traced sub-window (``portbench/spans.py``), over its steps."""
+stage, the compiled launcher's checks of the state and of the outputs'
+overlap with the inputs: the self time of the spans the kernel wrappers
+record under that name in the traced sub-window (``portbench/spans.py``),
+over its steps."""
 from portbench import spans
 
 LAYER = "kernel wrappers"

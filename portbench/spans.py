@@ -29,7 +29,7 @@ PORT_TIMING = "cloudsc2_tpu_torch.utils.timing"
 #: the root span of each entry into the port's kernel wrappers
 ROOTS = ("nl", "tl", "ad", "ad_fused", "ad_reverse")
 #: the stages under a root span
-STAGES = ("check", "scalm", "plan", "alloc", "launch")
+STAGES = ("check", "plan", "alloc", "launch")
 #: where a traced run writes its device trace, one file a cell
 TRACES = harness.OUT / "traces"
 

@@ -37,6 +37,11 @@ def _half(step):
     return broken
 
 
+def _truncated(step):
+    """Half of the columns left out: every output cut to its first half."""
+    return lambda x: {k: v[..., :v.shape[-1] // 2] for k, v in step(x).items()}
+
+
 def _altered(step):
     """One answer altered where it is produced: the largest value of the
     first output off by 1e-2 of itself."""
@@ -69,7 +74,7 @@ def test_sound_path_is_correct(name, monkeypatch):
     assert all(c["value"] == 0.0 for c in line["checks"].values())
 
 
-@pytest.mark.parametrize("fault", [_stale, _zeros, _half, _altered], ids=lambda f: f.__name__[1:])
+@pytest.mark.parametrize("fault", [_stale, _zeros, _half, _truncated, _altered], ids=lambda f: f.__name__[1:])
 @pytest.mark.parametrize("name", CELLS)
 def test_fault_is_caught(name, fault, monkeypatch):
     line = _run(name, fault, monkeypatch)
